@@ -9,23 +9,38 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: ``nvcc`` compiles every CUDA source of the port into ``build/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and at edge shapes, required bit-equal;
-   the device time of the kernel, of the plain version and of one library
-   call computing the same function (profiler trace of 25 calls, L2 flushed
-   before each), and the kernel's time between two CUDA events (median of
-   25, launch overhead included), beside the least time the card's memory
-   allows (data-sheet 3.35 TB/s);
-4. the main path: the device feed over a CIFAR-10-shaped RawArray dataset
-   (50,000 × 32×32×3, uint8 codes on disk) for one full epoch at batch 512,
-   then 8 batches of an ImageNet-shaped one (2,048 × 224×224×3, batch 256),
-   every batch held against the host decode of the same batch.
+   the shapes the main path gives it and at edge shapes: ``dequant_u8``
+   bit-equal, ``flash_attention`` and ``decode_attention`` within the
+   tolerance of ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2); at the
+   main-path shapes the device time of the kernel, of the plain version and
+   of one library call computing the same function (profiler trace of 25
+   calls, L2 flushed before each), and the kernel's time between two CUDA
+   events (median of 25, launch overhead included), beside the least time
+   the card could take (the larger of bytes over the data-sheet 3.35 TB/s
+   and operations over 989 TFLOP/s bf16);
+4. the device feed: a CIFAR-10-shaped RawArray dataset (50,000 × 32×32×3,
+   uint8 codes on disk) for one full epoch at batch 512, then 8 batches of
+   an ImageNet-shaped one (2,048 × 224×224×3, batch 256), every batch held
+   against the host decode of the same batch;
+5. serving: InternLM2-1.8B at its full widths and depth (24 layers, bf16,
+   random weights from seed 0 on the card, the attention projections scaled
+   to their true fan-in: see ``_temper_attention``) saved as a RawArray checkpoint,
+   raw and ``quantize="u8"``; both restored by the cold start (raw leaves
+   bit-equal to the saved ones, u8 leaves bit-equal to the plain decode of
+   their codes, one ``dequant_u8`` launch per float leaf); then
+   ``ServeEngine(checkpoint=raw)`` answers 8 prompts of 512 tokens with 64
+   new tokens each (24 ``flash_attention`` and 24 × 64 ``decode_attention``
+   launches), and the same requests again with the two attention ops
+   swapped for their plain versions: first-step logits within a bf16
+   tolerance, greedy-token agreement reported.
 
-The last two lines are one JSON object listing each kernel, and the result
-``{"ok": true, "device": {...}}``.
+The last three lines are the card's name and power limit, one JSON object
+listing each kernel, and the result ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -37,6 +52,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
+LOGITS_TOL = 5e-2  # of max |plain logits|: bf16 activations through 24 layers
 REPS = 25
 SEED = 0
 
@@ -189,6 +207,149 @@ def phase_kernels(torch) -> list:
     return rows
 
 
+# --------------------------------------------------------------- phase 3b
+def _live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the attention mask keeps: the work this input needs."""
+    import numpy as np
+
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= k <= q
+    if window > 0:
+        ok &= k > q - window
+    return int(ok.sum())
+
+
+def _bound(nbytes: int, flops: int) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _timings(torch, kernel, plain, library, flush, nbytes, flops) -> dict:
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {
+        "ms": _device_ms(torch, kernel, flush),
+        "plain_ms": _device_ms(torch, plain, flush),
+        "library_ms": _device_ms(torch, library, flush),
+        "event_ms": _event_ms(torch, kernel, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+    }
+
+
+def _check_close(torch, name, row, out, plain):
+    tol = ATTN_TOL[row["dtype"]]
+    row["max_abs_err"] = float((out.float() - plain.float()).abs().max()) if out.numel() else 0.0
+    row["tolerance"] = tol
+    ok = bool(torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol))
+    log(f"[kernels] {name} {json.dumps(row)}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} differs from its plain version: {row}")
+
+
+def phase_attention(torch) -> tuple:
+    """Both attention kernels against their plain versions on the card."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtypes[dtype])
+
+    # (label, B, H, KV, Sq, Sk, hd, dtype, causal, window, timed)
+    flash_cases = [
+        ("prefill", 8, 16, 8, 576, 576, 128, "bfloat16", True, 0, True),
+        ("long_prefill", 1, 16, 8, 4096, 4096, 128, "bfloat16", True, 0, True),
+        ("edge_one_row", 1, 16, 8, 1, 1, 128, "bfloat16", True, 0, False),
+        ("edge_tail_tile", 2, 4, 2, 130, 130, 64, "float32", True, 0, False),
+        ("edge_window_64", 2, 16, 8, 576, 576, 128, "bfloat16", True, 64, False),
+        ("edge_hd64", 2, 8, 8, 200, 200, 64, "float32", True, 0, False),
+        ("edge_hd32", 2, 4, 2, 100, 100, 32, "bfloat16", True, 0, False),
+        ("edge_g1", 2, 4, 4, 256, 256, 64, "bfloat16", False, 0, False),
+        ("edge_f32", 2, 16, 8, 576, 576, 128, "float32", True, 0, False),
+    ]
+    flash_rows = []
+    for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in flash_cases:
+        q, k, v = randn((B, H, Sq, hd), dt), randn((B, KV, Sk, hd), dt), randn((B, KV, Sk, hd), dt)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        row = {"case": label, "shape": {"q": [B, H, Sq, hd], "kv": [B, KV, Sk, hd]},
+               "dtype": dt, "causal": causal, "window": window}
+        if timed:
+            esize = q.element_size()
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+            flops = 4 * hd * B * H * _live_pairs(Sq, Sk, causal, window)
+            row.update(_timings(
+                torch,
+                lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                flush, nbytes, flops,
+            ))
+        _check_close(torch, "flash_attention", row, out, plain)
+        flash_rows.append(row)
+
+    # (label, B, KV, g, S, hd, pos, dtype, window, garbage past pos, timed)
+    decode_cases = [
+        ("decode", 8, 8, 2, 576, 128, 575, "bfloat16", 0, False, True),
+        ("long_decode", 8, 8, 2, 4096, 128, 4095, "bfloat16", 0, False, True),
+        ("edge_pos0", 8, 8, 2, 576, 128, 0, "bfloat16", 0, True, False),
+        ("edge_garbage_past_pos", 8, 8, 2, 576, 128, 300, "bfloat16", 0, True, False),
+        ("edge_window_64", 2, 8, 2, 576, 128, 400, "bfloat16", 64, True, False),
+        ("edge_hd64", 2, 4, 4, 256, 64, 100, "float32", 0, True, False),
+        ("edge_hd32", 2, 2, 8, 128, 32, 127, "float32", 0, False, False),
+        ("edge_g1", 2, 8, 1, 576, 128, 575, "bfloat16", 0, False, False),
+        ("edge_one_row", 1, 8, 2, 1, 128, 0, "bfloat16", 0, False, False),
+        ("edge_g6", 2, 2, 6, 300, 128, 299, "float32", 0, False, False),
+    ]
+    decode_rows = []
+    for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
+        q = randn((B, KV * g, hd), dt)
+        k, v = randn((B, KV, S, hd), dt), randn((B, KV, S, hd), dt)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        out = ops.decode_attention(q, k, v, p, window=window)
+        torch.cuda.synchronize()
+        plain = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p,
+                                         window=window).reshape(B, KV * g, hd)
+        row = {"case": label, "shape": {"q": [B, KV * g, hd], "kv": [B, KV, S, hd]},
+               "dtype": dt, "pos": pos, "window": window}
+        if garbage:  # rows past pos are never read: NaN there changes nothing
+            k2, v2 = k.clone(), v.clone()
+            k2[:, :, pos + 1:] = float("nan")
+            v2[:, :, pos + 1:] = 1e30
+            again = ops.decode_attention(q, k2, v2, p, window=window)
+            torch.cuda.synchronize()
+            row["garbage_past_pos_equal"] = bool(torch.equal(again, out))
+            if not row["garbage_past_pos_equal"]:
+                raise SystemExit(f"chip_smoke: decode_attention read rows past pos: {row}")
+        if timed:
+            lo = max(0, pos - window + 1) if window else 0
+            live = pos - lo + 1
+            esize = q.element_size()
+            nbytes = (2 * q.numel() + 2 * B * KV * live * hd) * esize
+            flops = 4 * hd * B * KV * g * live
+            mask = (torch.arange(S, device=dev) <= p).view(1, 1, 1, S)
+            q4 = q.view(B, KV * g, 1, hd)
+            row.update(_timings(
+                torch,
+                lambda: ops.decode_attention(q, k, v, p, window=window),
+                lambda: ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window),
+                lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True),
+                flush, nbytes, flops,
+            ))
+        _check_close(torch, "decode_attention", row, out, plain)
+        decode_rows.append(row)
+    return flash_rows, decode_rows
+
+
 # --------------------------------------------------------------- phase 4
 def _build_dataset(root: str, n: int, hw: int, seed: int, chunk: int) -> float:
     import numpy as np
@@ -290,6 +451,177 @@ def phase_main_path(torch) -> list:
     return runs
 
 
+# --------------------------------------------------------------- phase 5
+def _temper_attention(torch, model) -> None:
+    """Rescale the random attention projections to their contraction fan-in.
+
+    The JAX package's ``Initializer.fanin`` (which the port's init follows)
+    divides by ``shape[-2]``: the head count for ``wq``/``wk``/``wv``
+    ``(d, heads, hd)`` and ``hd`` for ``wo`` ``(H, hd, d)``. At InternLM2's
+    widths q and k then have a std near 11 and 16, q·k/sqrt(hd) near 180,
+    softmax is all but an argmax, and the random 24-layer model is chaotic:
+    a 1e-7 difference at layer 0 grows about 20x a layer, so no two attention
+    implementations agree on its logits, f32 or bf16. Scaled by
+    ``1/sqrt(d_model)`` (``1/sqrt(H*hd)`` for ``wo``) instead, scores have a
+    std near 1 and the comparison below is meaningful."""
+    cfg = model.cfg
+    a = model.dense_layers.attn
+    d, H, KV = cfg.d_model, cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
+    with torch.no_grad():
+        a.wq.mul_((H / d) ** 0.5)
+        a.wk.mul_((KV / d) ** 0.5)
+        a.wv.mul_((KV / d) ** 0.5)
+        a.wo.mul_((1 / H) ** 0.5)
+
+
+def _score_std(torch, model, tokens) -> float:
+    """Std of layer 0's attention scores q·k/sqrt(hd) (q head 0 against KV
+    head 0) over ``tokens``: how sharp the random model's softmax is."""
+    from repro_torch.models.common import rmsnorm
+
+    a = model.dense_layers.attn
+    with torch.inference_mode():
+        h = rmsnorm(model._embed_inputs(tokens), model.dense_layers.ln_attn.scale[0])[0].float()
+        q = h @ a.wq[0, :, 0, :].float()
+        k = h @ a.wk[0, :, 0, :].float()
+        return float((q @ k.t() / q.shape[-1] ** 0.5).std())
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The serving path with both attention ops swapped for their plain
+    versions, for this script's comparison only."""
+    from repro_torch.kernels import ops, ref
+
+    kept = ops.flash_attention, ops.decode_attention
+
+    def flash(q, k, v, *, causal=True, window=0, **_):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def decode(q, k, v, pos, *, window=0, **_):
+        B, H, hd = q.shape
+        KV = k.shape[1]
+        out = ref.decode_attention_ref(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window)
+        return out.reshape(B, H, hd)
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = kept
+
+
+def phase_serving(torch) -> dict:
+    """InternLM2-1.8B: checkpoint, cold start, and a batch of requests."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ColdStartStats, load_checkpoint, restore_pipelined
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("internlm2_1_8b")
+    B, S, max_new = 8, 512, 64
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    probe = torch.randint(1, cfg.vocab, (1, 256), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    out["score_std_at_init_scales"] = _score_std(torch, model, probe)
+    _temper_attention(torch, model)
+    out["score_std"] = _score_std(torch, model, probe)
+    saved = flatten(model.param_tree(), "param")  # the random weights, kept for the checks
+    out["params"] = sum(t.numel() for t in saved.values())
+    float_leaves = sum(1 for t in saved.values() if t.is_floating_point() and t.dim())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        u8 = save_checkpoint(os.path.join(tmp, "u8"), 1, model.param_tree(), quantize="u8")
+        out["save_u8_s"] = time.perf_counter() - t0
+
+        # u8 cold start: codes cross the link, the kernel decodes them on the card
+        st = ColdStartStats()
+        dequant_u8.launches = 0
+        got, _, _ = restore_pipelined(u8, model.param_tree(), device=dev, stats=st)
+        launches = dequant_u8.launches
+        plain, _, _ = load_checkpoint(u8, model.param_tree())  # host decode, plain version
+        plain = flatten(plain, "param")
+        for name, t in flatten(got, "param").items():
+            if t.device != dev or not torch.equal(t.cpu(), plain[name]):
+                raise SystemExit(f"chip_smoke: u8 leaf {name} differs from the plain decode")
+        del got, plain
+        if not launches == st.dequant_leaves == float_leaves:
+            raise SystemExit(f"chip_smoke: {launches} dequant launches, {st.dequant_leaves} "
+                             f"dequantized leaves, {float_leaves} float leaves")
+        out["u8_cold_start"] = {**_cold(st), "dequant_launches": launches}
+
+        # raw cold start through the serving entry point
+        engine = ServeEngine(model, checkpoint=raw)
+        if engine.device != dev:
+            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+        for name, t in flatten(model.param_tree(), "param").items():
+            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+        out["raw_cold_start"] = _cold(engine.cold_start)
+    del saved
+
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = decode_attention.launches = 0
+    tokens = engine.generate(prompts, max_new=max_new)
+    out["flash_attention_launches"] = flash_attention.launches
+    out["decode_attention_launches"] = decode_attention.launches
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    if (out["flash_attention_launches"], out["decode_attention_launches"]) != (
+            cfg.n_layers, cfg.n_layers * max_new):
+        raise SystemExit(f"chip_smoke: {out['flash_attention_launches']} flash and "
+                         f"{out['decode_attention_launches']} decode launches, wanted "
+                         f"{cfg.n_layers} and {cfg.n_layers * max_new}")
+
+    # the same requests again: warm (launches from here on are not counted)
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+
+    # the same requests with plain attention
+    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    with _plain_attention():
+        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=max_new)
+    scale = float(plain_first.abs().max())
+    out["first_logits_max_abs_diff"] = float((first - plain_first).abs().max())
+    out["first_logits_max_abs"] = scale
+    out["first_logits_tolerance"] = LOGITS_TOL * scale
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    if not np.isfinite(out["first_logits_max_abs_diff"]) or \
+            out["first_logits_max_abs_diff"] > out["first_logits_tolerance"]:
+        raise SystemExit(f"chip_smoke: first-step logits differ from plain attention: {out}")
+    log(f"[serving] {json.dumps(out)}")
+    return out
+
+
+def _cold(st) -> dict:
+    return {"seconds": st.restore_s, "leaves": st.leaves, "logical_bytes": st.logical_bytes,
+            "stored_bytes": st.stored_bytes, "logical_gb_per_s": st.logical_bytes / st.restore_s / 1e9,
+            "stored_gb_per_s": st.stored_bytes / st.restore_s / 1e9, "h2d_s": st.h2d_s,
+            "peak_inflight_bytes": st.peak_inflight_bytes}
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -303,16 +635,20 @@ def main() -> int:
     card = phase_environment(torch)
     build_s = phase_build()
     rows = phase_kernels(torch)
+    flash_rows, decode_rows = phase_attention(torch)
     runs = phase_main_path(torch)
+    serve = phase_serving(torch)
 
-    main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the main path has
-    kernel = {
+    main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
+    feed_launches = {r["name"]: r["launches"] for r in runs}
+    kernels = [{
         "name": "dequant_u8",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dequant_u8.cu",
         "replaces": "src/repro/kernels/dequant_u8.py:31",
-        "launches": sum(r["launches"] for r in runs),
+        "launches": sum(feed_launches.values()) + serve["u8_cold_start"]["dequant_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "tolerance": 0.0,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -322,11 +658,39 @@ def main() -> int:
         "exact": all(r["exact"] for r in rows),
         "build_s": build_s,
         "shapes": rows,
-        "main_path_launches": {r["name"]: r["launches"] for r in runs},
-    }
+        "main_path_launches": {**feed_launches,
+                               "u8_cold_start": serve["u8_cold_start"]["dequant_launches"]},
+    }]
+    for name, replaces, rows_, launches, call in (
+        ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
+         serve["flash_attention_launches"],
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
+         "enable_gqa=True)"),
+        ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
+         serve["decode_attention_launches"],
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
+         "enable_gqa=True)"),
+    ):
+        main = rows_[0]  # the shape the serving path gives the kernel
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows_),
+            "tolerance": max(r["tolerance"] for r in rows_),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_call": call,
+            "shapes": rows_,
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,23 @@
+"""internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
+vocab=92544. [arXiv:2403.17297; hf]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    n_layers=24,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=92544,
+    max_seq=32768,
+    norm="rmsnorm",
+    mlp_act="silu",
+    mlp_gated=True,
+    rope_theta=1_000_000.0,
+    param_dtype="bfloat16",
+    compute_dtype="bfloat16",
+    remat=True,
+)

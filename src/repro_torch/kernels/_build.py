@@ -16,13 +16,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence
 
 from ..core.spec import RawArrayError
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dequant_u8.cu",)
+SOURCES = ("dequant_u8.cu", "flash_attention.cu", "decode_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+_fns: Dict[str, Any] = {}  # guarded-by: _lock
 
 
 def nvcc() -> str:
@@ -91,3 +92,18 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[source] = lib
         return lib
+
+
+def function(source: str, symbol: str, argtypes: Sequence[Any]) -> Any:
+    """The C entry point ``symbol`` of ``csrc/<source>`` with its argument
+    types set and an ``int`` (``cudaError_t``) result; built and loaded at
+    its first call."""
+    lib = load(source)
+    with _lock:
+        fn = _fns.get(symbol)
+        if fn is None:
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _fns[symbol] = fn
+        return fn

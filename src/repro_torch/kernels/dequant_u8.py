@@ -32,20 +32,8 @@ OUT_KINDS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.float6
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
-_launch_fn = None  # guarded-by: _count_lock
 
-
-def _kernel():
-    global _launch_fn
-    with _count_lock:
-        if _launch_fn is None:
-            fn = _build.load("dequant_u8.cu").dequant_u8_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _launch_fn = fn
-        return _launch_fn
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, out_dtype) -> int:
@@ -93,7 +81,7 @@ def dequant_u8_fwd(
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    fn = _kernel()
+    fn = _build.function("dequant_u8.cu", "dequant_u8_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),

@@ -4,7 +4,7 @@ and signatures (``repro.kernels.ops``).
 Every wrapper dispatches by the device of the tensor it is given: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel or the call raises. There is no fallback from one to
-the other.
+the other. The attention ops are forward-only, as their TPU kernels are.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ from typing import Optional
 
 import torch
 
+from .decode_attention import decode_attention_fwd
 from .dequant_u8 import dequant_u8_fwd
+from .flash_attention import flash_attention_fwd
 
 
 def dequant_u8(x, scale, bias, *, out_dtype=torch.float32, block_rows: int = 256):
@@ -32,3 +34,28 @@ def dequant_rows(x, scale, bias, *, out_dtype=torch.float32, block_rows: Optiona
     and not used, as in ``dequant_u8``."""
     del block_rows
     return dequant_u8_fwd(x, scale, bias, out_dtype=out_dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_q: int = 128, block_k: int = 128):
+    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd). GQA via KV broadcast.
+
+    ``block_q``/``block_k`` sized the TPU grid; here they are accepted for
+    parity and not used: the CUDA kernel's tiles are its own (64 q rows,
+    32 k rows), and it masks a ragged tail itself."""
+    del block_q, block_k
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512):
+    """q (B,H,hd) with H = KV*group, k/v (B,KV,S,hd) -> (B,H,hd).
+
+    ``pos`` (rows ``<= pos`` live) may be an int or a one-element int32
+    tensor; on the card, pass it on the card so the step needs no host
+    sync. ``block_s`` is accepted for parity and not used: the kernel sizes
+    its S splits to the card."""
+    del block_s
+    B, H, hd = q.shape
+    KV = k.shape[1]
+    out = decode_attention_fwd(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window)
+    return out.reshape(B, H, hd)

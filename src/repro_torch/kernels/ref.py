@@ -13,3 +13,51 @@ def dequant_u8_ref(x, scale, bias, out_dtype=torch.float32):
     then one round to ``out_dtype``."""
     prod = x.to(torch.float32) * scale
     return (prod + bias).to(out_dtype)
+
+
+NEG_INF = -1e30  # the TPU kernels' mask value (not -inf)
+
+
+def _softmax_av(s, ok, v):
+    """Masked softmax of f32 scores ``s`` over the last axis, then ``@ v``."""
+    s = s.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.to(torch.float32))
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
+    Materializes the (Sq, Sk) scores in f32; q head h reads KV head
+    ``h // (H // KV)``. ``causal`` keeps ``kpos <= qpos`` (both from 0),
+    ``window > 0`` also ``kpos > qpos - window``."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    kf = k.to(torch.float32).repeat_interleave(g, dim=1)
+    vf = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return _softmax_av(s, ok, vf).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, pos, *, window=0, scale=None):
+    """q (B,KV,g,hd), k/v (B,KV,S,hd), ``pos`` an int or a 0-d integer tensor
+    (on any device) -> (B,KV,g,hd) in q's dtype. Cache rows ``<= pos`` are
+    live; ``window > 0`` also needs ``kpos > pos - window``."""
+    hd = q.shape[-1]
+    S = k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    kpos = torch.arange(S, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    ok = kpos <= pos
+    if window > 0:
+        ok &= kpos > pos - window
+    return _softmax_av(s, ok, v).to(q.dtype)

@@ -1,0 +1,6 @@
+"""Model zoo (dense family so far)."""
+
+from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig
+from .registry import build_model
+
+__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "build_model"]

@@ -1,0 +1,131 @@
+"""The port's attention ops and their plain versions against the JAX package.
+
+Inputs come from numpy seeds and go to both packages. On the CPU the port's
+``ops.flash_attention`` / ``ops.decode_attention`` run their plain PyTorch
+versions (``repro_torch.kernels.ref``); they are held against the JAX
+package's Pallas kernels (interpret mode, as ``tests/test_kernels.py`` runs
+them) and its pure-jnp oracles, over the sweep of ``tests/test_kernels.py``,
+with its tolerances: f32 ``2e-5``, bf16 ``2e-2``. The CUDA kernels are held
+against the same plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core.spec import RawArrayError
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a jax array and a torch tensor (bf16 rounds the
+    same f32 values to nearest even on both sides)."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _close(t, j, dtype):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [
+    (1, 2, 2, 128, 64),
+    (2, 4, 2, 256, 64),
+    (1, 8, 2, 384, 128),
+    (2, 2, 1, 128, 128),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_attention_matches_jax(B, H, KV, S, hd, dtype, causal, window):
+    rng = np.random.default_rng(B * 1000 + H * 100 + S + hd)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, sh, dtype) for sh in
+                                    ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    jax_kernel = jops.flash_attention(jq, jk, jv, causal=causal, window=window)
+    jax_ref = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    port_op = tops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    port_ref = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert port_op.dtype == tq.dtype and port_op.shape == tq.shape
+    assert torch.equal(port_op, port_ref)  # the CPU path is the plain version
+    _close(port_op, jax_kernel, dtype)
+    _close(port_ref, jax_ref, dtype)
+
+
+@pytest.mark.parametrize("B,KV,g,S,hd,pos,window", [
+    (1, 2, 4, 256, 64, 100, 0),
+    (2, 1, 8, 512, 128, 511, 0),
+    (2, 4, 1, 128, 64, 0, 0),
+    (1, 2, 2, 256, 64, 200, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_jax(B, KV, g, S, hd, pos, window, dtype):
+    rng = np.random.default_rng(B * 1000 + KV * 100 + S + pos)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, sh, dtype) for sh in
+                                    ((B, KV * g, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    jax_kernel = jops.decode_attention(jq, jk, jv, pos, window=window)
+    jax_ref = jref.decode_attention_ref(jq.reshape(B, KV, g, hd), jk, jv, pos, window=window)
+    port_op = tops.decode_attention(tq, tk, tv, pos, window=window)
+    port_ref = tref.decode_attention_ref(tq.reshape(B, KV, g, hd), tk, tv, pos, window=window)
+    assert port_op.dtype == tq.dtype and port_op.shape == tq.shape
+    _close(port_op, jax_kernel, dtype)
+    _close(port_ref, jax_ref, dtype)
+
+
+def test_decode_attention_masks_beyond_pos():
+    """Cache rows beyond pos are dead, whatever they hold (tests/test_kernels.py:55-64)."""
+    B, KV, g, S, hd = 1, 1, 2, 128, 64
+    rng = np.random.default_rng(5)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, sh, "float32") for sh in
+                                    ((B, KV * g, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    out1 = tops.decode_attention(tq, tk, tv, 10)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, :, 11:] = 999.0
+    tv2[:, :, 11:] = -999.0
+    out2 = tops.decode_attention(tq, tk2, tv2, 10)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6)
+    _close(out2, jops.decode_attention(jq, jk.at[:, :, 11:].set(999.0),
+                                       jv.at[:, :, 11:].set(-999.0), 10), "float32")
+
+
+def test_decode_attention_takes_pos_as_a_tensor():
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 64, 32)).astype(np.float32))
+            for _ in range(2))
+    by_int = tops.decode_attention(q, k, v, 37, window=16)
+    for pos in (torch.tensor(37, dtype=torch.int32), torch.tensor([37], dtype=torch.int32)):
+        assert torch.equal(tops.decode_attention(q, k, v, pos, window=16), by_int)
+
+
+def test_attention_ops_are_forward_only():
+    q = torch.randn(1, 2, 8, 32, requires_grad=True)
+    q1 = torch.randn(1, 2, 32, requires_grad=True)
+    k, v = torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32)
+    with pytest.raises(RawArrayError, match="forward-only"):
+        tops.flash_attention(q, k, v)
+    with pytest.raises(RawArrayError, match="forward-only"):
+        tops.decode_attention(q1, k, v, 3)
+    with torch.no_grad():
+        assert tops.flash_attention(q, k, v).shape == q.shape
+    with torch.inference_mode():
+        assert tops.decode_attention(q1, k, v, 3).shape == (1, 2, 32)
+
+
+def test_attention_ops_check_their_inputs():
+    q, k = torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32)
+    with pytest.raises(RawArrayError, match="mixed dtypes"):
+        tops.flash_attention(q, k, k.double())
+    with pytest.raises(RawArrayError, match="contiguous"):
+        tops.flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3))
+    with pytest.raises(RawArrayError, match="does not fit"):
+        tops.flash_attention(torch.randn(1, 3, 8, 32), k, k)

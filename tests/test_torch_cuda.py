@@ -1,6 +1,7 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel against
-its plain PyTorch version, and the device feed on the card against the host
-decode. Each skips without a card. This file imports nothing of JAX, so it
+"""Tests of the port that need a CUDA card: each hand-written kernel against
+its plain PyTorch version, the device feed on the card against the host
+decode, and a decode step that must not sync with the host. Each skips
+without a card. This file imports nothing of JAX, so it
 runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.data import DataLoader, DatasetBuilder, DeviceLoader, RaDataset
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dequant_u8 as dq
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -20,7 +23,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the dequant kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -65,3 +68,83 @@ def test_device_feed_on_card_matches_host_decode(card, tmp_path):
     finally:
         host.stop()
         dev.stop()
+
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py:19
+
+
+def _normal(rng, shape, dtype, card):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
+    (2, 4, 2, 130, 130, 64),    # tail tiles on both axes
+    (1, 2, 2, 1, 1, 32),        # one row
+    (1, 8, 2, 96, 160, 128),    # Sk > Sq
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0)])
+def test_flash_attention_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd, dtype,
+                                                      causal, window):
+    rng = np.random.default_rng(3)
+    q = _normal(rng, (B, H, Sq, hd), dtype, card)
+    k, v = (_normal(rng, (B, KV, Sk, hd), dtype, card) for _ in range(2))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,KV,g,S,hd,pos,window", [
+    (1, 2, 4, 256, 64, 100, 0),
+    (2, 1, 8, 512, 128, 511, 0),
+    (2, 4, 1, 128, 64, 0, 0),
+    (3, 2, 6, 300, 32, 299, 64),
+    (8, 8, 2, 576, 128, 575, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain_version(card, B, KV, g, S, hd, pos, window,
+                                                       dtype):
+    rng = np.random.default_rng(4)
+    q = _normal(rng, (B, KV * g, hd), dtype, card)
+    k, v = (_normal(rng, (B, KV, S, hd), dtype, card) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    before = da.launches
+    got = ops.decode_attention(q, k, v, p, window=window)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    want = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, pos, window=window)
+    torch.testing.assert_close(got.float(), want.reshape(B, KV * g, hd).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    # rows past pos are dead, whatever they hold
+    k[:, :, pos + 1:] = 999.0
+    v[:, :, pos + 1:] = float("nan")
+    again = ops.decode_attention(q, k, v, p, window=window)
+    assert torch.equal(again, got)
+
+
+def test_decode_step_does_not_sync_with_the_host(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("internlm2_1_8b").reduced()
+    model = build_model(cfg, device=card, seed=0)
+    tokens = torch.randint(1, cfg.vocab, (2, 12), device=card)
+    with torch.inference_mode():
+        _, cache = model.prefill(tokens)
+        cache["pos"] = torch.full((), 8, dtype=torch.int32, device=card)
+        step = tokens[:, 8:9]
+        logits, cache = model.decode_step(cache, step)  # builds and loads the kernels
+        step = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, cache = model.decode_step(cache, step)
+                step = logits.argmax(-1, keepdim=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(cache["pos"]) == 12

@@ -32,6 +32,19 @@ Phases (any failure exits non-zero and prints no result):
    new tokens each (24 ``flash_attention`` and 24 × 64 ``decode_attention``
    launches), and the same requests again with the two attention ops
    swapped for their plain versions: first-step logits within a bf16
+   tolerance, greedy-token agreement reported. The u8 checkpoint is of an
+   f32 copy of the weights (a training checkpoint's dtype), since bf16
+   leaves are stored verbatim under ``quantize="u8"``;
+3c. (run with phase 3) ``ssd_scan`` against its plain version on the card:
+   the serving shape, a long prompt, the JAX sweep's f32 shapes, a chunk of
+   100, a single chunk and a slow decay that keeps the state alive across
+   every chunk; y and the final state within their tolerances;
+6. serving: Mamba2-780M at its full widths and depth (48 layers, bf16,
+   random weights from seed 0 on the card) saved as a raw RawArray
+   checkpoint and restored through ``ServeEngine(checkpoint=raw)`` (leaves
+   bit-equal); 8 prompts of 512 tokens with 64 new tokens each (48
+   ``ssd_scan`` launches, no attention launch), warm again, and again with
+   the scan swapped for its plain version: first-step logits within a bf16
    tolerance, greedy-token agreement reported.
 
 The last three lines are the card's name and power limit, one JSON object
@@ -54,6 +67,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
+# ssd_scan: f32 as tests/test_kernels.py:79 (rtol 1e-3, atol 1e-4); bf16 2e-2 of the
+# output's scale (kernel and plain version both compute in f32 and differ in the
+# order of their sums; y is rounded once to bf16, 2**-8 relative); the f32 final
+# state 1e-3 of its scale (sums over up to 4,096 steps in another order)
+SSD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (0.0, 2e-2)}
+SSD_STATE_TOL = 1e-3
 LOGITS_TOL = 5e-2  # of max |plain logits|: bf16 activations through 24 layers
 REPS = 25
 SEED = 0
@@ -229,11 +248,13 @@ def _bound(nbytes: int, flops: int) -> tuple:
 
 
 def _timings(torch, kernel, plain, library, flush, nbytes, flops) -> dict:
+    """Device ms of the kernel, its plain version and the library call (None
+    where no single library call computes the function), event ms, bound."""
     bound_ms, bound_by = _bound(nbytes, flops)
     return {
         "ms": _device_ms(torch, kernel, flush),
         "plain_ms": _device_ms(torch, plain, flush),
-        "library_ms": _device_ms(torch, library, flush),
+        "library_ms": _device_ms(torch, library, flush) if library is not None else None,
         "event_ms": _event_ms(torch, kernel, flush),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
@@ -348,6 +369,79 @@ def phase_attention(torch) -> tuple:
         _check_close(torch, "decode_attention", row, out, plain)
         decode_rows.append(row)
     return flash_rows, decode_rows
+
+
+# --------------------------------------------------------------- phase 3c
+def phase_ssd(torch) -> list:
+    """``ssd_scan`` against its plain version on the card."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    # (label, B, H, L, P, N, chunk, dtype, dtA range, timed). dtA at the model's
+    # scales (dt about 0.7, A in [-16, -1]) decays the state to nothing within a
+    # chunk; the slow-decay rows keep every chunk's state alive to the end.
+    model_decay, slow = (0.5, 8.0), (0.0, 0.01)
+    cases = [
+        ("serving", 8, 48, 512, 64, 128, 128, "bfloat16", model_decay, True),
+        ("long_prompt", 1, 48, 4096, 64, 128, 128, "bfloat16", model_decay, True),
+        ("edge_jax_sweep", 1, 2, 128, 32, 16, 32, "float32", (0.0, 0.3), False),
+        ("edge_jax_sweep", 2, 3, 256, 64, 32, 64, "float32", (0.0, 0.3), False),
+        ("edge_jax_sweep_one_chunk", 1, 1, 64, 16, 8, 64, "float32", (0.0, 0.3), False),
+        ("edge_q100", 2, 48, 100, 64, 128, 128, "bfloat16", model_decay, False),
+        ("edge_single_chunk", 2, 48, 128, 64, 128, 128, "bfloat16", model_decay, False),
+        ("edge_slow_decay", 2, 48, 512, 64, 128, 128, "bfloat16", slow, False),
+        ("edge_slow_decay_f32", 1, 4, 4096, 64, 128, 128, "float32", slow, False),
+        ("edge_zamba2_widths", 2, 64, 256, 64, 64, 128, "bfloat16", model_decay, False),
+    ]
+    rows = []
+    for label, B, H, L, P, N, chunk, dt, (lo, hi), timed in cases:
+        def randn(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtypes[dt])
+
+        x, Bm, Cm = randn(B, H, L, P), randn(B, L, N), randn(B, L, N)
+        dtA = -(lo + (hi - lo) * torch.rand((B, H, L), generator=gen, device=dev))
+        Q = min(chunk, L)
+        y, state = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        want, want_state = ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=Q)
+        rtol, atol = SSD_TOL[dt]
+        if dt == "bfloat16":
+            atol *= float(want.float().abs().max())
+        state_tol = SSD_STATE_TOL * max(1.0, float(want_state.abs().max()))
+        row = {"case": label, "shape": {"x": [B, H, L, P], "BC": [B, L, N]}, "chunk": Q,
+               "n_chunks": L // Q, "dtype": dt, "dtA": [-hi, -lo],
+               "max_abs_err": float((y.float() - want.float()).abs().max()),
+               "tolerance": {"rtol": rtol, "atol": atol},
+               "state_max_abs_err": float((state - want_state).abs().max()),
+               "state_tolerance": {"rtol": SSD_STATE_TOL, "atol": state_tol}}
+        ok = bool(torch.allclose(y.float(), want.float(), rtol=rtol, atol=atol)) and \
+            bool(torch.allclose(state, want_state, rtol=SSD_STATE_TOL, atol=state_tol))
+        if timed:
+            esize = x.element_size()
+            # x, dtA, B and C read once; y and the f32 final state (the prefill
+            # asks for it) written once
+            nbytes = 2 * x.numel() * esize + dtA.numel() * 4 + 2 * Bm.numel() * esize \
+                + state.numel() * 4
+            pairs = Q * (Q + 1) // 2  # (i, j <= i) pairs of a chunk's causal mask
+            n_chunks = L // Q
+            # C·Bᵀ once per (batch, chunk); per (batch, head, chunk) the masked
+            # scores times x, C times the state, and x's decayed outer product with B
+            flops = 2 * B * n_chunks * (pairs * N + H * (pairs * P + 2 * Q * P * N))
+            row.update(_timings(
+                torch,
+                lambda: ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk, return_state=True),
+                lambda: ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=Q),
+                None, flush, nbytes, flops,
+            ))
+        log(f"[kernels] ssd_scan {json.dumps(row)}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: ssd_scan differs from its plain version: {row}")
+        rows.append(row)
+    return rows
 
 
 # --------------------------------------------------------------- phase 4
@@ -545,9 +639,15 @@ def phase_serving(torch) -> dict:
         t0 = time.perf_counter()
         raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
         out["save_raw_s"] = time.perf_counter() - t0
+        # the u8 checkpoint is of an f32 copy (a training checkpoint's dtype):
+        # under quantize="u8" bf16 leaves are stored verbatim, as the JAX
+        # package stores them, and f32 ones become codes the kernel decodes
         t0 = time.perf_counter()
-        u8 = save_checkpoint(os.path.join(tmp, "u8"), 1, model.param_tree(), quantize="u8")
+        f32 = _float32(torch, model.param_tree())
+        u8 = save_checkpoint(os.path.join(tmp, "u8"), 1, f32, quantize="u8")
+        del f32
         out["save_u8_s"] = time.perf_counter() - t0
+        out["u8_checkpoint_of"] = "float32"
 
         # u8 cold start: codes cross the link, the kernel decodes them on the card
         st = ColdStartStats()
@@ -615,6 +715,150 @@ def phase_serving(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6
+@contextlib.contextmanager
+def _plain_scan():
+    """The serving path with ``ops.ssd_scan`` swapped for its plain version,
+    for this script's comparison only."""
+    from repro_torch.kernels import ops, ref
+
+    kept = ops.ssd_scan
+
+    def scan(x, dtA, Bm, Cm, *, chunk=128, return_state=False):
+        y, state = ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=max(1, min(chunk, x.shape[2])))
+        return (y, state) if return_state else y
+
+    ops.ssd_scan = scan
+    try:
+        yield
+    finally:
+        ops.ssd_scan = kept
+
+
+def phase_ssm_serving(torch) -> dict:
+    """Mamba2-780M: raw checkpoint, cold start, and a batch of requests."""
+    import numpy as np
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("mamba2_780m")
+    B, S, max_new = 8, 512, 64
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "ssm_heads": cfg.n_ssm_heads, "headdim": cfg.ssm.headdim,
+                 "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk, "dtype": cfg.param_dtype,
+                 "batch": B, "prompt": S, "max_new": max_new}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    saved = flatten(model.param_tree(), "param")  # the random weights, kept for the check
+    out["params"] = sum(t.numel() for t in saved.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        engine = ServeEngine(model, checkpoint=raw)
+        if engine.device != dev:
+            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+        for name, t in flatten(model.param_tree(), "param").items():
+            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+        out["raw_cold_start"] = _cold(engine.cold_start)
+    del saved
+
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    tokens = engine.generate(prompts, max_new=max_new)
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["launches"] = launches
+    out["ssd_scan_launches"] = launches["ssd_scan"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    if launches != {"dequant_u8": 0, "flash_attention": 0, "decode_attention": 0,
+                    "ssd_scan": cfg.n_layers}:
+        raise SystemExit(f"chip_smoke: Mamba2 generate launched {launches}, wanted "
+                         f"{cfg.n_layers} ssd_scan and nothing else")
+
+    # the same requests again: warm (launches from here on are not counted)
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+
+    # the same requests with the plain scan
+    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    with _plain_scan():
+        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=max_new)
+    scale = float(plain_first.abs().max())
+    out["first_logits_max_abs_diff"] = float((first - plain_first).abs().max())
+    out["first_logits_max_abs"] = scale
+    out["first_logits_tolerance"] = LOGITS_TOL * scale
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    if not np.isfinite(out["first_logits_max_abs_diff"]) or \
+            out["first_logits_max_abs_diff"] > out["first_logits_tolerance"]:
+        raise SystemExit(f"chip_smoke: first-step logits differ from the plain scan: {out}")
+
+    # where the bf16 difference comes from: the two scans differ by the order of
+    # their f32 sums, which flips some bf16 roundings of y; the layers carry the
+    # flips on. The hidden state's relative difference layer by layer, and the
+    # same first-step comparison with the model in f32 (no bf16 rounding)
+    tokens_dev = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    out["hidden_rel_diff_by_layer"] = _hidden_divergence(torch, model, tokens_dev)
+    del engine, model
+    f32_model = build_model(cfg.with_(param_dtype="float32", compute_dtype="float32"),
+                            device=dev, seed=SEED)
+    first32, _ = f32_model.prefill(tokens_dev)
+    with _plain_scan():
+        plain32, _ = f32_model.prefill(tokens_dev)
+    out["f32_first_logits_max_abs_diff"] = float((first32 - plain32).abs().max())
+    out["f32_first_logits_max_abs"] = float(plain32.abs().max())
+    del f32_model
+    log(f"[ssm serving] {json.dumps(out)}")
+    return out
+
+
+def _hidden_divergence(torch, model, tokens) -> dict:
+    """Relative difference ||h_kernel - h_plain|| / ||h_plain|| of the hidden
+    state after layers 1, 6, 12, 24 and 48, each path running its own scan
+    from the same embeddings."""
+    from repro_torch.models.common import make_norm
+    from repro_torch.models.mamba import mamba_forward
+
+    cfg = model.cfg
+    _, norm = make_norm(cfg.norm)
+    out = {}
+    with torch.inference_mode():
+        xk = xp = model._embed_inputs(tokens)
+        for i, p in enumerate(model._layer_params()):
+            xk = xk + mamba_forward(p["ssm"], norm(p["ln"], xk), cfg)
+            with _plain_scan():
+                xp = xp + mamba_forward(p["ssm"], norm(p["ln"], xp), cfg)
+            if i + 1 in (1, 6, 12, 24, cfg.n_layers):
+                out[str(i + 1)] = float((xk.float() - xp.float()).norm() / xp.float().norm())
+    return out
+
+
+def _float32(torch, tree):
+    """A copy of a nested dict of tensors with the float leaves in float32."""
+    if isinstance(tree, dict):
+        return {k: _float32(torch, v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
 def _cold(st) -> dict:
     return {"seconds": st.restore_s, "leaves": st.leaves, "logical_bytes": st.logical_bytes,
             "stored_bytes": st.stored_bytes, "logical_gb_per_s": st.logical_bytes / st.restore_s / 1e9,
@@ -636,8 +880,11 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels(torch)
     flash_rows, decode_rows = phase_attention(torch)
+    ssd_rows = phase_ssd(torch)
     runs = phase_main_path(torch)
     serve = phase_serving(torch)
+    torch.cuda.empty_cache()
+    ssm = phase_ssm_serving(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -670,6 +917,8 @@ def main() -> int:
          serve["decode_attention_launches"],
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows, ssm["ssd_scan_launches"],
+         None),
     ):
         main = rows_[0]  # the shape the serving path gives the kernel
         kernels.append({
@@ -679,7 +928,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows_),
-            "tolerance": max(r["tolerance"] for r in rows_),
+            "tolerance": main["tolerance"],
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],

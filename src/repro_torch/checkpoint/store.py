@@ -14,9 +14,10 @@ other bit for bit::
   ``param``/``opt`` prefix, keys in sorted order (the JAX pytree order);
 * **atomic publish**: leaves and the manifest land in ``<dir>.tmp``, which
   is renamed once complete;
-* ``quantize="u8"`` stores float leaves as uint8 codes with per-channel
-  calibration; the schema rides in the manifest and in each leaf's
-  metadata, ``orig_dtype`` naming the logical dtype;
+* ``quantize="u8"`` stores float16/32/64 leaves as uint8 codes with
+  per-channel calibration (bfloat16 leaves verbatim, as the JAX package
+  does); the schema rides in the manifest and in each leaf's metadata,
+  ``orig_dtype`` naming the logical dtype;
 * bfloat16 leaves need no ``ml_dtypes``: their 16-bit patterns are written
   and read as such, and the header names them ``ELTYPE_BRAIN`` as the JAX
   package writes them.
@@ -47,6 +48,8 @@ from ..kernels import ref
 MANIFEST = "manifest.json"
 _SEP = "__"
 _ELTYPE_OFFSET = 2 * U64.size  # header words: magic, flags, eltype, ...
+#: leaf dtypes ``quantize`` turns into codes: numpy's floating types
+_QUANTIZED = (torch.float16, torch.float32, torch.float64)
 
 _join = ra.join_path
 
@@ -150,9 +153,11 @@ def save_checkpoint(
     """Synchronous atomic save of nested dicts of tensors (on any device;
     numpy arrays are taken too). Returns the final checkpoint path.
 
-    ``quantize="u8"`` stores every float leaf of rank >= 1 as uint8 codes,
-    calibrated per channel of the last axis on its f32 values (bfloat16
-    widens exactly), with ``orig_dtype`` the leaf's own dtype."""
+    ``quantize="u8"`` stores every float16/32/64 leaf of rank >= 1 as uint8
+    codes, calibrated per channel of the last axis, with ``orig_dtype`` the
+    leaf's own dtype. bfloat16 leaves are stored verbatim, as the JAX
+    package's writer stores them (numpy does not count ``ml_dtypes.bfloat16``
+    as floating), so both packages write the same files."""
     _reject_url(directory)
     final = _join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -178,15 +183,13 @@ def save_checkpoint(
         entry: Dict[str, Any] = {"file": fname, "shape": list(t.shape), "dtype": dtype_name(t)}
         meta: Optional[bytes] = None
         brain = t.dtype == torch.bfloat16
-        if quantize is not None and t.is_floating_point() and t.dim() >= 1:
-            f32 = t.float().numpy()
-            info = ra.quant.quant_params(f32, quantize)
-            info.orig_dtype = entry["dtype"]
-            arr = info.quantize(f32)
+        if quantize is not None and t.dtype in _QUANTIZED and t.dim() >= 1:
+            arr = t.numpy()
+            info = ra.quant.quant_params(arr, quantize)
+            arr = info.quantize(arr)
             meta = info.encode()
             entry["quant"] = info.to_dict()
             entry["stored_dtype"] = str(arr.dtype)
-            brain = False
         else:
             arr = _host_array(t)
 

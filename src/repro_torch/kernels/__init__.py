@@ -11,8 +11,8 @@ Each kernel ships:
 * ``ref.py``         — the plain PyTorch version the CPU path runs and the
   tests hold the kernel against.
 
-Ported so far: ``dequant_u8``, ``flash_attention`` and ``decode_attention``.
-Still to port: ``ssd_scan`` (ROADMAP.md).
+Ported: ``dequant_u8``, ``flash_attention``, ``decode_attention`` and
+``ssd_scan``, every TPU kernel of the JAX package.
 
 The public functions live in ``ops`` and are not re-exported here, so
 ``repro_torch.kernels.dequant_u8`` stays the wrapper module, whose

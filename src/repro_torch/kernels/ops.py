@@ -4,7 +4,8 @@ and signatures (``repro.kernels.ops``).
 Every wrapper dispatches by the device of the tensor it is given: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel or the call raises. There is no fallback from one to
-the other. The attention ops are forward-only, as their TPU kernels are.
+the other. The attention ops and ``ssd_scan`` are forward-only, as their
+TPU kernels are.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from .decode_attention import decode_attention_fwd
 from .dequant_u8 import dequant_u8_fwd
 from .flash_attention import flash_attention_fwd
+from .ssd_scan import ssd_scan_fwd
 
 
 def dequant_u8(x, scale, bias, *, out_dtype=torch.float32, block_rows: int = 256):
@@ -59,3 +61,14 @@ def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512):
     KV = k.shape[1]
     out = decode_attention_fwd(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window)
     return out.reshape(B, H, hd)
+
+
+def ssd_scan(x, dtA, Bm, Cm, *, chunk: int = 128, return_state: bool = False):
+    """x (B,H,L,P), dtA (B,H,L), Bm/Cm (B,L,N) -> y (B,H,L,P).
+
+    The chunk is ``min(chunk, L)``, and L must be a multiple of it. With
+    ``return_state`` also the final state (B,H,P,N) in float32, which the
+    TPU kernel keeps in its scratch after the last chunk and the model's
+    prefill needs."""
+    L = int(x.shape[2])
+    return ssd_scan_fwd(x, dtA, Bm, Cm, chunk=max(1, min(chunk, L)), return_state=return_state)

@@ -61,3 +61,47 @@ def decode_attention_ref(q, k, v, pos, *, window=0, scale=None):
     if window > 0:
         ok &= kpos > pos - window
     return _softmax_av(s, ok, v).to(q.dtype)
+
+
+def ssd_scan_ref(x, dtA, Bm, Cm, *, chunk=128):
+    """Mamba2's SSD scan in its chunked dual form, in the kernel's layout:
+    x (B,H,L,P), dtA (B,H,L), Bm/Cm (B,L,N) shared over heads -> (y
+    (B,H,L,P) in x's dtype, final state (B,H,P,N) in f32).
+
+    Per chunk of Q = ``chunk`` steps (``L % Q == 0``), with Acs the inclusive
+    cumsum of dtA inside the chunk::
+
+        y     = ((C Bᵀ) ⊙ L) x + (C stateᵀ) ⊙ exp(Acs)
+        state = state · exp(Acs_Q) + (x ⊙ exp(Acs_Q - Acs))ᵀ B
+
+    with ``L[i, j] = exp(Acs_i - Acs_j)`` masked to the lower triangle before
+    the exp (-1e9 above it), and the state starting at zero. Everything is
+    f32, as in the TPU kernel (``src/repro/kernels/ssd_scan.py:_kernel``: its
+    ``.astype(x.dtype)`` at line 52 casts to its f32 copy of x, so it rounds
+    nothing); only y is rounded, once, to x's dtype. The chunks' own states
+    come from one einsum and are carried across chunks by a loop."""
+    B, H, L, P = x.shape
+    N = Bm.shape[-1]
+    if L % chunk:
+        raise ValueError(f"ssd_scan: L={L} is not a multiple of chunk={chunk}")
+    nc, Q = L // chunk, chunk
+    xf = x.float().reshape(B, H, nc, Q, P)
+    acs = torch.cumsum(dtA.float().reshape(B, H, nc, Q), dim=-1)
+    Bf = Bm.float().reshape(B, nc, Q, N)
+    Cf = Cm.float().reshape(B, nc, Q, N)
+
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = (acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, -1e9)
+    scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
+    y_diag = torch.einsum("bhcij,bhcjp->bhcip", scores[:, None] * torch.exp(diff), xf)
+
+    last = acs[..., -1]  # (B,H,nc)
+    own = torch.einsum("bhcjp,bhcj,bcjn->bhcpn", xf, torch.exp(last[..., None] - acs), Bf)
+    state = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        state = state * torch.exp(last[:, :, c])[..., None, None] + own[:, :, c]
+    y_off = torch.einsum("bcin,bhcpn->bhcip", Cf, torch.stack(starts, dim=2))
+    y = y_diag + y_off * torch.exp(acs)[..., None]
+    return y.reshape(B, H, L, P).to(x.dtype), state

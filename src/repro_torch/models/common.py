@@ -42,7 +42,7 @@ class ParamTree(nn.Module):
 
 class Initializer:
     """Random parameters from an explicit ``torch.Generator``, at the JAX
-    package's scales (``Initializer.normal``/``fanin``): drawn in f32 on
+    package's scales (``Initializer.normal``/``fanin``/``value``): drawn in f32 on
     ``device``, stored in ``dtype``. On the meta device nothing is drawn."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype, seed: int):
@@ -67,6 +67,12 @@ class Initializer:
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def value(self, val: torch.Tensor) -> torch.Tensor:
+        """A given value (computed on the host), stored in ``dtype``."""
+        if self.gen is None:
+            return torch.empty(tuple(val.shape), dtype=self.dtype, device=self.device)
+        return val.to(device=self.device, dtype=self.dtype)
 
 
 def stack_init(n: int, init_fn: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:

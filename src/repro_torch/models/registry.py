@@ -1,5 +1,6 @@
-"""Family -> model class dispatch. The port serves the dense family; every
-other family raises ``NotImplementedError`` naming its ROADMAP item."""
+"""Family -> model class dispatch. The port serves the dense and ssm
+families; every other family raises ``NotImplementedError`` naming its
+ROADMAP item."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ def build_model(cfg: ModelConfig, *, device: Any = None, seed: int = 0):
     """The model for ``cfg`` on ``device`` (default: the current CUDA device;
     raises without one unless ``device`` is given), random weights from
     ``seed``."""
+    from .ssm_lm import Mamba2LM, Zamba2LM
     from .transformer import TransformerLM
 
-    return TransformerLM(cfg, device=device, seed=seed)
+    cls = {"ssm": Mamba2LM, "hybrid": Zamba2LM}.get(cfg.family, TransformerLM)
+    return cls(cfg, device=device, seed=seed)

@@ -215,6 +215,8 @@ class TransformerLM(nn.Module):
 
 
 def _not_ported(family: str) -> str:
-    item = {"ssm": 9, "hybrid": 9}.get(family, 10)
+    if family == "ssm":
+        return "TransformerLM serves the dense family; the ssm family is Mamba2LM (build_model)"
+    item = {"hybrid": 9}.get(family, 10)
     return (f"the {family} family is not ported yet (ROADMAP.md, modules to port, "
-            f"item {item}); the port serves the dense family")
+            f"item {item}); the port serves the dense and ssm families")

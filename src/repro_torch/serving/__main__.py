@@ -1,6 +1,7 @@
 """Serve a checkpoint with batched decode requests, on the card.
 
     PYTHONPATH=src python -m repro_torch.serving --arch internlm2_1_8b --random
+    PYTHONPATH=src python -m repro_torch.serving --arch mamba2_780m --random
     PYTHONPATH=src python -m repro_torch.serving --workdir D   # D/ckpt/step_*
 
 The twin of the JAX package's ``examples/serve_lm.py``: restores the newest

@@ -1,11 +1,12 @@
 """Minimal batched serving engine on the card.
 
 The torch twin of the JAX package's ``serving/engine.py`` for the dense
-family. Weights come from the model itself or from a RawArray checkpoint
-through the cold start (``restore_pipelined`` by default: read, upload and
+and ssm families. Weights come from the model itself or from a RawArray
+checkpoint through the cold start (``restore_pipelined`` by default: read, upload and
 on-card dequant of u8 leaves overlapped; cold-start latency is checkpoint
 read latency). Requests are batched with equal-length prompts, prefilled
-together, then decoded step by step with a shared KV cache.
+together, then decoded step by step with a shared cache (KV for attention,
+the O(1) state for SSM).
 
 Everything runs under ``torch.inference_mode()``. The cache position
 ``pos`` is a 0-d int32 tensor on the device, sampled tokens stay on the
@@ -97,11 +98,22 @@ class ServeEngine:
         return out
 
     def _prefill_with_capacity(self, prompts: np.ndarray, capacity: int):
-        """Prefill the first S-1 prompt tokens right-padded to ``capacity``
-        (so the cache has room; causal masking keeps the padding dead until
-        it is overwritten), rewind ``pos`` to S-1, then feed the last prompt
-        token as a decode step: its logits are the first new token's."""
+        """Prefill such that the returned cache can take ``capacity - S``
+        further decode steps. By family:
+
+        * attention (dense): prefill the first S-1 prompt tokens right-padded
+          to ``capacity`` (so the cache has room; causal masking keeps the
+          padding dead until it is overwritten), rewind ``pos`` to S-1, then
+          feed the last prompt token as a decode step: its logits are the
+          first new token's;
+        * pure SSM: the cache is O(1), so a plain prefill of the prompt.
+
+        (The hybrid family's prompt replay is not ported: its model raises
+        when built; ROADMAP.md, item 9.)
+        """
         B, S = prompts.shape
+        if self.cfg.family == "ssm":
+            return self.model.prefill(torch.from_numpy(prompts.astype(np.int64)).to(self.device))
         padded = np.zeros((B, capacity), dtype=np.int64)
         padded[:, : S - 1] = prompts[:, : S - 1]
         tokens = torch.from_numpy(padded).to(self.device)

@@ -9,11 +9,11 @@ files and manifest entries. The port's runs repeat with its ``core.dtypes``
 made to act as if ``ml_dtypes`` were absent, as on the machine with the
 card. The cold-start checks mirror ``tests/test_coldstart.py``.
 
-With ``quantize="u8"`` the port also quantizes bf16 leaves (``orig_dtype``
-``"bfloat16"``), which the JAX package's writer stores verbatim (numpy does
-not count ``ml_dtypes.bfloat16`` as floating; ROADMAP.md, faults), and the
-JAX package's readers decode. Quantized leaves are compared with the JAX
-package's host decode
+With ``quantize="u8"`` both writers store bf16 leaves verbatim (the JAX
+package's because numpy does not count ``ml_dtypes.bfloat16`` as floating),
+so the files are identical for every case. A quantized entry of bf16 origin,
+which neither writer makes, still decodes through both packages' readers.
+Quantized leaves are compared with the JAX package's host decode
 (``load_checkpoint``), which the port's decode equals bit for bit; the
 JAX package's own ``restore_pipelined`` decodes them through an XLA path
 that contracts the multiply-add (ROADMAP.md, faults), so it is held to
@@ -144,28 +144,48 @@ def test_both_packages_write_the_same_files(tmp_path, kw, port_dtypes):
     assert tman["leaves"].keys() == jman["leaves"].keys()
     assert sorted(os.listdir(tpath)) == sorted(os.listdir(jpath))
     for name, entry in jman["leaves"].items():
-        if "quantize" in kw and entry["dtype"] == "bfloat16":
-            assert "quant" not in entry  # the JAX writer keeps bf16 verbatim
-            assert tman["leaves"][name]["quant"]["orig_dtype"] == "bfloat16"
-            continue
+        if entry["dtype"] == "bfloat16":
+            assert "quant" not in entry  # both writers keep bf16 verbatim
         assert tman["leaves"][name] == entry
         with open(os.path.join(jpath, entry["file"]), "rb") as a, \
                 open(os.path.join(tpath, entry["file"]), "rb") as b:
             assert a.read() == b.read(), entry["file"]
 
 
+def _requantize_as_bf16(path, name, codes_of):
+    """Rewrite leaf ``name`` of a checkpoint as u8 codes of bf16 origin: the
+    entry a writer that quantizes bf16 would make (neither package's does)."""
+    man_path = os.path.join(path, "manifest.json")
+    with open(man_path) as f:
+        man = json.load(f)
+    entry = man["leaves"][name]
+    info = tra.quant.quant_params(codes_of, "u8")
+    info.orig_dtype = "bfloat16"
+    tra.write(os.path.join(path, entry["file"]), info.quantize(codes_of), metadata=info.encode())
+    entry.update(quant=info.to_dict(), stored_dtype="uint8")
+    with open(man_path, "w") as f:
+        json.dump(man, f)
+    return info
+
+
 def test_quantized_bf16_leaf_keeps_its_orig_dtype(tmp_path, port_dtypes):
     tree = params_from_jax(_tree(4))
     path = tck.save_checkpoint(str(tmp_path), 1, tree, quantize="u8")
     with open(os.path.join(path, "manifest.json")) as f:
-        entry = json.load(f)["leaves"]["param__inner__k"]
-    assert entry["quant"]["orig_dtype"] == "bfloat16" and entry["dtype"] == "bfloat16"
-    assert entry["stored_dtype"] == "uint8"
-    meta = tra.read_quant_metadata(os.path.join(path, entry["file"]))
+        assert "quant" not in json.load(f)["leaves"]["param__inner__k"]
+    info = _requantize_as_bf16(path, "param__inner__k", tree["inner"]["k"].float().numpy())
+    meta = tra.read_quant_metadata(os.path.join(path, "param__inner__k.ra"))
     assert meta.orig_dtype == "bfloat16"
-    got, _, _ = tck.load_checkpoint(path, tree)
-    assert got["inner"]["k"].dtype == torch.bfloat16
-    assert got["inner"]["step"].dtype == torch.int32  # non-float leaves stay verbatim
+    want = info.dequantize(info.quantize(tree["inner"]["k"].float().numpy()))
+    loaded, naive, pipe, st = _port_restores(path, tree)
+    for got in (loaded, naive, pipe):
+        k = got["inner"]["k"]
+        assert k.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(k), _bits(want))
+        assert got["inner"]["step"].dtype == torch.int32  # non-float leaves stay verbatim
+    assert st.dequant_leaves == 3  # the two f32 leaves and the rewritten bf16 one
+    jax_loaded, _, _ = jck.load_checkpoint(path, _jax_like(_tree(4)))
+    np.testing.assert_array_equal(_bits(jax_loaded["inner"]["k"]), _bits(want))
 
 
 def test_shape_mismatch_raises(tmp_path):

@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
 its plain PyTorch version, the device feed on the card against the host
-decode, and a decode step that must not sync with the host. Each skips
+decode, and dense and Mamba2 decode steps that must not sync with the host. Each skips
 without a card. This file imports nothing of JAX, so it
 runs on a machine that has a card and no JAX:
 
@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dequant_u8 as dq
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +149,67 @@ def test_decode_step_does_not_sync_with_the_host(card):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert int(cache["pos"]) == 12
+
+
+def _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow=False):
+    x = _normal(rng, (B, H, L, P), dtype, card) * 0.5
+    hi = 0.01 if slow else 0.3
+    dtA = torch.from_numpy(-rng.uniform(0, hi, (B, H, L)).astype(np.float32)).to(card)
+    Bm, Cm = (_normal(rng, (B, L, N), dtype, card) * 0.5 for _ in range(2))
+    return x, dtA, Bm, Cm
+
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk,slow", [
+    (1, 2, 128, 32, 16, 32, False),     # tests/test_kernels.py's sweep
+    (2, 3, 256, 64, 32, 64, False),
+    (1, 1, 64, 16, 8, 64, False),       # one chunk
+    (2, 4, 100, 64, 64, 128, False),    # Q = 100
+    (1, 4, 512, 64, 128, 128, True),    # slow decay: the state crosses every chunk
+    (2, 8, 256, 64, 128, 128, False),   # Mamba2-780M's P and N
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(card, B, H, L, P, N, chunk, slow, dtype):
+    """y within rtol 1e-3 / atol 1e-4 (tests/test_kernels.py:79) in f32, 2e-2
+    of its scale in bf16; the f32 final state within 1e-3 of its scale."""
+    rng = np.random.default_rng(L + P + N)
+    x, dtA, Bm, Cm = _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow)
+    before = ssd.launches
+    got, state = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    want, want_state = ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=min(chunk, L))
+    assert got.dtype == dtype and state.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    else:
+        tol = 2e-2 * float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    tol = 1e-3 * max(1.0, float(want_state.abs().max()))
+    torch.testing.assert_close(state, want_state, rtol=1e-3, atol=tol)
+    # y alone, without the state, is the same launch's y
+    again = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk)
+    assert torch.equal(again, got)
+
+
+def test_mamba2_decode_step_does_not_sync_with_the_host(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2_780m").reduced()
+    model = build_model(cfg, device=card, seed=0)
+    tokens = torch.randint(1, cfg.vocab, (2, 64), device=card)
+    with torch.inference_mode():
+        before = ssd.launches
+        logits, cache = model.prefill(tokens)  # builds and loads the kernel
+        assert ssd.launches == before + cfg.n_layers
+        step = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, cache = model.decode_step(cache, step)
+                step = logits.argmax(-1, keepdim=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(cache["pos"]) == 67 and torch.isfinite(logits).all()

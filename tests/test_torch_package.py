@@ -83,6 +83,7 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels.ops\n"
         "import repro_torch.data.device_loader, repro_torch.kernels._build\n"
         "import repro_torch.models, repro_torch.models.convert, repro_torch.configs\n"
+        "import repro_torch.models.ssm_lm, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.checkpoint, repro_torch.serving, repro_torch.serving.__main__\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "        or m == 'repro' or m.startswith('repro.')]\n"

@@ -8,6 +8,8 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: ``nvcc`` compiles every CUDA source of the port into ``build/``;
+   then ``cuobjdump -sass`` of the flash library must show HGMMA (wgmma)
+   and UTMALDG (TMA tile loads): the bf16 kernel runs on the tensor cores;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge shapes: ``dequant_u8``
    bit-equal, ``flash_attention`` and ``decode_attention`` within the
@@ -30,9 +32,11 @@ Phases (any failure exits non-zero and prints no result):
    their codes, one ``dequant_u8`` launch per float leaf); then
    ``ServeEngine(checkpoint=raw)`` answers 8 prompts of 512 tokens with 64
    new tokens each (24 ``flash_attention`` and 24 × 64 ``decode_attention``
-   launches), and the same requests again with the two attention ops
-   swapped for their plain versions: first-step logits within a bf16
-   tolerance, greedy-token agreement reported. The u8 checkpoint is of an
+   launches, all 24 flash launches on the tensor-core kernel), warm again,
+   then one request with a 4,096-token prompt (``long_prefill_s``, 24
+   tensor-core flash launches), and the 8 requests again with the two
+   attention ops swapped for their plain versions: first-step logits within
+   a bf16 tolerance, greedy-token agreement reported. The u8 checkpoint is of an
    f32 copy of the weights (a training checkpoint's dtype), since bf16
    leaves are stored verbatim under ``quantize="u8"``;
 3c. (run with phase 3) ``ssd_scan`` against its plain version on the card:
@@ -112,6 +116,21 @@ def phase_build() -> float:
     return seconds
 
 
+def phase_sass() -> dict:
+    """The bf16 flash kernel must run on the tensor cores and load by TMA:
+    count HGMMA (wgmma) and UTMALDG (TMA tile load) in the built library."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path("flash_attention.cu"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[sass] flash_attention.cu: {json.dumps(counts)}")
+    if not all(counts.values()):
+        raise SystemExit(f"chip_smoke: flash_attention's SASS lacks wgmma or TMA loads: {counts}")
+    return counts
+
+
 # --------------------------------------------------------------- phase 3
 def _event_ms(torch, fn, flush) -> float:
     """Median over REPS of one call between two CUDA events, L2 flushed
@@ -131,33 +150,41 @@ def _event_ms(torch, fn, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, flush) -> float:
+def _device_ms(torch, fn, flush, attempts: int = 3) -> float:
     """Device time of one call: the summed durations of the kernels it ran,
     from a profiler trace of REPS calls (L2 flushed before each; the flush's
     own fill kernels are left out), divided by REPS. Host launch overhead
-    and gaps between a call's kernels are not in it."""
+    and gaps between a call's kernels are not in it. A trace whose event
+    count is not a multiple of REPS (a library call, cuDNN's masked SDPA,
+    has shown one now and then) is taken again, up to ``attempts`` times."""
+    from collections import Counter
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    names = []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "FillFunctor" in evt.name or evt.name == "Activity Buffer Request":
-            continue
-        total_us += evt.time_range.elapsed_us()
-        names.append(evt.name)
-    if not names or len(names) % REPS:
-        raise SystemExit(f"chip_smoke: the profiler saw {len(names)} device events in "
-                         f"{REPS} calls: {sorted(set(names))}")
-    return total_us / REPS / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        names = Counter()
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "FillFunctor" in evt.name or evt.name == "Activity Buffer Request":
+                continue
+            total_us += evt.time_range.elapsed_us()
+            names[evt.name[:120]] += 1
+        count = sum(names.values())
+        if count and count % REPS == 0:
+            return total_us / REPS / 1e3
+        log(f"[kernels] the profiler saw {count} device events in {REPS} calls: "
+            f"{dict(names)}")
+    raise SystemExit(f"chip_smoke: {attempts} profiler traces of {REPS} calls each "
+                     f"saw a number of device events that is not a multiple of {REPS}")
 
 
 def phase_kernels(torch) -> list:
@@ -289,6 +316,8 @@ def phase_attention(torch) -> tuple:
         ("prefill", 8, 16, 8, 576, 576, 128, "bfloat16", True, 0, True),
         ("long_prefill", 1, 16, 8, 4096, 4096, 128, "bfloat16", True, 0, True),
         ("edge_one_row", 1, 16, 8, 1, 1, 128, "bfloat16", True, 0, False),
+        ("edge_tail_tile_bf16", 2, 16, 8, 130, 130, 128, "bfloat16", True, 0, False),
+        ("edge_sk_gt_sq", 2, 16, 8, 96, 160, 128, "bfloat16", True, 0, False),
         ("edge_tail_tile", 2, 4, 2, 130, 130, 64, "float32", True, 0, False),
         ("edge_window_64", 2, 16, 8, 576, 576, 128, "bfloat16", True, 64, False),
         ("edge_hd64", 2, 8, 8, 200, 200, 64, "float32", True, 0, False),
@@ -678,9 +707,10 @@ def phase_serving(torch) -> dict:
     prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches = flash_attention.tc_launches = decode_attention.launches = 0
     tokens = engine.generate(prompts, max_new=max_new)
     out["flash_attention_launches"] = flash_attention.launches
+    out["flash_attention_tc_launches"] = flash_attention.tc_launches
     out["decode_attention_launches"] = decode_attention.launches
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     out.update(engine.throughput())
@@ -691,11 +721,16 @@ def phase_serving(torch) -> dict:
         raise SystemExit(f"chip_smoke: {out['flash_attention_launches']} flash and "
                          f"{out['decode_attention_launches']} decode launches, wanted "
                          f"{cfg.n_layers} and {cfg.n_layers * max_new}")
+    if out["flash_attention_tc_launches"] != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: {out['flash_attention_tc_launches']} of "
+                         f"{out['flash_attention_launches']} flash launches went to the "
+                         f"tensor-core kernel, wanted {cfg.n_layers}")
 
     # the same requests again: warm (launches from here on are not counted)
     engine.stats = {key: 0.0 for key in engine.stats}
     engine.generate(prompts, max_new=max_new)
     out["warm"] = engine.throughput()
+    out["long_prefill"] = _long_prefill(torch, engine, cfg)
 
     # the same requests with plain attention
     first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
@@ -712,6 +747,31 @@ def phase_serving(torch) -> dict:
             out["first_logits_max_abs_diff"] > out["first_logits_tolerance"]:
         raise SystemExit(f"chip_smoke: first-step logits differ from plain attention: {out}")
     log(f"[serving] {json.dumps(out)}")
+    return out
+
+
+def _long_prefill(torch, engine, cfg, S: int = 4096) -> dict:
+    """One request with a 4,096-token prompt (numpy seed 1) and one new
+    token: its prefill_s is where a long prompt's users see the flash
+    kernel. Run twice; the second run, with the allocator warm, is the
+    timed one (``long_prefill_s``), and must launch the tensor-core kernel
+    once per layer."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention
+
+    prompt = np.random.default_rng(SEED + 1).integers(1, cfg.vocab, (1, S)).astype(np.int32)
+    out = {"prompt": S, "batch": 1}
+    for key in ("long_prefill_first_s", "long_prefill_s"):
+        engine.stats = {k: 0.0 for k in engine.stats}
+        flash_attention.launches = flash_attention.tc_launches = 0
+        engine.generate(prompt, max_new=1)
+        out[key] = engine.stats["prefill_s"]
+    out["flash_attention_launches"] = flash_attention.launches
+    out["flash_attention_tc_launches"] = flash_attention.tc_launches
+    if (flash_attention.launches, flash_attention.tc_launches) != (cfg.n_layers, cfg.n_layers):
+        raise SystemExit(f"chip_smoke: long prefill launched {out}, wanted {cfg.n_layers} "
+                         f"tensor-core flash launches")
     return out
 
 
@@ -878,6 +938,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_environment(torch)
     build_s = phase_build()
+    sass = phase_sass()
     rows = phase_kernels(torch)
     flash_rows, decode_rows = phase_attention(torch)
     ssd_rows = phase_ssd(torch)
@@ -937,6 +998,8 @@ def main() -> int:
             "library_call": call,
             "shapes": rows_,
         })
+        if name == "flash_attention":
+            kernels[-1].update(tc_launches=serve["flash_attention_tc_launches"], sass=sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,20 +3,56 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention_fwd
 // (Pallas; grid (B, H, q blocks, kv blocks) with the kv-block axis sequential and
 // the online-softmax state carried in VMEM scratch). The semantics are the TPU
-// kernel's: f32 inside, masks with -1e30 (not -inf), causal means kpos <= qpos with
-// both counted from 0, window > 0 adds kpos > qpos - window, and the output is
-// acc / max(l, 1e-30) rounded once to q's type.
+// kernel's: scores and softmax in f32, masks with -1e30 (not -inf), causal means
+// kpos <= qpos with both counted from 0, window > 0 adds kpos > qpos - window, q
+// head h reads KV head h / (H / KV), and the output is acc / max(l, 1e-30) rounded
+// once to q's type. Sq and Sk may be any length and may differ; hd is 32, 64 or 128.
+// flash_attention_launch dispatches by dtype to one of two kernels.
 //
-// What bounds it on this card: at the prefill shapes the serving path gives it
-// (S = 576, hd = 128) it does ~2*S*hd/2 operations per K/V byte, far above the
-// card's ratio of operations to bytes, so it is bound by operations. This first
-// version runs them on the f32 SIMT pipes, not the tensor cores (mma/wgmma is a
-// later step), so its ceiling is the card's 67 TFLOP/s of f32, not 989 of bf16.
-// The design:
+// bfloat16: flash_attention_tc, on the tensor cores. What bounds it: at a long
+// prompt (q (1,16,4096,128)) the causal products are ~69 GFLOP against 50 MB of
+// q/k/v/o, so it is bound by operations (989 TFLOP/s bf16); at the serving
+// prefill (q (8,16,576,128)) it is bound by bytes (57 MB at 3.35 TB/s, above its
+// 11 GFLOP). The design, FlashAttention-3's shape without its later refinements:
+//   * one CTA per (q tile of 128 rows, q head, batch): two consumer warpgroups of
+//     64 rows each and one producer warp; the CTAs of the last (heaviest causal)
+//     q tiles start first, so the causal imbalance leaves no tail wave;
+//   * operations: S = Q·Kᵀ and O += P·V run as wgmma.mma_async m64nNk16 (bf16 in,
+//     f32 accumulators in registers). S reads Q and K from shared memory, both
+//     K-major; P·V takes P from registers (the m64 accumulator layout of S is the
+//     register A layout once converted to bf16 in place) and V from shared memory
+//     as it lies, hd-contiguous, through wgmma's transpose bit for 16-bit B;
+//   * bytes: the producer warp TMA-loads Q once and each K/V tile of 128 rows into
+//     a 2-stage ring in shared memory, with an mbarrier per stage for "full" (TMA
+//     transaction bytes) and one for "empty" (one arrival per consumer warpgroup
+//     once its P·V wgmma has retired), so the next tile's load overlaps this
+//     tile's products. A CTA reads its Q tile and each K/V tile it visits once;
+//     the K/V tiles that other q tiles of the head and the other q heads of a
+//     GQA group read again come from L2. Tensor maps are 3-D
+//     (hd, S, B·heads), so rows past Sq or Sk are zero-filled by TMA inside their
+//     own head. 128-byte swizzle (64-byte at hd 32) keeps wgmma's shared-memory
+//     reads free of bank conflicts; a 256-byte row (hd 128) loads as two boxes of
+//     64 columns;
+//   * online softmax in the accumulator layout: a thread holds parts of 2 rows;
+//     row max and row sum reduce across the 4 threads of a quad; scale·log2(e) is
+//     folded into exp2. Masks are built only on tiles that cross the diagonal, the
+//     window edge or Sk, and tiles wholly outside them are not visited. A row whose
+//     first visited tile is fully masked (the window case) gets p = 1 there, as on
+//     the TPU, until a live key makes alpha = exp(-1e30 - m) = 0;
+//   * one deliberate difference from f32: the tensor core takes P in bf16, so P
+//     is rounded to bf16 for the P·V product (l sums the f32 values). That adds at
+//     most about 2^-9 · max|v| to an output, inside the bf16 tolerance of 2e-2.
+//   Shared memory at hd 128: Q 32 KB + 2 stages × (K + V) 64 KB = 160 KB, one CTA
+//   per SM. K/V tiles are 128 rows at every hd: registers hold S (64 f32), O (up to
+//   64 f32) and P (32 words) per thread, within the 224 that 288 threads allow.
+//
+// float32: flash_attention_kernel, on the f32 SIMT pipes (its ceiling is the card's
+// 67 TFLOP/s of f32): on the tensor cores f32 would run as TF32 and miss the f32
+// tolerance of 2e-5. The serving model is bf16. Its design:
 //   * one block of 128 threads per (q tile of 64 rows, q head, batch); KV head is
 //     h / (H / KV), so a group's q heads read the same K/V (from L2);
 //   * the block walks K/V tiles of 32 rows in order, as the TPU grid did, staging
-//     Q once and each K/V tile through shared memory converted to f32;
+//     Q once and each K/V tile through shared memory;
 //   * thread (ty, tx) = (tid / 16, tid % 16) owns q rows ty*8 .. ty*8+7: the
 //     scores of columns tx and tx+16 of each tile, and output columns tx + 16*j;
 //     row max and row sum reduce across the 16 lanes of a half warp by shuffles;
@@ -28,11 +64,15 @@
 //   * Q and K rows are padded by 4 floats in shared memory, so the float4 reads of
 //     16 different K rows by one half warp fall in distinct banks.
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is reached through
+                   // cudaGetDriverEntryPoint, so the library needs no -lcuda
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+namespace simt {
+
 
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 32;        // k rows per tile
@@ -48,19 +88,7 @@ __device__ __forceinline__ void load8(const float* __restrict__ p, float* v) {
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, float* v) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-    }
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // rows [0, ROWS) of a (rows, HD) slab into f32 shared memory with row stride LD;
 // rows at or past `valid` become zeros
@@ -270,12 +298,517 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
     }
 }
 
+}  // namespace simt
+
+namespace tc {
+
+constexpr int kBQ = 128;                 // q rows per CTA
+constexpr int kBK = 128;                 // k/v rows per tile
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kConsumers = 2;            // warpgroups of 64 q rows
+constexpr int kThreads = kConsumers * 128 + 32;  // + the producer warp
+constexpr float kMask = -1e30f;          // the TPU kernel's mask value
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory layout for head width HD. Each of Q, K and V is stored as boxes of
+// kBoxCols columns (one swizzle span, 128 or 64 bytes a row) by all of its rows, as
+// TMA writes them: Q | K[kStages] | V[kStages] | mbarriers.
+template <int HD>
+struct Cfg {
+    static constexpr int kRowBytes = HD * 2 < 128 ? HD * 2 : 128;
+    static constexpr int kBoxCols = kRowBytes / 2;
+    static constexpr int kBoxes = HD / kBoxCols;
+    static constexpr int kQBoxBytes = kBQ * kRowBytes;
+    static constexpr int kKVBoxBytes = kBK * kRowBytes;
+    static constexpr int kQBytes = kBQ * HD * 2;
+    static constexpr int kKVBytes = kBK * HD * 2;
+    static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
+    static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+    static constexpr int kOffK = kQBytes;
+    static constexpr int kOffV = kOffK + kStages * kKVBytes;
+    static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+    static constexpr int kBars = 1 + 3 * kStages;  // q_full, k_full[], v_full[], empty[]
+    static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+    asm volatile(
+        "{\n.reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@done bra DONE;\n"
+        "bra WAIT;\n"
+        "DONE:\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// one box of a 3-D tensor map at element coordinates (c0, c1, c2) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t layout) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+           static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an in-flight
+// wgmma owns across the fence / wait around it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 128) (+)= A (64 x 16, shared memory) * B (128 x 16, shared memory)^T, both K-major
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63" "}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared memory, N-major)
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63" "}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared memory, N-major)
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31" "}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 16, registers) * B (16 x 32, shared memory, N-major)
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15" "}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x HD) += P (64 x 16 keys, registers) · V (16 keys x HD, shared memory)
+template <int HD>
+__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* p, uint64_t v) {
+    if constexpr (HD == 128) mma_rs_n128(o, p, v);
+    else if constexpr (HD == 64) mma_rs_n64(o, p, v);
+    else mma_rs_n32(o, p, v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                   int H, int KV, int Sq, int Sk, int causal, int window, float scale_log2) {
+    using C = Cfg<HD>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024
+    const uint32_t sQ = base;
+    const uint32_t sK = base + C::kOffK;
+    const uint32_t sV = base + C::kOffV;
+    const uint32_t q_full = base + C::kOffBar;
+    auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+    auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+    auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+
+    // The grid is (q tiles, H, B); CTAs start in linear order, so the linear index
+    // is mapped to the last q tiles (the most K/V tiles under a causal mask) first.
+    const int HB = gridDim.y * gridDim.z;
+    const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    const int q0 = (gridDim.x - 1 - lin / HB) * kBQ;
+    const int bh = lin % HB;  // b * H + h
+    const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+    const int q_rows = min(kBQ, Sq - q0);
+    const int n_active = (q_rows + 63) / 64;  // warpgroups with a live row
+
+    // the K/V tiles some row of this q tile can see: [t_lo, t_lo + n_visit)
+    const int n_tiles = (Sk + kBK - 1) / kBK;
+    int t_hi = n_tiles;
+    if (causal) t_hi = min(n_tiles, (q0 + q_rows - 1) / kBK + 1);
+    int t_lo = 0;
+    if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / kBK;
+    const int n_visit = max(0, t_hi - t_lo);
+
+    if (threadIdx.x == 0) {
+        bar_init(q_full, 1);
+        for (int s = 0; s < kStages; ++s) {
+            bar_init(k_full(s), 1);
+            bar_init(v_full(s), 1);
+            bar_init(empty(s), n_active);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp == kConsumers * 4) {
+        // producer: one thread issues every load
+        if (lane != 0 || n_visit == 0) return;
+        bar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+        for (int x = 0; x < C::kBoxes; ++x)
+            tma_load(sQ + x * C::kQBoxBytes, &tm_q, q_full, x * C::kBoxCols, q0, bh);
+        for (int i = 0; i < n_visit; ++i) {
+            const int s = i % kStages;
+            if (i >= kStages) bar_wait(empty(s), (i / kStages - 1) & 1);
+            const int k0 = (t_lo + i) * kBK;
+            bar_expect_tx(k_full(s), C::kKVBytes);
+#pragma unroll
+            for (int x = 0; x < C::kBoxes; ++x)
+                tma_load(sK + s * C::kKVBytes + x * C::kKVBoxBytes, &tm_k, k_full(s),
+                         x * C::kBoxCols, k0, kvh);
+            bar_expect_tx(v_full(s), C::kKVBytes);
+#pragma unroll
+            for (int x = 0; x < C::kBoxes; ++x)
+                tma_load(sV + s * C::kKVBytes + x * C::kKVBoxBytes, &tm_v, v_full(s),
+                         x * C::kBoxCols, k0, kvh);
+        }
+        return;
+    }
+
+    // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
+    const int wg = warp / 4;
+    if (wg >= n_active) return;
+    const int wg_lo = q0 + 64 * wg;
+    const int wg_hi = min(wg_lo + 63, Sq - 1);
+    const int row0 = wg_lo + 16 * (warp % 4) + lane / 4;  // this thread's rows: row0, row0 + 8
+    const int col = 2 * (lane % 4);  // and, in each group of 8 columns, col and col + 1
+
+    // accumulator layout of wgmma m64nN: register 4j + 2r + e holds row row0 + 8r,
+    // column 8j + col + e
+    float acc[HD / 2];
+    float s[kBK / 2];
+    uint32_t p[kBK / 4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+    float m[2] = {kMask, kMask};  // running max, in log2 units
+    float l[2] = {0.f, 0.f};      // this thread's share of the running sum
+
+    if (n_visit > 0) bar_wait(q_full, 0);
+    for (int i = 0; i < n_visit; ++i) {
+        const int st = i % kStages;
+        const int parity = (i / kStages) & 1;
+        const int k0 = (t_lo + i) * kBK;
+
+        // S = Q Kᵀ: hd/16 steps of k16; a step inside a 128-byte row advances the
+        // start address by 32 bytes, a new box by the box's size
+        bar_wait(k_full(st), parity);
+        pin(s);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+            const int x = ks * 16 / C::kBoxCols;
+            const int off = (ks * 16 % C::kBoxCols) * 2;
+            const uint64_t dq = desc(sQ + x * C::kQBoxBytes + 64 * wg * C::kRowBytes + off, 16,
+                                     C::kAtomBytes, C::kLayout);
+            const uint64_t dk = desc(sK + st * C::kKVBytes + x * C::kKVBoxBytes + off, 16,
+                                     C::kAtomBytes, C::kLayout);
+            mma_ss_n128(s, dq, dk, ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(s);
+
+        // scale into log2 units; mask only where the tile crosses Sk, the diagonal
+        // or the window edge for some row of this warpgroup
+        const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wg_lo) ||
+                          (window > 0 && k0 <= wg_hi - window);
+        if (edge) {
+#pragma unroll
+            for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int kpos = k0 + 8 * j + col + e;
+                        const int qpos = row0 + 8 * r;
+                        bool ok = kpos < Sk;
+                        if (causal) ok = ok && kpos <= qpos;
+                        if (window > 0) ok = ok && kpos > qpos - window;
+                        float& x = s[4 * j + 2 * r + e];
+                        x = ok ? x * scale_log2 : kMask;
+                    }
+        } else {
+#pragma unroll
+            for (int i2 = 0; i2 < kBK / 2; ++i2) s[i2] *= scale_log2;
+        }
+
+        // online softmax, rows row0 and row0 + 8
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = m[r];
+#pragma unroll
+            for (int j = 0; j < kBK / 8; ++j)
+                mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float alpha = exp2_approx(m[r] - mx);
+            m[r] = mx;
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    float& x = s[4 * j + 2 * r + e];
+                    x = exp2_approx(x - mx);
+                    sum += x;
+                }
+            l[r] = l[r] * alpha + sum;
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j) {
+                acc[4 * j + 2 * r] *= alpha;
+                acc[4 * j + 2 * r + 1] *= alpha;
+            }
+        }
+        // P in bf16 as wgmma's register A operand: for keys 16kk..16kk+15 the four
+        // words are the consecutive pairs of s[8kk .. 8kk+7]
+#pragma unroll
+        for (int i2 = 0; i2 < kBK / 4; ++i2) p[i2] = pack_bf16(s[2 * i2], s[2 * i2 + 1]);
+
+        // O += P V: kBK/16 steps of 16 keys; V is hd-contiguous (N-major), its boxes
+        // of 64 columns kKVBoxBytes apart, 8-key groups one swizzle atom apart
+        bar_wait(v_full(st), parity);
+        pin(acc);
+        pin(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+            const uint64_t dv = desc(sV + st * C::kKVBytes + kk * 16 * C::kRowBytes,
+                                     C::kKVBoxBytes, C::kAtomBytes, C::kLayout);
+            mma_pv<HD>(acc, &p[4 * kk], dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+        pin(p);
+        if (threadIdx.x % 128 == 0) bar_arrive(empty(st));  // this warpgroup is done with the stage
+    }
+
+    // epilogue: O / max(l, 1e-30), rounded once to bf16; rows past Sq are not stored
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float lr = l[r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int qpos = row0 + 8 * r;
+        if (qpos >= Sq) continue;
+        const float denom = fmaxf(lr, 1e-30f);
+        __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+                acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+    }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded; null if absent
+EncodeTiled encode_tiled() {
+    static const EncodeTiled fn = [] {
+        void* sym = nullptr;
+        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym,
+                                                        cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+                   ? reinterpret_cast<EncodeTiled>(sym)
+                   : nullptr;
+    }();
+    return fn;
+}
+
+// A bf16 tensor of `heads` contiguous (rows, hd) slabs as a 3-D map (hd, rows,
+// heads) whose box is (box_cols, box_rows, 1), swizzled across box_cols * 2 bytes.
+// A box that runs past `rows` is zero-filled there and never reads the next head.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
+                     int box_cols, int box_rows) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(heads)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
+                                   static_cast<cuuint64_t>(rows) * hd * 2};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                               static_cast<cuuint32_t>(box_rows), 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult res = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+                   int KV, int Sq, int Sk, int causal, int window, float scale,
+                   cudaStream_t stream) {
+    using C = Cfg<HD>;
+    // with Sk = 0 no K/V tile is visited; the maps must still encode, so they
+    // describe q, and no load is issued through them
+    const bool any_k = Sk > 0;
+    CUtensorMap mq, mk, mv;
+    cudaError_t err = make_map(&mq, q, HD, Sq, B * H, C::kBoxCols, kBQ);
+    if (err == cudaSuccess)
+        err = make_map(&mk, any_k ? k : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
+                       C::kBoxCols, kBK);
+    if (err == cudaSuccess)
+        err = make_map(&mv, any_k ? v : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
+                       C::kBoxCols, kBK);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_attention_tc<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::kBytes));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+    flash_attention_tc<HD><<<grid, kThreads, C::kBytes, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Sk, causal, window,
+        scale * kLog2e);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H,
+                      int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
+                      cudaStream_t stream) {
+    switch (hd) {
+        case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace tc
 }  // namespace
 
 // q (B,H,Sq,hd), k/v (B,KV,Sk,hd), o (B,H,Sq,hd), all contiguous and 16-byte aligned.
-// dtype: 0 = float32, 2 = bfloat16. hd in {32, 64, 128}; H a multiple of KV.
-// Returns the cudaError_t of the launch (0 = cudaSuccess); cudaErrorInvalidValue for
-// an unsupported dtype or hd.
+// dtype: 0 = float32 (the SIMT kernel), 2 = bfloat16 (the tensor-core kernel).
+// hd in {32, 64, 128}; H a multiple of KV. Returns the cudaError_t of the launch
+// (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, or a
+// tensor map the driver refuses; cudaErrorNotSupported if the driver has no
+// cuTensorMapEncodeTiled.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Sk, int hd,
                                       int dtype, int causal, int window, float scale,
@@ -285,9 +818,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case 0: return static_cast<int>(
-            launch_hd<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
+            simt::launch_hd<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
         case 2: return static_cast<int>(
-            launch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
+            tc::launch_hd(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

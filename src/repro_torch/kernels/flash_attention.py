@@ -2,17 +2,21 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:flash_attention_fwd``.
 The CUDA source is ``csrc/flash_attention.cu``, built by ``_build`` with
-``nvcc`` for ``sm_90a`` and called through ``ctypes``.
+``nvcc`` for ``sm_90a`` and called through ``ctypes``. Its entry point
+dispatches by dtype, and the source says how each kernel is laid out:
 
-What bounds it on the card: operations. At the serving path's prefill shapes
-each K/V byte feeds hundreds of multiply-adds, so the least time is the causal
-FLOPs over the card's peak; this first version runs them on the f32 SIMT
-pipes (the tensor cores come in a later version). The source says how the
-blocks are laid out.
+* bfloat16 runs on the tensor cores (``wgmma``, with Q and each K/V tile
+  brought in by TMA through a ring of shared-memory stages). A long prompt
+  is bound by operations there, the serving prefill by bytes. P is rounded
+  to bf16 for the P·V product, which adds at most about 2^-9·max|v| to an
+  output, inside the bf16 tolerance;
+* float32 runs on the f32 SIMT pipes: on the tensor cores it would be TF32
+  and miss the f32 tolerance.
 
 Dispatch goes by the tensor's device: a CPU tensor takes the plain version
-(``ref.flash_attention_ref``); a CUDA tensor launches the kernel, or the call
-raises. ``launches`` counts kernel launches and nothing else. Like the TPU
+(``ref.flash_attention_ref``); a CUDA tensor launches a kernel, or the call
+raises. ``launches`` counts kernel launches and nothing else; ``tc_launches``
+counts the bf16 ones, which go to the tensor-core kernel. Like the TPU
 kernel it is forward-only: called with grad enabled on a tensor that
 requires grad, it raises.
 """
@@ -34,6 +38,7 @@ HEAD_DIMS = (32, 64, 128)
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
+tc_launches = 0  # guarded-by: _count_lock
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -80,7 +85,7 @@ def flash_attention_fwd(
 ) -> torch.Tensor:
     """(B, H, Sq, hd) in q's dtype; q head h attends KV head ``h // (H // KV)``.
     On CUDA the kernel runs on the current stream and is not waited for."""
-    global launches
+    global launches, tc_launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise RawArrayError(
             f"flash_attention takes q (B,H,Sq,hd) and k, v (B,KV,Sk,hd); got "
@@ -110,4 +115,6 @@ def flash_attention_fwd(
         raise RawArrayError(f"flash_attention kernel launch failed: cudaError_t {err}")
     with _count_lock:
         launches += 1
+        if q.dtype == torch.bfloat16:
+            tc_launches += 1
     return out

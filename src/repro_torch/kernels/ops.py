@@ -43,8 +43,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd). GQA via KV broadcast.
 
     ``block_q``/``block_k`` sized the TPU grid; here they are accepted for
-    parity and not used: the CUDA kernel's tiles are its own (64 q rows,
-    32 k rows), and it masks a ragged tail itself."""
+    parity and not used: the CUDA kernels' tiles are their own (bf16 on the
+    tensor cores: 128 q rows, 128 k rows; f32 on the SIMT pipes: 64 q rows,
+    32 k rows), and they mask a ragged tail themselves."""
     del block_q, block_k
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
 

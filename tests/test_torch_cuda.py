@@ -90,12 +90,45 @@ def test_flash_attention_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd
     rng = np.random.default_rng(3)
     q = _normal(rng, (B, H, Sq, hd), dtype, card)
     k, v = (_normal(rng, (B, KV, Sk, hd), dtype, card) for _ in range(2))
-    before = fa.launches
+    before, before_tc = fa.launches, fa.tc_launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    assert fa.tc_launches == before_tc + (dtype == torch.bfloat16)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (1, 2, 2, 1, 1, 128, True, 0),        # Sq = Sk = 1: one tile, the ring's first phase only
+    (2, 4, 2, 130, 130, 128, True, 0),    # a tail tile of 2 rows
+    (1, 8, 1, 200, 200, 64, True, 0),     # 200 rows, g = 8
+    (1, 8, 4, 96, 160, 128, True, 0),     # Sk > Sq
+    (1, 8, 4, 96, 160, 64, False, 0),     # Sk > Sq, non-causal
+    (2, 4, 2, 300, 300, 128, True, 40),   # window 40: rows 167..255 see no live key in tile 0
+    (2, 4, 2, 576, 576, 128, True, 64),   # window 64 across tile edges, the serving width
+    (1, 2, 1, 384, 384, 64, True, 100),   # window 100: a q tile's first visited tile is dead
+                                          # for most of its rows (self-healing through alpha = 0)
+    (2, 4, 4, 256, 256, 32, True, 0),     # hd 32 (64-byte swizzle), g = 1
+    (2, 4, 2, 200, 200, 32, False, 0),    # hd 32, non-causal
+    (1, 8, 1, 257, 257, 64, True, 64),    # hd 64, window, g = 8, one row past two tiles
+    (2, 16, 8, 576, 576, 128, True, 0),   # the serving prefill's tile walk, 2 of 8 sequences
+    (1, 2, 2, 5, 0, 64, False, 0),        # Sk = 0: no tile to visit, the output is zeros
+])
+def test_flash_attention_tensor_core_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd,
+                                                                  causal, window):
+    """bf16 on the tensor cores: within 2e-2 of the f32 plain version (P is
+    rounded to bf16 for P·V, about 2^-9·max|v| per output)."""
+    rng = np.random.default_rng(Sq + Sk + hd + window)
+    q = _normal(rng, (B, H, Sq, hd), torch.bfloat16, card)
+    k, v = (_normal(rng, (B, KV, Sk, hd), torch.bfloat16, card) for _ in range(2))
+    before, before_tc = fa.launches, fa.tc_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.tc_launches) == (before + 1, before_tc + 1)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("B,KV,g,S,hd,pos,window", [

@@ -8,15 +8,18 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: ``nvcc`` compiles every CUDA source of the port into ``build/``;
-   then ``cuobjdump -sass`` of the flash library must show HGMMA (wgmma)
-   and UTMALDG (TMA tile loads): the bf16 kernel runs on the tensor cores;
+   then ``cuobjdump -sass`` must show HGMMA (wgmma) and UTMALDG (TMA tile
+   loads) in the flash library, UBLKCP (bulk copies) and UCGABAR_ARV /
+   UCGABAR_WAIT (the cluster barrier) in the decode library, and HMMA
+   (mma.sync) in the SSD library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge shapes: ``dequant_u8``
    bit-equal, ``flash_attention`` and ``decode_attention`` within the
    tolerance of ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
-   calls, L2 flushed before each), and the kernel's time between two CUDA
+   calls, L2 flushed before each; a ``decode_attention`` call must show
+   exactly one device event), and the kernel's time between two CUDA
    events (median of 25, launch overhead included), beside the least time
    the card could take (the larger of bytes over the data-sheet 3.35 TB/s
    and operations over 989 TFLOP/s bf16);
@@ -47,7 +50,8 @@ Phases (any failure exits non-zero and prints no result):
    random weights from seed 0 on the card) saved as a raw RawArray
    checkpoint and restored through ``ServeEngine(checkpoint=raw)`` (leaves
    bit-equal); 8 prompts of 512 tokens with 64 new tokens each (48
-   ``ssd_scan`` launches, no attention launch), warm again, and again with
+   ``ssd_scan`` launches, all 48 on the tensor-core kernels, no attention
+   launch), warm again, and again with
    the scan swapped for its plain version: first-step logits within a bf16
    tolerance, greedy-token agreement reported.
 
@@ -117,17 +121,29 @@ def phase_build() -> float:
 
 
 def phase_sass() -> dict:
-    """The bf16 flash kernel must run on the tensor cores and load by TMA:
-    count HGMMA (wgmma) and UTMALDG (TMA tile load) in the built library."""
+    """Count, in each built library, the instructions its design rests on:
+    the bf16 flash kernel runs on the tensor cores (HGMMA, wgmma) fed by TMA
+    (UTMALDG); the decode kernel streams K/V by bulk copies (UBLKCP) and
+    folds its splits across a cluster (UCGABAR_ARV / UCGABAR_WAIT, the
+    cluster barrier); the bf16 SSD scan runs its products on the tensor
+    cores (HMMA, mma.sync). Any count of 0 fails."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path("flash_attention.cu"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    log(f"[sass] flash_attention.cu: {json.dumps(counts)}")
-    if not all(counts.values()):
-        raise SystemExit(f"chip_smoke: flash_attention's SASS lacks wgmma or TMA loads: {counts}")
+    wanted = {
+        "flash_attention.cu": ("HGMMA", "UTMALDG"),
+        "decode_attention.cu": ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT"),
+        "ssd_scan.cu": ("HMMA",),
+    }
+    counts = {}
+    for source, ops in wanted.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(source))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[source] = {op: sass.count(op) for op in ops}
+    log(f"[sass] {json.dumps(counts)}")
+    missing = {src: c for src, c in counts.items() if not all(c.values())}
+    if missing:
+        raise SystemExit(f"chip_smoke: instructions missing from the SASS: {missing}")
     return counts
 
 
@@ -150,13 +166,15 @@ def _event_ms(torch, fn, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, flush, attempts: int = 3) -> float:
+def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None) -> float:
     """Device time of one call: the summed durations of the kernels it ran,
     from a profiler trace of REPS calls (L2 flushed before each; the flush's
     own fill kernels are left out), divided by REPS. Host launch overhead
     and gaps between a call's kernels are not in it. A trace whose event
     count is not a multiple of REPS (a library call, cuDNN's masked SDPA,
-    has shown one now and then) is taken again, up to ``attempts`` times."""
+    has shown one now and then) is taken again, up to ``attempts`` times.
+    With ``events``, a trace must show exactly that many device events per
+    call, or the run fails."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -179,6 +197,9 @@ def _device_ms(torch, fn, flush, attempts: int = 3) -> float:
             total_us += evt.time_range.elapsed_us()
             names[evt.name[:120]] += 1
         count = sum(names.values())
+        if events is not None and count != events * REPS:
+            raise SystemExit(f"chip_smoke: {count} device events in {REPS} calls, wanted "
+                             f"{events} per call: {dict(names)}")
         if count and count % REPS == 0:
             return total_us / REPS / 1e3
         log(f"[kernels] the profiler saw {count} device events in {REPS} calls: "
@@ -274,12 +295,13 @@ def _bound(nbytes: int, flops: int) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _timings(torch, kernel, plain, library, flush, nbytes, flops) -> dict:
-    """Device ms of the kernel, its plain version and the library call (None
-    where no single library call computes the function), event ms, bound."""
+def _timings(torch, kernel, plain, library, flush, nbytes, flops, events=None) -> dict:
+    """Device ms of the kernel (``events``: the device events each call must
+    show), its plain version and the library call (None where no single
+    library call computes the function), event ms, bound."""
     bound_ms, bound_by = _bound(nbytes, flops)
     return {
-        "ms": _device_ms(torch, kernel, flush),
+        "ms": _device_ms(torch, kernel, flush, events=events),
         "plain_ms": _device_ms(torch, plain, flush),
         "library_ms": _device_ms(torch, library, flush) if library is not None else None,
         "event_ms": _event_ms(torch, kernel, flush),
@@ -301,7 +323,7 @@ def phase_attention(torch) -> tuple:
     """Both attention kernels against their plain versions on the card."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import decode_attention, ops, ref
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -359,6 +381,8 @@ def phase_attention(torch) -> tuple:
         ("edge_g1", 2, 8, 1, 576, 128, 575, "bfloat16", 0, False, False),
         ("edge_one_row", 1, 8, 2, 1, 128, 0, "bfloat16", 0, False, False),
         ("edge_g6", 2, 2, 6, 300, 128, 299, "float32", 0, False, False),
+        ("edge_pos_cta_boundary", 8, 8, 2, 576, 128, 288, "bfloat16", 0, True, False),
+        ("edge_window_across_ctas", 2, 8, 2, 576, 128, 300, "bfloat16", 100, True, False),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
@@ -369,8 +393,11 @@ def phase_attention(torch) -> tuple:
         torch.cuda.synchronize()
         plain = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p,
                                          window=window).reshape(B, KV * g, hd)
+        cluster, keys = decode_attention.geometry(
+            B, KV, g, S, torch.cuda.get_device_properties(dev).multi_processor_count)
         row = {"case": label, "shape": {"q": [B, KV * g, hd], "kv": [B, KV, S, hd]},
-               "dtype": dt, "pos": pos, "window": window}
+               "dtype": dt, "pos": pos, "window": window, "cluster": cluster,
+               "keys_per_cta": keys}
         if garbage:  # rows past pos are never read: NaN there changes nothing
             k2, v2 = k.clone(), v.clone()
             k2[:, :, pos + 1:] = float("nan")
@@ -393,7 +420,7 @@ def phase_attention(torch) -> tuple:
                 lambda: ops.decode_attention(q, k, v, p, window=window),
                 lambda: ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window),
                 lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True),
-                flush, nbytes, flops,
+                flush, nbytes, flops, events=1,
             ))
         _check_close(torch, "decode_attention", row, out, plain)
         decode_rows.append(row)
@@ -839,10 +866,12 @@ def phase_ssm_serving(torch) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels:
         k.launches = 0
+    ssd_scan.tc_launches = 0
     tokens = engine.generate(prompts, max_new=max_new)
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     out["launches"] = launches
     out["ssd_scan_launches"] = launches["ssd_scan"]
+    out["ssd_scan_tc_launches"] = ssd_scan.tc_launches
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     out.update(engine.throughput())
     if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
@@ -851,6 +880,9 @@ def phase_ssm_serving(torch) -> dict:
                     "ssd_scan": cfg.n_layers}:
         raise SystemExit(f"chip_smoke: Mamba2 generate launched {launches}, wanted "
                          f"{cfg.n_layers} ssd_scan and nothing else")
+    if out["ssd_scan_tc_launches"] != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: {out['ssd_scan_tc_launches']} of {cfg.n_layers} "
+                         f"ssd_scan launches ran the tensor-core kernels")
 
     # the same requests again: warm (launches from here on are not counted)
     engine.stats = {key: 0.0 for key in engine.stats}
@@ -998,8 +1030,11 @@ def main() -> int:
             "library_call": call,
             "shapes": rows_,
         })
+        kernels[-1]["sass"] = sass[f"{name}.cu"]
         if name == "flash_attention":
-            kernels[-1].update(tc_launches=serve["flash_attention_tc_launches"], sass=sass)
+            kernels[-1]["tc_launches"] = serve["flash_attention_tc_launches"]
+        if name == "ssd_scan":
+            kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,11 @@ The CUDA source is ``csrc/decode_attention.cu``, built by ``_build`` with
 
 What bounds it on the card: bytes. Each live K/V row is read once for the
 ``g`` query heads of its group, so the least time is the live cache bytes
-over 3.35 TB/s. The kernel splits the cache along S so that a small batch
-still fills the card, and folds the splits' partial softmax states in a
-second small kernel (both are one launch of this wrapper).
+over 3.35 TB/s. One call is one kernel launch with no scratch in device
+memory: the S splits of one (batch, kv head, head chunk) form a thread
+block cluster (``geometry`` picks its size so that a small batch still fills
+the card), K and V stream through a bulk-copy ring in shared memory, and the
+splits' partial softmax states fold through distributed shared memory.
 
 ``pos`` (cache rows ``<= pos`` are live) stays on the device: the wrapper
 takes a 0-d or one-element int32 CUDA tensor and hands the kernel its
@@ -36,10 +38,12 @@ from .flash_attention import DTYPES, check_inputs
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
-_MIN_CHUNK = 64  # keys per split, at least
+#: cluster sizes the kernel launches with (portable: no opt-in needed)
+CLUSTER_SIZES = (1, 2, 4, 8)
+_MIN_KEYS = 32  # keys per CTA, at least
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,14 +57,22 @@ def heads_per_block(g: int) -> int:
     return next(c for c in (8, 4, 2, 1) if g % c == 0)
 
 
-def splits(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
-    """``(chunk, nsplit)``: enough S splits for about four blocks per SM,
-    each of at least ``_MIN_CHUNK`` keys. Fixed by the shapes, not by pos."""
-    per_split = B * KV * (g // heads_per_block(g))
-    want = max(1, -(-4 * sms // max(per_split, 1)))
-    nsplit = max(1, min(want, -(-S // _MIN_CHUNK)))
-    chunk = -(-S // nsplit)
-    return chunk, -(-S // chunk)
+def geometry(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
+    """``(cluster, chunk)``: the CTAs that split S for one (b, kv head, head
+    chunk), a cluster of 1, 2, 4 or 8, and the keys each takes (CTA r: keys
+    ``[r*chunk, (r+1)*chunk)``). A CTA streams its keys through a deep ring
+    with eight consumer warps, so the plan is one full wave of one CTA an SM:
+    the largest cluster with B·KV·(g/G)·cluster <= ``sms`` (no split when
+    B·KV·(g/G) already fills the SMs), at least ``_MIN_KEYS`` keys a CTA, and
+    no CTA without a key. Fixed by the shapes, not by pos."""
+    clusters = B * KV * (g // heads_per_block(g))
+    cluster = max(c for c in CLUSTER_SIZES
+                  if c == 1 or (clusters * c <= sms and c * _MIN_KEYS <= S))
+    chunk = -(-S // cluster)
+    while cluster > 1 and (cluster - 1) * chunk >= S:  # the last CTA would have no key
+        cluster //= 2
+        chunk = -(-S // cluster)
+    return cluster, max(chunk, 1)
 
 
 def decode_attention_fwd(
@@ -72,8 +84,8 @@ def decode_attention_fwd(
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """(B, KV, g, hd) in q's dtype. On CUDA the kernels run on the current
-    stream and are not waited for."""
+    """(B, KV, g, hd) in q's dtype. On CUDA the kernel runs on the current
+    stream and is not waited for."""
     global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise RawArrayError(
@@ -104,15 +116,12 @@ def decode_attention_fwd(
         return out
     if S == 0:
         return out.zero_()
-    chunk, nsplit = splits(B, KV, g, S, _sm_count(q.device.index or 0))
-    part_acc = torch.empty(B * KV * g * nsplit * hd, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(B * KV * g * nsplit * 2, dtype=torch.float32, device=q.device)
+    cluster, chunk = geometry(B, KV, g, S, _sm_count(q.device.index or 0))
     fn = _build.function("decode_attention.cu", "decode_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(),
-            B, KV, g, S, hd, DTYPES[q.dtype], int(window), scale, chunk, nsplit,
+            B, KV, g, S, hd, DTYPES[q.dtype], int(window), scale, cluster, chunk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

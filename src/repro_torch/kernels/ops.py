@@ -55,8 +55,10 @@ def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512):
 
     ``pos`` (rows ``<= pos`` live) may be an int or a one-element int32
     tensor; on the card, pass it on the card so the step needs no host
-    sync. ``block_s`` is accepted for parity and not used: the kernel sizes
-    its S splits to the card."""
+    sync. ``block_s`` is accepted for parity and not used: on the card a
+    call is one kernel launch whose S splits (a thread block cluster of 1 to
+    8 CTAs, ``decode_attention.geometry``) are sized to the card and stream
+    K/V through 64-row tiles of their own."""
     del block_s
     B, H, hd = q.shape
     KV = k.shape[1]
@@ -70,6 +72,8 @@ def ssd_scan(x, dtA, Bm, Cm, *, chunk: int = 128, return_state: bool = False):
     The chunk is ``min(chunk, L)``, and L must be a multiple of it. With
     ``return_state`` also the final state (B,H,P,N) in float32, which the
     TPU kernel keeps in its scratch after the last chunk and the model's
-    prefill needs."""
+    prefill needs. On the card bf16 runs on the tensor cores (two kernels:
+    ``C·Bᵀ`` once per batch and chunk, then the scan) and float32 on the
+    SIMT pipes (one kernel)."""
     L = int(x.shape[2])
     return ssd_scan_fwd(x, dtA, Bm, Cm, chunk=max(1, min(chunk, L)), return_state=return_state)

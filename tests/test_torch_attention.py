@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.spec import RawArrayError
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -129,3 +130,42 @@ def test_attention_ops_check_their_inputs():
         tops.flash_attention(q.transpose(2, 3), k.transpose(2, 3), k.transpose(2, 3))
     with pytest.raises(RawArrayError, match="does not fit"):
         tops.flash_attention(torch.randn(1, 3, 8, 32), k, k)
+
+
+@pytest.mark.parametrize("B,KV,g,S,sms,expect", [
+    (8, 8, 2, 576, 132, (2, 288)),     # the serving shape: 64 clusters of 2 CTAs
+    (8, 8, 2, 4096, 132, (2, 2048)),   # S 4096
+    (1, 8, 2, 576, 132, (8, 72)),      # B 1: 8 clusters of 8
+    (1, 1, 1, 40, 132, (1, 40)),       # S < 64: one CTA
+    (2, 1, 8, 17, 132, (1, 17)),
+    (1, 1, 1, 100, 132, (2, 50)),      # room for two CTAs of at least 32 keys
+    (1, 2, 5, 200, 132, (4, 50)),      # g 5 (Qwen2.5-14B's 40/8): one head a CTA
+    (2, 8, 5, 4096, 132, None),
+    (64, 8, 2, 576, 132, (1, 576)),    # B·KV·(g/G) fills the SMs: no split
+    (1, 1, 1, 1, 132, (1, 1)),         # one key
+    (3, 2, 6, 300, 132, None),
+    (1, 4, 4, 129, 78, None),          # a card with fewer SMs
+    (4, 8, 8, 1000, 132, None),
+    (1, 1, 2, 70, 132, (2, 35)),
+])
+def test_decode_geometry(B, KV, g, S, sms, expect):
+    """Every key in exactly one CTA, an allowed cluster size that divides the
+    split axis of the grid, and no CTA without a key when S >= the CTAs."""
+    cluster, chunk = tda.geometry(B, KV, g, S, sms)
+    if expect is not None:
+        assert (cluster, chunk) == expect
+    assert cluster in tda.CLUSTER_SIZES
+    clusters = B * KV * (g // tda.heads_per_block(g))
+    grid = (cluster, KV * (g // tda.heads_per_block(g)), B)
+    assert grid[0] % cluster == 0 and grid[1] * grid[2] == clusters
+    if clusters >= sms:
+        assert cluster == 1
+    else:
+        assert clusters * cluster <= sms  # one wave of one CTA an SM
+    owners = np.zeros(S, int)
+    for r in range(cluster):
+        lo, hi = r * chunk, min(S, (r + 1) * chunk)
+        owners[lo:hi] += 1
+        if S >= cluster:
+            assert hi > lo, f"CTA {r} of {cluster} has no key"
+    assert (owners == 1).all()

@@ -159,6 +159,66 @@ def test_decode_attention_kernel_matches_plain_version(card, B, KV, g, S, hd, po
     assert torch.equal(again, got)
 
 
+# (B, KV, g, S, hd, pos, window, cluster on a 132-SM card)
+DECODE_CLUSTER_CASES = [
+    (8, 8, 2, 576, 128, 575, 0, 2),         # the serving shape: 2 CTAs of 288 keys
+    (8, 8, 2, 576, 128, 0, 0, 2),           # pos 0: one live key, CTA 1 without one
+    (8, 8, 2, 576, 128, 287, 0, 2),         # pos on CTA 0's last key
+    (8, 8, 2, 576, 128, 288, 0, 2),         # pos on CTA 1's first key
+    (8, 8, 2, 576, 128, 328, 0, 2),         # pos mid-way through CTA 1's first tile
+    (2, 8, 2, 576, 128, 300, 100, 8),       # a window across three CTAs of 72 keys
+    (1, 8, 2, 576, 128, 143, 0, 8),         # pos on CTA 1's last key at cluster 8
+    (1, 8, 2, 4096, 128, 4095, 0, 8),       # 512 keys a CTA
+    (1, 2, 5, 200, 64, 150, 0, 4),          # g 5 (Qwen2.5-14B's 40/8): one head a CTA
+    (1, 1, 8, 100, 32, 99, 0, 2),           # g 8, hd 32, two CTAs of 50 keys
+    (32, 8, 1, 300, 64, 299, 0, 1),         # B·KV fills the card: no split
+    (2, 4, 1, 40, 32, 17, 8, 1),            # S 40: too short to split, window 8
+]
+
+
+@pytest.mark.parametrize("B,KV,g,S,hd,pos,window,cluster", DECODE_CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cluster_kernel_matches_plain_version(card, B, KV, g, S, hd, pos,
+                                                               window, cluster, dtype):
+    """Every cluster size, pos at 0, on a CTA boundary and mid-tile, windows
+    across CTAs, g 1/2/5/8 and hd 32/64/128; rows past pos hold NaN."""
+    assert da.geometry(B, KV, g, S, 132)[0] == cluster
+    rng = np.random.default_rng(S + pos + g)
+    q = _normal(rng, (B, KV * g, hd), dtype, card)
+    k, v = (_normal(rng, (B, KV, S, hd), dtype, card) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    want = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window)
+    k[:, :, pos + 1:] = float("nan")
+    v[:, :, pos + 1:] = float("nan")
+    before = da.launches
+    got = ops.decode_attention(q, k, v, p, window=window)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.reshape(B, KV * g, hd).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_decode_attention_is_one_kernel_per_call(card):
+    """One device event per call in a profiler trace: no fold kernel, no
+    scratch fill, no copy of pos."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(7)
+    q = _normal(rng, (8, 16, 128), torch.bfloat16, card)
+    k, v = (_normal(rng, (8, 8, 576, 128), torch.bfloat16, card) for _ in range(2))
+    p = torch.tensor(575, dtype=torch.int32, device=card)
+    ops.decode_attention(q, k, v, p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.decode_attention(q, k, v, p)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.name != "Activity Buffer Request"]
+    assert len(names) == 3 and all("decode_attention_kernel" in n for n in names), names
+
+
 def test_decode_step_does_not_sync_with_the_host(card):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -206,10 +266,11 @@ def test_ssd_scan_kernel_matches_plain_version(card, B, H, L, P, N, chunk, slow,
     of its scale in bf16; the f32 final state within 1e-3 of its scale."""
     rng = np.random.default_rng(L + P + N)
     x, dtA, Bm, Cm = _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow)
-    before = ssd.launches
+    before, before_tc = ssd.launches, ssd.tc_launches
     got, state = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk, return_state=True)
     torch.cuda.synchronize()
     assert ssd.launches == before + 1
+    assert ssd.tc_launches == before_tc + (dtype == torch.bfloat16)
     want, want_state = ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=min(chunk, L))
     assert got.dtype == dtype and state.dtype == torch.float32
     if dtype == torch.float32:
@@ -222,6 +283,34 @@ def test_ssd_scan_kernel_matches_plain_version(card, B, H, L, P, N, chunk, slow,
     # y alone, without the state, is the same launch's y
     again = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk,slow", [
+    (2, 4, 100, 64, 128, 128, False),   # Q 100: the chunk padded to 112 and masked
+    (2, 4, 256, 64, 128, 128, False),   # Q 128, two chunks
+    (1, 3, 128, 16, 8, 64, False),      # N 8 (half a k16 step), P 16
+    (2, 2, 192, 32, 16, 64, False),     # N 16, P 32
+    (1, 4, 256, 64, 64, 128, False),    # N 64
+    (2, 2, 120, 32, 32, 40, False),     # Q 40: three chunks padded to 48
+    (1, 2, 4096, 64, 128, 128, True),   # slow decay over 32 chunks
+    (2, 4, 128, 32, 128, 128, False),   # a single chunk
+])
+def test_ssd_scan_tensor_core_kernels_match_plain_version(card, B, H, L, P, N, chunk, slow):
+    """bf16 on the tensor cores: y within 2e-2 of its scale, the f32 final
+    state within 1e-3 of its scale (G ⊙ L in bf16, state and decayed x in
+    TF32)."""
+    rng = np.random.default_rng(L + P + N + chunk)
+    x, dtA, Bm, Cm = _ssd_inputs(rng, B, H, L, P, N, torch.bfloat16, card, slow)
+    before, before_tc = ssd.launches, ssd.tc_launches
+    got, state = ops.ssd_scan(x, dtA, Bm, Cm, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert (ssd.launches, ssd.tc_launches) == (before + 1, before_tc + 1)
+    want, want_state = ref.ssd_scan_ref(x, dtA, Bm, Cm, chunk=min(chunk, L))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    tol = 2e-2 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    tol = 1e-3 * max(1.0, float(want_state.abs().max()))
+    torch.testing.assert_close(state, want_state, rtol=1e-3, atol=tol)
 
 
 def test_mamba2_decode_step_does_not_sync_with_the_host(card):

@@ -154,6 +154,110 @@ def test_bad_inputs_raise():
         assert tops.ssd_scan(x, dtA, Bm, Cm).shape == x.shape
 
 
+def _tf32(t):
+    """float32 -> TF32 (10 mantissa bits), round to nearest even, as the
+    tensor-core kernel rounds its TF32 operands."""
+    b = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = (b + 0xFFF + ((b >> 13) & 1)) & 0xFFFFE000
+    return torch.where(b >= 2**31, b - 2**32, b).to(torch.int32).view(torch.float32)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_hi_lo(t):
+    """t as the sum of two bf16 terms: bf16(t) + bf16(t - bf16(t))."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _tensor_core_scan(x, dtA, Bm, Cm, chunk, scores_operand, state_operand):
+    """The bf16 tensor-core scan's arithmetic in plain PyTorch: C·Bᵀ in f32,
+    its product with L rounded by ``scores_operand`` for ``y_diag`` (the
+    kernel: two bf16 terms); the state rounded by ``state_operand`` for
+    ``C·stateᵀ`` (the kernel keeps a bf16 copy); the decayed x rounded to
+    TF32 for the update. Sums in f64 (the kernel's are f32), the state kept
+    in f32, y rounded once to bf16."""
+    B, H, L, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc = L // Q
+    xf = x.float().reshape(B, H, nc, Q, P)
+    acs = torch.cumsum(dtA.float().reshape(B, H, nc, Q), dim=-1)
+    Bf = Bm.float().reshape(B, nc, Q, N).double()
+    Cf = Cm.float().reshape(B, nc, Q, N).double()
+    G = torch.einsum("bcin,bcjn->bcij", Cf, Bf).float()
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    decay = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, -1e9))
+    y_diag = scores_operand(G[:, None] * decay).double() @ xf.double()
+    last = acs[..., -1]
+    xd = _tf32(xf * torch.exp(last[..., None] - acs)[..., None]).double()
+    state = torch.zeros(B, H, P, N, dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        y_off = torch.einsum("bin,bhpn->bhip", Cf[:, c], state_operand(state).double())
+        ys.append(y_diag[:, :, c] + y_off * torch.exp(acs[:, :, c]).double()[..., None])
+        own = torch.einsum("bhjp,bjn->bhpn", xd[:, :, c], Bf[:, c])
+        state = (state.double() * torch.exp(last[:, :, c]).double()[..., None, None] + own).float()
+    return torch.stack(ys, dim=2).reshape(B, H, L, P).to(torch.bfloat16), state
+
+
+def test_tf32_rounds_to_nearest_even():
+    one = 1.0 + 2.0 ** -10  # the TF32 step above 1
+    t = torch.tensor([1.0, 1.0 + 2.0 ** -12, 1.0 + 2.0 ** -11, one + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11 + 2.0 ** -20), 3.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0, 1.0, one + 2.0 ** -10, -one, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32(t), want)
+
+
+@pytest.mark.parametrize("scores_operand,state_operand", [
+    (_bf16, _tf32),        # G ⊙ L in bf16, the state in TF32
+    (_bf16_hi_lo, _bf16),  # the kernel: G ⊙ L in two bf16 terms, the state copy in bf16
+], ids=["scores_bf16_state_tf32", "kernel"])
+@pytest.mark.parametrize("B,H,L,P,N,decay", [
+    (2, 4, 512, 64, 128, (0.5, 8.0)),   # the serving shape, batch and heads cut
+    (1, 2, 4096, 64, 128, (0.0, 0.01)),  # slow decay: the state crosses 32 chunks
+], ids=["serving_reduced", "slow_decay_32_chunks"])
+def test_tensor_core_roundings_fit_the_tolerance(B, H, L, P, N, decay, scores_operand,
+                                                 state_operand):
+    """The roundings of the tensor-core scan stay inside the card's
+    tolerances against the plain version: y within 2e-2 of its scale, the
+    final state within 1e-3 of its scale."""
+    rng = np.random.default_rng(L + H)
+    x, Bm, Cm = (torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))
+                 .to(torch.bfloat16) for s in ((B, H, L, P), (B, L, N), (B, L, N)))
+    dtA = torch.from_numpy(-rng.uniform(*decay, (B, H, L)).astype(np.float32))
+    y, state = _tensor_core_scan(x, dtA, Bm, Cm, 128, scores_operand, state_operand)
+    want, want_state = tref.ssd_scan_ref(x.float(), dtA, Bm.float(), Cm.float(), chunk=128)
+    y_err = float((y.float() - want).abs().max())
+    state_err = float((state - want_state).abs().max())
+    assert 0 < y_err <= 2e-2 * float(want.abs().max())
+    assert 0 < state_err
+    torch.testing.assert_close(state, want_state, rtol=1e-3,
+                               atol=1e-3 * max(1.0, float(want_state.abs().max())))
+
+
+def test_kernel_roundings_add_little_to_the_rounding_of_y():
+    """At the model's decay the kernel's roundings leave y as close to the
+    exact scan as y's own bf16 rounding leaves it (RMS, within 10%): G ⊙ L
+    in one bf16 term does not (it adds some 40%, which 48 layers carry into
+    the first-step logits)."""
+    rng = np.random.default_rng(7)
+    B, H, L, P, N = 2, 8, 512, 64, 128
+    x, Bm, Cm = (torch.from_numpy((rng.standard_normal(s) * 0.5).astype(np.float32))
+                 .to(torch.bfloat16) for s in ((B, H, L, P), (B, L, N), (B, L, N)))
+    dtA = torch.from_numpy(-rng.uniform(0.5, 8.0, (B, H, L)).astype(np.float32))
+    exact, _ = tref.ssd_scan_ref(x.double(), dtA.double(), Bm.double(), Cm.double(), chunk=128)
+
+    def rms(y):
+        return float(((y.double() - exact) ** 2).mean().sqrt() / (exact ** 2).mean().sqrt())
+
+    kernel, _ = _tensor_core_scan(x, dtA, Bm, Cm, 128, _bf16_hi_lo, _bf16)
+    one_term, _ = _tensor_core_scan(x, dtA, Bm, Cm, 128, _bf16, _bf16)
+    assert rms(kernel) <= 1.1 * rms(exact.to(torch.bfloat16))
+    assert rms(one_term) > 1.3 * rms(exact.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("B,H,P,sms,tile", [
     (8, 48, 64, 132, 64),   # the serving batch fills the card: no split
     (1, 48, 64, 132, 32),   # one long prompt: two tiles a head

@@ -14,8 +14,10 @@ Phases (any failure exits non-zero and prints no result):
    (mma.sync) in the SSD library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge shapes: ``dequant_u8``
-   bit-equal, ``flash_attention`` and ``decode_attention`` within the
-   tolerance of ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2); at the
+   bit-equal (also at the largest leaf of phase 5's u8 cold start),
+   ``flash_attention`` and ``decode_attention`` within the tolerance of
+   ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2), at head width 128
+   (InternLM2) and 256 (gemma3-12b, phase 7); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
    calls, L2 flushed before each; a ``decode_attention`` call must show
@@ -53,7 +55,19 @@ Phases (any failure exits non-zero and prints no result):
    ``ssd_scan`` launches, all 48 on the tensor-core kernels, no attention
    launch), warm again, and again with
    the scan swapped for its plain version: first-step logits within a bf16
-   tolerance, greedy-token agreement reported.
+   tolerance, greedy-token agreement reported;
+7. serving: gemma3-12b at its full widths (d_model 3840, 16 heads / 8 KV of
+   head width 256, GeGLU 15360, vocab 262,144, QK-norm, sandwich norms, 5
+   local layers of window 1024 to 1 global), its depth cut from 48 to 12
+   layers (two periods of the pattern), bf16, random weights from seed 0 on
+   the card with the attention projections tempered as InternLM2's, saved as
+   a raw RawArray checkpoint and restored through
+   ``ServeEngine(checkpoint=raw)`` (leaves bit-equal); 4 prompts of 2,048
+   tokens (numpy seed 2, longer than the window) with 32 new tokens each (12
+   ``flash_attention`` launches, all on the tensor-core kernel, and 12 × 32
+   ``decode_attention`` launches, one device event per layer in a traced
+   step), warm again, and again with plain attention: first-step logits
+   within a bf16 tolerance, greedy-token agreement reported.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -208,6 +222,18 @@ def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None) -
                      f"saw a number of device events that is not a multiple of {REPS}")
 
 
+def _largest_leaf(torch) -> tuple:
+    """Shape of the largest float leaf that phase 5's u8 cold start decodes
+    (InternLM2-1.8B; the checkpoint is of an f32 copy, so it decodes to f32)."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    leaves = flatten(build_model(get_config("internlm2_1_8b"), device="meta").param_tree(),
+                     "param").values()
+    return tuple(max(leaves, key=lambda t: t.numel()).shape)
+
+
 def phase_kernels(torch) -> list:
     from repro_torch.kernels import dequant_u8, ref
 
@@ -232,6 +258,7 @@ def phase_kernels(torch) -> list:
         ("imagenet_batch", (256, 224, 224, 3), torch.float32, True, 0),
         ("imagenet_batch", (256, 224, 224, 3), torch.bfloat16, True, 0),
         ("checkpoint_leaf", (4096, 4096), torch.bfloat16, True, 0),
+        ("u8_cold_start_largest_leaf", _largest_leaf(torch), torch.float32, True, 0),
         ("edge", (1, 1), torch.float32, False, 0),
         ("edge", (1000, 130), torch.float32, False, 0),
         ("edge", (1000, 130), torch.bfloat16, False, 0),
@@ -248,9 +275,11 @@ def phase_kernels(torch) -> list:
         plain = ref.dequant_u8_ref(x, scale, bias, out_dtype)
         exact = bool(torch.equal(out, plain))
         err = float((out.double() - plain.double()).abs().max()) if out.numel() else 0.0
+        E, blocks, stride = dequant_u8.launch_plan(x, out)
         row = {
             "case": label, "shape": list(shape), "out_dtype": str(out_dtype).split(".")[-1],
             "data_ptr_mod_16": int(x.data_ptr() % 16), "exact": exact, "max_abs_err": err,
+            "codes_per_group": E, "blocks": blocks, "stride_groups": stride,
         }
         if timed:
             n = x.numel()
@@ -271,6 +300,8 @@ def phase_kernels(torch) -> list:
         rows.append(row)
         if not exact:
             raise SystemExit(f"chip_smoke: dequant_u8 differs from its plain version: {row}")
+        del x, out, plain
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -346,6 +377,14 @@ def phase_attention(torch) -> tuple:
         ("edge_hd32", 2, 4, 2, 100, 100, 32, "bfloat16", True, 0, False),
         ("edge_g1", 2, 4, 4, 256, 256, 64, "bfloat16", False, 0, False),
         ("edge_f32", 2, 16, 8, 576, 576, 128, "float32", True, 0, False),
+        # gemma3-12b (phase 7): its prefill, 4 prompts padded to 2,048 + 32 rows,
+        # on a global layer and on a local one (window 1024)
+        ("gemma3_prefill", 4, 16, 8, 2080, 2080, 256, "bfloat16", True, 0, True),
+        ("gemma3_prefill_local", 4, 16, 8, 2080, 2080, 256, "bfloat16", True, 1024, True),
+        ("edge_hd256_f32", 2, 4, 2, 300, 300, 256, "float32", True, 64, False),
+        ("edge_hd256_tail_tile", 2, 16, 8, 130, 130, 256, "bfloat16", True, 0, False),
+        ("edge_hd256_sk_gt_sq", 2, 16, 8, 96, 160, 256, "bfloat16", True, 0, False),
+        ("edge_hd256_g1", 2, 4, 4, 256, 256, 256, "bfloat16", False, 0, False),
     ]
     flash_rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in flash_cases:
@@ -359,12 +398,19 @@ def phase_attention(torch) -> tuple:
             esize = q.element_size()
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
             flops = 4 * hd * B * H * _live_pairs(Sq, Sk, causal, window)
+            if window:  # the same function in one library call: a boolean mask
+                qp, kp = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)
+                keep = (kp <= qp) & (kp > qp - window)
+                library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
+                                                                 enable_gqa=True)
+            else:
+                library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                 enable_gqa=True)
             row.update(_timings(
                 torch,
                 lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window),
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-                flush, nbytes, flops,
+                library, flush, nbytes, flops,
             ))
         _check_close(torch, "flash_attention", row, out, plain)
         flash_rows.append(row)
@@ -383,6 +429,14 @@ def phase_attention(torch) -> tuple:
         ("edge_g6", 2, 2, 6, 300, 128, 299, "float32", 0, False, False),
         ("edge_pos_cta_boundary", 8, 8, 2, 576, 128, 288, "bfloat16", 0, True, False),
         ("edge_window_across_ctas", 2, 8, 2, 576, 128, 300, "bfloat16", 100, True, False),
+        # gemma3-12b (phase 7): its decode at the last step's pos, global and local
+        ("gemma3_decode", 4, 8, 2, 2080, 256, 2079, "bfloat16", 0, False, True),
+        ("gemma3_decode_local", 4, 8, 2, 2080, 256, 2079, "bfloat16", 1024, False, True),
+        ("edge_hd256_f32", 4, 8, 2, 2080, 256, 2079, "float32", 0, True, False),
+        ("edge_hd256_g1", 1, 8, 1, 576, 256, 300, "bfloat16", 0, True, False),
+        ("edge_hd256_g8", 1, 2, 8, 576, 256, 575, "bfloat16", 100, False, False),
+        ("edge_hd256_window_across_ctas", 2, 8, 2, 2080, 256, 1500, "bfloat16", 1024, True,
+         False),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
@@ -413,7 +467,9 @@ def phase_attention(torch) -> tuple:
             esize = q.element_size()
             nbytes = (2 * q.numel() + 2 * B * KV * live * hd) * esize
             flops = 4 * hd * B * KV * g * live
-            mask = (torch.arange(S, device=dev) <= p).view(1, 1, 1, S)
+            kpos = torch.arange(S, device=dev)
+            mask = (kpos <= p) & (kpos > p - window) if window else kpos <= p
+            mask = mask.view(1, 1, 1, S)
             q4 = q.view(B, KV * g, 1, hd)
             row.update(_timings(
                 torch,
@@ -944,6 +1000,129 @@ def _hidden_divergence(torch, model, tokens) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 7
+GEMMA3_LAYERS = 12  # of 48: two periods of the 5 local : 1 global pattern
+
+
+def phase_gemma3_serving(torch) -> dict:
+    """gemma3-12b at full widths and 12 layers: raw checkpoint, cold start,
+    and a batch of requests whose prompts are longer than the local window."""
+    import numpy as np
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    published = get_config("gemma3_12b")
+    cfg = published.with_(n_layers=GEMMA3_LAYERS)
+    B, S, max_new = 4, 2048, 32
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": published.n_layers,
+                 "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                 "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                 "sliding_window": cfg.sliding_window, "global_every": cfg.global_every,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    _temper_attention(torch, model)
+    saved = flatten(model.param_tree(), "param")  # the random weights, kept for the check
+    out["params"] = sum(t.numel() for t in saved.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gemma3_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        engine = ServeEngine(model, checkpoint=raw)
+        if engine.device != dev:
+            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+        for name, t in flatten(model.param_tree(), "param").items():
+            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+        out["raw_cold_start"] = _cold(engine.cold_start)
+    del saved
+
+    prompts = np.random.default_rng(SEED + 2).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    flash_attention.tc_launches = 0
+    tokens = engine.generate(prompts, max_new=max_new)
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["launches"] = launches
+    out["flash_attention_launches"] = launches["flash_attention"]
+    out["flash_attention_tc_launches"] = flash_attention.tc_launches
+    out["decode_attention_launches"] = launches["decode_attention"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    want = {"dequant_u8": 0, "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * max_new, "ssd_scan": 0}
+    if launches != want or out["flash_attention_tc_launches"] != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: gemma3 generate launched {launches} "
+                         f"({out['flash_attention_tc_launches']} on the tensor cores), "
+                         f"wanted {want}, all flash launches on the tensor cores")
+
+    # the same requests again: warm (launches from here on are not counted)
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+    out["decode_events_per_step"] = _decode_events(torch, engine, prompts, S + max_new)
+
+    # the same requests with plain attention
+    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    with _plain_attention():
+        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=max_new)
+    scale = float(plain_first.abs().max())
+    out["first_logits_max_abs_diff"] = float((first - plain_first).abs().max())
+    out["first_logits_max_abs"] = scale
+    out["first_logits_tolerance"] = LOGITS_TOL * scale
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    if not np.isfinite(out["first_logits_max_abs_diff"]) or \
+            out["first_logits_max_abs_diff"] > out["first_logits_tolerance"]:
+        raise SystemExit(f"chip_smoke: gemma3 first-step logits differ from plain attention: "
+                         f"{out}")
+    log(f"[gemma3 serving] {json.dumps(out)}")
+    return out
+
+
+def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> int:
+    """Device events of ``decode_attention`` in one traced decode step: one a
+    layer, the kernel and nothing else (no fold kernel, no copy of pos). A
+    trace that shows another count is taken again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention
+
+    logits, cache = engine._prefill_with_capacity(prompts, capacity)
+    step = logits.argmax(-1, keepdim=True)
+    layers = engine.cfg.n_layers
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        before = decode_attention.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits, cache = engine.model.decode_step(cache, step)
+            torch.cuda.synchronize()
+        cache["pos"] = cache["pos"] - 1  # the same step again on the next attempt
+        events = sum("decode_attention" in e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        if events == decode_attention.launches - before == layers:
+            return events
+        log(f"[gemma3 serving] a traced decode step showed {events} decode events for "
+            f"{decode_attention.launches - before} launches, wanted {layers}")
+    raise SystemExit(f"chip_smoke: {attempts} traced decode steps did not show one "
+                     f"decode_attention event a layer")
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -978,6 +1157,8 @@ def main() -> int:
     serve = phase_serving(torch)
     torch.cuda.empty_cache()
     ssm = phase_ssm_serving(torch)
+    torch.cuda.empty_cache()
+    gemma = phase_gemma3_serving(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -1001,17 +1182,20 @@ def main() -> int:
         "main_path_launches": {**feed_launches,
                                "u8_cold_start": serve["u8_cold_start"]["dequant_launches"]},
     }]
+    def by_phase(key):
+        return {serve["arch"]: serve[key], gemma["arch"]: gemma[key]}
+
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
-         serve["flash_attention_launches"],
+         by_phase("flash_attention_launches"),
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
          "enable_gqa=True)"),
         ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
-         serve["decode_attention_launches"],
+         by_phase("decode_attention_launches"),
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
-        ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows, ssm["ssd_scan_launches"],
-         None),
+        ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows,
+         {ssm["arch"]: ssm["ssd_scan_launches"]}, None),
     ):
         main = rows_[0]  # the shape the serving path gives the kernel
         kernels.append({
@@ -1019,7 +1203,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": launches,
+            "launches": sum(launches.values()),
+            "main_path_launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows_),
             "tolerance": main["tolerance"],
             "ms": main["ms"],
@@ -1032,7 +1217,7 @@ def main() -> int:
         })
         kernels[-1]["sass"] = sass[f"{name}.cu"]
         if name == "flash_attention":
-            kernels[-1]["tc_launches"] = serve["flash_attention_tc_launches"]
+            kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values())
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -20,19 +20,20 @@
 //     CTAs do not all fit at once, measured, and the late ones double the time).
 //     Split bounds are fixed by S, not by pos. A CTA serves G query heads (the
 //     largest of 8, 4, 2, 1 dividing g), so each K/V row is read once per G heads;
-//   * K and V reach shared memory through a ring of up to 8 stages of 64 rows under
+//   * K and V reach shared memory through a ring of up to 8 stages of 64 rows (32 for
+//     f32 at hd 256, where a 64-row stage of K and V is 128 KB and two would not fit) under
 //     mbarriers, as deep as the CTAs an SM holds allow (up to 192 KB in flight): one
 //     producer thread issues 1-D bulk copies (cp.async.bulk ... mbarrier::
 //     complete_tx::bytes) of the live rows only. A (b, kv head) slab of the cache is
 //     contiguous, so a tile is one byte range of K and one of V; the last tile's row
 //     count comes from pos and the window, so no row past pos (or before the window)
 //     is ever copied or read;
-//   * eight consumer warps take 8 keys of each tile. A "team" of hd/8 lanes owns a
-//     key: 16-byte shared-memory reads of K, the f32 dot products with the G query
-//     rows (held in registers) reduced by shuffles inside the team. Softmax goes per
-//     tile, not per key: one max per tile and head across the warp, one exp2 for the
-//     rescale, one exp2 per score, with scale * log2(e) folded into the scores; P·V
-//     accumulates in f32 registers. A warp releases the stage on its empty barrier;
+//   * eight consumer warps take 8 keys of each tile (4 for f32 at hd 256). A "team" of
+//     hd/8 lanes owns a key (a whole warp at hd 256): 16-byte shared-memory reads of
+//     K, the f32 dot products with the G query rows (held in registers) reduced by
+//     shuffles inside the team. Softmax goes per tile, not per key: one max per tile
+//     and head across the warp, one exp2 for the rescale, one exp2 per score, with
+//     scale * log2(e) folded into the scores; P·V accumulates in f32 registers. A warp releases the stage on its empty barrier;
 //   * the splits fold through distributed shared memory, pushed rather than pulled:
 //     each consumer warp writes its (m, l) to every CTA of the cluster and each of its
 //     acc outputs to the CTA that folds that output (CTA r takes outputs [r·share,
@@ -61,7 +62,6 @@ namespace {
 
 constexpr int kWarps = 8;                    // consumer warps
 constexpr int kThreads = (kWarps + 1) * 32;  // + one producer warp
-constexpr int kTile = 64;                    // K/V rows per ring stage: 8 a consumer warp
 constexpr int kMaxStages = 8;
 constexpr int kMaxCluster = 8;
 constexpr float kNeg = -1e30f;  // "no key yet": finite, so kNeg - kNeg is 0, not NaN
@@ -153,6 +153,9 @@ __device__ __forceinline__ void live_range(int pos, int S, int window, int* lo, 
 // the G·hd outputs [4·cluster][share] | barriers
 template <typename T, int HD, int G>
 struct Layout {
+    // K/V rows per ring stage (8 a consumer warp); 32 where a row of T is 1 KB (f32 at
+    // hd 256), so that a ring of two stages and the receive area fit in shared memory
+    static constexpr int kTile = HD * sizeof(T) >= 1024 ? 32 : 64;
     static constexpr int kStageBytes = kTile * HD * static_cast<int>(sizeof(T));
     static constexpr int kSlots = kWarps * kMaxCluster;
     static constexpr int kRecvFloats = 2 * kSlots * G + kWarps * (G * HD + kMaxCluster);
@@ -161,17 +164,19 @@ struct Layout {
     static __host__ __device__ int bytes(int stages) { return bar_off(stages) + 16 * kMaxStages; }
 };
 
-// CTAs an SM should be able to hold (the geometry plans for one)
-template <int G>
-constexpr int min_blocks() { return G >= 4 ? 1 : 2; }
+// CTAs an SM should be able to hold (the geometry plans for one; at hd 256 a ring of
+// two stages takes most of an SM's shared memory)
+template <int HD, int G>
+constexpr int min_blocks() { return G >= 4 || HD >= 256 ? 1 : 2; }
 
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kThreads, min_blocks<G>())
+__global__ void __launch_bounds__(kThreads, min_blocks<HD, G>())
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos_ptr,
                         T* __restrict__ out, int KV, int g, int S, int chunk, int stages,
                         int window, float scale_log2) {
     using Lay = Layout<T, HD, G>;
+    constexpr int kTile = Lay::kTile;
     constexpr int kLanes = HD / 8;           // lanes of a team: one key at a time
     constexpr int kTeams = 32 / kLanes;      // keys a warp reads at once
     constexpr int kKeys = kTile / kWarps;    // keys of a tile per warp
@@ -410,7 +415,7 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos
     const int ctas = cluster * KV * (g / G) * B;
     const int per_sm = (ctas + sm_count() - 1) / sm_count();
     const int room = 220 * 1024 / max(per_sm, 1) - Lay::bytes(0) - 1024;
-    const int stages = max(1, min((chunk + kTile - 1) / kTile,
+    const int stages = max(1, min((chunk + Lay::kTile - 1) / Lay::kTile,
                                   max(2, min(kMaxStages, room / (2 * Lay::kStageBytes)))));
     const int bytes = Lay::bytes(stages);
     auto kernel = decode_attention_kernel<T, HD, G>;
@@ -457,6 +462,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, 
         case 32: return launch_hd<T, 32>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
         case 64: return launch_hd<T, 64>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
         case 128: return launch_hd<T, 128>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+        case 256: return launch_hd<T, 256>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -467,7 +473,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, 
 // aligned; pos one int32 on the device. The S keys are split over `cluster` CTAs
 // (1, 2, 4 or 8) of one thread block cluster, CTA r taking keys [r*chunk,
 // (r+1)*chunk); cluster*chunk >= S. dtype: 0 = float32, 2 = bfloat16; hd in
-// {32, 64, 128}. One kernel launch. Returns its cudaError_t (0 = cudaSuccess);
+// {32, 64, 128, 256}. One kernel launch. Returns its cudaError_t (0 = cudaSuccess);
 // cudaErrorInvalidValue for an unsupported dtype, hd or geometry.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, int B, int KV, int g,

@@ -6,8 +6,8 @@
 // kernel's: scores and softmax in f32, masks with -1e30 (not -inf), causal means
 // kpos <= qpos with both counted from 0, window > 0 adds kpos > qpos - window, q
 // head h reads KV head h / (H / KV), and the output is acc / max(l, 1e-30) rounded
-// once to q's type. Sq and Sk may be any length and may differ; hd is 32, 64 or 128.
-// flash_attention_launch dispatches by dtype to one of two kernels.
+// once to q's type. Sq and Sk may be any length and may differ; hd is 32, 64, 128
+// or 256. flash_attention_launch dispatches by dtype to one of two kernels.
 //
 // bfloat16: flash_attention_tc, on the tensor cores. What bounds it: at a long
 // prompt (q (1,16,4096,128)) the causal products are ~69 GFLOP against 50 MB of
@@ -43,17 +43,30 @@
 //     is rounded to bf16 for the P·V product (l sums the f32 values). That adds at
 //     most about 2^-9 · max|v| to an output, inside the bf16 tolerance of 2e-2.
 //   Shared memory at hd 128: Q 32 KB + 2 stages × (K + V) 64 KB = 160 KB, one CTA
-//   per SM. K/V tiles are 128 rows at every hd: registers hold S (64 f32), O (up to
-//   64 f32) and P (32 words) per thread, within the 224 that 288 threads allow.
+//   per SM. K/V tiles are 128 rows up to hd 128: registers hold S (64 f32), O (up to
+//   64 f32) and P (32 words) per thread, within the 168 that 288 threads allow.
+//   At hd 256 (gemma3) a K or V tile of 128 rows is 64 KB, and Q and a 2-stage ring
+//   would need 320 KB of the 227 the card has, so K/V tiles are 64 rows there: Q
+//   64 KB + 2 × (K 32 KB + V 32 KB) = 192 KB. A thread then holds O (128 f32), S
+//   (32 f32) and P (16 words); S = Q·Kᵀ runs as m64n64k16 and P·V as two m64n128k16
+//   halves of the 256 output columns (a 512-byte row is four boxes of 64 columns).
+//   That is more than the 168 registers a thread of a 288-thread CTA can have (nine
+//   warps put three on one of the SM's four register files), so at hd 256 the
+//   producer is a whole warpgroup (384 threads) that gives its registers up
+//   (setmaxnreg: 24 a thread) and the two consumer warpgroups take 240 each, as
+//   FlashAttention-3 does.
 //
 // float32: flash_attention_kernel, on the f32 SIMT pipes (its ceiling is the card's
 // 67 TFLOP/s of f32): on the tensor cores f32 would run as TF32 and miss the f32
 // tolerance of 2e-5. The serving model is bf16. Its design:
 //   * one block of 128 threads per (q tile of 64 rows, q head, batch); KV head is
-//     h / (H / KV), so a group's q heads read the same K/V (from L2);
+//     h / (H / KV), so a group's q heads read the same K/V (from L2). At hd 256 the
+//     q tile is 32 rows (4 a thread), so that the output accumulator (64 f32) and a
+//     4-key slice of V (64 f32) stay in registers;
 //   * the block walks K/V tiles of 32 rows in order, as the TPU grid did, staging
 //     Q once and each K/V tile through shared memory;
-//   * thread (ty, tx) = (tid / 16, tid % 16) owns q rows ty*8 .. ty*8+7: the
+//   * thread (ty, tx) = (tid / 16, tid % 16) owns q rows ty*8 .. ty*8+7 (hd 256:
+//     ty*4 .. ty*4+3): the
 //     scores of columns tx and tx+16 of each tile, and output columns tx + 16*j;
 //     row max and row sum reduce across the 16 lanes of a half warp by shuffles;
 //   * running m, l and the output accumulator stay in f32 registers;
@@ -74,10 +87,8 @@ namespace {
 namespace simt {
 
 
-constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 32;        // k rows per tile
 constexpr int kThreads = 128;  // 8 row groups x 16 lanes
-constexpr int kRows = 8;       // q rows per thread
 constexpr int kCols = kBK / 16;  // score columns per thread
 constexpr float kNegInf = -1e30f;
 
@@ -108,6 +119,8 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int
 
 template <int HD>
 struct Smem {
+    static constexpr int kRows = HD >= 256 ? 4 : 8;  // q rows per thread
+    static constexpr int kBQ = 8 * kRows;            // q rows per block
     static constexpr int kLdQ = HD + 4;
     static constexpr int kLdK = HD + 4;
     static constexpr int kLdV = HD;
@@ -122,6 +135,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int H, int KV, int Sq, int Sk, int causal, int window, float scale) {
     using L = Smem<HD>;
+    constexpr int kRows = L::kRows;
+    constexpr int kBQ = L::kBQ;
     constexpr int kOut = HD / 16;  // output columns per thread
     extern __shared__ float4 smem4[];
     float* Qs = reinterpret_cast<float*>(smem4);
@@ -279,7 +294,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+    const dim3 grid((Sq + Smem<HD>::kBQ - 1) / Smem<HD>::kBQ, H, B);
     flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale);
@@ -294,6 +309,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
         case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 256: return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -303,18 +319,23 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 namespace tc {
 
 constexpr int kBQ = 128;                 // q rows per CTA
-constexpr int kBK = 128;                 // k/v rows per tile
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kConsumers = 2;            // warpgroups of 64 q rows
-constexpr int kThreads = kConsumers * 128 + 32;  // + the producer warp
+constexpr int kProducerRegs = 24;        // a producer thread's registers after setmaxnreg
 constexpr float kMask = -1e30f;          // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory layout for head width HD. Each of Q, K and V is stored as boxes of
 // kBoxCols columns (one swizzle span, 128 or 64 bytes a row) by all of its rows, as
-// TMA writes them: Q | K[kStages] | V[kStages] | mbarriers.
+// TMA writes them: Q | K[kStages] | V[kStages] | mbarriers. K/V tiles are 128 rows,
+// 64 at hd 256 (a 128-row ring would not fit in shared memory).
 template <int HD>
 struct Cfg {
+    static constexpr int kBK = HD >= 256 ? 64 : 128;  // k/v rows per tile
+    // the consumers and the producer: one warp, or at hd 256 a warpgroup whose
+    // registers go to the consumers (kConsumerRegs a thread; 0: no setmaxnreg)
+    static constexpr int kThreads = kConsumers * 128 + (HD >= 256 ? 128 : 32);
+    static constexpr int kConsumerRegs = HD >= 256 ? 240 : 0;
     static constexpr int kRowBytes = HD * 2 < 128 ? HD * 2 : 128;
     static constexpr int kBoxCols = kRowBytes / 2;
     static constexpr int kBoxes = HD / kBoxCols;
@@ -439,6 +460,31 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t
         : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64) (+)= A (64 x 16, shared memory) * B (64 x 16, shared memory)^T, both K-major
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31" "}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// S (64 x BK) (+)= Q (64 x 16) · K (BK keys x 16)ᵀ, both from shared memory
+template <int BK>
+__device__ __forceinline__ void mma_qk(float (&s)[BK / 2], uint64_t q, uint64_t k, int accumulate) {
+    if constexpr (BK == 128) mma_ss_n128(s, q, k, accumulate);
+    else mma_ss_n64(s, q, k, accumulate);
+}
+
 // d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared memory, N-major)
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
     asm volatile(
@@ -497,21 +543,32 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, ui
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// O (64 x HD) += P (64 x 16 keys, registers) · V (16 keys x HD, shared memory)
+// O (64 x HD) += P (64 x 16 keys, registers) · V (16 keys x HD, shared memory).
+// At hd 256 two N = 128 products: columns 0-127 (registers 0-63, V's boxes 0-1,
+// descriptor v) and 128-255 (registers 64-127, boxes 2-3, descriptor v_hi).
 template <int HD>
-__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* p, uint64_t v) {
-    if constexpr (HD == 128) mma_rs_n128(o, p, v);
-    else if constexpr (HD == 64) mma_rs_n64(o, p, v);
-    else mma_rs_n32(o, p, v);
+__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* p, uint64_t v,
+                                       uint64_t v_hi) {
+    if constexpr (HD == 256) {
+        mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[0]), p, v);
+        mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[64]), p, v_hi);
+    } else if constexpr (HD == 128) {
+        mma_rs_n128(o, p, v);
+    } else if constexpr (HD == 64) {
+        mma_rs_n64(o, p, v);
+    } else {
+        mma_rs_n32(o, p, v);
+    }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                    int H, int KV, int Sq, int Sk, int causal, int window, float scale_log2) {
     using C = Cfg<HD>;
+    constexpr int kBK = C::kBK;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024
     const uint32_t sQ = base;
@@ -553,9 +610,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
 
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    if (warp == kConsumers * 4) {
+    if (warp >= kConsumers * 4) {
         // producer: one thread issues every load
-        if (lane != 0 || n_visit == 0) return;
+        if constexpr (C::kConsumerRegs > 0)
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+        if (warp != kConsumers * 4 || lane != 0 || n_visit == 0) return;
         bar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
         for (int x = 0; x < C::kBoxes; ++x)
@@ -579,6 +638,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
+    if constexpr (C::kConsumerRegs > 0)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(C::kConsumerRegs));
     const int wg = warp / 4;
     if (wg >= n_active) return;
     const int wg_lo = q0 + 64 * wg;
@@ -617,7 +678,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                                      C::kAtomBytes, C::kLayout);
             const uint64_t dk = desc(sK + st * C::kKVBytes + x * C::kKVBoxBytes + off, 16,
                                      C::kAtomBytes, C::kLayout);
-            mma_ss_n128(s, dq, dk, ks > 0);
+            mma_qk<kBK>(s, dq, dk, ks > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -687,9 +748,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
-            const uint64_t dv = desc(sV + st * C::kKVBytes + kk * 16 * C::kRowBytes,
-                                     C::kKVBoxBytes, C::kAtomBytes, C::kLayout);
-            mma_pv<HD>(acc, &p[4 * kk], dv);
+            const uint32_t at = sV + st * C::kKVBytes + kk * 16 * C::kRowBytes;
+            const uint64_t dv = desc(at, C::kKVBoxBytes, C::kAtomBytes, C::kLayout);
+            const uint64_t dv_hi = desc(at + 2 * C::kKVBoxBytes, C::kKVBoxBytes, C::kAtomBytes,
+                                        C::kLayout);
+            mma_pv<HD>(acc, &p[4 * kk], dv, dv_hi);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -773,17 +836,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     cudaError_t err = make_map(&mq, q, HD, Sq, B * H, C::kBoxCols, kBQ);
     if (err == cudaSuccess)
         err = make_map(&mk, any_k ? k : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       C::kBoxCols, kBK);
+                       C::kBoxCols, C::kBK);
     if (err == cudaSuccess)
         err = make_map(&mv, any_k ? v : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       C::kBoxCols, kBK);
+                       C::kBoxCols, C::kBK);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(flash_attention_tc<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(C::kBytes));
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-    flash_attention_tc<HD><<<grid, kThreads, C::kBytes, stream>>>(
+    flash_attention_tc<HD><<<grid, C::kThreads, C::kBytes, stream>>>(
         mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Sk, causal, window,
         scale * kLog2e);
     return cudaGetLastError();
@@ -796,6 +859,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
         case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 256: return launch<256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -805,7 +869,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 
 // q (B,H,Sq,hd), k/v (B,KV,Sk,hd), o (B,H,Sq,hd), all contiguous and 16-byte aligned.
 // dtype: 0 = float32 (the SIMT kernel), 2 = bfloat16 (the tensor-core kernel).
-// hd in {32, 64, 128}; H a multiple of KV. Returns the cudaError_t of the launch
+// hd in {32, 64, 128, 256}; H a multiple of KV. Returns the cudaError_t of the launch
 // (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, or a
 // tensor map the driver refuses; cudaErrorNotSupported if the driver has no
 // cuTensorMapEncodeTiled.

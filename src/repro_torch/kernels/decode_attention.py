@@ -44,6 +44,10 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
 #: cluster sizes the kernel launches with (portable: no opt-in needed)
 CLUSTER_SIZES = (1, 2, 4, 8)
 _MIN_KEYS = 32  # keys per CTA, at least
+# SMs that cannot host a CTA of a cluster of 4 or 8 at once: a cluster lies in one
+# GPC, and on an H100 (132 SMs) such clusters reached only 124 SMs; a grid of more
+# CTAs ran its last clusters in a second wave (measured, PERF.md §6, PRs 15 and 16)
+_CLUSTER_SMS_LOST = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,12 +66,14 @@ def geometry(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
     chunk), a cluster of 1, 2, 4 or 8, and the keys each takes (CTA r: keys
     ``[r*chunk, (r+1)*chunk)``). A CTA streams its keys through a deep ring
     with eight consumer warps, so the plan is one full wave of one CTA an SM:
-    the largest cluster with B·KV·(g/G)·cluster <= ``sms`` (no split when
-    B·KV·(g/G) already fills the SMs), at least ``_MIN_KEYS`` keys a CTA, and
-    no CTA without a key. Fixed by the shapes, not by pos."""
+    the largest cluster with B·KV·(g/G)·cluster <= ``sms`` (``sms -
+    _CLUSTER_SMS_LOST`` for clusters of 4 or 8; no split when B·KV·(g/G)
+    already fills the SMs), at least ``_MIN_KEYS`` keys a CTA, and no CTA
+    without a key. Fixed by the shapes, not by pos."""
     clusters = B * KV * (g // heads_per_block(g))
     cluster = max(c for c in CLUSTER_SIZES
-                  if c == 1 or (clusters * c <= sms and c * _MIN_KEYS <= S))
+                  if c == 1 or (clusters * c <= (sms if c <= 2 else sms - _CLUSTER_SMS_LOST)
+                                and c * _MIN_KEYS <= S))
     chunk = -(-S // cluster)
     while cluster > 1 and (cluster - 1) * chunk >= S:  # the last CTA would have no key
         cluster //= 2

@@ -6,7 +6,9 @@ The CUDA source is ``csrc/flash_attention.cu``, built by ``_build`` with
 dispatches by dtype, and the source says how each kernel is laid out:
 
 * bfloat16 runs on the tensor cores (``wgmma``, with Q and each K/V tile
-  brought in by TMA through a ring of shared-memory stages). A long prompt
+  brought in by TMA through a ring of shared-memory stages; at head width
+  256 the K/V tiles are 64 rows and a producer warpgroup hands its registers
+  to the consumers). A long prompt
   is bound by operations there, the serving prefill by bytes. P is rounded
   to bf16 for the P·V product, which adds at most about 2^-9·max|v| to an
   output, inside the bf16 tolerance;
@@ -34,7 +36,7 @@ from . import _build, ref
 #: tensor dtype -> the kernels' ``dtype`` argument
 DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 #: head widths the CUDA kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock

@@ -24,8 +24,9 @@ def dequant_u8(x, scale, bias, *, out_dtype=torch.float32, block_rows: int = 256
     """x (..., C) uint8 -> (..., C) float, ``(x*scale + bias)``.
 
     ``block_rows`` is accepted for signature parity with the JAX package and
-    not used: the CUDA kernel's launch geometry is its own (16-byte vectors
-    over the flat array, a grid sized to the card)."""
+    not used: the CUDA kernel's launch geometry is its own (groups of codes
+    whose outputs fill one 16-byte store, a grid sized to the card and to
+    the channels' period: ``dequant_u8.geometry``)."""
     del block_rows
     return dequant_u8_fwd(x, scale, bias, out_dtype=out_dtype)
 
@@ -44,8 +45,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     ``block_q``/``block_k`` sized the TPU grid; here they are accepted for
     parity and not used: the CUDA kernels' tiles are their own (bf16 on the
-    tensor cores: 128 q rows, 128 k rows; f32 on the SIMT pipes: 64 q rows,
-    32 k rows), and they mask a ragged tail themselves."""
+    tensor cores: 128 q rows, 128 k rows, 64 at head width 256; f32 on the
+    SIMT pipes: 64 q rows, 32 at head width 256, and 32 k rows), and they
+    mask a ragged tail themselves."""
     del block_q, block_k
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
 

@@ -10,6 +10,9 @@ against the same plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +21,11 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs import get_config
 from repro_torch.core.spec import RawArrayError
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -45,6 +51,7 @@ def _close(t, j, dtype):
     (2, 4, 2, 256, 64),
     (1, 8, 2, 384, 128),
     (2, 2, 1, 128, 128),
+    (1, 4, 2, 128, 256),   # gemma3's head width
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
@@ -67,6 +74,8 @@ def test_flash_attention_matches_jax(B, H, KV, S, hd, dtype, causal, window):
     (2, 1, 8, 512, 128, 511, 0),
     (2, 4, 1, 128, 64, 0, 0),
     (1, 2, 2, 256, 64, 200, 64),
+    (2, 2, 2, 256, 256, 255, 0),   # gemma3's head width and group, global
+    (1, 2, 2, 256, 256, 200, 64),  # and local (windowed)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_matches_jax(B, KV, g, S, hd, pos, window, dtype):
@@ -80,6 +89,22 @@ def test_decode_attention_matches_jax(B, KV, g, S, hd, pos, window, dtype):
     assert port_op.dtype == tq.dtype and port_op.shape == tq.shape
     _close(port_op, jax_kernel, dtype)
     _close(port_ref, jax_ref, dtype)
+
+
+def _dispatched_head_dims(source: str) -> list:
+    """The ``case N:`` labels of each ``switch (hd)`` in a CUDA source."""
+    text = (Path(_build.CSRC) / source).read_text()
+    return [tuple(int(c) for c in re.findall(r"case (\d+):", body))
+            for body in re.findall(r"switch \(hd\) \{(.*?)\n\s*\}", text, re.S)]
+
+
+def test_cuda_dispatch_instantiates_every_head_dim():
+    """Each kernel's head-width dispatch instantiates exactly ``HEAD_DIMS``,
+    which ``check_inputs`` lets through: the f32 and bf16 prefill kernels
+    and the decode kernel."""
+    assert _dispatched_head_dims("flash_attention.cu") == [tfa.HEAD_DIMS] * 2
+    assert _dispatched_head_dims("decode_attention.cu") == [tfa.HEAD_DIMS]
+    assert get_config("gemma3_12b").head_dim in tfa.HEAD_DIMS  # 256
 
 
 def test_decode_attention_masks_beyond_pos():
@@ -147,6 +172,9 @@ def test_attention_ops_check_their_inputs():
     (1, 4, 4, 129, 78, None),          # a card with fewer SMs
     (4, 8, 8, 1000, 132, None),
     (1, 1, 2, 70, 132, (2, 35)),
+    (4, 8, 2, 2080, 132, (2, 1040)),   # gemma3's decode: clusters of 4 would need 128 SMs
+    (2, 8, 2, 2080, 132, (4, 520)),    # 64 CTAs in clusters of 4; of 8 they would need 128
+    (1, 8, 2, 2080, 132, (8, 260)),
 ])
 def test_decode_geometry(B, KV, g, S, sms, expect):
     """Every key in exactly one CTA, an allowed cluster size that divides the
@@ -162,6 +190,8 @@ def test_decode_geometry(B, KV, g, S, sms, expect):
         assert cluster == 1
     else:
         assert clusters * cluster <= sms  # one wave of one CTA an SM
+        if cluster >= 4:  # clusters of 4 or 8 reach fewer SMs
+            assert clusters * cluster <= sms - tda._CLUSTER_SMS_LOST
     owners = np.zeros(S, int)
     for r in range(cluster):
         lo, hi = r * chunk, min(S, (r + 1) * chunk)

@@ -48,6 +48,49 @@ def test_kernel_matches_plain_version(card, shape, out):
     assert torch.equal(got, ref.dequant_u8_ref(x, s, b, out))
 
 
+@pytest.mark.parametrize("C", [1, 3, 4, 7, 16, 128, 130, 4096, 4097])
+@pytest.mark.parametrize("out", [torch.float32, torch.float16, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_dequant_kernel_matches_plain_version_at_every_channel_count(card, C, out, offset):
+    """Bit-equal at channel counts whose period in groups is 1, a few, or C
+    (large and odd), with codes at a 16-byte aligned, an odd (single-code
+    groups) and an 8-byte aligned address; at n < 16 and at row counts that
+    are a multiple of no thread's groups."""
+    rng = np.random.default_rng(C + offset)
+    s = torch.from_numpy(rng.random(C).astype(np.float32) * 0.02).to(card)
+    b = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).to(card)
+    for shape in ((C,), (37, C), (1001, C)):
+        n = int(np.prod(shape))
+        buf = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8)).to(card)
+        x = buf[offset:].view(shape)
+        assert x.data_ptr() % 16 == offset
+        before = dq.launches
+        got = ops.dequant_rows(x, s, b, out_dtype=out)
+        torch.cuda.synchronize()
+        assert dq.launches == before + 1
+        assert torch.equal(got, ref.dequant_u8_ref(x, s, b, out)), shape
+
+
+def test_dequant_kernel_indexes_past_two_to_the_31(card):
+    """More than 2**31 codes (C = 3, bf16 out: 6.4 GB on the card): the
+    kernel's 64-bit indices reach the end, held to the plain version slice by
+    slice."""
+    rows = 2**31 // 3 + 5
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randint(0, 256, (rows, 3), dtype=torch.uint8, device=card, generator=gen)
+    s = torch.tensor([0.01, 0.02, 0.003], device=card)
+    b = torch.tensor([-1.0, 0.5, 2.0], device=card)
+    got = ops.dequant_rows(x, s, b, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert x.numel() > 2**31
+    step = 2**26
+    for lo in range(0, rows, step):
+        sl = slice(lo, min(rows, lo + step))
+        assert torch.equal(got[sl], ref.dequant_u8_ref(x[sl], s, b, torch.bfloat16)), lo
+    del got, x
+    torch.cuda.empty_cache()
+
+
 def test_device_feed_on_card_matches_host_decode(card, tmp_path):
     rng = np.random.default_rng(0)
     root = str(tmp_path / "imgs")
@@ -82,6 +125,8 @@ def _normal(rng, shape, dtype, card):
     (2, 4, 2, 130, 130, 64),    # tail tiles on both axes
     (1, 2, 2, 1, 1, 32),        # one row
     (1, 8, 2, 96, 160, 128),    # Sk > Sq
+    (2, 4, 2, 130, 130, 256),   # hd 256 (gemma3): f32 in q tiles of 32 rows
+    (1, 4, 2, 96, 160, 256),    # hd 256, Sk > Sq
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0)])
@@ -114,6 +159,12 @@ def test_flash_attention_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd
     (1, 8, 1, 257, 257, 64, True, 64),    # hd 64, window, g = 8, one row past two tiles
     (2, 16, 8, 576, 576, 128, True, 0),   # the serving prefill's tile walk, 2 of 8 sequences
     (1, 2, 2, 5, 0, 64, False, 0),        # Sk = 0: no tile to visit, the output is zeros
+    (1, 2, 1, 2080, 2080, 256, True, 0),  # hd 256 (gemma3): 64-row K/V tiles, setmaxnreg
+    (1, 2, 1, 2080, 2080, 256, True, 1024),  # gemma3's local window across 16 K tiles
+    (1, 4, 4, 96, 160, 256, True, 0),     # hd 256, Sk > Sq, g = 1
+    (2, 4, 2, 130, 130, 256, True, 0),    # hd 256, a tail tile of 2 rows
+    (1, 4, 2, 300, 300, 256, False, 0),   # hd 256, non-causal
+    (1, 2, 2, 5, 0, 256, False, 0),       # hd 256, Sk = 0
 ])
 def test_flash_attention_tensor_core_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd,
                                                                   causal, window):
@@ -166,13 +217,19 @@ DECODE_CLUSTER_CASES = [
     (8, 8, 2, 576, 128, 287, 0, 2),         # pos on CTA 0's last key
     (8, 8, 2, 576, 128, 288, 0, 2),         # pos on CTA 1's first key
     (8, 8, 2, 576, 128, 328, 0, 2),         # pos mid-way through CTA 1's first tile
-    (2, 8, 2, 576, 128, 300, 100, 8),       # a window across three CTAs of 72 keys
+    (2, 8, 2, 576, 128, 300, 100, 4),       # a window across two CTAs of 144 keys (128 CTAs
+                                            # in clusters of 8 would not all fit at once)
     (1, 8, 2, 576, 128, 143, 0, 8),         # pos on CTA 1's last key at cluster 8
     (1, 8, 2, 4096, 128, 4095, 0, 8),       # 512 keys a CTA
     (1, 2, 5, 200, 64, 150, 0, 4),          # g 5 (Qwen2.5-14B's 40/8): one head a CTA
     (1, 1, 8, 100, 32, 99, 0, 2),           # g 8, hd 32, two CTAs of 50 keys
     (32, 8, 1, 300, 64, 299, 0, 1),         # B·KV fills the card: no split
     (2, 4, 1, 40, 32, 17, 8, 1),            # S 40: too short to split, window 8
+    (4, 8, 2, 2080, 256, 2079, 0, 2),       # gemma3's decode, hd 256: 64 CTAs of 1,040 keys
+    (4, 8, 2, 2080, 256, 2079, 1024, 2),    # and its local layers' window across both CTAs
+    (1, 8, 1, 576, 256, 300, 0, 8),         # hd 256, g 1, pos mid-way
+    (1, 2, 8, 576, 256, 575, 100, 8),       # hd 256, g 8, a window across CTAs
+    (32, 8, 2, 300, 256, 0, 0, 1),          # hd 256, no split, pos 0
 ]
 
 

@@ -152,3 +152,61 @@ def test_ref_is_unfused_f32():
                              torch.from_numpy(bias))
     np.testing.assert_array_equal(got.numpy(), (q.astype(np.float32) * scale) + bias)
 
+
+
+def _emulate_kernel(q, scale, bias, E, blocks, stride):
+    """The CUDA kernel's index map, in numpy: thread t < stride takes groups
+    t, t + stride, ... of E codes, with the E channels it loaded once from
+    (t * E) % C onwards; block 0's threads take the last n % E codes. Checks
+    that each code is written once and with its own channel, and returns the
+    f32 results (multiply, then add, each rounded)."""
+    n, C = q.size, scale.size
+    groups = n // E
+    out = np.full(n, np.nan, np.float32)
+    hits = np.zeros(n, np.int64)
+    t = np.arange(stride)
+    chans = ((t * E) % C)[:, None] + np.arange(E)[None, :]
+    chans %= C  # the kernel steps c and wraps it at C, also more than once when C < E
+    k = 0
+    while True:
+        g = t + k * stride
+        live = g < groups
+        if not live.any():
+            break
+        idx = (g[live, None] * E + np.arange(E)[None, :]).ravel()
+        ch = chans[live].ravel()
+        assert (ch == idx % C).all(), "a thread's channels changed between its groups"
+        out[idx] = q[idx].astype(np.float32) * scale[ch] + bias[ch]
+        hits[idx] += 1
+        k += 1
+    tail = np.arange(groups * E, n)
+    assert tail.size < dq.THREADS
+    out[tail] = q[tail].astype(np.float32) * scale[tail % C] + bias[tail % C]
+    hits[tail] += 1
+    assert (hits == 1).all(), "a code was written twice or not at all"
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 3, 4, 7, 16, 128, 130, 4096, 4097])
+@pytest.mark.parametrize("out", [torch.float32, torch.float16, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_dequant_kernel_geometry_keeps_each_thread_on_its_channels(C, out, aligned):
+    """``dequant_u8.geometry`` plans the launch the CUDA kernel runs: held to
+    the plain version bit for bit through a numpy emulation of the kernel's
+    index map, on a small card (4 SMs: threads take many groups) and an H100
+    (132 SMs), at n < 16, n a multiple of no group, and several rows. A
+    misaligned pointer takes groups of one code."""
+    E = dq.group_codes(out) if aligned else 1
+    for rows, sms in ((37, 4), (37, 132), (1, 132)):
+        shape = (rows, C) if rows > 1 or C > 16 else (C,)
+        q, scale, bias = _inputs(shape, seed=rows + C)
+        n = q.size
+        blocks, stride = dq.geometry(n, C, E, sms)
+        assert 1 <= stride <= blocks * dq.THREADS
+        period = C // np.gcd(C, E)
+        assert stride % period == 0 or stride >= n // E
+        assert blocks <= max(dq.MAX_BLOCKS_PER_SM * sms, -(-min(period, n // E) // dq.THREADS))
+        got = _emulate_kernel(q.ravel(), scale, bias, E, blocks, stride)
+        want = ref.dequant_u8_ref(torch.from_numpy(q), torch.from_numpy(scale),
+                                  torch.from_numpy(bias), out)
+        assert torch.equal(torch.from_numpy(got).to(out).view(shape), want)

@@ -32,6 +32,7 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.checkpoint.store import flatten
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.spec import RawArrayError
+from repro_torch.kernels import flash_attention
 from repro_torch.models import build_model
 from repro_torch.models.convert import load_params, params_from_jax
 from repro_torch.serving import ServeEngine
@@ -39,6 +40,9 @@ from repro_torch.serving.__main__ import main as serve_main
 
 TOL = 1e-4  # of each tensor's scale: rtol 1e-4, atol 1e-4 * max(1, max |want|)
 DENSE = ["internlm2_1_8b", "qwen2_5_14b", "gemma3_12b", "olmo_1b", "paper_lm"]
+# reduced configs with a field changed: gemma3 at its own head width (256), which
+# the reduced config (head_dim 32) does not reach
+VARIANTS = {"gemma3_12b_hd256": ("gemma3_12b", {"head_dim": 256})}
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -73,11 +77,12 @@ def test_full_internlm2_has_the_jax_leaf_names_and_shapes():
 
 def _pair(arch, seed=0):
     """The reduced config's JAX model and params, and the port's model
-    holding the same params."""
-    jcfg = jax_config(arch).reduced()
+    holding the same params (``arch`` may name one of ``VARIANTS``)."""
+    arch, changes = VARIANTS.get(arch, (arch, {}))
+    jcfg = jax_config(arch).reduced().with_(**changes)
     jmodel = jax_build(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed))
-    port = build_model(get_config(arch).reduced(), device="cpu")
+    port = build_model(get_config(arch).reduced().with_(**changes), device="cpu")
     assert _leaves_of_port(port) == _leaves_of_jax(params)
     load_params(port, params_from_jax(jax.device_get(params)))
     return jmodel, params, port
@@ -93,7 +98,7 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=atol)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + list(VARIANTS))
 def test_prefill_and_decode_match_the_jax_model(arch):
     jmodel, params, port = _pair(arch)
     cfg = port.cfg
@@ -119,6 +124,23 @@ def test_prefill_and_decode_match_the_jax_model(arch):
         tl, tcache = port.decode_step(tcache, torch.from_numpy(tokens[:, t:t + 1]).long())
         _close(tl, jl)
     assert int(tcache["pos"]) == S + extra
+
+
+def test_served_dense_configs_fit_the_attention_kernels():
+    """Every dense config the port serves has a head width the CUDA attention
+    kernels are instantiated for: the card must serve what the CPU serves."""
+    served = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.family != "dense":
+            continue
+        try:
+            build_model(cfg.reduced(), device="meta")
+        except NotImplementedError:
+            continue
+        served.append(arch)
+        assert cfg.head_dim in flash_attention.HEAD_DIMS, (arch, cfg.head_dim)
+    assert set(DENSE) <= set(served)
 
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_5_14b", "gemma3_12b"])

@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: ``nvcc`` compiles every CUDA source of the port into ``build/``;
    then ``cuobjdump -sass`` must show HGMMA (wgmma) and UTMALDG (TMA tile
-   loads) in the flash library, UBLKCP (bulk copies) and UCGABAR_ARV /
+   loads) in the flash library, HMMA (mma.sync) and LDSM (ldmatrix) in the
+   flash backward library, UBLKCP (bulk copies) and UCGABAR_ARV /
    UCGABAR_WAIT (the cluster barrier) in the decode library, and HMMA
    (mma.sync) in the SSD library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -17,14 +18,15 @@ Phases (any failure exits non-zero and prints no result):
    bit-equal (also at the largest leaf of phase 5's u8 cold start),
    ``flash_attention`` and ``decode_attention`` within the tolerance of
    ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2), at head width 128
-   (InternLM2) and 256 (gemma3-12b, phase 7); at the
+   (InternLM2), 256 (gemma3-12b, phase 7) and at the two training forwards
+   (InternLM2's, and paper_lm's q/k/v (8,4,256,64) f32, phase 8); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
    calls, L2 flushed before each; a ``decode_attention`` call must show
    exactly one device event), and the kernel's time between two CUDA
    events (median of 25, launch overhead included), beside the least time
    the card could take (the larger of bytes over the data-sheet 3.35 TB/s
-   and operations over 989 TFLOP/s bf16);
+   and operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
 4. the device feed: a CIFAR-10-shaped RawArray dataset (50,000 × 32×32×3,
    uint8 codes on disk) for one full epoch at batch 512, then 8 batches of
    an ImageNet-shaped one (2,048 × 224×224×3, batch 256), every batch held
@@ -56,6 +58,17 @@ Phases (any failure exits non-zero and prints no result):
    launch), warm again, and again with
    the scan swapped for its plain version: first-step logits within a bf16
    tolerance, greedy-token agreement reported;
+3d. (run with phase 3) the backward of ``flash_attention``
+   (``csrc/flash_attention_bwd.cu``: f32 on the SIMT pipes, bf16 on the
+   tensor cores) against its plain version on the card:
+   paper_lm's training shape (q/k/v (8,4,256,64) f32, causal), InternLM2's
+   (q (4,16,2048,128), k/v (4,8,2048,128) bf16, causal) and edges (a ragged
+   S, window 1024, hd 32, groups of 1, 2 and 8); dq, dk, dv within f32 1e-4
+   / bf16 2e-2 of each one's largest entry, two calls bit-equal; at the two
+   training shapes the device time, the plain version's, and the backward
+   of ``scaled_dot_product_attention`` (K/V repeated over the group; timed
+   only), beside the bound (bytes over 3.35 TB/s, or 2.5 × the causal
+   forward's operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
 7. serving: gemma3-12b at its full widths (d_model 3840, 16 heads / 8 KV of
    head width 256, GeGLU 15360, vocab 262,144, QK-norm, sandwich norms, 5
    local layers of window 1024 to 1 global), its depth cut from 48 to 12
@@ -67,7 +80,31 @@ Phases (any failure exits non-zero and prints no result):
    ``flash_attention`` launches, all on the tensor-core kernel, and 12 × 32
    ``decode_attention`` launches, one device event per layer in a traced
    step), warm again, and again with plain attention: first-step logits
-   within a bf16 tolerance, greedy-token agreement reported.
+   within a bf16 tolerance, greedy-token agreement reported;
+8. training: paper_lm at its published size (4 layers, d_model 256, vocab
+   4,096, f32) through the port's CLI (``repro_torch.launch.train.run``),
+   with ``--device-feed --batch 8`` on a RawArray token dataset (seq 256,
+   seed 0): 60 steps straight, then 40 steps and a resume to 60 from the
+   step-40 checkpoint (it must print ``[train] resumed from step 40``); the
+   loss falls, the two runs' parameters agree (rtol 1e-5, atol 1e-6;
+   bit-equality reported), each run launches the flash forward and
+   backward kernels once a layer a step; then ``ServeEngine`` restores the
+   trained checkpoint and answers 2 prompts of 64 tokens with 16 greedy
+   tokens, equal to a run with plain attention; one more step of a fresh
+   model under the profiler (forward and backward, then the optimizer):
+   device time by kind and the idle share;
+9. training: InternLM2-1.8B at its full widths and depth (24 layers, bf16,
+   remat), random weights from seed 0 with the attention tempered as in
+   phase 5, a RawArray token dataset of 64 × 2,048 tokens at vocab 92,544
+   (numpy seed 3) fed by ``DeviceLoader``, batch 4 × 2,048: the first step's
+   loss and global gradient norm against a first step with plain attention
+   (within 1% and 2%), and each layer's wq/wk/wv/wo gradient against plain
+   attention's (relative error within ``ATTN_GRAD_TOL``; two planted
+   backward faults, dk zeroed and dq 10% too large, must exceed it), then ``train()`` for 6 steps with f32 AdamW moments,
+   a checkpoint at step 6 (params and optimizer state, 18.9 GB) restored
+   by ``restore_pipelined`` bit-equal, launch counts 24 × 6 × 2 forward
+   (remat runs each layer's forward twice) and 24 × 6 backward; then one
+   more step under the profiler, as in phase 8.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -88,6 +125,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside the tensor cores
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of each gradient's largest |entry|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
 # ssd_scan: f32 as tests/test_kernels.py:79 (rtol 1e-3, atol 1e-4); bf16 2e-2 of the
 # output's scale (kernel and plain version both compute in f32 and differ in the
@@ -137,15 +176,17 @@ def phase_build() -> float:
 def phase_sass() -> dict:
     """Count, in each built library, the instructions its design rests on:
     the bf16 flash kernel runs on the tensor cores (HGMMA, wgmma) fed by TMA
-    (UTMALDG); the decode kernel streams K/V by bulk copies (UBLKCP) and
-    folds its splits across a cluster (UCGABAR_ARV / UCGABAR_WAIT, the
-    cluster barrier); the bf16 SSD scan runs its products on the tensor
-    cores (HMMA, mma.sync). Any count of 0 fails."""
+    (UTMALDG); the bf16 flash backward runs on the tensor cores (HMMA,
+    mma.sync) fed by ldmatrix (LDSM); the decode kernel streams K/V by bulk
+    copies (UBLKCP) and folds its splits across a cluster (UCGABAR_ARV /
+    UCGABAR_WAIT, the cluster barrier); the bf16 SSD scan runs its products
+    on the tensor cores (HMMA, mma.sync). Any count of 0 fails."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     wanted = {
         "flash_attention.cu": ("HGMMA", "UTMALDG"),
+        "flash_attention_bwd.cu": ("HMMA", "LDSM"),
         "decode_attention.cu": ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT"),
         "ssd_scan.cu": ("HMMA",),
     }
@@ -320,17 +361,19 @@ def _live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(ok.sum())
 
 
-def _bound(nbytes: int, flops: int) -> tuple:
+def _bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _timings(torch, kernel, plain, library, flush, nbytes, flops, events=None) -> dict:
+def _timings(torch, kernel, plain, library, flush, nbytes, flops, events=None,
+             peak: float = BF16_FLOPS) -> dict:
     """Device ms of the kernel (``events``: the device events each call must
     show), its plain version and the library call (None where no single
-    library call computes the function), event ms, bound."""
-    bound_ms, bound_by = _bound(nbytes, flops)
+    library call computes the function), event ms, bound (operations over
+    ``peak``)."""
+    bound_ms, bound_by = _bound(nbytes, flops, peak)
     return {
         "ms": _device_ms(torch, kernel, flush, events=events),
         "plain_ms": _device_ms(torch, plain, flush),
@@ -368,6 +411,10 @@ def phase_attention(torch) -> tuple:
     flash_cases = [
         ("prefill", 8, 16, 8, 576, 576, 128, "bfloat16", True, 0, True),
         ("long_prefill", 1, 16, 8, 4096, 4096, 128, "bfloat16", True, 0, True),
+        # InternLM2's training forward (phase 9): 4 sequences of 2,048 tokens
+        ("internlm2_train", 4, 16, 8, 2048, 2048, 128, "bfloat16", True, 0, True),
+        # paper_lm's training forward (phase 8): 8 sequences of 256 tokens, f32
+        ("paper_lm_train", 8, 4, 4, 256, 256, 64, "float32", True, 0, True),
         ("edge_one_row", 1, 16, 8, 1, 1, 128, "bfloat16", True, 0, False),
         ("edge_tail_tile_bf16", 2, 16, 8, 130, 130, 128, "bfloat16", True, 0, False),
         ("edge_sk_gt_sq", 2, 16, 8, 96, 160, 128, "bfloat16", True, 0, False),
@@ -411,7 +458,9 @@ def phase_attention(torch) -> tuple:
                 lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window),
                 library, flush, nbytes, flops,
+                peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS,
             ))
+            row["peak_flops"] = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
         _check_close(torch, "flash_attention", row, out, plain)
         flash_rows.append(row)
 
@@ -553,6 +602,94 @@ def phase_ssd(torch) -> list:
         if not ok:
             raise SystemExit(f"chip_smoke: ssd_scan differs from its plain version: {row}")
         rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------- phase 3d
+def phase_attention_bwd(torch) -> list:
+    """The backward of ``flash_attention`` against its plain version on the
+    card, at the two training shapes (timed) and at edge shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtypes[dtype])
+
+    # (label, B, H, KV, S, hd, dtype, causal, window, timed)
+    cases = [
+        ("paper_lm_train", 8, 4, 4, 256, 64, "float32", True, 0, True),
+        ("internlm2_train", 4, 16, 8, 2048, 128, "bfloat16", True, 0, True),
+        ("edge_ragged", 2, 16, 8, 300, 128, "bfloat16", True, 0, False),
+        ("edge_ragged_f32", 2, 4, 2, 300, 64, "float32", True, 0, False),
+        ("edge_window_1024", 2, 16, 8, 2048, 128, "bfloat16", True, 1024, False),
+        ("edge_hd32", 2, 4, 2, 100, 32, "float32", True, 0, False),
+        ("edge_hd32_bf16", 2, 8, 1, 130, 32, "bfloat16", True, 0, False),
+        ("edge_g1", 2, 4, 4, 256, 128, "bfloat16", True, 0, False),
+        ("edge_g2", 2, 8, 4, 200, 64, "float32", True, 64, False),
+        ("edge_g8", 1, 8, 1, 130, 64, "float32", True, 0, False),
+        ("edge_f32_hd128_window", 2, 4, 2, 129, 128, "float32", True, 64, False),
+        ("edge_noncausal", 1, 4, 4, 200, 64, "float32", False, 0, False),
+    ]
+    rows = []
+    for label, B, H, KV, S, hd, dt, causal, window, timed in cases:
+        q, do = randn((B, H, S, hd), dt), randn((B, H, S, hd), dt)
+        k, v = randn((B, KV, S, hd), dt), randn((B, KV, S, hd), dt)
+        out, lse = flash_attention.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                                       return_lse=True)
+        _, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+
+        def kernel():
+            return flash_attention.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                                       window=window)
+
+        def plain_fn():
+            return ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal,
+                                               window=window)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        want = plain_fn()
+        tol = BWD_TOL[dt]
+        rel = {n: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        row = {"case": label, "shape": {"q": [B, H, S, hd], "kv": [B, KV, S, hd]},
+               "dtype": dt, "causal": causal, "window": window,
+               "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want)),
+               "max_rel_err": rel, "tolerance": tol,
+               "lse_max_abs_err": float((lse - plain_lse).abs().max()),
+               "bit_equal_repeat": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+        if timed:
+            esize = q.element_size()
+            # q, k, v, o, dO and the LSE read once; dq, dk, dv written once
+            nbytes = (4 * q.numel() + 4 * k.numel()) * esize + lse.numel() * 4
+            flops = int(2.5 * 4 * hd * B * H * _live_pairs(S, S, causal, window))
+            g = H // KV
+            qs = q.detach().clone().requires_grad_()
+            ks = k.repeat_interleave(g, dim=1).requires_grad_()
+            vs = v.repeat_interleave(g, dim=1).requires_grad_()
+            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            library = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do, retain_graph=True)
+            row.update(_timings(torch, kernel, plain_fn, library, flush, nbytes, flops,
+                                peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS))
+            row["peak_flops"] = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
+            del qs, ks, vs, o_lib
+        log(f"[kernels] flash_attention_bwd {json.dumps(row)}")
+        ok = all(r <= tol for r in rel.values()) and row["bit_equal_repeat"] and \
+            row["lse_max_abs_err"] <= 1e-3
+        if not ok:
+            raise SystemExit(f"chip_smoke: flash_attention_bwd differs from its plain version: "
+                             f"{row}")
+        rows.append(row)
+        del q, k, v, do, out, lse, got, again, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1095,6 +1232,392 @@ def phase_gemma3_serving(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 8
+PAPER_LM_STEPS, PAPER_LM_RESUME_AT = 60, 40
+
+
+@contextlib.contextmanager
+def _tee_stdout():
+    """Print as usual and also keep what is printed (the CLI's resume line)."""
+    import io
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        yield buf
+
+
+def _reset_flash_counts() -> None:
+    from repro_torch.kernels import flash_attention
+
+    flash_attention.launches = flash_attention.tc_launches = flash_attention.bwd_launches = 0
+
+
+def _flash_counts() -> dict:
+    from repro_torch.kernels import flash_attention
+
+    return {"forward": flash_attention.launches, "backward": flash_attention.bwd_launches}
+
+
+def _train_row(out: dict, layers: int, remat: bool) -> dict:
+    st = out["loader_stats"]
+    steps = len(out["losses"])
+    row = {"steps": steps, "first_loss": out["losses"][0], "last_loss": out["losses"][-1],
+           "wall_s": out["wall_s"], "steps_per_s": steps / out["wall_s"],
+           "median_step_s": statistics.median(out["step_s"]),
+           "device_wait_s": st.get("device_wait_s"),
+           "h2d_gb_per_s": (st["h2d_bytes"] / st["h2d_s"] / 1e9) if st.get("h2d_s") else None,
+           "h2d_bytes": st.get("h2d_bytes"), "ckpt_save_s": out["ckpt_save_s"],
+           "stragglers": out["stragglers"]}
+    if out["cold_start"] is not None:
+        row["cold_start"] = _cold(out["cold_start"])
+    row["want_launches"] = {"forward": layers * steps * (2 if remat else 1),
+                            "backward": layers * steps}
+    return row
+
+
+def phase_paper_lm_training(torch) -> dict:
+    """paper_lm through the CLI: straight, then stopped and resumed; then
+    served from the trained checkpoint."""
+    import numpy as np
+
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, RaDataset
+    from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.launch.train import parse_args, run
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("paper_lm")
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "vocab": cfg.vocab, "dtype": cfg.param_dtype, "batch": 8, "seq": 256}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        straight, stopped = os.path.join(tmp, "straight"), os.path.join(tmp, "resumed")
+        ds = os.path.join(straight, "dataset")  # the CLI builds it on its first run
+
+        def cli(workdir, steps, *extra):
+            args = ["--arch", "paper_lm", "--device-feed", "--batch", "8", "--steps",
+                    str(steps), "--ckpt-every", "20", "--seed", str(SEED), "--workdir",
+                    workdir, *extra]
+            _reset_flash_counts()
+            with _tee_stdout() as text:
+                res = run(parse_args(args))
+            torch.cuda.synchronize()
+            return res, text.getvalue(), _flash_counts()
+
+        runs = {}
+        for name, workdir, steps, extra in (
+                ("straight", straight, PAPER_LM_STEPS, ()),
+                ("first", stopped, PAPER_LM_RESUME_AT, ("--dataset", ds)),
+                ("resumed", stopped, PAPER_LM_STEPS, ("--dataset", ds))):
+            res, text, launches = cli(workdir, steps, *extra)
+            row = _train_row(res, cfg.n_layers, cfg.remat)
+            row["launches"] = launches
+            if launches != row["want_launches"]:
+                raise SystemExit(f"chip_smoke: paper_lm {name} run launched {launches}, "
+                                 f"wanted {row['want_launches']}")
+            if name == "resumed":
+                row["printed_resume"] = f"[train] resumed from step {PAPER_LM_RESUME_AT}" in text
+                if not row["printed_resume"]:
+                    raise SystemExit("chip_smoke: the resumed run did not print "
+                                     f"'[train] resumed from step {PAPER_LM_RESUME_AT}'")
+            runs[name] = (row, flatten(res["params"], "param"))
+        row_a, params_a = runs["straight"]
+        _, params_b = runs["resumed"]
+        losses_ok = row_a["last_loss"] < row_a["first_loss"]
+        out["runs"] = {name: row for name, (row, _) in runs.items()}
+        out["loss_falls"] = losses_ok
+        out["params_bit_equal"] = all(bool(torch.equal(params_a[n], params_b[n]))
+                                      for n in params_a)
+        out["params_max_abs_diff"] = max(float((params_a[n] - params_b[n]).abs().max())
+                                         for n in params_a)
+        close = all(bool(torch.allclose(params_b[n], params_a[n], rtol=1e-5, atol=1e-6))
+                    for n in params_a)
+        if not losses_ok or not close:
+            raise SystemExit(f"chip_smoke: paper_lm training: loss falls {losses_ok}, "
+                             f"straight and resumed parameters close {close}: {out}")
+        del runs, params_a, params_b
+
+        # serve the trained checkpoint: greedy tokens equal plain attention's
+        ckpt = os.path.join(stopped, "ckpt", f"step_{PAPER_LM_STEPS:08d}")
+        engine = ServeEngine(build_model(cfg, device=dev, seed=SEED + 1), checkpoint=ckpt)
+        prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (2, 64)).astype(np.int32)
+        tokens = engine.generate(prompts, max_new=16)
+        with _plain_attention():
+            plain = engine.generate(prompts, max_new=16)
+        out["serve"] = {"checkpoint_step": PAPER_LM_STEPS, "cold_start": _cold(engine.cold_start),
+                        "tokens_equal_plain": bool((tokens == plain).all())}
+        if not out["serve"]["tokens_equal_plain"]:
+            raise SystemExit(f"chip_smoke: tokens served from the trained checkpoint differ "
+                             f"from plain attention's: {tokens} vs {plain}")
+        host = DataLoader(RaDataset(ds), 8, seed=SEED)
+        batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+        host.stop()
+        out["profiled_step"] = _profiled_step(
+            torch, build_model(cfg, device=dev, seed=SEED).requires_grad_(True),
+            AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=200), batch)
+    log(f"[paper_lm training] {json.dumps(out)}")
+    return out
+
+
+# --------------------------------------------------------------- phase 9
+INTERNLM2_TRAIN_STEPS = 6
+INTERNLM2_PARAMS = 1_889_110_016
+#: the attention projections whose gradients phase 9 holds to plain attention's
+ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+#: the largest ||kernel grad − plain grad|| / ||plain grad|| of one layer's
+#: attention projection in phase 9's first step. On an H100 (700 W) the
+#: sound step reads 0.0346 (wk; bf16 rounding carried through 24 layers), the
+#: planted faults 0.106 (dq 10% too large) and 1.0 (dk zeroed): PERF.md §6
+ATTN_GRAD_TOL = 0.05
+
+
+def _kernel_kind(name: str) -> str:
+    if "dq_kernel" in name or "dkdv_kernel" in name:
+        return "attention backward"
+    if "flash_attention" in name:
+        return "attention forward"
+    if any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def _profiled_step(torch, model, adamw, batch) -> dict:
+    """One more train step under the profiler (after the checks: it moves the
+    weights), in two traces: the forward and backward, then the optimizer.
+    For each, its wall time, the summed device time of its kernels by kind,
+    and the share of the wall time the card had no kernel running."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import optimizer as optim
+
+    params = model.param_tree()
+    state = optim.init_state(params, adamw)
+
+    def forward_backward():
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+
+    def update():
+        optim.apply_updates(params, optim.tree_map(lambda p: p.grad, params), state, adamw)
+        for p in optim.leaves(params):
+            p.grad = None
+
+    forward_backward()  # warm: the moments and the allocator
+    update()
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in (("forward_backward", forward_backward), ("optimizer", update)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kind = defaultdict(float)
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_kind[_kernel_kind(evt.name)] += evt.time_range.elapsed_us() / 1e3
+        device_ms = sum(by_kind.values())
+        out[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                     "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+                     "device_ms_by_kind": dict(by_kind)}
+    del state
+    return out
+
+
+def _first_step(torch, model, batch) -> tuple:
+    """Loss, global gradient norm and a copy of the attention projections'
+    gradients (``ATTN_LEAVES``, stacked over the layers) of one forward and
+    backward; the model's gradients are freed."""
+    from repro_torch.distributed import optimizer as optim
+
+    loss, _ = model.train_loss(batch)
+    loss.backward()
+    params = model.param_tree()
+    norm = float(optim.global_norm(optim.tree_map(lambda p: p.grad, params)))
+    attn = params["dense_layers"]["attn"]
+    grads = {n: attn[n].grad.clone() for n in ATTN_LEAVES}
+    for p in optim.leaves(params):
+        p.grad = None
+    return float(loss.detach()), norm, grads
+
+
+def _attention_grad_err(torch, got: dict, want: dict) -> dict:
+    """For each attention projection, over the layers: the largest
+    ||got − want|| / ||want|| of a layer's gradient ("err"), and the largest
+    relative difference of a layer's gradient norm ("norm")."""
+    out = {}
+    for n in ATTN_LEAVES:
+        g = got[n].float().flatten(1)
+        w = want[n].float().flatten(1)
+        ref_norm = w.norm(dim=1)
+        out[n] = {"err": float(((g - w).norm(dim=1) / ref_norm).max()),
+                  "norm": float(((g.norm(dim=1) - ref_norm).abs() / ref_norm).max())}
+    return out
+
+
+@contextlib.contextmanager
+def _planted_backward_fault(which: str):
+    """The backward kernel with a planted fault in one of its outputs (dk
+    zeroed, or dq 10% too large), for the control of phase 9's gradient gate."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kept = fa.flash_attention_bwd
+
+    def faulty(*args, **kwargs):
+        dq, dk, dv = kept(*args, **kwargs)
+        if which == "dk_zeroed":
+            return dq, dk.zero_(), dv
+        return dq.mul_(1.1), dk, dv
+
+    fa.flash_attention_bwd = faulty
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = kept
+
+
+def phase_internlm2_training(torch) -> dict:
+    """InternLM2-1.8B at full size: 6 train steps, a checkpoint, its restore."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import ColdStartStats, restore_pipelined
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset, make_token_dataset
+    from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainLoopConfig, train
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("internlm2_1_8b")
+    B, S = 4, 2048
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+                 "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+                 "remat": cfg.remat, "batch": B, "seq": S, "steps": INTERNLM2_TRAIN_STEPS}
+    model = build_model(cfg, device=dev, seed=SEED)
+    _temper_attention(torch, model)
+    model.requires_grad_(True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_internlm2_") as tmp:
+        root = os.path.join(tmp, "tokens")
+        make_token_dataset(root, n_docs=64, seq_len=S, vocab=cfg.vocab, seed=3, shard_rows=64)
+
+        # the first step against plain attention: same weights, same batch
+        host = DataLoader(RaDataset(root), B, seed=SEED)
+        batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+        host.stop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_k, norm_k, grads_k = _first_step(torch, model, batch)
+        out["first_step_s_kernels"] = time.perf_counter() - t0
+        with _plain_attention():
+            loss_p, norm_p, grads_p = _first_step(torch, model, batch)
+        attn_err = _attention_grad_err(torch, grads_k, grads_p)
+        first = {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
+                 "plain_grad_norm": norm_p,
+                 "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+                 "grad_norm_rel_diff": abs(norm_k - norm_p) / norm_p,
+                 "attention_grads": attn_err,
+                 "attention_grad_err": max(e["err"] for e in attn_err.values()),
+                 "attention_grad_tolerance": ATTN_GRAD_TOL}
+        del grads_k
+        # the control: the same step with a fault planted in the backward's
+        # output must fail the gradient gate
+        first["planted_faults"] = {}
+        for fault in ("dk_zeroed", "dq_times_1.1"):
+            with _planted_backward_fault(fault):
+                _, _, grads_f = _first_step(torch, model, batch)
+            err = _attention_grad_err(torch, grads_f, grads_p)
+            first["planted_faults"][fault] = {
+                "attention_grads": err,
+                "attention_grad_err": max(e["err"] for e in err.values())}
+            del grads_f
+        del grads_p
+        out["first_step"] = first
+        log(f"[internlm2 training] first step {json.dumps(first)}")
+        caught = all(f["attention_grad_err"] > ATTN_GRAD_TOL
+                     for f in first["planted_faults"].values())
+        if not (first["loss_rel_diff"] <= 0.01 and first["grad_norm_rel_diff"] <= 0.02
+                and first["attention_grad_err"] <= ATTN_GRAD_TOL):
+            raise SystemExit(f"chip_smoke: InternLM2's first step differs from plain "
+                             f"attention's: {first}")
+        if not caught:
+            raise SystemExit(f"chip_smoke: the attention-gradient gate let a planted "
+                             f"backward fault through: {first['planted_faults']}")
+        torch.cuda.empty_cache()
+
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        out["disk_free_bytes_before_save"] = shutil.disk_usage(tmp).free
+        feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
+                            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_flash_counts()
+        res = train(model, feed, TrainLoopConfig(
+            steps=INTERNLM2_TRAIN_STEPS, ckpt_every=INTERNLM2_TRAIN_STEPS, ckpt_dir=ckpt_dir,
+            log_every=1, adamw=AdamWConfig(lr=1e-3, warmup_steps=2)), resume=False)
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        row = _train_row(res, cfg.n_layers, cfg.remat)
+        row["launches"] = launches
+        row["losses"] = res["losses"]
+        row["step_s"] = res["step_s"]
+        step_s = statistics.median(res["step_s"][1:])
+        row["tokens_per_s"] = B * S / step_s
+        row["model_tflops_per_s"] = 6 * INTERNLM2_PARAMS * B * S / step_s / 1e12
+        out["train"] = row
+        finite = all(np.isfinite(res["losses"]))
+        if not finite or res["losses"][-1] >= res["losses"][0]:
+            raise SystemExit(f"chip_smoke: InternLM2 training: losses {res['losses']}")
+        if launches != row["want_launches"]:
+            raise SystemExit(f"chip_smoke: InternLM2 training launched {launches}, wanted "
+                             f"{row['want_launches']}")
+
+        # the checkpoint at the last step: params and optimizer state, restored
+        # by the cold start, every leaf bit-equal to the live state it saved
+        path = os.path.join(ckpt_dir, f"step_{INTERNLM2_TRAIN_STEPS:08d}")
+        saved_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        params, opt_state = res["params"], res["opt_state"]
+        for p in model.parameters():
+            p.grad = None
+        del res
+        torch.cuda.empty_cache()
+        st = ColdStartStats()
+        got_p, got_o, extra = restore_pipelined(path, params, opt_state, device=dev, stats=st)
+        live = {**flatten(params, "param"), **flatten(opt_state, "opt")}
+        restored = {**flatten(got_p, "param"), **flatten(got_o, "opt")}
+        equal = set(live) == set(restored) and all(
+            bool(torch.equal(restored[n], live[n])) for n in live)
+        out["checkpoint"] = {"bytes": saved_bytes, "leaves": len(restored),
+                             "save_s": row["ckpt_save_s"],
+                             "save_gb_per_s": saved_bytes / row["ckpt_save_s"] / 1e9,
+                             "restore": _cold(st), "restore_bit_equal": equal,
+                             "extra_keys": sorted(extra)}
+        del got_p, got_o, restored, live, opt_state
+        if not equal:
+            raise SystemExit("chip_smoke: the InternLM2 train checkpoint did not restore "
+                             "bit-equal")
+    torch.cuda.empty_cache()
+    out["profiled_step"] = _profiled_step(torch, model, AdamWConfig(lr=1e-3, warmup_steps=2),
+                                          batch)
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"[internlm2 training] {json.dumps(out)}")
+    return out
+
+
 def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> int:
     """Device events of ``decode_attention`` in one traced decode step: one a
     layer, the kernel and nothing else (no fold kernel, no copy of pos). A
@@ -1153,12 +1676,17 @@ def main() -> int:
     rows = phase_kernels(torch)
     flash_rows, decode_rows = phase_attention(torch)
     ssd_rows = phase_ssd(torch)
+    bwd_rows = phase_attention_bwd(torch)
     runs = phase_main_path(torch)
     serve = phase_serving(torch)
     torch.cuda.empty_cache()
     ssm = phase_ssm_serving(torch)
     torch.cuda.empty_cache()
     gemma = phase_gemma3_serving(torch)
+    torch.cuda.empty_cache()
+    small = phase_paper_lm_training(torch)
+    torch.cuda.empty_cache()
+    big = phase_internlm2_training(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -1185,9 +1713,15 @@ def main() -> int:
     def by_phase(key):
         return {serve["arch"]: serve[key], gemma["arch"]: gemma[key]}
 
+    def train_launches(kind):
+        runs = {f"{small['arch']} train ({name})": row["launches"][kind]
+                for name, row in small["runs"].items()}
+        runs[f"{big['arch']} train"] = big["train"]["launches"][kind]
+        return runs
+
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
-         by_phase("flash_attention_launches"),
+         {**by_phase("flash_attention_launches"), **train_launches("forward")},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
          "enable_gqa=True)"),
         ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
@@ -1220,6 +1754,27 @@ def main() -> int:
             kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values())
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"]
+    main = bwd_rows[0]  # paper_lm's training shape: the north star's train step
+    kernels.append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:66 (its gradient, which the JAX "
+                    "train step leaves to XLA: src/repro/train/loop.py:61)",
+        "launches": sum(train_launches("backward").values()),
+        "main_path_launches": train_launches("backward"),
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "tolerance": main["tolerance"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_call": "torch.autograd.grad of torch.nn.functional.scaled_dot_product_attention"
+                        "(q, k, v, is_causal=True), K/V repeated over the group",
+        "shapes": bwd_rows,
+        "sass": sass["flash_attention_bwd.cu"],
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,10 @@ from .coldstart import (
     restore_pipelined,
     shardings_from_specs,
 )
-from .store import latest_step, load_checkpoint, save_checkpoint
+from .store import CheckpointManager, latest_step, load_checkpoint, save_checkpoint
 
 __all__ = [
+    "CheckpointManager",
     "save_checkpoint",
     "load_checkpoint",
     "latest_step",

@@ -23,8 +23,10 @@ other bit for bit::
   package writes them.
 
 Restores read every leaf in one engine wave (slab reads and chunk decodes
-share the pool). ``CheckpointManager`` and ``restore_resharded`` are not
-ported yet, nor are ``http(s)://`` checkpoint directories.
+share the pool). ``CheckpointManager`` drives saves for a train loop: one
+asynchronous save in flight at a time, leaves snapshotted to host memory
+before ``save`` returns, keep-last-k garbage collection. ``restore_resharded``
+is not ported yet, nor are ``http(s)://`` checkpoint directories.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 import zlib
 from dataclasses import dataclass
@@ -388,3 +391,82 @@ def latest_step(directory: str) -> Optional[int]:
             except ValueError:
                 pass
     return max(steps) if steps else None
+
+
+def _snapshot(tree: Any) -> Any:
+    """A host copy of every leaf of nested dicts of tensors: a CPU leaf is
+    cloned, since the trainer updates its parameters in place."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    t = tree.detach()
+    return t.clone() if t.device.type == "cpu" else t.to("cpu")
+
+
+class CheckpointManager:
+    """Async, keep-last-k checkpoint driver for the training loop (the JAX
+    package's ``CheckpointManager``, which also passes chunking, codec and
+    quantization options through to the store; no caller of either package
+    sets them, and the port leaves them out). ``save`` waits for the save before it,
+    copies every leaf to host memory, and writes them on a background thread
+    while training goes on; ``wait`` joins that thread and re-raises what it
+    raised. ``save_s`` sums the seconds the writes took."""
+
+    def __init__(self, directory: str, *, keep: int = 3):
+        _reject_url(directory)
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        # the save thread adds to save_s and may leave an error; the trainer
+        # reads both after wait()
+        self._lock = threading.Lock()
+        self.save_s = 0.0  # guarded-by: _lock
+        self._error: Optional[BaseException] = None  # guarded-by: _lock
+        os.makedirs(directory, exist_ok=True)
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) is on disk; re-raise its
+        error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        with self._lock:
+            err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def save(self, step: int, params: Any, opt_state: Any = None,
+             extra: Optional[Dict[str, Any]] = None) -> None:
+        self.wait()  # one in flight at a time
+        # snapshot to host before returning: the parameters change at the next step
+        host_params, host_opt = _snapshot(params), _snapshot(opt_state)
+
+        def run() -> None:
+            t0 = time.perf_counter()
+            try:
+                save_checkpoint(self.directory, step, host_params, host_opt, extra=extra)
+                self._gc()
+            except Exception as e:  # handed to the trainer by wait()
+                with self._lock:
+                    self._error = e
+            with self._lock:
+                self.save_s += time.perf_counter() - t0
+
+        self._thread = threading.Thread(target=run, daemon=False, name="ra-ckpt")
+        self._thread.start()
+
+    def _gc(self) -> None:
+        steps = sorted(
+            int(d[5:])
+            for d in os.listdir(self.directory)
+            if d.startswith("step_") and not d.endswith(".tmp")
+        )
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
+
+    def latest(self) -> Optional[int]:
+        return latest_step(self.directory)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}")

@@ -22,7 +22,10 @@ from ..core.spec import RawArrayError
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dequant_u8.cu", "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+SOURCES = (
+    "dequant_u8.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
+    "ssd_scan.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

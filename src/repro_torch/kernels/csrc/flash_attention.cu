@@ -7,7 +7,10 @@
 // kpos <= qpos with both counted from 0, window > 0 adds kpos > qpos - window, q
 // head h reads KV head h / (H / KV), and the output is acc / max(l, 1e-30) rounded
 // once to q's type. Sq and Sk may be any length and may differ; hd is 32, 64, 128
-// or 256. flash_attention_launch dispatches by dtype to one of two kernels.
+// or 256. flash_attention_launch dispatches by dtype to one of two kernels. Both
+// can also write each row's log-sum-exp, m + ln l in f32, through an optional
+// pointer: the training forward asks for it, since the backward
+// (flash_attention_bwd.cu) rebuilds P from it; serving passes null.
 //
 // bfloat16: flash_attention_tc, on the tensor cores. What bounds it: at a long
 // prompt (q (1,16,4096,128)) the causal products are ~69 GFLOP against 50 MB of
@@ -132,7 +135,7 @@ struct Smem {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int H, int KV, int Sq, int Sk, int causal, int window, float scale) {
     using L = Smem<HD>;
     constexpr int kRows = L::kRows;
@@ -280,12 +283,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < kOut; ++j)
             store1(ob + static_cast<size_t>(q0 + r) * HD + tx + 16 * j, acc[i][j] * inv);
+        // m and l are the same in the 16 lanes of the row
+        if (lse != nullptr && tx == 0)
+            lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + r] = m[i] + logf(l[i]);
     }
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int KV, int Sq, int Sk, int causal, int window, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int KV, int Sq, int Sk, int causal, int window, float scale,
                    cudaStream_t stream) {
     constexpr size_t bytes = Smem<HD>::kBytes;
     // above 48 KiB of dynamic shared memory a kernel must opt in, once per process;
@@ -297,19 +303,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     const dim3 grid((Sq + Smem<HD>::kBQ - 1) / Smem<HD>::kBQ, H, B);
     flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale);
+        static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H,
-                      int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+                      float scale, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 256: return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 256: return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -324,6 +330,7 @@ constexpr int kConsumers = 2;            // warpgroups of 64 q rows
 constexpr int kProducerRegs = 24;        // a producer thread's registers after setmaxnreg
 constexpr float kMask = -1e30f;          // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory layout for head width HD. Each of Q, K and V is stored as boxes of
 // kBoxCols columns (one swizzle span, 128 or 64 bytes a row) by all of its rows, as
@@ -566,7 +573,8 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                   int H, int KV, int Sq, int Sk, int causal, int window, float scale_log2) {
+                   float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                   int window, float scale_log2) {
     using C = Cfg<HD>;
     constexpr int kBK = C::kBK;
     extern __shared__ uint8_t smem_raw[];
@@ -769,6 +777,10 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         lr += __shfl_xor_sync(0xffffffffu, lr, 2);
         const int qpos = row0 + 8 * r;
         if (qpos >= Sq) continue;
+        // m is in log2 units and the same in the quad: one thread writes the
+        // natural-log LSE, m·ln 2 + ln l
+        if (lse != nullptr && lane % 4 == 0)
+            lse[static_cast<size_t>(bh) * Sq + qpos] = (m[r] + log2f(lr)) * kLn2;
         const float denom = fmaxf(lr, 1e-30f);
         __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
 #pragma unroll
@@ -825,8 +837,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int he
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int KV, int Sq, int Sk, int causal, int window, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int H, int KV, int Sq, int Sk, int causal, int window, float scale,
                    cudaStream_t stream) {
     using C = Cfg<HD>;
     // with Sk = 0 no K/V tile is visited; the maps must still encode, so they
@@ -847,19 +859,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
     flash_attention_tc<HD><<<grid, C::kThreads, C::kBytes, stream>>>(
-        mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Sk, causal, window,
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Sk, causal, window,
         scale * kLog2e);
     return cudaGetLastError();
 }
 
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int B, int H,
-                      int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+                      float scale, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 256: return launch<256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 32: return launch<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 64: return launch<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 128: return launch<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 256: return launch<256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -868,6 +880,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 }  // namespace
 
 // q (B,H,Sq,hd), k/v (B,KV,Sk,hd), o (B,H,Sq,hd), all contiguous and 16-byte aligned.
+// lse: null, or (B,H,Sq) float32 that receives each row's log-sum-exp of its scaled,
+// masked scores (natural log), which the backward (flash_attention_bwd.cu) reads.
 // dtype: 0 = float32 (the SIMT kernel), 2 = bfloat16 (the tensor-core kernel).
 // hd in {32, 64, 128, 256}; H a multiple of KV. Returns the cudaError_t of the launch
 // (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, or a
@@ -876,15 +890,17 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Sk, int hd,
                                       int dtype, int causal, int window, float scale,
-                                      void* stream) {
+                                      void* lse, void* stream) {
     if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
     if (KV <= 0 || H % KV != 0 || Sk < 0) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case 0: return static_cast<int>(
-            simt::launch_hd<float>(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
+            simt::launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd,
+                                   causal, window, scale, st));
         case 2: return static_cast<int>(
-            tc::launch_hd(q, k, v, o, B, H, KV, Sq, Sk, hd, causal, window, scale, st));
+            tc::launch_hd(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd, causal,
+                          window, scale, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -20,7 +20,7 @@ written to the device first.
 Dispatch goes by the tensor's device: a CPU tensor takes the plain version
 (``ref.decode_attention_ref``); a CUDA tensor launches the kernel, or the
 call raises. ``launches`` counts kernel launches and nothing else.
-Forward-only, as ``flash_attention``.
+Forward-only, as the TPU kernel: it raises under grad.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 
 from ..core.spec import RawArrayError
 from . import _build, ref
-from .flash_attention import DTYPES, check_inputs
+from .flash_attention import DTYPES, check_forward_only, check_inputs
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
@@ -105,6 +105,7 @@ def decode_attention_fwd(
             f"decode_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}"
         )
     check_inputs("decode_attention", q, k, v)
+    check_forward_only("decode_attention", q, k, v)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, window=window, scale=scale)

@@ -4,8 +4,9 @@ and signatures (``repro.kernels.ops``).
 Every wrapper dispatches by the device of the tensor it is given: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel or the call raises. There is no fallback from one to
-the other. The attention ops and ``ssd_scan`` are forward-only, as their
-TPU kernels are.
+the other. ``flash_attention`` is differentiable (its backward is a kernel
+too); ``decode_attention`` and ``ssd_scan`` are forward-only, as their TPU
+kernels are, and raise under grad.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from .decode_attention import decode_attention_fwd
 from .dequant_u8 import dequant_u8_fwd
-from .flash_attention import flash_attention_fwd
+from .flash_attention import flash_attention as _flash_attention
 from .ssd_scan import ssd_scan_fwd
 
 
@@ -47,9 +48,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     parity and not used: the CUDA kernels' tiles are their own (bf16 on the
     tensor cores: 128 q rows, 128 k rows, 64 at head width 256; f32 on the
     SIMT pipes: 64 q rows, 32 at head width 256, and 32 k rows), and they
-    mask a ragged tail themselves."""
+    mask a ragged tail themselves.
+
+    With grad enabled and an input that requires it, the call records its
+    backward: ``csrc/flash_attention_bwd.cu`` on the card (f32 and bf16,
+    head widths 32-128, Sq = Sk)."""
     del block_q, block_k
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return _flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512):

@@ -25,11 +25,24 @@ def _softmax_av(s, ok, v):
     return torch.matmul(p, v.to(torch.float32))
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+def _live(Sq, Sk, causal, window, device):
+    """(Sq, Sk) mask of the (query, key) pairs the attention keeps."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return ok
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_lse=False):
     """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
     Materializes the (Sq, Sk) scores in f32; q head h reads KV head
     ``h // (H // KV)``. ``causal`` keeps ``kpos <= qpos`` (both from 0),
-    ``window > 0`` also ``kpos > qpos - window``."""
+    ``window > 0`` also ``kpos > qpos - window``. With ``return_lse`` also
+    each row's log-sum-exp of its masked, scaled scores (B,H,Sq) in f32."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     g = H // KV
@@ -37,14 +50,41 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     kf = k.to(torch.float32).repeat_interleave(g, dim=1)
     vf = v.repeat_interleave(g, dim=1)
     s = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kpos <= qpos
-    if window > 0:
-        ok &= kpos > qpos - window
-    return _softmax_av(s, ok, vf).to(q.dtype)
+    ok = _live(Sq, Sk, causal, window, q.device)
+    out = _softmax_av(s, ok, vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s.masked_fill(~ok, NEG_INF), dim=-1)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, scale=None):
+    """The gradient of ``flash_attention_ref`` by the FlashAttention-2
+    formulas, with ``o`` its output, ``do`` the output's gradient and ``lse``
+    its log-sum-exp (Sq = Sk)::
+
+        P = exp(scale·Q Kᵀ − lse) (0 where masked)    D = rowsum(dO ∘ O)
+        dV = Pᵀ dO    dS = P ∘ (dO Vᵀ − D)    dQ = scale·dS K    dK = scale·dSᵀ Q
+
+    in f32, dK and dV summed over each KV head's group of q heads; returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    qf, dof = q.to(torch.float32), do.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    ok = _live(S, S, causal, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
+    d = (dof * o.to(torch.float32)).sum(-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.reshape(B, KV, g, S, hd).sum(2)
+    dv = dv.reshape(B, KV, g, S, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, pos, *, window=0, scale=None):

@@ -1,4 +1,4 @@
-"""GQA attention: prefill / full-sequence and KV-cache decode.
+"""GQA attention: training, prefill / full-sequence and KV-cache decode.
 
 The torch twin of the GQA half of the JAX package's ``models/attention.py``.
 The JAX package computes prefill attention as a chunked pure-JAX loop — its
@@ -6,7 +6,8 @@ own reference for the Pallas flash kernel — and decode as one masked einsum.
 Here the two are the package's kernels: ``ops.flash_attention`` (causal,
 start-aligned, with the window on local layers) and ``ops.decode_attention``
 (rows ``<= pos`` of the cache live). Both compute in f32 and return the
-activations' dtype.
+activations' dtype. Training (``gqa_attention``) runs the same flash kernel
+under autograd; its backward is a kernel too.
 
 Decode writes the new K/V row into the cache at ``pos`` in place
 (``index_copy_``; the JAX package returns an updated copy), and ``pos`` is
@@ -76,6 +77,15 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(B,H,S,hd) @ (H,hd,d) -> (B,S,d)."""
     B, H, S, hd = o.shape
     return o.transpose(1, 2).reshape(B, S, H * hd) @ wo.reshape(H * hd, -1).to(o.dtype)
+
+
+def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+                  window: int, freqs: torch.Tensor) -> torch.Tensor:
+    """Training attention over the whole sequence of ``x`` (B,S,d), the
+    twin of the JAX package's ``gqa_attention``: causal, ``window`` on local
+    layers (0 on global ones). Differentiable; returns (B,S,d)."""
+    q, k, v = _project_qkv(p, x, cfg, positions, freqs)
+    return _out_proj(ops.flash_attention(q, k, v, causal=True, window=window), p["wo"])
 
 
 def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,

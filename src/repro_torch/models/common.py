@@ -1,4 +1,4 @@
-"""Shared building blocks: init helpers, norms, RoPE, embeddings.
+"""Shared building blocks: init helpers, norms, RoPE, embeddings, the loss.
 
 The torch twin of the JAX package's ``models/common.py``, with the same
 arithmetic (norms and RoPE in f32 inside, the result in the input's dtype).
@@ -10,7 +10,7 @@ is the parameter ``dense_layers.attn.wq`` here, with the same shape.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -156,9 +156,32 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
+def cross_entropy_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S) integer
+    mask: Optional[torch.Tensor] = None,  # (B, S) 1.0 = count
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token NLL and accuracy over the masked positions, with the
+    JAX package's explicit f32 max/sum reductions. As there, the max is
+    detached inside the exp and not where it is added back, so the gradient
+    is the JAX package's, which also carries the max's own (one-hot at the
+    argmax) term (ROADMAP.md, faults; the fix is item 16)."""
+    logits32 = logits.to(torch.float32)
+    m = torch.max(logits32, dim=-1, keepdim=True).values
+    sumexp = torch.sum(torch.exp(logits32 - m.detach()), dim=-1)
+    lse = torch.log(sumexp) + m[..., 0]
+    label_logit = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    mask = torch.ones_like(nll) if mask is None else mask.to(torch.float32)
+    total = torch.clamp_min(torch.sum(mask), 1.0)
+    loss = torch.sum(nll * mask) / total
+    acc = torch.sum((torch.argmax(logits32, dim=-1) == labels) * mask) / total
+    return loss, acc
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, scale: bool,
                  cdtype: torch.dtype) -> torch.Tensor:
-    x = table[ids].to(cdtype)
+    x = F.embedding(ids, table).to(cdtype)
     if scale:  # the factor is rounded to cdtype first, as in the JAX package
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=cdtype).item()
     return x

@@ -13,7 +13,8 @@ leading layer axis, plus ``pos``, a 0-d int32 tensor on the device.
 ``decode_step`` writes the cache in place and syncs nothing with the host.
 
 ``Zamba2LM`` (the hybrid family) raises ``NotImplementedError`` naming its
-ROADMAP item; ``train_loss`` comes with the training slice.
+ROADMAP item, and so does ``Mamba2LM.train_loss``: training needs a backward
+of ``ssd_scan``, a kernel of its own.
 """
 
 from __future__ import annotations
@@ -117,6 +118,12 @@ class Mamba2LM(TransformerLM):
         logits = self._logits(norm(self.ln_f, x))
         cache["pos"] = cache["pos"] + 1
         return logits[:, 0], cache
+
+
+    def train_loss(self, batch: Dict[str, Any]):
+        raise NotImplementedError(
+            "Mamba2 training is not ported yet: it needs a backward kernel for ssd_scan "
+            "(ROADMAP.md, modules to port, item 15); the port trains the dense family")
 
 
 class Zamba2LM(nn.Module):

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM, dense family: the torch twin of the JAX
-package's ``models/transformer.py`` for serving.
+package's ``models/transformer.py`` for training and serving.
 
 The parameters keep the JAX package's stacked layout: one ``ParamTree``
 ``dense_layers`` whose every leaf has the layer count as its leading axis
@@ -15,8 +15,17 @@ tensors and ``pos``, a 0-d int32 tensor on the device; ``decode_step``
 writes into the cache in place and returns it with ``pos + 1``, and syncs
 nothing with the host.
 
+``train_loss`` is the JAX package's next-token loss. Its layers run with
+autograd on: the attention through ``ops.flash_attention`` (forward and
+backward kernels on the card), each layer under ``torch.utils.checkpoint``
+where ``cfg.remat`` is set (``jax.checkpoint`` there), and the loss over
+256-token pieces of the sequence, each checkpointed, so the full (B,S,V)
+logits never exist at once. The parameters are built with
+``requires_grad=False`` for serving; a trainer turns them on
+(``model.requires_grad_(True)``).
+
 MoE, VLM patch inputs and MTP raise ``NotImplementedError`` naming their
-ROADMAP items; ``train_loss`` comes with the training slice.
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -25,10 +34,20 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
-from .attention import gqa_decode, gqa_prefill, init_gqa
-from .common import Initializer, ParamTree, embed_lookup, make_norm, rope_freqs, softcap, stack_init
+from .attention import gqa_attention, gqa_decode, gqa_prefill, init_gqa
+from .common import (
+    Initializer,
+    ParamTree,
+    cross_entropy_loss,
+    embed_lookup,
+    make_norm,
+    rope_freqs,
+    softcap,
+    stack_init,
+)
 from .config import ModelConfig
 from .ffn import init_mlp, mlp
 
@@ -50,6 +69,27 @@ def _index(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """Every layer of a stacked params dict as views, one ``unbind`` a leaf:
+    under autograd each leaf's gradient is then stacked once from its
+    layers' (where ``tree[i]`` would build a full-size gradient a layer)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def token_ids(tokens: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Token ids as int64 on ``device``. uint32 tokens (the token dataset's
+    dtype) are read as int32 by their bits first, which holds for any vocab
+    below 2**31, so no uint32 kernel is needed on either device."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(tokens)
+    if tokens.dtype == torch.uint32:
+        tokens = tokens.view(torch.int32)
+    return tokens.to(device=device, dtype=torch.int64)
 
 
 class TransformerLM(nn.Module):
@@ -122,6 +162,11 @@ class TransformerLM(nn.Module):
         """Drop the per-layer views after the parameters were replaced."""
         self._layers = None
 
+    def _windows(self) -> List[Tuple[int, float]]:
+        """(window, rope base) per layer; the window only on local layers."""
+        return [(0 if is_global else self.cfg.sliding_window, theta)
+                for is_global, theta in self._layer_flags(self.n_dense)]
+
     def _layer_args(self) -> List[Tuple[Dict[str, Any], int, torch.Tensor]]:
         """(params, window, rope freqs) per layer; the window only on local
         layers."""
@@ -129,11 +174,11 @@ class TransformerLM(nn.Module):
             stacked = self.dense_layers.tree()
             self._layers = [_index(stacked, i) for i in range(self.n_dense)]
         out = []
-        for p, (is_global, theta) in zip(self._layers, self._layer_flags(self.n_dense)):
+        for p, (window, theta) in zip(self._layers, self._windows()):
             key = (theta, self.device)
             if key not in self._freqs:
                 self._freqs[key] = rope_freqs(self.cfg.head_dim, theta, device=self.device)
-            out.append((p, 0 if is_global else self.cfg.sliding_window, self._freqs[key]))
+            out.append((p, window, self._freqs[key]))
         return out
 
     def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -158,6 +203,61 @@ class TransformerLM(nn.Module):
         if self.cfg.sandwich_norm:
             f = norm(p["ln_mlp_post"], f)
         return x + f
+
+    # ---- train --------------------------------------------------------------
+    def _backbone(self, x: torch.Tensor,
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layers and the final norm with autograd on: (h, aux loss).
+        Per-layer views and RoPE tables are made anew each call (the serving
+        caches may hold inference tensors)."""
+        cfg = self.cfg
+        layers = _unstack(self.dense_layers.tree(), self.n_dense)
+        freqs = {theta: rope_freqs(cfg.head_dim, theta, device=self.device)
+                 for _, theta in self._windows()}
+        for p, (window, theta) in zip(layers, self._windows()):
+            def layer(x, p=p, window=window, f=freqs[theta]):
+                return self._block(p, x, lambda h: gqa_attention(
+                    p["attn"], h, cfg, positions=positions, window=window, freqs=f))
+
+            x = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
+        _, norm = make_norm(cfg.norm)
+        return norm(self.ln_f, x), torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _chunked_ce(self, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+        """CE and accuracy over ``chunk``-token pieces, each checkpointed, so
+        the full (B,S,V) logits never exist at once."""
+        S = h.shape[1]
+        chunk = min(chunk, S)
+
+        def piece(hc, lc, mc):
+            loss, acc = cross_entropy_loss(self._logits(hc), lc, mc)
+            cnt = torch.clamp_min(torch.sum(mc.to(torch.float32)), 1e-9)
+            return loss * cnt, acc * cnt, cnt
+
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        tl = ta = tc = zero
+        for lo in range(0, S, chunk):  # the last piece holds the remainder
+            hi = min(S, lo + chunk)
+            l, a, c = checkpoint(piece, h[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi],
+                                 use_reentrant=False)
+            tl, ta, tc = tl + l, ta + a, tc + c
+        return tl / torch.clamp_min(tc, 1e-9), ta / torch.clamp_min(tc, 1e-9)
+
+    def train_loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: ``tokens`` (B,S). The next-token LM loss, on the module's
+        device: labels are the tokens shifted by one, the last position
+        masked. Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32."""
+        tokens = token_ids(batch["tokens"], self.device)
+        x = self._embed_inputs(tokens)
+        positions = torch.arange(x.shape[1], device=self.device)
+        h, aux = self._backbone(x, positions)
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
+        mask[:, -1] = 0.0
+        loss, acc = self._chunked_ce(h, labels, mask)
+        total = loss + aux
+        return total, {"ce": loss, "aux": aux, "acc": acc, "loss": total}
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()

@@ -8,6 +8,13 @@ them) and its pure-jnp oracles, over the sweep of ``tests/test_kernels.py``,
 with its tolerances: f32 ``2e-5``, bf16 ``2e-2``. The CUDA kernels are held
 against the same plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
+
+The attention's gradient (the port trains through ``ops.flash_attention``,
+whose backward is a kernel on the card) is held to ``jax.grad`` of the JAX
+package's oracle ``repro.kernels.ref.flash_attention_ref``, relative to each
+gradient's largest entry: f32 ``1e-4`` (the FlashAttention-2 formulas
+against autodiff through a softmax, f32 sums in another order), bf16 ``2e-2``
+(the forward's bf16 tolerance; dq, dk, dv are rounded to bf16 once).
 """
 
 import re
@@ -17,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
@@ -31,6 +39,7 @@ from repro_torch.kernels import ref as tref
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of each gradient's max |entry|
 
 
 def _pair(rng, shape, dtype):
@@ -134,17 +143,116 @@ def test_decode_attention_takes_pos_as_a_tensor():
 
 
 def test_attention_ops_are_forward_only():
+    """``decode_attention`` (and ``ssd_scan``, tests/test_torch_ssd.py) have no
+    backward and raise under grad; ``flash_attention`` under grad returns
+    gradients, through its ``autograd.Function``."""
     q = torch.randn(1, 2, 8, 32, requires_grad=True)
     q1 = torch.randn(1, 2, 32, requires_grad=True)
     k, v = torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32)
     with pytest.raises(RawArrayError, match="forward-only"):
-        tops.flash_attention(q, k, v)
-    with pytest.raises(RawArrayError, match="forward-only"):
         tops.decode_attention(q1, k, v, 3)
+    with pytest.raises(RawArrayError, match="forward-only"):
+        tfa.flash_attention_fwd(q, k, v)  # the bare kernel call records no gradient
+    out = tops.flash_attention(q, k, v)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
     with torch.no_grad():
-        assert tops.flash_attention(q, k, v).shape == q.shape
+        assert tops.flash_attention(q, k, v).grad_fn is None
     with torch.inference_mode():
         assert tops.decode_attention(q1, k, v, 3).shape == (1, 2, 32)
+
+
+def _grads_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == DTYPES[dtype][1], name
+        tol = GRAD_TOL[dtype] * float(np.abs(w).max())
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=GRAD_TOL[dtype], atol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [
+    (1, 2, 2, 64, 32),     # groups of 1
+    (2, 4, 2, 100, 64),    # groups of 2, a ragged S
+    (1, 8, 1, 70, 128),    # groups of 8 (all q heads on one KV head)
+    (2, 16, 8, 33, 128),   # InternLM2's heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
+def test_flash_attention_grad_matches_jax(B, H, KV, S, hd, dtype, causal, window):
+    """dq, dk, dv of ``ops.flash_attention`` (on the CPU: the plain forward,
+    with its log-sum-exp, and ``ref.flash_attention_bwd_ref``) against
+    ``jax.grad`` of the JAX oracle, for a random output gradient."""
+    rng = np.random.default_rng(B * 100 + H * 10 + S + hd)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, sh, dtype) for sh in
+        ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
+
+    def jloss(q, k, v):
+        out = jref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out = tops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), tdo)
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (2, 4, 2, 37, 32, True, 0),
+    (1, 8, 2, 64, 64, True, 16),
+    (2, 2, 2, 20, 32, False, 0),
+    (1, 4, 1, 33, 128, False, 8),
+])
+def test_flash_attention_bwd_ref_matches_autograd(B, H, KV, S, hd, causal, window):
+    """The FlashAttention-2 formulas of ``ref.flash_attention_bwd_ref`` (the
+    CPU path's backward and the kernel's plain version) against PyTorch's
+    own autograd through ``ref.flash_attention_ref``, in f32."""
+    gen = torch.Generator().manual_seed(S + hd)
+    q = torch.randn(B, H, S, hd, generator=gen, requires_grad=True)
+    k, v = (torch.randn(B, KV, S, hd, generator=gen, requires_grad=True) for _ in range(2))
+    do = torch.randn(B, H, S, hd, generator=gen)
+    out = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    with torch.no_grad():
+        o, lse = tref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+        got = tref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    assert torch.equal(o, out.detach())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+def test_flash_attention_backward_checks_its_inputs():
+    q = torch.randn(1, 2, 8, 32)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(RawArrayError, match="Sq = Sk"):
+        tfa.flash_attention_bwd(q, torch.randn(1, 2, 9, 32), torch.randn(1, 2, 9, 32), q, q, lse)
+    with pytest.raises(RawArrayError, match="lse must be"):
+        tfa.flash_attention_bwd(q, q, q, q, q, lse.double())
+    with pytest.raises(RawArrayError, match="q's shape"):
+        tfa.flash_attention_bwd(q, q, q, q[:, :, :4], q, lse)
+
+
+def test_flash_attention_under_grad_checks_the_backward_first():
+    """A case the backward cannot take (Sq != Sk) raises under grad before
+    the forward runs; without grad the same call is a forward."""
+    q = torch.randn(1, 2, 8, 32, requires_grad=True)
+    kv = torch.randn(1, 2, 9, 32)
+    with pytest.raises(RawArrayError, match="Sq = Sk"):
+        tops.flash_attention(q, kv, kv)
+    with torch.no_grad():
+        assert tops.flash_attention(q, kv, kv).shape == q.shape
+
+
+def test_backward_dispatch_instantiates_its_head_dims():
+    """The backward kernels' head-width dispatch (f32 SIMT and bf16 tensor
+    cores) instantiates exactly ``BWD_HEAD_DIMS`` (hd 256 raises in the
+    wrapper, naming its ROADMAP item)."""
+    assert _dispatched_head_dims("flash_attention_bwd.cu") == [tfa.BWD_HEAD_DIMS] * 2
+    assert "flash_attention_bwd.cu" in _build.SOURCES
 
 
 def test_attention_ops_check_their_inputs():

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
-its plain PyTorch version, the device feed on the card against the host
-decode, and dense and Mamba2 decode steps that must not sync with the host. Each skips
+its plain PyTorch version (the attention's backward too), the device feed
+on the card against the host decode, a dense train step on the card against
+the CPU's, and dense and Mamba2 decode steps that must not sync with the host. Each skips
 without a card. This file imports nothing of JAX, so it
 runs on a machine that has a card and no JAX:
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.spec import RawArrayError
 from repro_torch.data import DataLoader, DatasetBuilder, DeviceLoader, RaDataset
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dequant_u8 as dq
@@ -180,6 +182,140 @@ def test_flash_attention_tensor_core_kernel_matches_plain_version(card, B, H, KV
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of each gradient's max |entry|
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (2, 4, 4, 256, 64, True, 0),       # paper_lm's heads (groups of 1)
+    (2, 16, 8, 300, 128, True, 0),     # InternLM2's heads, a ragged tail
+    (1, 16, 8, 1100, 128, True, 1024),  # a window across many K/V tiles
+    (2, 4, 2, 100, 32, True, 0),       # hd 32, ragged
+    (1, 8, 1, 130, 64, True, 0),       # groups of 8
+    (1, 4, 4, 200, 128, False, 0),     # non-causal
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_matches_plain_version(card, B, H, KV, S, hd, causal,
+                                                               window, dtype):
+    """dq, dk, dv of ``csrc/flash_attention_bwd.cu`` against
+    ``ref.flash_attention_bwd_ref`` on the same inputs (and the forward
+    kernel's log-sum-exp against the plain one); two calls bit-equal."""
+    rng = np.random.default_rng(S + hd + window)
+    q, do = (_normal(rng, (B, H, S, hd), dtype, card) for _ in range(2))
+    k, v = (_normal(rng, (B, KV, S, hd), dtype, card) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a), name
+        tol = BWD_TOL[dtype] * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=BWD_TOL[dtype], atol=tol,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_with_one_key(card, dtype):
+    """S = 1: the softmax over one key has no gradient, so dq = dk = 0 in
+    exact arithmetic and dv = dO. What the kernel computes for dq and dk is
+    the rounding of dP − D, two f32 sums of hd products taken in different
+    orders, each off by at most hd · 2^-24 · hd · max|dO| · max|V|: so
+    |dq|, |dk| <= hd² · 2^-23 · scale · max|dO| · max|V| · max|K|."""
+    rng = np.random.default_rng(1)
+    q, do = (_normal(rng, (1, 4, 1, 64), dtype, card) for _ in range(2))
+    k, v = (_normal(rng, (1, 2, 1, 64), dtype, card) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    want_dv = ref.flash_attention_bwd_ref(q, k, v, out, do, lse)[2]
+    torch.testing.assert_close(dv.float(), want_dv.float(), rtol=BWD_TOL[dtype],
+                               atol=BWD_TOL[dtype] * float(want_dv.float().abs().max()))
+    bound = 64 ** 2 * 2.0 ** -23 * 64 ** -0.5 * float(
+        do.float().abs().max() * v.float().abs().max() * k.float().abs().max())
+    for name, g in (("dq", dq), ("dk", dk)):
+        assert float(g.float().abs().max()) <= bound, name
+
+
+def test_flash_attention_backward_raises_where_not_instantiated(card):
+    q = torch.randn(1, 2, 64, 256, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=card)
+    with pytest.raises(RawArrayError, match="K2"):
+        fa.flash_attention_bwd(q, q, q, q, q, lse)
+    q16 = torch.randn(1, 2, 64, 64, device=card, dtype=torch.float16)
+    with pytest.raises(RawArrayError, match="float32 or bfloat16"):
+        fa.flash_attention_bwd(q16, q16, q16, q16, q16, lse)
+
+
+def test_flash_attention_under_grad_raises_before_the_forward(card):
+    """At a head width the backward lacks (256), a call under grad raises
+    before the forward kernel launches; without grad it runs."""
+    q = torch.randn(1, 2, 64, 256, device=card, dtype=torch.bfloat16, requires_grad=True)
+    before = fa.launches
+    with pytest.raises(RawArrayError, match="K2"):
+        ops.flash_attention(q, q, q)
+    assert fa.launches == before
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+    assert fa.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_launches_both_kernels(card, dtype):
+    """``ops.flash_attention`` under grad: one forward launch, one backward
+    call, and the gradients of the plain version under PyTorch's autograd."""
+    rng = np.random.default_rng(9)
+    q0 = _normal(rng, (2, 8, 200, 128), dtype, card)
+    k0, v0 = (_normal(rng, (2, 4, 200, 128), dtype, card) for _ in range(2))
+    do = _normal(rng, (2, 8, 200, 128), dtype, card)
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+    before = (fa.launches, fa.bwd_launches)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    q, k, v = (t.float().requires_grad_() for t in (q0, k0, v0))
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v), (q, k, v), do.float())
+    for g, w in zip(got, want):
+        tol = BWD_TOL[dtype] * float(w.abs().max())
+        torch.testing.assert_close(g.float(), w, rtol=BWD_TOL[dtype], atol=tol)
+
+
+def test_dense_train_step_on_card_matches_cpu(card):
+    """A reduced dense model's loss and gradients on the card (flash forward
+    and backward kernels, one launch each a layer) against the same model on
+    the CPU (the plain versions), in f32."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+
+    cfg = get_config("internlm2_1_8b").reduced()
+    models = [build_model(cfg, device=d, seed=0) for d in ("cpu", card)]
+    load_params(models[1], models[0].param_tree())  # the same weights on both
+    for m in models:
+        m.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 96))
+                              .astype(np.uint32))
+    losses = []
+    before = (fa.launches, fa.bwd_launches)
+    for m in models:
+        loss, _ = m.train_loss({"tokens": tokens})
+        loss.backward()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    cpu, dev = (flatten(m.param_tree(), "param") for m in models)
+    for name, p in cpu.items():
+        tol = 1e-3 * float(p.grad.abs().max())
+        torch.testing.assert_close(dev[name].grad.cpu(), p.grad, rtol=1e-3, atol=tol, msg=name)
 
 
 @pytest.mark.parametrize("B,KV,g,S,hd,pos,window", [

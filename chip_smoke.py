@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: ``nvcc`` compiles every CUDA source of the port into ``build/``;
    then ``cuobjdump -sass`` must show HGMMA (wgmma) and UTMALDG (TMA tile
-   loads) in the flash library, HMMA (mma.sync) and LDSM (ldmatrix) in the
-   flash backward library, UBLKCP (bulk copies) and UCGABAR_ARV /
+   loads) in the flash library and in the flash backward library (with
+   UBLKCP there too: the LSE and D rows come by bulk copies), UBLKCP (bulk copies) and UCGABAR_ARV /
    UCGABAR_WAIT (the cluster barrier) in the decode library, and HMMA
    (mma.sync) in the SSD library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -18,8 +18,9 @@ Phases (any failure exits non-zero and prints no result):
    bit-equal (also at the largest leaf of phase 5's u8 cold start),
    ``flash_attention`` and ``decode_attention`` within the tolerance of
    ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2), at head width 128
-   (InternLM2), 256 (gemma3-12b, phase 7) and at the two training forwards
-   (InternLM2's, and paper_lm's q/k/v (8,4,256,64) f32, phase 8); at the
+   (InternLM2), 256 (gemma3-12b, phase 7) and at the training forwards
+   (InternLM2's, paper_lm's q/k/v (8,4,256,64) f32, phase 8, and gemma3's
+   q (2,16,2048,256) bf16, global and window 1024, phase 10); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
    calls, L2 flushed before each; a ``decode_attention`` call must show
@@ -60,15 +61,18 @@ Phases (any failure exits non-zero and prints no result):
    tolerance, greedy-token agreement reported;
 3d. (run with phase 3) the backward of ``flash_attention``
    (``csrc/flash_attention_bwd.cu``: f32 on the SIMT pipes, bf16 on the
-   tensor cores) against its plain version on the card:
-   paper_lm's training shape (q/k/v (8,4,256,64) f32, causal), InternLM2's
-   (q (4,16,2048,128), k/v (4,8,2048,128) bf16, causal) and edges (a ragged
-   S, window 1024, hd 32, groups of 1, 2 and 8); dq, dk, dv within f32 1e-4
-   / bf16 2e-2 of each one's largest entry, two calls bit-equal; at the two
-   training shapes the device time, the plain version's, and the backward
-   of ``scaled_dot_product_attention`` (K/V repeated over the group; timed
-   only), beside the bound (bytes over 3.35 TB/s, or 2.5 × the causal
-   forward's operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
+   tensor cores by ``wgmma`` fed by a TMA ring) against its plain version
+   on the card: paper_lm's training shape (q/k/v (8,4,256,64) f32, causal),
+   InternLM2's (q (4,16,2048,128), k/v (4,8,2048,128) bf16, causal),
+   gemma3-12b's (q (2,16,2048,256), k/v (2,8,2048,256) bf16, causal, its
+   local layers' window 1024 and its global layers) and edges (a ragged S,
+   window 1024, hd 32, hd 256, 64-row tiles, groups of 1, 2, 4 and 8); dq,
+   dk, dv within f32 1e-4 / bf16 2e-2 of each one's largest entry, two
+   calls bit-equal; at the training shapes the device time, the plain
+   version's, and the backward of ``scaled_dot_product_attention`` (K/V
+   repeated over the group, a boolean mask for the window; timed only),
+   beside the bound (bytes over 3.35 TB/s, or 2.5 × the masked forward's
+   operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
 7. serving: gemma3-12b at its full widths (d_model 3840, 16 heads / 8 KV of
    head width 256, GeGLU 15360, vocab 262,144, QK-norm, sandwich norms, 5
    local layers of window 1024 to 1 global), its depth cut from 48 to 12
@@ -104,7 +108,19 @@ Phases (any failure exits non-zero and prints no result):
    a checkpoint at step 6 (params and optimizer state, 18.9 GB) restored
    by ``restore_pipelined`` bit-equal, launch counts 24 × 6 × 2 forward
    (remat runs each layer's forward twice) and 24 × 6 backward; then one
-   more step under the profiler, as in phase 8.
+   more step under the profiler, as in phase 8;
+10. training: gemma3-12b at its full widths (phase 7's model, head width
+   256, 5 local layers of window 1024 to 1 global, remat) and 12 of 48
+   layers, random weights from seed 0 tempered as in phase 5, a RawArray
+   token dataset of 16 × 2,048 tokens at vocab 262,144 (numpy seed 4),
+   batch 2 × 2,048 (past the window, so the local and the global backward
+   both run): the first step's gates of phase 9, then 4 steps of the train
+   loop's step (``train.loop.make_step``, on ``DeviceLoader`` batches; no
+   checkpoint: ``train()`` would save 37 GB at its end, and phases 8 and 9
+   hold that path) with the loss falling, launch counts 12 × 4 × 2 forward
+   and 12 × 4 backward, peak device memory; then one more step under the
+   profiler, as in phase 8. In a profiled step the attention kernels are
+   found by the ``__global__`` functions of their sources.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -113,8 +129,10 @@ listing each kernel, and the result ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -176,8 +194,8 @@ def phase_build() -> float:
 def phase_sass() -> dict:
     """Count, in each built library, the instructions its design rests on:
     the bf16 flash kernel runs on the tensor cores (HGMMA, wgmma) fed by TMA
-    (UTMALDG); the bf16 flash backward runs on the tensor cores (HMMA,
-    mma.sync) fed by ldmatrix (LDSM); the decode kernel streams K/V by bulk
+    (UTMALDG); so does the bf16 flash backward, whose dK/dV kernel also
+    brings each tile's LSE and D rows by bulk copies (UBLKCP); the decode kernel streams K/V by bulk
     copies (UBLKCP) and folds its splits across a cluster (UCGABAR_ARV /
     UCGABAR_WAIT, the cluster barrier); the bf16 SSD scan runs its products
     on the tensor cores (HMMA, mma.sync). Any count of 0 fails."""
@@ -186,7 +204,7 @@ def phase_sass() -> dict:
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     wanted = {
         "flash_attention.cu": ("HGMMA", "UTMALDG"),
-        "flash_attention_bwd.cu": ("HMMA", "LDSM"),
+        "flash_attention_bwd.cu": ("HGMMA", "UTMALDG", "UBLKCP"),
         "decode_attention.cu": ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT"),
         "ssd_scan.cu": ("HMMA",),
     }
@@ -428,6 +446,10 @@ def phase_attention(torch) -> tuple:
         # on a global layer and on a local one (window 1024)
         ("gemma3_prefill", 4, 16, 8, 2080, 2080, 256, "bfloat16", True, 0, True),
         ("gemma3_prefill_local", 4, 16, 8, 2080, 2080, 256, "bfloat16", True, 1024, True),
+        # gemma3-12b's training forward (phase 10): 2 sequences of 2,048 tokens, on
+        # a global layer and on a local one
+        ("gemma3_train", 2, 16, 8, 2048, 2048, 256, "bfloat16", True, 0, True),
+        ("gemma3_train_local", 2, 16, 8, 2048, 2048, 256, "bfloat16", True, 1024, True),
         ("edge_hd256_f32", 2, 4, 2, 300, 300, 256, "float32", True, 64, False),
         ("edge_hd256_tail_tile", 2, 16, 8, 130, 130, 256, "bfloat16", True, 0, False),
         ("edge_hd256_sk_gt_sq", 2, 16, 8, 96, 160, 256, "bfloat16", True, 0, False),
@@ -625,7 +647,14 @@ def phase_attention_bwd(torch) -> list:
     cases = [
         ("paper_lm_train", 8, 4, 4, 256, 64, "float32", True, 0, True),
         ("internlm2_train", 4, 16, 8, 2048, 128, "bfloat16", True, 0, True),
+        # gemma3-12b's training shapes (phase 10): its local and its global layers
+        ("gemma3_train_local", 2, 16, 8, 2048, 256, "bfloat16", True, 1024, True),
+        ("gemma3_train_global", 2, 16, 8, 2048, 256, "bfloat16", True, 0, True),
         ("edge_ragged", 2, 16, 8, 300, 128, "bfloat16", True, 0, False),
+        ("edge_64_row_tiles", 2, 16, 8, 192, 128, "bfloat16", True, 0, False),
+        ("edge_hd256_ragged", 2, 16, 8, 300, 256, "bfloat16", True, 0, False),
+        ("edge_hd256_window_ragged", 1, 16, 8, 2100, 256, "bfloat16", True, 1024, False),
+        ("edge_hd256_g4", 1, 4, 1, 65, 256, "bfloat16", True, 0, False),
         ("edge_ragged_f32", 2, 4, 2, 300, 64, "float32", True, 0, False),
         ("edge_window_1024", 2, 16, 8, 2048, 128, "bfloat16", True, 1024, False),
         ("edge_hd32", 2, 4, 2, 100, 32, "float32", True, 0, False),
@@ -675,7 +704,12 @@ def phase_attention_bwd(torch) -> list:
             qs = q.detach().clone().requires_grad_()
             ks = k.repeat_interleave(g, dim=1).requires_grad_()
             vs = v.repeat_interleave(g, dim=1).requires_grad_()
-            o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            if window > 0:
+                pos = torch.arange(S, device=dev)
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+            else:
+                o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
             library = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do, retain_graph=True)
             row.update(_timings(torch, kernel, plain_fn, library, flush, nbytes, flops,
                                 peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS))
@@ -1372,17 +1406,33 @@ INTERNLM2_PARAMS = 1_889_110_016
 #: the attention projections whose gradients phase 9 holds to plain attention's
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 #: the largest ||kernel grad − plain grad|| / ||plain grad|| of one layer's
-#: attention projection in phase 9's first step. On an H100 (700 W) the
-#: sound step reads 0.0346 (wk; bf16 rounding carried through 24 layers), the
-#: planted faults 0.106 (dq 10% too large) and 1.0 (dk zeroed): PERF.md §6
+#: attention projection in phase 9's and phase 10's first steps. On an H100
+#: (700 W) InternLM2's sound step reads 0.0346 (wk; bf16 rounding carried
+#: through 24 layers), its planted faults 0.106 (dq 10% too large) and 1.0 (dk
+#: zeroed); gemma3's (12 layers, head width 256) 0.0123, 0.102 and 1.0: PERF.md §6
 ATTN_GRAD_TOL = 0.05
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_names(source: str) -> tuple:
+    """The ``__global__`` functions a CUDA source of the port defines."""
+    from repro_torch.kernels import _build
+
+    text = (Path(_build.CSRC) / source).read_text()
+    found = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", text)
+    if not found:
+        raise SystemExit(f"chip_smoke: no __global__ function found in {source}")
+    return tuple(sorted(set(found)))
+
+
 def _kernel_kind(name: str) -> str:
-    if "dq_kernel" in name or "dkdv_kernel" in name:
-        return "attention backward"
-    if "flash_attention" in name:
-        return "attention forward"
+    """The kind of a device event of a train step, by the kernel's name: the
+    attention kernels by the ``__global__`` functions of their sources, so a
+    renamed kernel is still counted as what it is."""
+    for source, kind in (("flash_attention_bwd.cu", "attention backward"),
+                         ("flash_attention.cu", "attention forward")):
+        if any(k in name for k in _kernel_names(source)):  # demangled or mangled
+            return kind
     if any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul"
     return "other"
@@ -1429,6 +1479,10 @@ def _profiled_step(torch, model, adamw, batch) -> dict:
         out[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
                      "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
                      "device_ms_by_kind": dict(by_kind)}
+    kinds = out["forward_backward"]["device_ms_by_kind"]
+    if not (kinds.get("attention forward") and kinds.get("attention backward")):
+        raise SystemExit(f"chip_smoke: the profiled step shows no attention forward or "
+                         f"backward kernel by name: {kinds}")
     del state
     return out
 
@@ -1485,6 +1539,52 @@ def _planted_backward_fault(which: str):
         fa.flash_attention_bwd = kept
 
 
+def _first_step_gates(torch, model, batch, name: str, out: dict) -> dict:
+    """The first train step of ``model`` on ``batch`` against the same step
+    with plain attention: the loss within 1%, the global gradient norm within
+    2%, each layer's wq/wk/wv/wo gradient within ``ATTN_GRAD_TOL``; then the
+    same step with each planted backward fault, which must break the last
+    gate. Fails the run on any miss; returns the readings."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k, norm_k, grads_k = _first_step(torch, model, batch)
+    out["first_step_s_kernels"] = time.perf_counter() - t0
+    with _plain_attention():
+        loss_p, norm_p, grads_p = _first_step(torch, model, batch)
+    attn_err = _attention_grad_err(torch, grads_k, grads_p)
+    first = {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
+             "plain_grad_norm": norm_p,
+             "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+             "grad_norm_rel_diff": abs(norm_k - norm_p) / norm_p,
+             "attention_grads": attn_err,
+             "attention_grad_err": max(e["err"] for e in attn_err.values()),
+             "attention_grad_tolerance": ATTN_GRAD_TOL}
+    del grads_k
+    # the control: the same step with a fault planted in the backward's
+    # output must fail the gradient gate
+    first["planted_faults"] = {}
+    for fault in ("dk_zeroed", "dq_times_1.1"):
+        with _planted_backward_fault(fault):
+            _, _, grads_f = _first_step(torch, model, batch)
+        err = _attention_grad_err(torch, grads_f, grads_p)
+        first["planted_faults"][fault] = {
+            "attention_grads": err,
+            "attention_grad_err": max(e["err"] for e in err.values())}
+        del grads_f
+    del grads_p
+    log(f"[{name} training] first step {json.dumps(first)}")
+    caught = all(f["attention_grad_err"] > ATTN_GRAD_TOL
+                 for f in first["planted_faults"].values())
+    if not (first["loss_rel_diff"] <= 0.01 and first["grad_norm_rel_diff"] <= 0.02
+            and first["attention_grad_err"] <= ATTN_GRAD_TOL):
+        raise SystemExit(f"chip_smoke: {name}'s first step differs from plain "
+                         f"attention's: {first}")
+    if not caught:
+        raise SystemExit(f"chip_smoke: the attention-gradient gate let a planted "
+                         f"backward fault through ({name}): {first['planted_faults']}")
+    return first
+
+
 def phase_internlm2_training(torch) -> dict:
     """InternLM2-1.8B at full size: 6 train steps, a checkpoint, its restore."""
     import shutil
@@ -1517,44 +1617,7 @@ def phase_internlm2_training(torch) -> dict:
         host = DataLoader(RaDataset(root), B, seed=SEED)
         batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
         host.stop()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss_k, norm_k, grads_k = _first_step(torch, model, batch)
-        out["first_step_s_kernels"] = time.perf_counter() - t0
-        with _plain_attention():
-            loss_p, norm_p, grads_p = _first_step(torch, model, batch)
-        attn_err = _attention_grad_err(torch, grads_k, grads_p)
-        first = {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
-                 "plain_grad_norm": norm_p,
-                 "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
-                 "grad_norm_rel_diff": abs(norm_k - norm_p) / norm_p,
-                 "attention_grads": attn_err,
-                 "attention_grad_err": max(e["err"] for e in attn_err.values()),
-                 "attention_grad_tolerance": ATTN_GRAD_TOL}
-        del grads_k
-        # the control: the same step with a fault planted in the backward's
-        # output must fail the gradient gate
-        first["planted_faults"] = {}
-        for fault in ("dk_zeroed", "dq_times_1.1"):
-            with _planted_backward_fault(fault):
-                _, _, grads_f = _first_step(torch, model, batch)
-            err = _attention_grad_err(torch, grads_f, grads_p)
-            first["planted_faults"][fault] = {
-                "attention_grads": err,
-                "attention_grad_err": max(e["err"] for e in err.values())}
-            del grads_f
-        del grads_p
-        out["first_step"] = first
-        log(f"[internlm2 training] first step {json.dumps(first)}")
-        caught = all(f["attention_grad_err"] > ATTN_GRAD_TOL
-                     for f in first["planted_faults"].values())
-        if not (first["loss_rel_diff"] <= 0.01 and first["grad_norm_rel_diff"] <= 0.02
-                and first["attention_grad_err"] <= ATTN_GRAD_TOL):
-            raise SystemExit(f"chip_smoke: InternLM2's first step differs from plain "
-                             f"attention's: {first}")
-        if not caught:
-            raise SystemExit(f"chip_smoke: the attention-gradient gate let a planted "
-                             f"backward fault through: {first['planted_faults']}")
+        out["first_step"] = _first_step_gates(torch, model, batch, "InternLM2", out)
         torch.cuda.empty_cache()
 
         ckpt_dir = os.path.join(tmp, "ckpt")
@@ -1615,6 +1678,93 @@ def phase_internlm2_training(torch) -> dict:
     del model, params
     torch.cuda.empty_cache()
     log(f"[internlm2 training] {json.dumps(out)}")
+    return out
+
+
+# --------------------------------------------------------------- phase 10
+GEMMA3_TRAIN_STEPS = 4
+
+
+def phase_gemma3_training(torch) -> dict:
+    """gemma3-12b at full widths and 12 of 48 layers: the first step against
+    plain attention (head width 256, local and global layers), then 4 steps
+    of the train loop's step; no checkpoint (phases 8 and 9 hold that path)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset, make_token_dataset
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step
+
+    dev = torch.device("cuda", 0)
+    published = get_config("gemma3_12b")
+    cfg = published.with_(n_layers=GEMMA3_LAYERS)
+    B, S, steps = 2, 2048, GEMMA3_TRAIN_STEPS
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": published.n_layers,
+                 "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                 "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                 "sliding_window": cfg.sliding_window, "global_every": cfg.global_every,
+                 "dtype": cfg.param_dtype, "remat": cfg.remat, "batch": B, "seq": S,
+                 "steps": steps}
+    model = build_model(cfg, device=dev, seed=SEED)
+    _temper_attention(torch, model)
+    model.requires_grad_(True)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gemma3_train_") as tmp:
+        root = os.path.join(tmp, "tokens")
+        make_token_dataset(root, n_docs=16, seq_len=S, vocab=cfg.vocab, seed=4, shard_rows=16)
+        host = DataLoader(RaDataset(root), B, seed=SEED)
+        batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+        host.stop()
+        out["first_step"] = _first_step_gates(torch, model, batch, "gemma3", out)
+        torch.cuda.empty_cache()
+
+        # the steps train() runs (its make_step) on DeviceLoader batches; train()
+        # itself saves a checkpoint at its end, here 37 GB of parameters and moments
+        adamw = AdamWConfig(lr=1e-3, warmup_steps=2)
+        params = model.param_tree()
+        state = optim.init_state(params, adamw)
+        step_fn = make_step(model, adamw)
+        feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
+                            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_flash_counts()
+        losses, step_s = [], []
+        try:
+            for _ in range(steps):
+                feed_batch = next(feed)
+                feed_batch.pop("_state", None)
+                t0 = time.perf_counter()
+                params, state, metrics = step_fn(params, state, feed_batch)
+                losses.append(float(metrics["loss"]))
+                step_s.append(time.perf_counter() - t0)
+        finally:
+            feed.stop()
+        torch.cuda.synchronize()
+    launches = _flash_counts()
+    step = statistics.median(step_s[1:])
+    row = {"steps": steps, "losses": losses, "step_s": step_s, "median_step_s": step,
+           "tokens_per_s": B * S / step,
+           "model_tflops_per_s": 6 * out["params"] * B * S / step / 1e12,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev), "launches": launches,
+           "want_launches": {"forward": cfg.n_layers * steps * (2 if cfg.remat else 1),
+                             "backward": cfg.n_layers * steps}}
+    out["train"] = row
+    log(f"[gemma3 training] steps {json.dumps(row)}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise SystemExit(f"chip_smoke: gemma3 training: losses {losses}")
+    if launches != row["want_launches"]:
+        raise SystemExit(f"chip_smoke: gemma3 training launched {launches}, wanted "
+                         f"{row['want_launches']}")
+    del state, params
+    torch.cuda.empty_cache()
+    out["profiled_step"] = _profiled_step(torch, model, adamw, batch)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[gemma3 training] {json.dumps(out)}")
     return out
 
 
@@ -1687,6 +1837,8 @@ def main() -> int:
     small = phase_paper_lm_training(torch)
     torch.cuda.empty_cache()
     big = phase_internlm2_training(torch)
+    torch.cuda.empty_cache()
+    g_train = phase_gemma3_training(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -1717,6 +1869,7 @@ def main() -> int:
         runs = {f"{small['arch']} train ({name})": row["launches"][kind]
                 for name, row in small["runs"].items()}
         runs[f"{big['arch']} train"] = big["train"]["launches"][kind]
+        runs[f"{g_train['arch']} train"] = g_train["train"]["launches"][kind]
         return runs
 
     for name, replaces, rows_, launches, call in (

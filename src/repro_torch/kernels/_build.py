@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` has a plain C entry point and no PyTorch headers,
 so one ``nvcc`` call takes seconds. Libraries go to ``build/repro_torch/`` at
-the repository root, named by a hash of the source and the flags: an edited
-source builds anew, an unchanged one is loaded from disk. Nothing here runs
+the repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags: an edited source or header builds anew, an
+unchanged one is loaded from disk. Nothing here runs
 at import; the first call of a kernel builds it.
 """
 
@@ -48,8 +49,13 @@ def nvcc() -> str:
 
 
 def lib_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by the
+    source, every header under ``csrc/`` (a source may include any of them)
+    and the flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

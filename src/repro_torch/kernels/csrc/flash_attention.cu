@@ -80,11 +80,11 @@
 //   * Q and K rows are padded by 4 floats in shared memory, so the float4 reads of
 //     16 different K rows by one half warp fall in distinct banks.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is reached through
-                   // cudaGetDriverEntryPoint, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, tensor maps (shared with the backward)
 
 namespace {
 namespace simt {
@@ -324,6 +324,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 
 namespace tc {
 
+using namespace sm90;
+
 constexpr int kBQ = 128;                 // q rows per CTA
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kConsumers = 2;            // warpgroups of 64 q rows
@@ -332,10 +334,9 @@ constexpr float kMask = -1e30f;          // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout for head width HD. Each of Q, K and V is stored as boxes of
-// kBoxCols columns (one swizzle span, 128 or 64 bytes a row) by all of its rows, as
-// TMA writes them: Q | K[kStages] | V[kStages] | mbarriers. K/V tiles are 128 rows,
-// 64 at hd 256 (a 128-row ring would not fit in shared memory).
+// Shared-memory layout for head width HD, each tile as TMA writes it (sm90.cuh,
+// Tile): Q | K[kStages] | V[kStages] | mbarriers. K/V tiles are 128 rows, 64 at
+// hd 256 (a 128-row ring would not fit in shared memory).
 template <int HD>
 struct Cfg {
     static constexpr int kBK = HD >= 256 ? 64 : 128;  // k/v rows per tile
@@ -343,230 +344,14 @@ struct Cfg {
     // registers go to the consumers (kConsumerRegs a thread; 0: no setmaxnreg)
     static constexpr int kThreads = kConsumers * 128 + (HD >= 256 ? 128 : 32);
     static constexpr int kConsumerRegs = HD >= 256 ? 240 : 0;
-    static constexpr int kRowBytes = HD * 2 < 128 ? HD * 2 : 128;
-    static constexpr int kBoxCols = kRowBytes / 2;
-    static constexpr int kBoxes = HD / kBoxCols;
-    static constexpr int kQBoxBytes = kBQ * kRowBytes;
-    static constexpr int kKVBoxBytes = kBK * kRowBytes;
-    static constexpr int kQBytes = kBQ * HD * 2;
-    static constexpr int kKVBytes = kBK * HD * 2;
-    static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
-    static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+    static constexpr int kQBytes = Tile<HD>::bytes(kBQ);
+    static constexpr int kKVBytes = Tile<HD>::bytes(kBK);
     static constexpr int kOffK = kQBytes;
     static constexpr int kOffV = kOffK + kStages * kKVBytes;
     static constexpr int kOffBar = kOffV + kStages * kKVBytes;
     static constexpr int kBars = 1 + 3 * kStages;  // q_full, k_full[], v_full[], empty[]
     static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-    asm volatile(
-        "{\n.reg .pred done;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@done bra DONE;\n"
-        "bra WAIT;\n"
-        "DONE:\n}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// one box of a 3-D tensor map at element coordinates (c0, c1, c2) into shared
-// memory; completion is counted in bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5}], [%2];"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint64_t layout) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-           static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | layout << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an in-flight
-// wgmma owns across the fence / wait around it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (64 x 128) (+)= A (64 x 16, shared memory) * B (128 x 16, shared memory)^T, both K-major
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63" "}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64) (+)= A (64 x 16, shared memory) * B (64 x 16, shared memory)^T, both K-major
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31" "}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// S (64 x BK) (+)= Q (64 x 16) · K (BK keys x 16)ᵀ, both from shared memory
-template <int BK>
-__device__ __forceinline__ void mma_qk(float (&s)[BK / 2], uint64_t q, uint64_t k, int accumulate) {
-    if constexpr (BK == 128) mma_ss_n128(s, q, k, accumulate);
-    else mma_ss_n64(s, q, k, accumulate);
-}
-
-// d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared memory, N-major)
-__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63" "}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared memory, N-major)
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31" "}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 32) += A (64 x 16, registers) * B (16 x 32, shared memory, N-major)
-__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15" "}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// O (64 x HD) += P (64 x 16 keys, registers) · V (16 keys x HD, shared memory).
-// At hd 256 two N = 128 products: columns 0-127 (registers 0-63, V's boxes 0-1,
-// descriptor v) and 128-255 (registers 64-127, boxes 2-3, descriptor v_hi).
-template <int HD>
-__device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* p, uint64_t v,
-                                       uint64_t v_hi) {
-    if constexpr (HD == 256) {
-        mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[0]), p, v);
-        mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[64]), p, v_hi);
-    } else if constexpr (HD == 128) {
-        mma_rs_n128(o, p, v);
-    } else if constexpr (HD == 64) {
-        mma_rs_n64(o, p, v);
-    } else {
-        mma_rs_n32(o, p, v);
-    }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
@@ -576,6 +361,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                    float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
                    int window, float scale_log2) {
     using C = Cfg<HD>;
+    using T = Tile<HD>;
     constexpr int kBK = C::kBK;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024
@@ -625,22 +411,22 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         if (warp != kConsumers * 4 || lane != 0 || n_visit == 0) return;
         bar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-        for (int x = 0; x < C::kBoxes; ++x)
-            tma_load(sQ + x * C::kQBoxBytes, &tm_q, q_full, x * C::kBoxCols, q0, bh);
+        for (int x = 0; x < T::kBoxes; ++x)
+            tma_load(sQ + x * T::box(kBQ), &tm_q, q_full, x * T::kBoxCols, q0, bh);
         for (int i = 0; i < n_visit; ++i) {
             const int s = i % kStages;
             if (i >= kStages) bar_wait(empty(s), (i / kStages - 1) & 1);
             const int k0 = (t_lo + i) * kBK;
             bar_expect_tx(k_full(s), C::kKVBytes);
 #pragma unroll
-            for (int x = 0; x < C::kBoxes; ++x)
-                tma_load(sK + s * C::kKVBytes + x * C::kKVBoxBytes, &tm_k, k_full(s),
-                         x * C::kBoxCols, k0, kvh);
+            for (int x = 0; x < T::kBoxes; ++x)
+                tma_load(sK + s * C::kKVBytes + x * T::box(kBK), &tm_k, k_full(s),
+                         x * T::kBoxCols, k0, kvh);
             bar_expect_tx(v_full(s), C::kKVBytes);
 #pragma unroll
-            for (int x = 0; x < C::kBoxes; ++x)
-                tma_load(sV + s * C::kKVBytes + x * C::kKVBoxBytes, &tm_v, v_full(s),
-                         x * C::kBoxCols, k0, kvh);
+            for (int x = 0; x < T::kBoxes; ++x)
+                tma_load(sV + s * C::kKVBytes + x * T::box(kBK), &tm_v, v_full(s),
+                         x * T::kBoxCols, k0, kvh);
         }
         return;
     }
@@ -673,21 +459,14 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         const int parity = (i / kStages) & 1;
         const int k0 = (t_lo + i) * kBK;
 
-        // S = Q Kᵀ: hd/16 steps of k16; a step inside a 128-byte row advances the
-        // start address by 32 bytes, a new box by the box's size
+        // S = Q Kᵀ: hd/16 steps of k16, both operands K-major
         bar_wait(k_full(st), parity);
         pin(s);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks) {
-            const int x = ks * 16 / C::kBoxCols;
-            const int off = (ks * 16 % C::kBoxCols) * 2;
-            const uint64_t dq = desc(sQ + x * C::kQBoxBytes + 64 * wg * C::kRowBytes + off, 16,
-                                     C::kAtomBytes, C::kLayout);
-            const uint64_t dk = desc(sK + st * C::kKVBytes + x * C::kKVBoxBytes + off, 16,
-                                     C::kAtomBytes, C::kLayout);
-            mma_qk<kBK>(s, dq, dk, ks > 0);
-        }
+        for (int ks = 0; ks < HD / 16; ++ks)
+            mma_ss<kBK>(s, desc_k<HD>(sQ, kBQ, 64 * wg, ks),
+                        desc_k<HD>(sK + st * C::kKVBytes, kBK, 0, ks), ks > 0);
         wgmma_commit();
         wgmma_wait_all();
         pin(s);
@@ -748,20 +527,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int i2 = 0; i2 < kBK / 4; ++i2) p[i2] = pack_bf16(s[2 * i2], s[2 * i2 + 1]);
 
-        // O += P V: kBK/16 steps of 16 keys; V is hd-contiguous (N-major), its boxes
-        // of 64 columns kKVBoxBytes apart, 8-key groups one swizzle atom apart
+        // O += P V: kBK/16 steps of 16 keys; V is hd-contiguous, read MN-major
         bar_wait(v_full(st), parity);
         pin(acc);
         pin(p);
         wgmma_fence();
+        const uint32_t tV = sV + st * C::kKVBytes;
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-            const uint32_t at = sV + st * C::kKVBytes + kk * 16 * C::kRowBytes;
-            const uint64_t dv = desc(at, C::kKVBoxBytes, C::kAtomBytes, C::kLayout);
-            const uint64_t dv_hi = desc(at + 2 * C::kKVBoxBytes, C::kKVBoxBytes, C::kAtomBytes,
-                                        C::kLayout);
-            mma_pv<HD>(acc, &p[4 * kk], dv, dv_hi);
-        }
+        for (int kk = 0; kk < kBK / 16; ++kk)
+            mma_pv<HD>(acc, &p[4 * kk], desc_mn<HD>(tV, kBK, kk), desc_mn<HD>(tV, kBK, kk, 2));
         wgmma_commit();
         wgmma_wait_all();
         pin(acc);
@@ -790,52 +564,6 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded; null if absent
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* sym = nullptr;
-        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym,
-                                                        cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(sym)
-                   : nullptr;
-    }();
-    return fn;
-}
-
-// A bf16 tensor of `heads` contiguous (rows, hd) slabs as a 3-D map (hd, rows,
-// heads) whose box is (box_cols, box_rows, 1), swizzled across box_cols * 2 bytes.
-// A box that runs past `rows` is zero-filled there and never reads the next head.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
-                     int box_cols, int box_rows) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                                static_cast<cuuint64_t>(heads)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                   static_cast<cuuint64_t>(rows) * hd * 2};
-    const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                               static_cast<cuuint32_t>(box_rows), 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    const CUresult res = encode(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int KV, int Sq, int Sk, int causal, int window, float scale,
@@ -845,13 +573,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     // describe q, and no load is issued through them
     const bool any_k = Sk > 0;
     CUtensorMap mq, mk, mv;
-    cudaError_t err = make_map(&mq, q, HD, Sq, B * H, C::kBoxCols, kBQ);
+    constexpr int kBoxCols = Tile<HD>::kBoxCols;
+    cudaError_t err = make_map(&mq, q, HD, Sq, B * H, kBoxCols, kBQ);
     if (err == cudaSuccess)
         err = make_map(&mk, any_k ? k : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       C::kBoxCols, C::kBK);
+                       kBoxCols, C::kBK);
     if (err == cudaSuccess)
         err = make_map(&mv, any_k ? v : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       C::kBoxCols, C::kBK);
+                       kBoxCols, C::kBK);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(flash_attention_tc<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

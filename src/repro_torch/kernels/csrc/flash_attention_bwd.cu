@@ -15,41 +15,63 @@
 //   dK = scale · dSᵀ Q               dQ = scale · dS K
 // Two kernels, one after the other on the caller's stream, and no atomics, so
 // two calls give bit-equal gradients:
-//   * dq_kernel: one CTA per (q tile, q head, batch). It computes D for its rows
-//     (and writes it for the next kernel), then walks the K/V tiles its rows can
+//   * dq_kernel: one CTA per (q tile, q head, batch). It computes D (and writes it
+//     with the LSE for the next kernel), then walks the K/V tiles its rows can
 //     see, rebuilding S, P, dP and dS, and accumulates dQ in registers; the
 //     heaviest causal q tiles start first;
 //   * dkdv_kernel: one CTA per (K/V tile, KV head, batch). It keeps its K and V
 //     tile in shared memory and walks the q heads of its GQA group and, for each,
 //     the q tiles that can see the tile (causal: from the diagonal on; window: up
 //     to the last key + window − 1), accumulating dK and dV in registers. So a
-//     group's q heads are summed by one CTA, in a fixed order.
+//     group's q heads are summed by one CTA, in a fixed order; the heaviest
+//     causal K/V tiles start first.
 // Everything is accumulated in f32 and written once in the inputs' dtype.
 //
 // What bounds it: with S² / 2 live pairs a head it does seven products of the
 // forward's size (Q·Kᵀ and dO·Vᵀ in both kernels, Pᵀ·dO, dSᵀ·Q, dS·K), so it is
-// bound by operations at every training shape. flash_attention_bwd_launch
-// dispatches by dtype to one of two pairs of kernels.
+// bound by operations at every training shape; the least time counts five (one
+// kernel that adds dQ across CTAs would do five), so two kernels cannot come
+// closer than 1.4× that bound. flash_attention_bwd_launch dispatches by dtype to
+// one of two pairs of kernels.
 //
-// bfloat16: tc::, on the tensor cores through mma.sync.m16n8k16 (bf16 in, f32
-// accumulators in registers), FlashAttention-2's warp layout:
-//   * 128 threads, 4 warps; a warp owns 16 rows of the CTA's tile (16 keys in the
-//     dK/dV kernel, 16 q rows in the dQ kernel) and 16 × hd f32 accumulators of
-//     its gradient;
-//   * tiles are staged in bf16 in shared memory, rows padded by 16 bytes so that
-//     the eight 16-byte rows of an ldmatrix fall in distinct banks; operands reach
-//     the tensor cores by ldmatrix (.trans where the product's k axis is the
-//     tile's row axis: Pᵀ·dO, dSᵀ·Q, dS·K);
-//   * Sᵀ / S and dPᵀ / dP come out in the accumulator layout; P and dS are formed
-//     there in f32 and rounded to bf16 in place as the A operand of the next
-//     product (two adjacent n8 accumulator tiles are one k16 A fragment), so P
-//     never leaves registers. P rounds as the forward's P·V product rounds it;
-//     dS rounds once (about 2^-9 relative), inside the bf16 tolerance of 2e-2;
-//   * dK/dV kernel: 64 keys a CTA, q tiles of 32 rows; dQ kernel: 64 q rows a CTA,
-//     K/V tiles of 64 keys. Shared memory at hd 128: 52 KB and 70 KB.
-// Tiles are loaded by the CTA's threads with 16-byte loads between barriers, not
-// yet by TMA into a ring, and the products are mma.sync, not wgmma: the next
-// steps (ROADMAP.md, kernel item K2).
+// bfloat16: tc::, on the tensor cores, FlashAttention-3's shape of kernel:
+//   * 384 threads a CTA: two consumer warpgroups and a producer warpgroup that
+//     gives its registers up (setmaxnreg: 24 a thread) so that each consumer
+//     thread can hold 240;
+//   * bytes: one producer thread TMA-loads the resident tiles once and each
+//     visited tile into a 2-stage ring, an mbarrier per stage for "full" (TMA
+//     transaction bytes) and one for "empty" (an arrival per consumer warpgroup
+//     once its last product on the stage has retired), so the next tile's load
+//     overlaps this tile's products. Tensor maps are the forward's, 3-D (hd, S,
+//     B·heads): rows past S are zero-filled inside their own head (sm90.cuh);
+//   * operations: every product is wgmma m64nNk16, bf16 in, f32 accumulators in
+//     registers. Q·Kᵀ-shaped products (S, dP; Sᵀ = K Qᵀ, dPᵀ = V dOᵀ) read both
+//     operands from shared memory K-major. P·V-shaped ones (dQ += dS K, dV += Pᵀ
+//     dO, dK += dSᵀ Q) take P or dS from registers — the m64 accumulator layout is
+//     the register A layout once rounded to bf16 in place, as the forward does
+//     with P — and read K, dO or Q MN-major through the transpose bit. So one
+//     copy of a Q or dO tile in shared memory serves both readings: the swizzle
+//     atoms are the same, only the descriptor's offsets differ;
+//   * dq_kernel: Q and dO of 128 rows resident, 64 a warpgroup; K/V tiles of 128
+//     keys (32 at hd 256, where Q and dO take 128 KB); S and dP are issued
+//     together and dP runs while P is formed. D is summed by each quad from O
+//     and dO in device memory, and the LSE (in log2 units) and D are written to
+//     a scratch padded to 64-row chunks;
+//   * dkdv_kernel: K and V of 128 keys resident, 64 a warpgroup owning their dK
+//     and dV; Q and dO tiles of 64 rows and their LSE and D rows (two bulk copies
+//     from the scratch) through the ring. Each product is its own wgmma group:
+//     dPᵀ runs while Pᵀ is formed, dV += Pᵀ dO while dSᵀ is. At hd 256 dK + dV of 64 keys would be
+//     256 f32 a thread, past the 255 a thread may have, so the CTA takes 64 keys,
+//     warpgroup 0 computes Pᵀ and owns dV, warpgroup 1 computes dPᵀ and owns dK,
+//     and Pᵀ passes from 0 to 1 through 16 KB of shared memory under two named
+//     barriers, as FlashAttention-3 does at hd 256;
+//   * masks are built only on tiles that cross S, the diagonal or the window
+//     edge; P rounds to bf16 as the forward's P·V product rounds it, dS once
+//     (about 2^-9 relative), inside the bf16 tolerance of 2e-2.
+//   Shared memory at hd 128: 192 KB (dQ) and 129 KB (dK/dV); at hd 256 192 KB
+//   and 209 KB of the 227 KB a CTA may have. One CTA an SM. A third ring stage
+//   measured no faster; issuing the next tile's S behind this tile's dQ product
+//   measured slower (it holds each stage longer).
 //
 // float32: simt::, on the f32 SIMT pipes (67 TFLOP/s; on the tensor cores f32 would
 // be TF32 and miss the f32 tolerance). Its design:
@@ -63,16 +85,16 @@
 //     need no padding;
 //   * tiles: kBQ = 32 q rows; kBK = 32 keys at hd 128 (dK + dV: 64 f32 registers a
 //     thread), 64 at hd 32 and 64. Shared memory: 76 KB at hd 128, two CTAs an SM.
-// Both: rows past S are staged as zeros and masked, so S need not be a multiple
-// of a tile. hd 256 is not instantiated (ROADMAP.md, kernel item K2).
+//   Rows past S are staged as zeros and masked, so S need not be a multiple of a
+//   tile. hd 256 is not instantiated in f32: no model trains there in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "sm90.cuh"  // mbarriers, TMA, wgmma, tensor maps (shared with the forward)
 
-constexpr int kThreads = 128;  // both pairs of kernels
+namespace {
 
 __device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal, int window) {
     bool ok = qpos < S && kpos < S;
@@ -83,6 +105,7 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal, int 
 
 namespace simt {
 
+constexpr int kThreads = 128;
 constexpr int kBQ = 32;        // q rows per tile
 constexpr int kRQ = kBQ / 8;   // q rows per thread
 
@@ -443,370 +466,594 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o
 
 namespace tc {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
-constexpr int kBK = 64;   // dK/dV kernel: keys per CTA, 16 a warp
-constexpr int kBQ = 32;   // dK/dV kernel: q rows per tile
-constexpr int kBQ2 = 64;  // dQ kernel: q rows per CTA, 16 a warp
-constexpr int kBK2 = 64;  // dQ kernel: keys per tile
 
+constexpr int kStages = 2;          // ring depth of both kernels
+constexpr int kThreads = 384;       // two consumer warpgroups, then a producer warpgroup
+constexpr int kProducerRegs = 24;   // a producer thread's registers after setmaxnreg
+constexpr int kConsumerRegs = 240;  // a consumer thread's
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPFull = 1, kPEmpty = 2;  // named barriers of the Pᵀ handoff (hd 256)
+
+// dQ kernel: Q and dO of 128 q rows resident (64 a consumer warpgroup), K/V
+// tiles of kBK keys through the ring. Shared memory: Q | dO | K[kStages] |
+// V[kStages] | mbarriers. K/V tiles are 128 keys (192 KB at hd 128), so S and dP
+// run as m64n128: at the tensor cores' peak its operands ask shared memory for
+// 96 bytes a clock, m64n64's for all 128 an SM has. At hd 256 Q and dO alone take
+// 128 KB, so the K/V tiles are 32 keys (2 × 2 × 16 KB).
 template <int HD>
-struct Cfg {
-    static constexpr int kLd = HD + 8;  // bf16 elements per row in shared memory
-    // dK/dV kernel: K | V | Q | dO | lse | D
-    static constexpr size_t kBytesKV = 2 * (2 * kBK + 2 * kBQ) * kLd + 8 * kBQ;
-    // dQ kernel: Q | dO | K | V | lse | D
-    static constexpr size_t kBytesQ = 2 * (2 * kBQ2 + 2 * kBK2) * kLd + 8 * kBQ2;
+struct DqCfg {
+    using T = Tile<HD>;
+    static constexpr int kBQ = 128;
+    static constexpr int kBK = HD >= 256 ? 32 : 128;
+    static constexpr int kQBytes = T::bytes(kBQ);
+    static constexpr int kKVBytes = T::bytes(kBK);
+    static constexpr int kOffO = kQBytes;
+    static constexpr int kOffK = 2 * kQBytes;
+    static constexpr int kOffV = kOffK + kStages * kKVBytes;
+    static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+    static constexpr int kBars = 1 + 3 * kStages;  // q_full, k_full[], v_full[], empty[]
+    static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) · b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Lane addresses of the three operand loads, for a 16 x 16 block at (row r0, col c0)
-// of a row-major bf16 tile with kLd elements a row:
-//  * A, or B of two n8 tiles stored [n][k] (k contiguous): matrix m = lane / 8 covers
-//    rows 8 (m & 1) .. + 7 for A (cols 8 (m >> 1)), and for B rows (n) 8 (m >> 1) .. + 7,
-//    cols (k) 8 (m & 1);
-//  * B of two n8 tiles stored [k][n] (n contiguous), loaded transposed: rows (k)
-//    8 (m & 1) .. + 7, cols (n) 8 (m >> 1).
-template <int LD>
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0, int lane) {
-    return base + 2 * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t b_addr(uint32_t base, int n0, int k0, int lane) {
-    return base + 2 * ((n0 + (lane >> 4) * 8 + (lane & 7)) * LD + k0 + ((lane >> 3) & 1) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int k0, int n0, int lane) {
-    return base + 2 * ((k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + n0 + (lane >> 4) * 8);
-}
-
-// rows [0, ROWS) of a (rows, HD) bf16 slab into shared memory with LD elements a
-// row; rows at or past `valid` become zeros
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src, int valid) {
-    constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-        const int r = i / kChunks;
-        const int c = (i % kChunks) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < valid) v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + c));
-        *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-    }
-}
-
-// d (16 x N, registers) = x (16 x HD rows r0.. of a tile) · yᵀ (N rows n0.. of another
-// tile), both K-major in shared memory: N / 8 accumulator tiles
-template <int HD, int N, int LD>
-__device__ __forceinline__ void product_nt(float (&d)[N / 8][4], uint32_t x, int r0, uint32_t y,
-                                           int n0, int lane) {
-#pragma unroll
-    for (int t = 0; t < N / 8; ++t) d[t][0] = d[t][1] = d[t][2] = d[t][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-        uint32_t a[4];
-        ldsm(a, a_addr<LD>(x, r0, ks * 16, lane));
-#pragma unroll
-        for (int np = 0; np < N / 16; ++np) {
-            uint32_t b[4];
-            ldsm(b, b_addr<LD>(y, n0 + np * 16, ks * 16, lane));
-            mma(d[2 * np], a, b[0], b[1]);
-            mma(d[2 * np + 1], a, b[2], b[3]);
-        }
-    }
-}
-
-// acc (16 x HD) += p (16 x K, A fragments in registers) · y (K rows of a tile, N-major
-// in shared memory, loaded transposed)
-template <int HD, int K, int LD>
-__device__ __forceinline__ void product_pv(float (&acc)[HD / 8][4], const uint32_t (&p)[K / 16][4],
-                                           uint32_t y, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-            uint32_t b[4];
-            ldsm_t(b, bt_addr<LD>(y, kk * 16, np * 16, lane));
-            mma(acc[2 * np], p[kk], b[0], b[1]);
-            mma(acc[2 * np + 1], p[kk], b[2], b[3]);
-        }
-    }
-}
-
-// the accumulator tiles 2kk and 2kk + 1 of c as the bf16 A fragment of k block kk
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 8][4]) {
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-        a[kk][0] = pack(c[2 * kk][0], c[2 * kk][1]);
-        a[kk][1] = pack(c[2 * kk][2], c[2 * kk][3]);
-        a[kk][2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-        a[kk][3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-    }
-}
-
-// Accumulator layout of m16n8 (lane = 4 g + t): register 2 r + e of tile j holds row
-// g + 8 r, column 8 j + 2 t + e.
+// dK/dV kernel: K and V of kBK keys resident, the (Q, dO) tiles of 64 q rows and
+// their LSE and D rows through the ring. Up to hd 128 each consumer warpgroup owns
+// 64 keys and both their dK and dV (kBK = 128); at hd 256 dK + dV of 64 keys would
+// be 256 f32 a thread, so both warpgroups take the same 64 keys, warpgroup 0 dV and
+// warpgroup 1 dK, and Pᵀ passes from 0 to 1 through shared memory (kSplit).
+// Shared memory: K | V | Q[kStages] | dO[kStages] | rows[kStages] | Pᵀ | mbarriers.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-            int KV, int S, int causal, int window, float scale) {
-    constexpr int LD = Cfg<HD>::kLd;
-    extern __shared__ float4 smem4[];
-    bf16* sK = reinterpret_cast<bf16*>(smem4);
-    bf16* sV = sK + kBK * LD;
-    bf16* sQ = sV + kBK * LD;
-    bf16* sO = sQ + kBQ * LD;  // dO
-    float* sL = reinterpret_cast<float*>(sO + kBQ * LD);
-    float* sD = sL + kBQ;
+struct KvCfg {
+    using T = Tile<HD>;
+    static constexpr bool kSplit = HD >= 256;
+    static constexpr int kBK = kSplit ? 64 : 128;
+    static constexpr int kBQ = 64;
+    static constexpr int kKVBytes = T::bytes(kBK);
+    static constexpr int kQBytes = T::bytes(kBQ);
+    static constexpr int kRowsBytes = 2 * kBQ * 4;  // a stage's LSE (log2 units) and D
+    static constexpr int kPBytes = kSplit ? 64 * kBQ * 4 : 0;
+    static constexpr int kOffV = kKVBytes;
+    static constexpr int kOffQ = 2 * kKVBytes;
+    static constexpr int kOffO = kOffQ + kStages * kQBytes;
+    static constexpr int kOffRows = kOffO + kStages * kQBytes;
+    static constexpr int kOffP = kOffRows + kStages * kRowsBytes;
+    static constexpr int kOffBar = kOffP + kPBytes;
+    static constexpr int kBars = 1 + 2 * kStages;  // kv_full, full[], empty[]
+    static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;
+};
 
-    const int k0 = blockIdx.x * kBK;  // low K tiles (the most q tiles, causal) first
-    const int kvh = blockIdx.y;
-    const int b = blockIdx.z;
-    const int group = H / KV;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const int kw = 16 * warp;  // this warp's keys in the tile
-    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * S;
-    const int k_valid = min(kBK, S - k0);
+// Accumulator layout of wgmma m64nN: register 4j + 2r + e holds row r0 + 8r,
+// column 8j + c + e, where r0 = 16 (warp % 4) + lane / 4 and c = 2 (lane % 4).
 
-    stage<HD, kBK, LD>(sK, k + (row_bk + k0) * HD, k_valid);
-    stage<HD, kBK, LD>(sV, v + (row_bk + k0) * HD, k_valid);
-
-    const int n_qtiles = (S + kBQ - 1) / kBQ;
-    const int u_lo = causal ? k0 / kBQ : 0;
-    int u_hi = n_qtiles;
-    if (window > 0) u_hi = min(n_qtiles, (k0 + k_valid - 1 + window - 1) / kBQ + 1);
-
-    float acc_k[HD / 8][4], acc_v[HD / 8][4];
+// d (64 x N) = A · Bᵀ over HD columns: A rows [r0, r0 + 64) of a tile of a_rows
+// rows, B an N-row tile, both K-major. Issued as one wgmma group, not waited for.
+template <int HD, int N>
+__device__ __forceinline__ void product_nt(float (&d)[N / 2], uint32_t a, int a_rows, int r0,
+                                           uint32_t b) {
+    pin(d);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
-
-    for (int h = 0; h < group; ++h) {
-        const size_t row_bh = (static_cast<size_t>(b) * H + kvh * group + h) * S;
-        for (int u = u_lo; u < u_hi; ++u) {
-            const int q0 = u * kBQ;
-            const int q_valid = min(kBQ, S - q0);
-            __syncthreads();  // the previous q tile's reads are done
-            stage<HD, kBQ, LD>(sQ, q + (row_bh + q0) * HD, q_valid);
-            stage<HD, kBQ, LD>(sO, dout + (row_bh + q0) * HD, q_valid);
-            if (threadIdx.x < kBQ) {
-                const int r = threadIdx.x;
-                sL[r] = r < q_valid ? lse[row_bh + q0 + r] : 0.f;
-                sD[r] = r < q_valid ? delta[row_bh + q0 + r] : 0.f;
-            }
-            __syncthreads();
-            // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: this warp's 16 keys x the tile's kBQ q rows
-            float st[kBQ / 8][4], dpt[kBQ / 8][4];
-            product_nt<HD, kBQ, LD>(st, smem_addr(sK), kw, smem_addr(sQ), 0, lane);
-            product_nt<HD, kBQ, LD>(dpt, smem_addr(sV), kw, smem_addr(sO), 0, lane);
-            // Pᵀ and dSᵀ in place: row = key, column = q row
-#pragma unroll
-            for (int j = 0; j < kBQ / 8; ++j)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const int key = k0 + kw + g + 8 * (i >> 1);
-                    const int qr = 8 * j + 2 * t + (i & 1);
-                    const float p = live(q0 + qr, key, S, causal, window)
-                                        ? expf(st[j][i] * scale - sL[qr]) : 0.f;
-                    st[j][i] = p;
-                    dpt[j][i] = p * (dpt[j][i] - sD[qr]);
-                }
-            uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
-            to_a<kBQ>(pa, st);
-            to_a<kBQ>(sa, dpt);
-            // dV += Pᵀ dO, dK += dSᵀ Q (k = the tile's q rows)
-            product_pv<HD, kBQ, LD>(acc_v, pa, smem_addr(sO), lane);
-            product_pv<HD, kBQ, LD>(acc_k, sa, smem_addr(sQ), lane);
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int key = kw + g + 8 * r;
-        if (key >= k_valid) continue;
-        bf16* krow = dk + (row_bk + k0 + key) * HD;
-        bf16* vrow = dv + (row_bk + k0 + key) * HD;
-#pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-            const int c = 8 * j + 2 * t;
-            *reinterpret_cast<__nv_bfloat162*>(krow + c) =
-                __floats2bfloat162_rn(acc_k[j][2 * r] * scale, acc_k[j][2 * r + 1] * scale);
-            *reinterpret_cast<__nv_bfloat162*>(vrow + c) =
-                __floats2bfloat162_rn(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
-        }
-    }
+    for (int ks = 0; ks < HD / 16; ++ks)
+        mma_ss<N>(d, desc_k<HD>(a, a_rows, r0, ks), desc_k<HD>(b, N, 0, ks), ks > 0);
+    wgmma_commit();
 }
 
+// acc (64 x HD) += A · B: A (64 x K) bf16 in registers, B a K-row tile read
+// MN-major (its rows are the contraction). Issued as one wgmma group, not waited for.
+template <int HD, int K>
+__device__ __forceinline__ void product_nn(float (&acc)[HD / 2], uint32_t (&a)[K / 4],
+                                           uint32_t b) {
+    pin(acc);
+    pin(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+        mma_pv<HD>(acc, &a[4 * kk], desc_mn<HD>(b, K, kk), desc_mn<HD>(b, K, kk, 2));
+    wgmma_commit();
+}
+
+// dQ (and the LSE/D rows for the dK/dV kernel). One CTA per (q tile of 128 rows,
+// q head, batch), the last (heaviest causal) q tiles first.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+          const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
           const bf16* __restrict__ o, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
-          int H, int KV, int S, int causal, int window, float scale) {
-    constexpr int LD = Cfg<HD>::kLd;
-    extern __shared__ float4 smem4[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem4);
-    bf16* sO = sQ + kBQ2 * LD;  // dO
-    bf16* sK = sO + kBQ2 * LD;
-    bf16* sV = sK + kBK2 * LD;
-    float* sL = reinterpret_cast<float*>(sV + kBK2 * LD);
-    float* sD = sL + kBQ2;
+          const float* __restrict__ lse, float* __restrict__ rows, bf16* __restrict__ dq, int H,
+          int KV, int S, int S_pad, int causal, int window, float scale) {
+    using T = Tile<HD>;
+    using C = DqCfg<HD>;
+    constexpr int kBQ = C::kBQ;
+    constexpr int kBK = C::kBK;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024
+    const uint32_t sQ = base;
+    const uint32_t sO = base + C::kOffO;
+    const uint32_t sK = base + C::kOffK;
+    const uint32_t sV = base + C::kOffV;
+    const uint32_t q_full = base + C::kOffBar;
+    auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+    auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+    auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
 
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ2;  // heaviest causal tiles first
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int kvh = h / (H / KV);
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int t = lane % 4;
-    const int qw = 16 * warp;  // this warp's q rows in the tile
-    const size_t row_bh = (static_cast<size_t>(b) * H + h) * S;
-    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * S;
-    const int q_valid = min(kBQ2, S - q0);
+    const int HB = gridDim.y * gridDim.z;
+    const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    const int q0 = (gridDim.x - 1 - lin / HB) * kBQ;
+    const int bh = lin % HB;  // b * H + h
+    const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
+    const int q_rows = min(kBQ, S - q0);
+    const int n_active = (q_rows + 63) / 64;  // warpgroups with a live row
 
-    stage<HD, kBQ2, LD>(sQ, q + (row_bh + q0) * HD, q_valid);
-    stage<HD, kBQ2, LD>(sO, dout + (row_bh + q0) * HD, q_valid);
+    // the K/V tiles some row of this q tile can see: [t_lo, t_lo + n_visit)
+    const int n_tiles = (S + kBK - 1) / kBK;
+    int t_hi = n_tiles;
+    if (causal) t_hi = min(n_tiles, (q0 + q_rows - 1) / kBK + 1);
+    int t_lo = 0;
+    if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / kBK;
+    const int n_visit = max(0, t_hi - t_lo);
+
+    if (threadIdx.x == 0) {
+        bar_init(q_full, 1);
+        for (int s = 0; s < kStages; ++s) {
+            bar_init(k_full(s), 1);
+            bar_init(v_full(s), 1);
+            bar_init(empty(s), n_active);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
     __syncthreads();
 
-    // D = rowsum(dO ∘ O) for this warp's 16 rows, the lanes splitting the columns;
-    // the dK/dV kernel reads it from delta
-    for (int rr = 0; rr < 16; ++rr) {
-        const int r = qw + rr;
-        float part = 0.f;
-        if (r < q_valid) {
-            const bf16* orow = o + (row_bh + q0 + r) * HD;
-            for (int c = lane; c < HD; c += 32)
-                part = fmaf(__bfloat162float(sO[r * LD + c]), __bfloat162float(orow[c]), part);
-        }
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (warp >= 8) {
+        // producer: one thread issues every load
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+        if (warp != 8 || lane != 0 || n_visit == 0) return;
+        bar_expect_tx(q_full, 2 * C::kQBytes);
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (lane == 0) {
-            sD[r] = part;
-            sL[r] = r < q_valid ? lse[row_bh + q0 + r] : 0.f;
-            if (r < q_valid) delta[row_bh + q0 + r] = part;
+        for (int x = 0; x < T::kBoxes; ++x) {
+            tma_load(sQ + x * T::box(kBQ), &tm_q, q_full, x * T::kBoxCols, q0, bh);
+            tma_load(sO + x * T::box(kBQ), &tm_do, q_full, x * T::kBoxCols, q0, bh);
+        }
+        for (int i = 0; i < n_visit; ++i) {
+            const int s = i % kStages;
+            if (i >= kStages) bar_wait(empty(s), (i / kStages - 1) & 1);
+            const int k0 = (t_lo + i) * kBK;
+            bar_expect_tx(k_full(s), C::kKVBytes);
+#pragma unroll
+            for (int x = 0; x < T::kBoxes; ++x)
+                tma_load(sK + s * C::kKVBytes + x * T::box(kBK), &tm_k, k_full(s),
+                         x * T::kBoxCols, k0, kvh);
+            bar_expect_tx(v_full(s), C::kKVBytes);
+#pragma unroll
+            for (int x = 0; x < T::kBoxes; ++x)
+                tma_load(sV + s * C::kKVBytes + x * T::box(kBK), &tm_v, v_full(s),
+                         x * T::kBoxCols, k0, kvh);
+        }
+        return;
+    }
+
+    // consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+    const int wg = warp / 4;
+    if (wg >= n_active) return;
+    const int wg_lo = q0 + 64 * wg;
+    const int wg_hi = min(wg_lo + 63, S - 1);
+    const int row0 = wg_lo + 16 * (warp % 4) + lane / 4;  // this thread's rows: row0, row0 + 8
+    const int col = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+
+    // each row's LSE in log2 units and D = rowsum(dO ∘ O), the four threads of a
+    // quad splitting the columns; written, padded with zeros to S_pad rows, for
+    // the dK/dV kernel, which brings them in by bulk copies
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        float part = 0.f;
+        lse2[r] = 0.f;
+        if (qpos < S) {
+            const size_t row = static_cast<size_t>(bh) * S + qpos;
+            lse2[r] = lse[row] * kLog2e;
+            const uint4* orow = reinterpret_cast<const uint4*>(o + row * HD);
+            const uint4* drow = reinterpret_cast<const uint4*>(dout + row * HD);
+            for (int c = lane % 4; c < HD / 8; c += 4) {
+                const uint4 a = __ldg(orow + c), d = __ldg(drow + c);
+                const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+                const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 af = __bfloat1622float2(a2[e]), df = __bfloat1622float2(d2[e]);
+                    part = fmaf(af.x, df.x, fmaf(af.y, df.y, part));
+                }
+            }
+        }
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        dd[r] = part;
+        if (lane % 4 == 0 && qpos < S_pad) {
+            rows[static_cast<size_t>(2 * bh) * S_pad + qpos] = lse2[r];
+            rows[static_cast<size_t>(2 * bh + 1) * S_pad + qpos] = part;
         }
     }
 
-    const int n_tiles = (S + kBK2 - 1) / kBK2;
-    int t_hi = n_tiles;
-    if (causal) t_hi = min(n_tiles, (q0 + q_valid - 1) / kBK2 + 1);
-    int t_lo = 0;
-    if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / kBK2;
+    float acc[HD / 2];
+    float s[kBK / 2], dp[kBK / 2];
+    uint32_t ds[kBK / 4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = dp[i] = 0.f;
 
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    if (n_visit > 0) bar_wait(q_full, 0);
+    for (int i = 0; i < n_visit; ++i) {
+        const int st = i % kStages;
+        const int parity = (i / kStages) & 1;
+        const int k0 = (t_lo + i) * kBK;
+        const uint32_t tK = sK + st * C::kKVBytes;
 
-    for (int tile = t_lo; tile < t_hi; ++tile) {
-        const int k0 = tile * kBK2;
-        __syncthreads();  // the previous tile's reads are done (and sL, sD written)
-        stage<HD, kBK2, LD>(sK, k + (row_bk + k0) * HD, min(kBK2, S - k0));
-        stage<HD, kBK2, LD>(sV, v + (row_bk + k0) * HD, min(kBK2, S - k0));
-        __syncthreads();
-        // S = Q Kᵀ and dP = dO Vᵀ: this warp's 16 q rows x the tile's kBK2 keys
-        float s[kBK2 / 8][4], dp[kBK2 / 8][4];
-        product_nt<HD, kBK2, LD>(s, smem_addr(sQ), qw, smem_addr(sK), 0, lane);
-        product_nt<HD, kBK2, LD>(dp, smem_addr(sO), qw, smem_addr(sV), 0, lane);
+        // S = Q Kᵀ, then dP = dO Vᵀ (both operands K-major), which runs while P
+        // is formed from S
+        bar_wait(k_full(st), parity);
+        product_nt<HD, kBK>(s, sQ, kBQ, 64 * wg, tK);
+        bar_wait(v_full(st), parity);
+        product_nt<HD, kBK>(dp, sO, kBQ, 64 * wg, sV + st * C::kKVBytes);
+        wgmma_wait<1>();
+        pin(s);
+
+        // P = exp(scale·S − lse), 0 where masked (masks only on tiles that cross Sk,
+        // the diagonal or the window edge), then dS = P ∘ (dP − D), in place
+        const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > wg_lo) ||
+                          (window > 0 && k0 <= wg_hi - window);
 #pragma unroll
-        for (int j = 0; j < kBK2 / 8; ++j)
+        for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int qr = qw + g + 8 * (i >> 1);
-                const int key = k0 + 8 * j + 2 * t + (i & 1);
-                const float p = live(q0 + qr, key, S, causal, window)
-                                    ? expf(s[j][i] * scale - sL[qr]) : 0.f;
-                dp[j][i] = p * (dp[j][i] - sD[qr]);
-            }
-        uint32_t sa[kBK2 / 16][4];
-        to_a<kBK2>(sa, dp);
-        product_pv<HD, kBK2, LD>(acc, sa, smem_addr(sK), lane);  // dQ += dS K
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    float& x = s[4 * j + 2 * r + e];
+                    const float p = exp2_approx(x * scale_log2 - lse2[r]);
+                    const bool ok = !edge || live(row0 + 8 * r, k0 + 8 * j + col + e, S, causal,
+                                                  window);
+                    x = ok ? p : 0.f;
+                }
+        wgmma_wait<0>();
+        pin(dp);
+#pragma unroll
+        for (int x = 0; x < kBK / 2; ++x) dp[x] = s[x] * (dp[x] - dd[(x >> 1) & 1]);
+        to_a<kBK>(ds, dp);
+
+        // dQ += dS K: K read MN-major (its keys are the contraction)
+        product_nn<HD, kBK>(acc, ds, tK);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(ds);
+        if (threadIdx.x % 128 == 0) bar_arrive(empty(st));  // this warpgroup is done with the stage
     }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        const int qr = qw + g + 8 * r;
-        if (qr >= q_valid) continue;
-        bf16* drow = dq + (row_bh + q0 + qr) * HD;
+        const int qpos = row0 + 8 * r;
+        if (qpos >= S) continue;
+        bf16* drow = dq + (static_cast<size_t>(bh) * S + qpos) * HD + col;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
 }
+
+// What a dK/dV consumer warpgroup needs of its CTA.
+struct KvArgs {
+    uint32_t sK, sV, sQ, sO;  // K and V; the stage-0 Q and dO tiles
+    uint32_t kv_full, full, empty;  // full and empty: stage 0's, 8 bytes a stage
+    const float* rows;  // stage 0's LSE (log2 units) and D rows, generic address
+    float* p;           // the Pᵀ handoff (hd 256)
+    int k0, S, causal, window, n_visit, per_head, u_lo;
+};
+
+enum Role { kBoth, kOnlyV, kOnlyK };
+
+// A consumer warpgroup of the dK/dV kernel over the CTA's walk: kBoth owns its 64
+// keys' dV and dK; at hd 256 kOnlyV owns dV and hands Pᵀ to kOnlyK, which owns dK.
+template <int HD, int R>
+__device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __restrict__ dk,
+                                             bf16* __restrict__ dv, size_t row_bk, float scale) {
+    using C = KvCfg<HD>;
+    constexpr int kBQ = C::kBQ;
+    constexpr bool kV = R != kOnlyK;
+    constexpr bool kK = R != kOnlyV;
+    const int lane = threadIdx.x % 32;
+    const int t = threadIdx.x % 128;
+    const int kr = R == kBoth ? 64 * wg : 0;  // this warpgroup's keys in the CTA's tile
+    const int wk_lo = a.k0 + kr;
+    const int key0 = wk_lo + 16 * (threadIdx.x / 32 % 4) + lane / 4;  // rows key0, key0 + 8
+    const int col = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+
+    // a role's unused arrays keep one element (and so no registers to speak of)
+    constexpr int kAccV = kV ? HD / 2 : 1, kAccK = kK ? HD / 2 : 1;
+    float acc_v[kAccV], acc_k[kAccK];
+    float s[kBQ / 2];            // Sᵀ, then Pᵀ
+    float dp[kK ? kBQ / 2 : 1];  // dPᵀ, then dSᵀ
+    uint32_t pa[kV ? kBQ / 4 : 1], sa[kK ? kBQ / 4 : 1];
+#pragma unroll
+    for (int i = 0; i < kAccV; ++i) acc_v[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kAccK; ++i) acc_k[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBQ / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kK ? kBQ / 2 : 1); ++i) dp[i] = 0.f;
+
+    if (a.n_visit > 0) bar_wait(a.kv_full, 0);
+    for (int i = 0; i < a.n_visit; ++i) {
+        const int st = i % kStages;
+        const int q0 = (a.u_lo + i % a.per_head) * kBQ;
+        const uint32_t tQ = a.sQ + st * C::kQBytes;
+        const uint32_t tO = a.sO + st * C::kQBytes;
+        bar_wait(a.full + 8 * st, (i / kStages) & 1);
+
+        // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (this warpgroup's 64 keys × the tile's 64 q
+        // rows): A the resident K or V, B the ring's Q or dO, both K-major. With
+        // both, dPᵀ runs while Pᵀ is formed.
+        if constexpr (R != kOnlyK) product_nt<HD, kBQ>(s, a.sK, C::kBK, kr, tQ);
+        if constexpr (R != kOnlyV) product_nt<HD, kBQ>(dp, a.sV, C::kBK, kr, tO);
+        if constexpr (R == kBoth) wgmma_wait<1>();
+        else wgmma_wait<0>();
+        pin(s);
+
+        // Pᵀ (row = key, column = q row) in place; masks only on tiles that cross
+        // S, the diagonal or the window edge
+        const float* lse2 = a.rows + st * 2 * kBQ;
+        const float* dd = lse2 + kBQ;
+        const bool edge = q0 + kBQ > a.S || wk_lo + 64 > a.S ||
+                          (a.causal && wk_lo + 63 > q0) ||
+                          (a.window > 0 && wk_lo <= q0 + kBQ - 1 - a.window);
+        if constexpr (R != kOnlyK) {
+#pragma unroll
+            for (int j = 0; j < kBQ / 8; ++j) {
+                const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * j + col);
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        float& x = s[4 * j + 2 * r + e];
+                        const float p = exp2_approx(x * scale_log2 - (e ? l.y : l.x));
+                        const bool ok = !edge || live(q0 + 8 * j + col + e, key0 + 8 * r, a.S,
+                                                      a.causal, a.window);
+                        x = ok ? p : 0.f;
+                    }
+            }
+        }
+        if constexpr (R == kOnlyV) {  // hand Pᵀ over: value x of thread t at [x][t]
+            if (i > 0) named_sync(kPEmpty, 256);
+#pragma unroll
+            for (int x = 0; x < kBQ / 2; ++x) a.p[x * 128 + t] = s[x];
+            named_arrive(kPFull, 256);
+        }
+        if constexpr (R == kOnlyK) {
+            named_sync(kPFull, 256);
+#pragma unroll
+            for (int x = 0; x < kBQ / 2; ++x) s[x] = a.p[x * 128 + t];
+            if (i + 1 < a.n_visit) named_arrive(kPEmpty, 256);
+        }
+
+        // dV += Pᵀ dO and dK += dSᵀ Q: the same dO and Q tiles, now read MN-major
+        // (their q rows are the contraction); dV is issued first and runs while
+        // dSᵀ = Pᵀ ∘ (dPᵀ − D) is formed
+        if constexpr (kV) {
+            to_a<kBQ>(pa, s);
+            product_nn<HD, kBQ>(acc_v, pa, tO);
+        }
+        if constexpr (kK) {
+            if constexpr (kV) wgmma_wait<1>();  // dPᵀ; dV may still run
+            pin(dp);
+#pragma unroll
+            for (int j = 0; j < kBQ / 8; ++j) {
+                const float2 d = *reinterpret_cast<const float2*>(dd + 8 * j + col);
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float* x = &dp[4 * j + 2 * r];
+                    x[0] = s[4 * j + 2 * r] * (x[0] - d.x);
+                    x[1] = s[4 * j + 2 * r + 1] * (x[1] - d.y);
+                }
+            }
+            to_a<kBQ>(sa, dp);
+            product_nn<HD, kBQ>(acc_k, sa, tQ);
+        }
+        wgmma_wait<0>();
+        pin(acc_v);
+        pin(acc_k);
+        pin(pa);
+        pin(sa);
+        if (t == 0) bar_arrive(a.empty + 8 * st);  // this warpgroup is done with the stage
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= a.S) continue;
+        const size_t at = (row_bk + key) * HD + col;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+            if constexpr (kV)
+                *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+                    __floats2bfloat162_rn(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+            if constexpr (kK)
+                *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) = __floats2bfloat162_rn(
+                    acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+        }
+    }
+}
+
+// dK and dV. One CTA per (K/V tile, KV head, batch), the first (heaviest causal)
+// K/V tiles first. It walks its GQA group's q heads and, for each, the q tiles
+// that see some key of its tile, in that fixed order: each sum has one owner.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+            const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+            const float* __restrict__ rows, bf16* __restrict__ dk, bf16* __restrict__ dv,
+            int H, int KV, int S, int S_pad, int causal, int window, float scale) {
+    using T = Tile<HD>;
+    using C = KvCfg<HD>;
+    constexpr int kBQ = C::kBQ;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+    uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));  // the same, as a pointer
+    KvArgs a;
+    a.sK = base;
+    a.sV = base + C::kOffV;
+    a.sQ = base + C::kOffQ;
+    a.sO = base + C::kOffO;
+    a.kv_full = base + C::kOffBar;
+    a.full = a.kv_full + 8;
+    a.empty = a.full + 8 * kStages;
+    a.rows = reinterpret_cast<const float*>(gbase + C::kOffRows);
+    a.p = reinterpret_cast<float*>(gbase + C::kOffP);
+    const uint32_t sRows = base + C::kOffRows;
+
+    const int KB = gridDim.y * gridDim.z;
+    const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    a.k0 = (lin / KB) * C::kBK;
+    const int bk = lin % KB;  // b * KV + kvh
+    const int group = H / KV;
+    const int bh0 = (bk / KV) * H + (bk % KV) * group;  // the group's first q head
+    const int k_rows = min(C::kBK, S - a.k0);
+    a.S = S;
+    a.causal = causal;
+    a.window = window;
+
+    // the q tiles some key of this tile is live for: [u_lo, u_lo + per_head)
+    const int n_q = (S + kBQ - 1) / kBQ;
+    a.u_lo = causal ? a.k0 / kBQ : 0;
+    int u_hi = n_q;
+    if (window > 0) u_hi = min(n_q, (a.k0 + k_rows - 1 + window - 1) / kBQ + 1);
+    a.per_head = max(0, u_hi - a.u_lo);
+    a.n_visit = group * a.per_head;
+
+    if (threadIdx.x == 0) {
+        bar_init(a.kv_full, 1);
+        for (int s = 0; s < kStages; ++s) {
+            bar_init(a.full + 8 * s, 1);
+            bar_init(a.empty + 8 * s, 2);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    const int warp = threadIdx.x / 32;
+    if (warp >= 8) {
+        // producer: one thread issues every load
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+        if (warp != 8 || threadIdx.x % 32 != 0 || a.n_visit == 0) return;
+        bar_expect_tx(a.kv_full, 2 * C::kKVBytes);
+#pragma unroll
+        for (int x = 0; x < T::kBoxes; ++x) {
+            tma_load(a.sK + x * T::box(C::kBK), &tm_k, a.kv_full, x * T::kBoxCols, a.k0, bk);
+            tma_load(a.sV + x * T::box(C::kBK), &tm_v, a.kv_full, x * T::kBoxCols, a.k0, bk);
+        }
+        for (int i = 0; i < a.n_visit; ++i) {
+            const int s = i % kStages;
+            if (i >= kStages) bar_wait(a.empty + 8 * s, (i / kStages - 1) & 1);
+            const int bh = bh0 + i / a.per_head;
+            const int q0 = (a.u_lo + i % a.per_head) * kBQ;
+            const uint32_t full = a.full + 8 * s;
+            bar_expect_tx(full, 2 * C::kQBytes + C::kRowsBytes);
+#pragma unroll
+            for (int x = 0; x < T::kBoxes; ++x) {
+                tma_load(a.sQ + s * C::kQBytes + x * T::box(kBQ), &tm_q, full, x * T::kBoxCols,
+                         q0, bh);
+                tma_load(a.sO + s * C::kQBytes + x * T::box(kBQ), &tm_do, full,
+                         x * T::kBoxCols, q0, bh);
+            }
+            const float* r = rows + static_cast<size_t>(2 * bh) * S_pad + q0;
+            bulk_load(sRows + s * C::kRowsBytes, r, kBQ * 4, full);
+            bulk_load(sRows + s * C::kRowsBytes + kBQ * 4, r + S_pad, kBQ * 4, full);
+        }
+        return;
+    }
+
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const size_t row_bk = static_cast<size_t>(bk) * S;
+    if constexpr (C::kSplit) {
+        if (wg == 0) dkdv_consume<HD, kOnlyV>(a, wg, dk, dv, row_bk, scale);
+        else dkdv_consume<HD, kOnlyK>(a, wg, dk, dv, row_bk, scale);
+    } else {
+        dkdv_consume<HD, kBoth>(a, wg, dk, dv, row_bk, scale);
+    }
+}
+
+// The launch's plan, made by flash_attention.py:bwd_geometry: the LSE/D scratch's
+// rows a head, and the tiles it planned with, which must be this build's own.
+struct Plan {
+    int S_pad;
+    int dq_rows, dq_keys;  // DqCfg: q rows a CTA, keys a K/V tile
+    int kv_keys, kv_rows;  // KvCfg: keys a CTA, q rows a ring tile
+};
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   const void* dout, const float* lse, float* rows, void* dq, void* dk,
                    void* dv, int B, int H, int KV, int S, int causal, int window, float scale,
-                   cudaStream_t stream) {
-    using C = Cfg<HD>;
+                   const Plan& plan, cudaStream_t stream) {
+    using T = Tile<HD>;
+    using Q = DqCfg<HD>;
+    using K = KvCfg<HD>;
+    // the dK/dV kernel bulk-copies whole ring tiles of LSE/D rows, which the dQ
+    // kernel writes (zeros past S) up to its last warpgroup's 64 rows
+    if (plan.dq_rows != Q::kBQ || plan.dq_keys != Q::kBK || plan.kv_keys != K::kBK ||
+        plan.kv_rows != K::kBQ || plan.S_pad < S || plan.S_pad % K::kBQ != 0)
+        return cudaErrorInvalidValue;
+    const int S_pad = plan.S_pad;
+    // each kernel's maps: its resident tiles and its ring's tiles have their own box rows
+    CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_q, kv_do, kv_k, kv_v;
+    const struct { CUtensorMap* map; const void* ptr; int heads, box_rows; } maps[] = {
+        {&dq_q, q, B * H, Q::kBQ}, {&dq_do, dout, B * H, Q::kBQ},
+        {&dq_k, k, B * KV, Q::kBK}, {&dq_v, v, B * KV, Q::kBK},
+        {&kv_q, q, B * H, K::kBQ}, {&kv_do, dout, B * H, K::kBQ},
+        {&kv_k, k, B * KV, K::kBK}, {&kv_v, v, B * KV, K::kBK},
+    };
+    for (const auto& m : maps) {
+        const cudaError_t err = make_map(m.map, m.ptr, HD, S, m.heads, T::kBoxCols, m.box_rows);
+        if (err != cudaSuccess) return err;
+    }
+    // above 48 KiB of dynamic shared memory a kernel must opt in; set on every
+    // call: cheap next to the kernels and free of races
     cudaError_t err = cudaFuncSetAttribute(dq_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(C::kBytesQ));
+                                           static_cast<int>(Q::kBytes));
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(C::kBytesKV));
+                                   static_cast<int>(K::kBytes));
     if (err != cudaSuccess) return err;
-    const bf16* tq = static_cast<const bf16*>(q);
-    const bf16* tk = static_cast<const bf16*>(k);
-    const bf16* tv = static_cast<const bf16*>(v);
-    const bf16* tdo = static_cast<const bf16*>(dout);
-    dq_kernel<HD><<<dim3((S + kBQ2 - 1) / kBQ2, H, B), kThreads, C::kBytesQ, stream>>>(
-        tq, tk, tv, static_cast<const bf16*>(o), tdo, lse, delta, static_cast<bf16*>(dq), H, KV,
-        S, causal, window, scale);
+    dq_kernel<HD><<<dim3((S + Q::kBQ - 1) / Q::kBQ, H, B), kThreads, Q::kBytes, stream>>>(
+        dq_q, dq_do, dq_k, dq_v, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+        lse, rows, static_cast<bf16*>(dq), H, KV, S, S_pad, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dkdv_kernel<HD><<<dim3((S + kBK - 1) / kBK, KV, B), kThreads, C::kBytesKV, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, S,
-        causal, window, scale);
+    dkdv_kernel<HD><<<dim3((S + K::kBK - 1) / K::kBK, KV, B), kThreads, K::kBytes, stream>>>(
+        kv_q, kv_do, kv_k, kv_v, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, S,
+        S_pad, causal, window, scale);
     return cudaGetLastError();
 }
 
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                      const void* dout, const float* lse, float* rows, void* dq, void* dk,
                       void* dv, int B, int H, int KV, int S, int hd, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      float scale, const Plan& plan, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
-                                   causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
-                                   causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
-                                     causal, window, scale, stream);
+        case 32: return launch<32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+                                   causal, window, scale, plan, stream);
+        case 64: return launch<64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+                                   causal, window, scale, plan, stream);
+        case 128: return launch<128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+                                     causal, window, scale, plan, stream);
+        case 256: return launch<256>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+                                     causal, window, scale, plan, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -815,16 +1062,23 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o
 }  // namespace
 
 // q/o/dout/dq (B,H,S,hd), k/v/dk/dv (B,KV,S,hd), all of one dtype, contiguous and
-// 16-byte aligned; lse (B,H,S) f32 from the forward kernel; delta (B,H,S) f32
-// scratch that the first kernel fills and the second reads. dtype: 0 = float32 (the
-// SIMT kernels), 2 = bfloat16 (the tensor-core kernels); hd in {32, 64, 128}; H a multiple of KV. Returns the cudaError_t of
-// the launches (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype
-// or hd.
+// 16-byte aligned; lse (B,H,S) f32 from the forward kernel; delta f32 scratch that
+// the first kernel fills and the second reads: B·H·2·S_pad floats (the f32
+// kernels use its first B·H·S). S_pad and the four tile sizes are the plan of
+// flash_attention.py:bwd_geometry; the bf16 kernels take S_pad >= S, a multiple
+// of their 64-row ring tile, and only their own tiles. dtype: 0 = float32 (the
+// SIMT kernels; hd 32, 64, 128), 2 = bfloat16 (the tensor-core kernels; hd 32,
+// 64, 128, 256); H a multiple of KV. Returns the cudaError_t of the launches (0 =
+// cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, a plan not
+// the kernels' own, or a tensor map the driver refuses; cudaErrorNotSupported if
+// the driver has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv, int B,
                                           int H, int KV, int S, int hd, int dtype, int causal,
-                                          int window, float scale, void* stream) {
+                                          int window, int S_pad, int dq_rows, int dq_keys,
+                                          int kv_keys, int kv_rows, float scale,
+                                          void* stream) {
     if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
     if (KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -834,7 +1088,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
         case 0: return static_cast<int>(simt::launch_hd(
             q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, S, hd, causal, window, scale, st));
         case 2: return static_cast<int>(tc::launch_hd(
-            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, S, hd, causal, window, scale, st));
+            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, S, hd, causal, window, scale,
+            tc::Plan{S_pad, dq_rows, dq_keys, kv_keys, kv_rows}, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -20,7 +20,9 @@ its own attention. Here ``flash_attention`` is differentiable: with grad on
 and an input that requires it, it goes through ``FlashAttention``, an
 ``autograd.Function`` whose forward runs the kernel above and also keeps
 each row's log-sum-exp, and whose backward runs ``csrc/flash_attention_bwd.cu``
-(dQ, dK, dV; f32 and bf16, head widths ``BWD_HEAD_DIMS``, Sq = Sk). Under
+(dQ, dK, dV; Sq = Sk; head widths by dtype in ``BWD_HEAD_DIMS``). Its bf16
+kernels run on the tensor cores (``wgmma``, tiles brought in by TMA through
+a ring of shared-memory stages, head widths up to 256). Under
 ``no_grad``/``inference_mode`` it calls the forward kernel alone, as
 serving does.
 
@@ -46,8 +48,10 @@ from . import _build, ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 #: head widths the CUDA kernels are instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
-#: head widths the backward kernel is instantiated for
-BWD_HEAD_DIMS = (32, 64, 128)
+#: head widths the backward kernels are instantiated for, by dtype: bf16 on the
+#: tensor cores takes every forward width, f32 on the SIMT pipes (no model
+#: trains there above 128) the first three
+BWD_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: HEAD_DIMS}
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
@@ -57,7 +61,7 @@ bwd_launches = 0  # guarded-by: _count_lock
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def check_forward_only(name: str, *tensors: torch.Tensor) -> None:
@@ -111,16 +115,35 @@ def _shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return B, H, KV, Sq, Sk, hd
 
 
+def bwd_geometry(S: int, hd: int) -> tuple:
+    """The bf16 backward's plan at head width ``hd``, which the launch passes
+    to ``csrc/flash_attention_bwd.cu`` (it refuses tiles not its own):
+    ``(dq_rows, dq_keys)``, the q rows of a dQ CTA and the keys of each K/V
+    tile it walks; ``(kv_keys, kv_rows)``, the keys of a dK/dV CTA and the q
+    rows of each (Q, dO) tile it walks; and ``S_pad``, the rows a head of the
+    LSE/D scratch, S rounded up to whole dK/dV ring tiles (that kernel
+    bulk-copies whole tiles of them)."""
+    dq = (128, 32 if hd >= 256 else 128)
+    dkdv = (64 if hd >= 256 else 128, 64)
+    return dq, dkdv, -(-S // dkdv[1]) * dkdv[1]
+
+
 def check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise where the backward cannot run: Sq != Sk, or on the card a head
-    width the backward kernel is not instantiated for."""
+    """Raise where the backward cannot run: Sq != Sk, or on the card a dtype
+    or head width the backward kernels are not instantiated for."""
     _, _, _, Sq, Sk, hd = _shape(q, k, v)
     if Sq != Sk:
         raise RawArrayError(f"flash_attention backward needs Sq = Sk, got {Sq} and {Sk}")
-    if q.device.type == "cuda" and hd not in BWD_HEAD_DIMS:
+    if q.device.type != "cuda":
+        return
+    widths = BWD_HEAD_DIMS.get(q.dtype)
+    if widths is None:
         raise RawArrayError(
-            f"flash_attention backward kernel supports head_dim in {BWD_HEAD_DIMS}, not {hd} "
-            "(head width 256 is ROADMAP.md kernel item K2)"
+            f"flash_attention backward kernel takes float32 or bfloat16, not {q.dtype}")
+    if hd not in widths:
+        raise RawArrayError(
+            f"flash_attention backward kernel supports head_dim in {widths} for {q.dtype}, "
+            f"not {hd}"
         )
 
 
@@ -206,13 +229,16 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq_tiles, kv_tiles, S_pad = bwd_geometry(Sq, hd)
+    # the LSE and D rows the first kernel writes for the second
+    delta = torch.empty((B, H, 2, S_pad), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd.cu", "flash_attention_bwd_launch", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, KV, Sq, hd, DTYPES[q.dtype], int(bool(causal)), int(window), scale,
+            B, H, KV, Sq, hd, DTYPES[q.dtype], int(bool(causal)), int(window), S_pad,
+            *dq_tiles, *kv_tiles, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

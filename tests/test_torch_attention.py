@@ -248,11 +248,124 @@ def test_flash_attention_under_grad_checks_the_backward_first():
 
 
 def test_backward_dispatch_instantiates_its_head_dims():
-    """The backward kernels' head-width dispatch (f32 SIMT and bf16 tensor
-    cores) instantiates exactly ``BWD_HEAD_DIMS`` (hd 256 raises in the
-    wrapper, naming its ROADMAP item)."""
-    assert _dispatched_head_dims("flash_attention_bwd.cu") == [tfa.BWD_HEAD_DIMS] * 2
+    """The backward kernels' head-width dispatch instantiates exactly
+    ``BWD_HEAD_DIMS`` of its dtype: the f32 SIMT pair, then the bf16
+    tensor-core pair, which takes gemma3's 256 (the wrapper raises for any
+    other width)."""
+    assert _dispatched_head_dims("flash_attention_bwd.cu") == [
+        tfa.BWD_HEAD_DIMS[torch.float32], tfa.BWD_HEAD_DIMS[torch.bfloat16]]
+    assert get_config("gemma3_12b").head_dim in tfa.BWD_HEAD_DIMS[torch.bfloat16]
     assert "flash_attention_bwd.cu" in _build.SOURCES
+
+
+def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
+    """Both attention libraries include ``csrc/sm90.cuh``, so its bytes are
+    part of each library's name: an edited header cannot load a stale
+    library (checked on a copy of ``csrc/``)."""
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert '#include "sm90.cuh"' in (Path(_build.CSRC) / source).read_text()
+    for f in Path(_build.CSRC).iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.lib_path("flash_attention_bwd.cu")
+    (tmp_path / "sm90.cuh").write_bytes((tmp_path / "sm90.cuh").read_bytes() + b"\n")
+    assert _build.lib_path("flash_attention_bwd.cu") != before
+
+
+def _bwd_schedule(S: int, H: int, KV: int, hd: int, *, causal: bool, window: int) -> dict:
+    """A numpy-side emulation of the bf16 backward kernels' walk for one
+    batch entry, with the kernels' own integer arithmetic (``dq_kernel`` and
+    ``dkdv_kernel`` of ``csrc/flash_attention_bwd.cu``) over the tiles of
+    ``bwd_geometry``, the plan the launch passes to the kernels (which refuse
+    tiles not their own). ``"dq"``: for each dQ CTA in launch order (the
+    linear CTA index; the last q tiles first) ``(q0, h, [k0 of each K/V tile
+    visited, in order])``; ``"dkdv"``: for each dK/dV CTA in launch order
+    (the first K/V tiles first) ``(k0, kvh, [(h, q0) visited, in order])``.
+    Inside a visited pair of tiles the kernels mask to the live pairs, so
+    every live (q row, key) pair of a q head must lie in exactly one visited
+    pair of tiles of each kernel."""
+    (bq, bk), (kb, qb), _ = tfa.bwd_geometry(S, hd)
+    group = H // KV
+    dq = []
+    n_qt = -(-S // bq)
+    for lin in range(n_qt * H):
+        q0, h = (n_qt - 1 - lin // H) * bq, lin % H
+        q_rows = min(bq, S - q0)
+        n_tiles = -(-S // bk)
+        t_hi = min(n_tiles, (q0 + q_rows - 1) // bk + 1) if causal else n_tiles
+        t_lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 else 0
+        dq.append((q0, h, [t * bk for t in range(t_lo, max(t_lo, t_hi))]))
+    dkdv = []
+    n_kt, n_q = -(-S // kb), -(-S // qb)
+    for lin in range(n_kt * KV):
+        k0, kvh = (lin // KV) * kb, lin % KV
+        k_rows = min(kb, S - k0)
+        u_lo = k0 // qb if causal else 0
+        u_hi = min(n_q, (k0 + k_rows - 1 + window - 1) // qb + 1) if window > 0 else n_q
+        per_head = max(0, u_hi - u_lo)
+        dkdv.append((k0, kvh, [(kvh * group + i // per_head, (u_lo + i % per_head) * qb)
+                               for i in range(group * per_head)]))
+    return {"dq": dq, "dkdv": dkdv}
+
+
+def _live(S: int, causal: bool, window: int) -> np.ndarray:
+    q, k = np.arange(S)[:, None], np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= k <= q
+    if window > 0:
+        ok &= k > q - window
+    return ok
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal,window", [
+    (300, 4, 4, 128, True, 0),     # groups of 1, a ragged S
+    (300, 8, 4, 64, True, 64),     # groups of 2, a window inside a tile
+    (200, 8, 1, 32, True, 0),      # groups of 8
+    (1100, 4, 2, 256, True, 1024),  # gemma3's width and window, across many tiles
+    (256, 16, 8, 256, True, 0),    # gemma3's heads, global
+    (192, 4, 2, 128, True, 0),     # a multiple of the 64-row tiles, not of 128
+    (130, 2, 2, 128, False, 0),    # non-causal
+    (1, 2, 1, 64, True, 0),        # one row
+])
+def test_bwd_schedule_visits_every_live_pair_once(S, H, KV, hd, causal, window):
+    """The bf16 backward's walk, emulated (``_bwd_schedule``): each kernel's
+    CTAs cover each (q tile, q head) or (K/V tile, KV head) once, the
+    heaviest causal tiles first; every live (q row, key) pair of every q head
+    lies in exactly one visited pair of tiles of each kernel, and no pair of
+    tiles is visited twice; a dK/dV CTA walks its group's q heads in order,
+    and each head's q tiles in order. The LSE/D scratch's rows a head
+    (``S_pad``) hold every ring tile the dK/dV kernel copies, and the dQ
+    kernel's CTAs, whose warpgroups of 64 rows with a live row write them,
+    reach the last one."""
+    sched = _bwd_schedule(S, H, KV, hd, causal=causal, window=window)
+    (bq, bk), (kb, qb), S_pad = tfa.bwd_geometry(S, hd)
+    live = _live(S, causal, window)
+    group = H // KV
+
+    ctas = [(q0, h) for q0, h, _ in sched["dq"]]
+    assert sorted(ctas) == [(q0, h) for q0 in range(0, S, bq) for h in range(H)]
+    assert [q0 for q0, _ in ctas] == sorted((q0 for q0, _ in ctas), reverse=True)
+    cover = np.zeros((H, S, S), np.int32)
+    for q0, h, keys in sched["dq"]:
+        assert keys == sorted(keys)
+        for k0 in keys:
+            cover[h, q0:q0 + bq, k0:k0 + bk] += 1
+    assert (cover[:, live] == 1).all() and cover.max() <= 1
+
+    ctas = [(k0, kvh) for k0, kvh, _ in sched["dkdv"]]
+    assert sorted(ctas) == [(k0, kvh) for k0 in range(0, S, kb) for kvh in range(KV)]
+    assert [k0 for k0, _ in ctas] == sorted(k0 for k0, _ in ctas)
+    cover[:] = 0
+    for k0, kvh, walk in sched["dkdv"]:
+        assert walk == sorted(walk)
+        assert {h for h, _ in walk} == set(range(kvh * group, (kvh + 1) * group))
+        for h, q0 in walk:
+            cover[h, q0:q0 + qb, k0:k0 + kb] += 1
+            assert q0 + qb <= S_pad
+    assert (cover[:, live] == 1).all() and cover.max() <= 1
+    assert S_pad % qb == 0 and S_pad >= S
+    assert max(q0 + -(-min(bq, S - q0) // 64) * 64 for q0, _, _ in sched["dq"]) >= S_pad
 
 
 def test_attention_ops_check_their_inputs():

@@ -187,15 +187,25 @@ def test_flash_attention_tensor_core_kernel_matches_plain_version(card, B, H, KV
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of each gradient's max |entry|
 
 
-@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+_BWD_SHAPES = [
     (2, 4, 4, 256, 64, True, 0),       # paper_lm's heads (groups of 1)
     (2, 16, 8, 300, 128, True, 0),     # InternLM2's heads, a ragged tail
     (1, 16, 8, 1100, 128, True, 1024),  # a window across many K/V tiles
     (2, 4, 2, 100, 32, True, 0),       # hd 32, ragged
     (1, 8, 1, 130, 64, True, 0),       # groups of 8
     (1, 4, 4, 200, 128, False, 0),     # non-causal
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    (2, 16, 8, 192, 128, True, 0),     # a multiple of the 64-row tiles, not of 128
+]
+_BWD_CASES = [(*shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+              for shape in _BWD_SHAPES] + [
+    # head width 256 (bf16 only: the f32 kernels stop at 128), gemma3's group of 2
+    (2, 16, 8, 300, 256, True, 0, torch.bfloat16),      # global, a ragged tail
+    (1, 16, 8, 2100, 256, True, 1024, torch.bfloat16),  # its window, across many tiles
+    (1, 4, 1, 65, 256, True, 0, torch.bfloat16),        # groups of 4, one row past a tile
+]
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", _BWD_CASES)
 def test_flash_attention_backward_kernel_matches_plain_version(card, B, H, KV, S, hd, causal,
                                                                window, dtype):
     """dq, dk, dv of ``csrc/flash_attention_bwd.cu`` against
@@ -245,26 +255,69 @@ def test_flash_attention_backward_kernel_with_one_key(card, dtype):
 
 
 def test_flash_attention_backward_raises_where_not_instantiated(card):
+    """bf16 at head width 256 runs; a dtype or width the backward kernels do
+    not take raises, with no fallback to the plain version."""
     q = torch.randn(1, 2, 64, 256, device=card, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 64, device=card)
-    with pytest.raises(RawArrayError, match="K2"):
-        fa.flash_attention_bwd(q, q, q, q, q, lse)
+    out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    before = fa.bwd_launches
+    grads = fa.flash_attention_bwd(q, q, q, out, q, lse)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    assert all(g.shape == q.shape and torch.isfinite(g.float()).all() for g in grads)
+    q32 = q.float()
+    with pytest.raises(RawArrayError, match="head_dim"):
+        fa.flash_attention_bwd(q32, q32, q32, q32, q32, lse)
+    q48 = torch.randn(1, 2, 64, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(RawArrayError, match="head_dim"):
+        fa.flash_attention_bwd(q48, q48, q48, q48, q48, lse)
     q16 = torch.randn(1, 2, 64, 64, device=card, dtype=torch.float16)
     with pytest.raises(RawArrayError, match="float32 or bfloat16"):
         fa.flash_attention_bwd(q16, q16, q16, q16, q16, lse)
+    assert fa.bwd_launches == before + 1
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("field", range(5))
+def test_flash_attention_backward_refuses_a_plan_not_its_own(card, monkeypatch, hd, field):
+    """The bf16 kernels launch only with the tiles ``bwd_geometry`` plans
+    being their own, and an LSE/D stride of whole 64-row ring tiles: a plan
+    with any one number off raises and launches nothing, so the CPU
+    schedule test cannot check a stale copy of the kernels' tiles."""
+    q = torch.randn(1, 2, 130, hd, device=card, dtype=torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    plan = fa.bwd_geometry
+
+    def off(S, width):
+        dq_tiles, kv_tiles, S_pad = plan(S, width)
+        flat = [*dq_tiles, *kv_tiles, S_pad]
+        flat[field] += 32 if field < 4 else -64  # a tile resized; S_pad short of S
+        return tuple(flat[:2]), tuple(flat[2:4]), flat[4]
+
+    monkeypatch.setattr(fa, "bwd_geometry", off)
+    before = fa.bwd_launches
+    with pytest.raises(RawArrayError, match="launch failed"):
+        fa.flash_attention_bwd(q, q, q, out, q, lse)
+    assert fa.bwd_launches == before
 
 
 def test_flash_attention_under_grad_raises_before_the_forward(card):
-    """At a head width the backward lacks (256), a call under grad raises
-    before the forward kernel launches; without grad it runs."""
+    """Under grad, bf16 at head width 256 runs the forward and, on
+    ``backward()``, the backward kernel; at a width the backward lacks for
+    its dtype (f32 at 256) the call raises before the forward kernel
+    launches, and without grad it runs."""
     q = torch.randn(1, 2, 64, 256, device=card, dtype=torch.bfloat16, requires_grad=True)
-    before = fa.launches
-    with pytest.raises(RawArrayError, match="K2"):
-        ops.flash_attention(q, q, q)
-    assert fa.launches == before
+    before = (fa.launches, fa.bwd_launches)
+    ops.flash_attention(q, q, q).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert q.grad is not None and torch.isfinite(q.grad.float()).all()
+    q32 = q.detach().float().requires_grad_()
+    with pytest.raises(RawArrayError, match="head_dim"):
+        ops.flash_attention(q32, q32, q32)
+    assert fa.launches == before[0] + 1
     with torch.no_grad():
-        ops.flash_attention(q, q, q)
-    assert fa.launches == before + 1
+        ops.flash_attention(q32, q32, q32)
+    assert fa.launches == before[0] + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,9 +18,11 @@ Phases (any failure exits non-zero and prints no result):
    bit-equal (also at the largest leaf of phase 5's u8 cold start),
    ``flash_attention`` and ``decode_attention`` within the tolerance of
    ``tests/test_kernels.py`` (f32 2e-5, bf16 2e-2), at head width 128
-   (InternLM2), 256 (gemma3-12b, phase 7) and at the training forwards
-   (InternLM2's, paper_lm's q/k/v (8,4,256,64) f32, phase 8, and gemma3's
-   q (2,16,2048,256) bf16, global and window 1024, phase 10); at the
+   (InternLM2; Zamba2-1.2B's shared block, phase 11: q/k/v (8,32,256,128)
+   and its decode, group 1, over 288 rows), 256 (gemma3-12b, phase 7) and
+   at the training forwards (InternLM2's, paper_lm's q/k/v (8,4,256,64)
+   f32, phase 8, and gemma3's q (2,16,2048,256) bf16, global and window
+   1024, phase 10); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
    calls, L2 flushed before each; a ``decode_attention`` call must show
@@ -48,9 +50,10 @@ Phases (any failure exits non-zero and prints no result):
    f32 copy of the weights (a training checkpoint's dtype), since bf16
    leaves are stored verbatim under ``quantize="u8"``;
 3c. (run with phase 3) ``ssd_scan`` against its plain version on the card:
-   the serving shape, a long prompt, the JAX sweep's f32 shapes, a chunk of
-   100, a single chunk and a slow decay that keeps the state alive across
-   every chunk; y and the final state within their tolerances;
+   the serving shape, Zamba2-1.2B's prefill (x (8,64,256,64), N 64), a
+   long prompt, the JAX sweep's f32 shapes, a chunk of 100, a single chunk
+   and a slow decay that keeps the state alive across every chunk; y and
+   the final state within their tolerances;
 6. serving: Mamba2-780M at its full widths and depth (48 layers, bf16,
    random weights from seed 0 on the card) saved as a raw RawArray
    checkpoint and restored through ``ServeEngine(checkpoint=raw)`` (leaves
@@ -120,7 +123,21 @@ Phases (any failure exits non-zero and prints no result):
    hold that path) with the loss falling, launch counts 12 × 4 × 2 forward
    and 12 × 4 backward, peak device memory; then one more step under the
    profiler, as in phase 8. In a profiled step the attention kernels are
-   found by the ``__global__`` functions of their sources.
+   found by the ``__global__`` functions of their sources;
+11. serving: Zamba2-1.2B at its full size (38 Mamba2 layers, d_model 2048,
+   one shared attention+MLP block, 32 heads of 128 over ``concat([x, x0])``,
+   invoked 6 times; bf16, 1.2 B parameters, nothing cut), random weights from
+   seed 0 with the shared attention tempered as in phase 5, saved as a raw
+   RawArray checkpoint and restored through ``ServeEngine(checkpoint=raw)``
+   (leaves bit-equal); 8 prompts of 256 tokens (numpy seed 3) with 32 new
+   tokens each, served through the engine's prompt replay (6 × 287
+   ``decode_attention`` launches and nothing else), warm again (ms per
+   replayed token), and again with attention and scan plain: first-step
+   logits within a bf16 tolerance, greedy-token agreement reported; then
+   ``model.prefill`` (6 flash and 38 ``ssd_scan`` launches, all on the
+   tensor cores) within the same tolerance of its plain version, and an f32
+   copy's prefill against its replay (rtol 2e-3, atol 2e-4 of the logits'
+   scale, ``tests/test_models.py:63-78``).
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -454,6 +471,9 @@ def phase_attention(torch) -> tuple:
         ("edge_hd256_tail_tile", 2, 16, 8, 130, 130, 256, "bfloat16", True, 0, False),
         ("edge_hd256_sk_gt_sq", 2, 16, 8, 96, 160, 256, "bfloat16", True, 0, False),
         ("edge_hd256_g1", 2, 4, 4, 256, 256, 256, "bfloat16", False, 0, False),
+        # Zamba2-1.2B's model.prefill (phase 11): the shared block's MHA over
+        # concat([x, x0]), 32 heads of 128, 8 prompts of 256 tokens
+        ("zamba2_prefill", 8, 32, 32, 256, 256, 128, "bfloat16", True, 0, True),
     ]
     flash_rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in flash_cases:
@@ -508,6 +528,9 @@ def phase_attention(torch) -> tuple:
         ("edge_hd256_g8", 1, 2, 8, 576, 256, 575, "bfloat16", 100, False, False),
         ("edge_hd256_window_across_ctas", 2, 8, 2, 2080, 256, 1500, "bfloat16", 1024, True,
          False),
+        # Zamba2-1.2B (phase 11): the shared block's decode at the last step's pos
+        # (256 + 32 rows, group 1)
+        ("zamba2_decode", 8, 32, 1, 288, 128, 287, "bfloat16", 0, False, True),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
@@ -579,6 +602,8 @@ def phase_ssd(torch) -> list:
         ("edge_slow_decay", 2, 48, 512, 64, 128, 128, "bfloat16", slow, False),
         ("edge_slow_decay_f32", 1, 4, 4096, 64, 128, 128, "float32", slow, False),
         ("edge_zamba2_widths", 2, 64, 256, 64, 64, 128, "bfloat16", model_decay, False),
+        # Zamba2-1.2B's model.prefill (phase 11): 8 prompts of 256 tokens
+        ("zamba2_prefill", 8, 64, 256, 64, 64, 128, "bfloat16", model_decay, True),
     ]
     rows = []
     for label, B, H, L, P, N, chunk, dt, (lo, hi), timed in cases:
@@ -830,7 +855,9 @@ def phase_main_path(torch) -> list:
 
 # --------------------------------------------------------------- phase 5
 def _temper_attention(torch, model) -> None:
-    """Rescale the random attention projections to their contraction fan-in.
+    """Rescale the random attention projections to their contraction fan-in
+    (for Zamba2 those of its shared block, which attends over
+    ``concat([x, x0])``, 2·d_model wide).
 
     The JAX package's ``Initializer.fanin`` (which the port's init follows)
     divides by ``shape[-2]``: the head count for ``wq``/``wk``/``wv``
@@ -842,8 +869,11 @@ def _temper_attention(torch, model) -> None:
     ``1/sqrt(d_model)`` (``1/sqrt(H*hd)`` for ``wo``) instead, scores have a
     std near 1 and the comparison below is meaningful."""
     cfg = model.cfg
-    a = model.dense_layers.attn
-    d, H, KV = cfg.d_model, cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
+    if cfg.family == "hybrid":
+        a, d = model.shared.attn, 2 * cfg.d_model
+    else:
+        a, d = model.dense_layers.attn, cfg.d_model
+    H, KV = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
     with torch.no_grad():
         a.wq.mul_((H / d) ** 0.5)
         a.wk.mul_((KV / d) ** 0.5)
@@ -1768,6 +1798,188 @@ def phase_gemma3_training(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 11
+#: prefill vs replay of the f32 copy: tests/test_models.py:63-78's tolerance,
+#: atol of the logits' scale
+F32_REPLAY_TOL = (2e-3, 2e-4)
+
+
+def _first_logits_gate(torch, out: dict, key: str, got, plain, what: str) -> None:
+    """Record ``got`` against ``plain`` under ``key`` and fail beyond
+    ``LOGITS_TOL`` of the plain logits' scale."""
+    import numpy as np
+
+    scale = float(plain.abs().max())
+    diff = float((got - plain).abs().max())
+    out[key] = {"max_abs_diff": diff, "max_abs": scale, "tolerance": LOGITS_TOL * scale}
+    if not np.isfinite(diff) or diff > LOGITS_TOL * scale:
+        raise SystemExit(f"chip_smoke: Zamba2 {what} differ from the plain versions': {out}")
+
+
+def _profiled_steps(torch, model, prompts, capacity: int, n: int = 8) -> dict:
+    """Wall and device time of ``n`` decode steps under the profiler, fed
+    as the engine's replay feeds them (the prompt's tokens) and as its decode
+    loop does (the argmax of the last logits), on one cache; both traced
+    twice, the second pass kept. Per step: wall ms, device ms (the summed
+    kernel durations) and the share of the wall time the card had no kernel
+    running."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(prompts[:, :n].astype("int64")).to(model.device)
+    cache = model.empty_cache(tokens.shape[0], capacity)  # room for 4n + 1 steps
+    logits, cache = model.decode_step(cache, tokens[:, :1])
+    out = {}
+    feeds = (("replay", lambda i, _: tokens[:, i:i + 1]),
+             ("decode", lambda i, lg: lg.argmax(-1, keepdim=True)))
+    for name, feed in feeds + feeds:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                logits, cache = model.decode_step(cache, feed(i, logits))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out[name] = {"steps": n, "wall_ms_per_step": wall_ms / n,
+                     "device_ms_per_step": device_ms / n,
+                     "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}
+    return out
+
+
+def phase_zamba2_serving(torch) -> dict:
+    """Zamba2-1.2B at its full size: raw checkpoint, cold start, a batch of
+    requests served through the engine's prompt replay, then the model's
+    chunked prefill and an f32 copy's prefill against its replay."""
+    import numpy as np
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("zamba2_1_2b")
+    B, S, max_new = 8, 256, 32
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    n_inv = len(model.invocations)
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "invocations": n_inv, "shared_heads": cfg.n_heads,
+                 "shared_kv_heads": cfg.n_kv_heads, "shared_head_dim": model.attn_cfg.head_dim,
+                 "d_ff": cfg.d_ff, "ssm_heads": cfg.n_ssm_heads, "headdim": cfg.ssm.headdim,
+                 "d_state": cfg.ssm.d_state, "chunk": cfg.ssm.chunk, "vocab": cfg.vocab,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new,
+                 "init_s": time.perf_counter() - t0}
+    _temper_attention(torch, model)
+    saved = flatten(model.param_tree(), "param")  # the random weights, kept for the check
+    out["params"] = sum(t.numel() for t in saved.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zamba2_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        engine = ServeEngine(model, checkpoint=raw)
+        if engine.device != dev:
+            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+        for name, t in flatten(model.param_tree(), "param").items():
+            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+        out["raw_cold_start"] = _cold(engine.cold_start)
+    del saved
+
+    # the main generate: the prompt replayed through decode_step, then 31 steps
+    prompts = np.random.default_rng(SEED + 3).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    tokens = engine.generate(prompts, max_new=max_new)
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["launches"] = launches
+    out["decode_attention_launches"] = launches["decode_attention"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    want = {"dequant_u8": 0, "flash_attention": 0,
+            "decode_attention": n_inv * (S + max_new - 1), "ssd_scan": 0}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: Zamba2 generate launched {launches}, wanted {want}")
+
+    # the same requests again: warm (launches from here on are not counted)
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+    out["warm"]["ms_per_replayed_token"] = out["warm"]["prefill_s"] / S * 1e3
+    out["warm"]["ms_per_decode_step"] = out["warm"]["decode_s"] / (max_new - 1) * 1e3
+    out["profiled_steps"] = _profiled_steps(torch, model, prompts, S + max_new)
+
+    # the same requests with both attention ops and the scan plain
+    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    with _plain_attention(), _plain_scan():
+        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=max_new)
+    _first_logits_gate(torch, out, "first_logits", first, plain_first, "first-step logits")
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+
+    # the chunked prefill: 6 flash and 38 ssd_scan launches, all on the tensor cores
+    tokens_dev = torch.from_numpy(prompts.astype(np.int64)).to(dev)
+    for k in (flash_attention, ssd_scan):
+        k.launches = k.tc_launches = 0
+    prefill_logits = model.prefill(tokens_dev)[0].float()
+    torch.cuda.synchronize()
+    pf = {"flash_attention": flash_attention.launches,
+          "flash_attention_tc": flash_attention.tc_launches,
+          "ssd_scan": ssd_scan.launches, "ssd_scan_tc": ssd_scan.tc_launches}
+    out["prefill_launches"] = pf
+    want = {"flash_attention": n_inv, "flash_attention_tc": n_inv,
+            "ssd_scan": cfg.n_layers, "ssd_scan_tc": cfg.n_layers}
+    if pf != want:
+        raise SystemExit(f"chip_smoke: Zamba2 prefill launched {pf}, wanted {want}")
+    t0 = time.perf_counter()
+    model.prefill(tokens_dev)
+    torch.cuda.synchronize()
+    out["model_prefill_s"] = time.perf_counter() - t0  # warm: the chunked path's time
+    with _plain_attention(), _plain_scan():
+        plain_prefill = model.prefill(tokens_dev)[0].float()
+    _first_logits_gate(torch, out, "prefill_logits", prefill_logits, plain_prefill,
+                       "prefill logits")
+    out["prefill_vs_replay_bf16"] = {
+        "max_abs_diff": float((prefill_logits - first).abs().max()),
+        "max_abs": float(first.abs().max()),
+        "argmax_agreement": float((prefill_logits.argmax(-1) == first.argmax(-1))
+                                  .float().mean())}
+
+    # an f32 copy of the weights: its chunked prefill against its replay
+    f32 = build_model(cfg.with_(param_dtype="float32", compute_dtype="float32"), device="meta")
+    load_params(f32, _float32(torch, model.param_tree()))
+    del engine, model
+    torch.cuda.empty_cache()
+    pf32 = f32.prefill(tokens_dev)[0]
+    replay32 = ServeEngine(f32)._prefill_with_capacity(prompts, S)[0]
+    rtol, atol = F32_REPLAY_TOL
+    scale = float(replay32.abs().max())
+    out["f32_prefill_vs_replay"] = {
+        "max_abs_diff": float((pf32 - replay32).abs().max()), "max_abs": scale,
+        "rtol": rtol, "atol": atol * scale,
+        "argmax_agreement": float((pf32.argmax(-1) == replay32.argmax(-1)).float().mean())}
+    ok = bool(torch.allclose(pf32, replay32, rtol=rtol, atol=atol * scale))
+    del f32, pf32, replay32
+    torch.cuda.empty_cache()
+    log(f"[zamba2 serving] {json.dumps(out)}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: Zamba2's f32 prefill and replay differ: "
+                         f"{out['f32_prefill_vs_replay']}")
+    return out
+
+
 def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> int:
     """Device events of ``decode_attention`` in one traced decode step: one a
     layer, the kernel and nothing else (no fold kernel, no copy of pos). A
@@ -1839,6 +2051,8 @@ def main() -> int:
     big = phase_internlm2_training(torch)
     torch.cuda.empty_cache()
     g_train = phase_gemma3_training(torch)
+    torch.cuda.empty_cache()
+    zamba = phase_zamba2_serving(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -1872,17 +2086,21 @@ def main() -> int:
         runs[f"{g_train['arch']} train"] = g_train["train"]["launches"][kind]
         return runs
 
+    zamba_prefill = f"{zamba['arch']} prefill"
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
-         {**by_phase("flash_attention_launches"), **train_launches("forward")},
+         {**by_phase("flash_attention_launches"), **train_launches("forward"),
+          zamba_prefill: zamba["prefill_launches"]["flash_attention"]},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
          "enable_gqa=True)"),
         ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
-         by_phase("decode_attention_launches"),
+         {**by_phase("decode_attention_launches"),
+          zamba["arch"]: zamba["decode_attention_launches"]},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows,
-         {ssm["arch"]: ssm["ssd_scan_launches"]}, None),
+         {ssm["arch"]: ssm["ssd_scan_launches"],
+          zamba_prefill: zamba["prefill_launches"]["ssd_scan"]}, None),
     ):
         main = rows_[0]  # the shape the serving path gives the kernel
         kernels.append({
@@ -1904,9 +2122,11 @@ def main() -> int:
         })
         kernels[-1]["sass"] = sass[f"{name}.cu"]
         if name == "flash_attention":
-            kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values())
+            kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values()) \
+                + zamba["prefill_launches"]["flash_attention_tc"]
         if name == "ssd_scan":
-            kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"]
+            kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
+                + zamba["prefill_launches"]["ssd_scan_tc"]
     main = bwd_rows[0]  # paper_lm's training shape: the north star's train step
     kernels.append({
         "name": "flash_attention_bwd",

@@ -1,4 +1,4 @@
-"""Model zoo (dense and ssm families so far)."""
+"""Model zoo (dense, ssm and hybrid families so far)."""
 
 from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig
 from .registry import build_model

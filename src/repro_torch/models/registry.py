@@ -1,6 +1,6 @@
-"""Family -> model class dispatch. The port serves the dense and ssm
-families; every other family raises ``NotImplementedError`` naming its
-ROADMAP item."""
+"""Family -> model class dispatch. The port serves the dense, ssm and
+hybrid families; every other family raises ``NotImplementedError`` naming
+its ROADMAP item."""
 
 from __future__ import annotations
 

@@ -128,7 +128,7 @@ class TransformerLM(nn.Module):
                 requires_grad=False,
             )
         self.dense_layers = ParamTree(stack_init(self.n_dense, lambda: _init_layer(ini, cfg)))
-        self._freqs: Dict[Tuple[float, torch.device], torch.Tensor] = {}
+        self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[Dict[str, Any]]] = None  # per-layer views, made lazily
 
     # ---- parameters ---------------------------------------------------------
@@ -173,13 +173,15 @@ class TransformerLM(nn.Module):
         if self._layers is None:
             stacked = self.dense_layers.tree()
             self._layers = [_index(stacked, i) for i in range(self.n_dense)]
-        out = []
-        for p, (window, theta) in zip(self._layers, self._windows()):
-            key = (theta, self.device)
-            if key not in self._freqs:
-                self._freqs[key] = rope_freqs(self.cfg.head_dim, theta, device=self.device)
-            out.append((p, window, self._freqs[key]))
-        return out
+        return [(p, window, self._rope(self.cfg.head_dim, theta))
+                for p, (window, theta) in zip(self._layers, self._windows())]
+
+    def _rope(self, head_dim: int, theta: float) -> torch.Tensor:
+        """RoPE frequencies for serving, made once per device."""
+        key = (head_dim, theta, self.device)
+        if key not in self._freqs:
+            self._freqs[key] = rope_freqs(head_dim, theta, device=self.device)
+        return self._freqs[key]
 
     def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -315,8 +317,8 @@ class TransformerLM(nn.Module):
 
 
 def _not_ported(family: str) -> str:
-    if family == "ssm":
-        return "TransformerLM serves the dense family; the ssm family is Mamba2LM (build_model)"
-    item = {"hybrid": 9}.get(family, 10)
+    if family in ("ssm", "hybrid"):
+        return ("TransformerLM serves the dense family; the ssm and hybrid families are "
+                "Mamba2LM and Zamba2LM (build_model)")
     return (f"the {family} family is not ported yet (ROADMAP.md, modules to port, "
-            f"item {item}); the port serves the dense and ssm families")
+            "item 10); the port serves the dense, ssm and hybrid families")

@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.serving --arch internlm2_1_8b --random
     PYTHONPATH=src python -m repro_torch.serving --arch mamba2_780m --random
+    PYTHONPATH=src python -m repro_torch.serving --arch zamba2_1_2b --random --prompt 256
     PYTHONPATH=src python -m repro_torch.serving --workdir D   # D/ckpt/step_*
 
 The twin of the JAX package's ``examples/serve_lm.py``: restores the newest
 checkpoint under ``<workdir>/ckpt`` through the cold start when there is
 one (unless ``--random``), else serves random weights from ``--seed``.
+The hybrid family (``--arch zamba2_1_2b``) replays each prompt through the
+decode step one token at a time, as the JAX package's engine does.
 ``--device cpu`` runs the plain PyTorch path on the host.
 """
 

@@ -1,12 +1,12 @@
 """Minimal batched serving engine on the card.
 
-The torch twin of the JAX package's ``serving/engine.py`` for the dense
-and ssm families. Weights come from the model itself or from a RawArray
+The torch twin of the JAX package's ``serving/engine.py`` for the dense,
+ssm and hybrid families. Weights come from the model itself or from a RawArray
 checkpoint through the cold start (``restore_pipelined`` by default: read, upload and
 on-card dequant of u8 leaves overlapped; cold-start latency is checkpoint
 read latency). Requests are batched with equal-length prompts, prefilled
 together, then decoded step by step with a shared cache (KV for attention,
-the O(1) state for SSM).
+the O(1) state for SSM, both for the hybrid).
 
 Everything runs under ``torch.inference_mode()``. The cache position
 ``pos`` is a 0-d int32 tensor on the device, sampled tokens stay on the
@@ -106,14 +106,21 @@ class ServeEngine:
           padding dead until it is overwritten), rewind ``pos`` to S-1, then
           feed the last prompt token as a decode step: its logits are the
           first new token's;
-        * pure SSM: the cache is O(1), so a plain prefill of the prompt.
-
-        (The hybrid family's prompt replay is not ported: its model raises
-        when built; ROADMAP.md, item 9.)
+        * pure SSM: the cache is O(1), so a plain prefill of the prompt;
+        * hybrid: the shared attention's cache is bound by its length, so
+          allocate an empty cache of ``capacity`` and replay the prompt
+          through ``decode_step`` one token at a time (no host sync).
         """
         B, S = prompts.shape
-        if self.cfg.family == "ssm":
+        family = self.cfg.family
+        if family == "ssm":
             return self.model.prefill(torch.from_numpy(prompts.astype(np.int64)).to(self.device))
+        if family == "hybrid":
+            tokens = torch.from_numpy(prompts.astype(np.int64)).to(self.device)  # moved once
+            cache = self.model.empty_cache(B, capacity)
+            for t in range(S):
+                logits, cache = self.model.decode_step(cache, tokens[:, t:t + 1])
+            return logits, cache
         padded = np.zeros((B, capacity), dtype=np.int64)
         padded[:, : S - 1] = prompts[:, : S - 1]
         tokens = torch.from_numpy(padded).to(self.device)

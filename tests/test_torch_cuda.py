@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
 its plain PyTorch version (the attention's backward too), the device feed
-on the card against the host decode, a dense train step on the card against
-the CPU's, and dense and Mamba2 decode steps that must not sync with the host. Each skips
-without a card. This file imports nothing of JAX, so it
+on the card against the host decode, a dense train step and a reduced
+Zamba2's serving path on the card against the CPU's, and dense, Mamba2 and
+Zamba2 decode steps that must not sync with the host. Each skips without a
+card. This file imports nothing of JAX, so it
 runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -581,3 +582,61 @@ def test_mamba2_decode_step_does_not_sync_with_the_host(card):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert int(cache["pos"]) == 67 and torch.isfinite(logits).all()
+
+
+def test_zamba2_on_card_matches_cpu(card):
+    """A reduced Zamba2 (f32, 4 Mamba2 layers, the shared block twice) on the
+    card against the same model on the CPU (the plain versions): the prefill
+    launches one flash call an invocation and one ``ssd_scan`` a layer; the
+    engine's prompt replay launches one ``decode_attention`` an invocation a
+    step, and a decode step syncs nothing with the host. The shared
+    attention is tempered to its contraction width, as ``chip_smoke.py``
+    tempers its models: at the init scales its softmax is all but an argmax."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+
+    cfg = get_config("zamba2_1_2b").reduced()
+    models = [build_model(cfg, device=d, seed=0) for d in ("cpu", card)]
+    attn, width = models[0].shared.attn, 2 * cfg.d_model
+    with torch.no_grad():
+        for name, factor in (("wq", cfg.n_heads / width), ("wk", cfg.n_kv_heads / width),
+                             ("wv", cfg.n_kv_heads / width), ("wo", 1 / cfg.n_heads)):
+            getattr(attn, name).mul_(factor ** 0.5)
+    load_params(models[1], models[0].param_tree())  # the same weights on both
+    n_inv = len(models[1].invocations)
+    B, S = 2, 64
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(1, cfg.vocab, (B, S)))
+
+    def close(got, want):
+        tol = 1e-3 * float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=tol)
+
+    with torch.inference_mode():
+        before = (fa.launches, ssd.launches)
+        want, _ = models[0].prefill(tokens)
+        got, _ = models[1].prefill(tokens.to(card))
+        torch.cuda.synchronize()
+        assert (fa.launches, ssd.launches) == (before[0] + n_inv, before[1] + cfg.n_layers)
+        close(got, want)
+
+        caches = [m.empty_cache(B, S + 4) for m in models]
+        before = da.launches
+        for t in range(S):
+            want, caches[0] = models[0].decode_step(caches[0], tokens[:, t:t + 1])
+            got, caches[1] = models[1].decode_step(caches[1], tokens[:, t:t + 1].to(card))
+        torch.cuda.synchronize()
+        assert da.launches == before + n_inv * S
+        close(got, want)
+
+        step = got.argmax(-1, keepdim=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                got, caches[1] = models[1].decode_step(caches[1], step)
+                step = got.argmax(-1, keepdim=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(caches[1]["pos"]) == S + 3 and torch.isfinite(got).all()
+    assert da.launches == before + n_inv * (S + 3)

@@ -191,8 +191,3 @@ def test_serving_cli_routes_the_ssm_arch(monkeypatch, capsys):
                 "--max-new", "3"])
     out = capsys.readouterr().out
     assert "random init" in out and "generated (2, 3) tokens" in out
-
-
-def test_hybrid_family_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(get_config("zamba2_1_2b").reduced(), device="meta")

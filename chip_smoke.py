@@ -137,7 +137,21 @@ Phases (any failure exits non-zero and prints no result):
    ``model.prefill`` (6 flash and 38 ``ssd_scan`` launches, all on the
    tensor cores) within the same tolerance of its plain version, and an f32
    copy's prefill against its replay (rtol 2e-3, atol 2e-4 of the logits'
-   scale, ``tests/test_models.py:63-78``).
+   scale, ``tests/test_models.py:63-78``);
+12. the remote data plane: phase 4's CIFAR-10-shaped dataset and phase 5's
+   InternLM2-1.8B checkpoints (kept for this phase) served by the port's
+   byte-range server in a subprocess (``python -m
+   repro_torch.remote.server``, uploads with a token): ``restore_pipelined``
+   from its URL, raw (3,778,220,032 bytes) and u8 (12 ``dequant_u8``
+   launches), each bit-equal to the local restore run beside it; the raw
+   restore again through ``fleet.serve(origin_url=..., replicas=3)``, cold
+   and then warm edges (bit-equal, the warm pass with no origin fetch);
+   ``ServeEngine(checkpoint=url)`` answering phase 5's 8 prompts with 64
+   tokens (24 flash and 24 × 64 decode launches), its greedy tokens equal
+   to phase 5's engine's; the device feed over the URL for one epoch (every
+   batch bit-equal to the host decode of the local files); a save of the
+   restored weights to the URL, restored from it bit-equal. Loopback HTTP
+   on one host: its rates are bound by the host, not by a network.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -774,10 +788,11 @@ def _build_dataset(root: str, n: int, hw: int, seed: int, chunk: int) -> float:
     return time.perf_counter() - t0
 
 
-def _drive(torch, root: str, batch: int, nbatches: int) -> dict:
+def _drive(torch, root: str, batch: int, nbatches: int, host_root: str | None = None) -> dict:
     """One run of the device feed: ``nbatches`` batches through the port's
     DeviceLoader with the launch count read just before and just after,
-    then every batch held against the host decode of the same batch."""
+    then every batch held against the host decode of the same batch (read
+    from ``host_root``, by default ``root`` itself)."""
     import numpy as np
     from repro_torch.data import DataLoader, DeviceLoader, RaDataset
     from repro_torch.kernels import dequant_u8
@@ -794,7 +809,7 @@ def _drive(torch, root: str, batch: int, nbatches: int) -> dict:
     launches = dequant_u8.launches
     stats = feed.stats()
 
-    host = DataLoader(RaDataset(root), batch, seed=SEED, dequant=True)
+    host = DataLoader(RaDataset(host_root or root), batch, seed=SEED, dequant=True)
     try:
         for i, db in enumerate(got):
             hb = next(host)
@@ -837,14 +852,16 @@ def _drive(torch, root: str, batch: int, nbatches: int) -> dict:
     return out
 
 
-def phase_main_path(torch) -> list:
+def phase_main_path(torch, keep: str) -> list:
+    """The device feed; the CIFAR-10-shaped dataset stays in ``keep`` for
+    phase 12's URL feed."""
     runs = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name, n, hw, batch, nbatches, chunk in (
             ("cifar10_epoch", 50_000, 32, 512, 50_000 // 512, 5_000),
             ("imagenet_8_batches", 2_048, 224, 256, 8, 256),
         ):
-            root = os.path.join(tmp, name)
+            root = os.path.join(keep if name == "cifar10_epoch" else tmp, name)
             build_s = _build_dataset(root, n, hw, SEED, chunk)
             run = _drive(torch, root, batch, nbatches)
             run.update(name=name, rows=n, image=[hw, hw, 3], dataset_build_s=build_s)
@@ -918,8 +935,10 @@ def _plain_attention():
         ops.flash_attention, ops.decode_attention = kept
 
 
-def phase_serving(torch) -> dict:
-    """InternLM2-1.8B: checkpoint, cold start, and a batch of requests."""
+def phase_serving(torch, keep: str) -> dict:
+    """InternLM2-1.8B: checkpoint, cold start, and a batch of requests. The
+    raw and u8 checkpoints stay in ``keep`` for phase 12, which also reads
+    the greedy tokens (``out["tokens"]``, left out of the log line)."""
     import numpy as np
 
     from repro_torch.checkpoint import ColdStartStats, load_checkpoint, restore_pipelined
@@ -948,44 +967,43 @@ def phase_serving(torch) -> dict:
     out["params"] = sum(t.numel() for t in saved.values())
     float_leaves = sum(1 for t in saved.values() if t.is_floating_point() and t.dim())
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        t0 = time.perf_counter()
-        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
-        out["save_raw_s"] = time.perf_counter() - t0
-        # the u8 checkpoint is of an f32 copy (a training checkpoint's dtype):
-        # under quantize="u8" bf16 leaves are stored verbatim, as the JAX
-        # package stores them, and f32 ones become codes the kernel decodes
-        t0 = time.perf_counter()
-        f32 = _float32(torch, model.param_tree())
-        u8 = save_checkpoint(os.path.join(tmp, "u8"), 1, f32, quantize="u8")
-        del f32
-        out["save_u8_s"] = time.perf_counter() - t0
-        out["u8_checkpoint_of"] = "float32"
+    t0 = time.perf_counter()
+    raw = save_checkpoint(os.path.join(keep, "raw"), 1, model.param_tree())
+    out["save_raw_s"] = time.perf_counter() - t0
+    # the u8 checkpoint is of an f32 copy (a training checkpoint's dtype):
+    # under quantize="u8" bf16 leaves are stored verbatim, as the JAX
+    # package stores them, and f32 ones become codes the kernel decodes
+    t0 = time.perf_counter()
+    f32 = _float32(torch, model.param_tree())
+    u8 = save_checkpoint(os.path.join(keep, "u8"), 1, f32, quantize="u8")
+    del f32
+    out["save_u8_s"] = time.perf_counter() - t0
+    out["u8_checkpoint_of"] = "float32"
 
-        # u8 cold start: codes cross the link, the kernel decodes them on the card
-        st = ColdStartStats()
-        dequant_u8.launches = 0
-        got, _, _ = restore_pipelined(u8, model.param_tree(), device=dev, stats=st)
-        launches = dequant_u8.launches
-        plain, _, _ = load_checkpoint(u8, model.param_tree())  # host decode, plain version
-        plain = flatten(plain, "param")
-        for name, t in flatten(got, "param").items():
-            if t.device != dev or not torch.equal(t.cpu(), plain[name]):
-                raise SystemExit(f"chip_smoke: u8 leaf {name} differs from the plain decode")
-        del got, plain
-        if not launches == st.dequant_leaves == float_leaves:
-            raise SystemExit(f"chip_smoke: {launches} dequant launches, {st.dequant_leaves} "
-                             f"dequantized leaves, {float_leaves} float leaves")
-        out["u8_cold_start"] = {**_cold(st), "dequant_launches": launches}
+    # u8 cold start: codes cross the link, the kernel decodes them on the card
+    st = ColdStartStats()
+    dequant_u8.launches = 0
+    got, _, _ = restore_pipelined(u8, model.param_tree(), device=dev, stats=st)
+    launches = dequant_u8.launches
+    plain, _, _ = load_checkpoint(u8, model.param_tree())  # host decode, plain version
+    plain = flatten(plain, "param")
+    for name, t in flatten(got, "param").items():
+        if t.device != dev or not torch.equal(t.cpu(), plain[name]):
+            raise SystemExit(f"chip_smoke: u8 leaf {name} differs from the plain decode")
+    del got, plain
+    if not launches == st.dequant_leaves == float_leaves:
+        raise SystemExit(f"chip_smoke: {launches} dequant launches, {st.dequant_leaves} "
+                         f"dequantized leaves, {float_leaves} float leaves")
+    out["u8_cold_start"] = {**_cold(st), "dequant_launches": launches}
 
-        # raw cold start through the serving entry point
-        engine = ServeEngine(model, checkpoint=raw)
-        if engine.device != dev:
-            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
-        for name, t in flatten(model.param_tree(), "param").items():
-            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
-                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
-        out["raw_cold_start"] = _cold(engine.cold_start)
+    # raw cold start through the serving entry point
+    engine = ServeEngine(model, checkpoint=raw)
+    if engine.device != dev:
+        raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+    for name, t in flatten(model.param_tree(), "param").items():
+        if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+            raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+    out["raw_cold_start"] = _cold(engine.cold_start)
     del saved
 
     prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
@@ -1031,6 +1049,7 @@ def phase_serving(torch) -> dict:
             out["first_logits_max_abs_diff"] > out["first_logits_tolerance"]:
         raise SystemExit(f"chip_smoke: first-step logits differ from plain attention: {out}")
     log(f"[serving] {json.dumps(out)}")
+    out["tokens"] = tokens
     return out
 
 
@@ -2008,6 +2027,184 @@ def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> 
                      f"decode_attention event a layer")
 
 
+# --------------------------------------------------------------- phase 12
+#: the bearer token of phase 12's origin, which takes uploads with it
+REMOTE_TOKEN = "chip-smoke-upload"
+#: RAM cache of each edge in phase 12's fleet: a third of the raw InternLM2
+#: checkpoint (3.78 GB over 3 edges) with room for the hash's imbalance, so
+#: the warm pass is served by the edges alone
+EDGE_CACHE_BYTES = 2 << 30
+
+
+@contextlib.contextmanager
+def _origin(root: str):
+    """The port's byte-range server over ``root``, as a subprocess (its
+    threads off this process's GIL), taking uploads with ``REMOTE_TOKEN``.
+    Yields its URL, parsed from the line it prints; stopped on exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.remote.server", root, "--port", "0",
+         "--upload-token", REMOTE_TOKEN],
+        stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        line = proc.stdout.readline()  # "" if the server died before printing
+        m = re.search(r" at (http://\S+) ", line)
+        if m is None:
+            raise SystemExit(f"chip_smoke: the origin printed {line!r}, no URL")
+        yield m.group(1)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _same_tree(torch, got, want, what: str) -> None:
+    from repro_torch.checkpoint.store import flatten
+
+    g, w = flatten(got, "param"), flatten(want, "param")
+    if g.keys() != w.keys():
+        raise SystemExit(f"chip_smoke: {what}: leaves {sorted(g)} != {sorted(w)}")
+    for name, t in w.items():
+        if g[name].device != t.device or g[name].dtype != t.dtype or not torch.equal(g[name], t):
+            raise SystemExit(f"chip_smoke: {what}: leaf {name} differs")
+
+
+def _restore(torch, src: str, like) -> tuple:
+    """``restore_pipelined`` of ``src`` onto the card from a cold client (no
+    pooled sockets, empty block cache); the tree and its figures."""
+    from repro_torch import remote
+    from repro_torch.checkpoint import ColdStartStats, restore_pipelined
+
+    remote.close_readers()
+    remote.reset_shared_cache()
+    st = ColdStartStats()
+    got, _, _ = restore_pipelined(src, like, device=torch.device("cuda", 0), stats=st)
+    return got, {**_cold(st), "resolve_s": st.resolve_s, "prewarmed_conns": st.prewarmed_conns,
+                 "dequant_leaves": st.dequant_leaves}
+
+
+def phase_remote(torch, keep: str, serve: dict, runs: list) -> dict:
+    """The remote data plane: phase 4's CIFAR-10-shaped dataset and phase 5's
+    InternLM2-1.8B checkpoints, all in ``keep``, served by the port's
+    byte-range server; cold starts from its URL (raw, u8, through a fleet of
+    3 edges cold and warm), ``ServeEngine`` from the URL, the device feed
+    from the URL and a save to the URL, each held bit for bit against the
+    same work on the local files."""
+    from repro_torch import fleet, remote
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("internlm2_1_8b")
+    B, S, max_new = serve["batch"], serve["prompt"], serve["max_new"]
+    out: dict = {"arch": cfg.name, "transport": "loopback HTTP on one host: bound by the "
+                 "host's CPUs and memory, not by a network"}
+    model = build_model(cfg, device=dev, seed=SEED)  # weights replaced by every restore
+    like = model.param_tree()
+    local = {n: os.path.join(keep, n, "step_00000001") for n in ("raw", "u8")}
+    out["phase5_local"] = {"raw": serve["raw_cold_start"], "u8": serve["u8_cold_start"]}
+    prev_token = os.environ.get("RA_REMOTE_TOKEN")
+    os.environ["RA_REMOTE_TOKEN"] = REMOTE_TOKEN  # the uploads' bearer token
+    try:
+        with _origin(keep) as origin:
+            url = {n: f"{origin}/{n}/step_00000001" for n in local}
+
+            # raw: the URL cold start against the local one, run here beside it
+            want_raw, out["raw_local"] = _restore(torch, local["raw"], like)
+            got, out["raw_url"] = _restore(torch, url["raw"], like)
+            _same_tree(torch, got, want_raw, "raw URL cold start")
+            del got
+
+            # u8 (an f32 copy's codes): decoded on the card, one launch a leaf
+            want, out["u8_local"] = _restore(torch, local["u8"], like)
+            dequant_u8.launches = 0
+            got, out["u8_url"] = _restore(torch, url["u8"], like)
+            u8_launches = out["u8_url"]["dequant_launches"] = dequant_u8.launches
+            _same_tree(torch, got, want, "u8 URL cold start")
+            del got, want
+            float_leaves = sum(1 for t in flatten(like, "param").values()
+                               if t.is_floating_point() and t.dim())
+            if not u8_launches == out["u8_url"]["dequant_leaves"] == float_leaves:
+                raise SystemExit(f"chip_smoke: u8 URL cold start: {u8_launches} dequant "
+                                 f"launches for {float_leaves} float leaves")
+
+            # through a fleet of 3 edges and a router in front of the origin
+            with fleet.serve(origin_url=origin, replicas=3, cache_bytes=EDGE_CACHE_BYTES,
+                             spill=False) as fl:
+                out["fleet"] = {"replicas": len(fl.edges), "edge_cache_bytes": EDGE_CACHE_BYTES}
+                for run in ("cold", "warm"):
+                    before = sum(e.edge_metrics()["origin_fetches"] for e in fl.edges)
+                    got, row = _restore(torch, f"{fl.url}/raw/step_00000001", like)
+                    _same_tree(torch, got, want_raw, f"raw cold start through the fleet ({run})")
+                    del got
+                    row["edge_ram_hits"] = [int(e.cache.stats()["hits"]) for e in fl.edges]
+                    row["origin_fetches"] = sum(
+                        e.edge_metrics()["origin_fetches"] for e in fl.edges) - before
+                    out["fleet"][run] = row
+            if out["fleet"]["warm"]["origin_fetches"] != 0:
+                raise SystemExit(f"chip_smoke: the warm fleet went to the origin: {out['fleet']}")
+
+            # serve from the URL: the tokens of phase 5's engine (local checkpoint)
+            remote.close_readers()
+            remote.reset_shared_cache()
+            flash_attention.launches = flash_attention.tc_launches = decode_attention.launches = 0
+            engine = ServeEngine(model, checkpoint=url["raw"])
+            _same_tree(torch, model.param_tree(), want_raw, "ServeEngine from the URL")
+            prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+            tokens = engine.generate(prompts, max_new=max_new)
+            out["serve_url"] = {"cold_start": _cold(engine.cold_start),
+                                "flash_attention_launches": flash_attention.launches,
+                                "flash_attention_tc_launches": flash_attention.tc_launches,
+                                "decode_attention_launches": decode_attention.launches,
+                                **engine.throughput()}
+            if (flash_attention.launches, flash_attention.tc_launches,
+                    decode_attention.launches) != (cfg.n_layers, cfg.n_layers,
+                                                   cfg.n_layers * max_new):
+                raise SystemExit(f"chip_smoke: ServeEngine from the URL: {out['serve_url']}")
+            if not np.array_equal(tokens, serve["tokens"]):
+                raise SystemExit("chip_smoke: ServeEngine from the URL gave other tokens than "
+                                 "phase 5's engine from the local checkpoint")
+            out["serve_url"]["tokens_equal_local"] = True
+            del engine
+
+            # the device feed from the URL, every batch against the local files' host decode
+            local_feed = next(r for r in runs if r["name"] == "cifar10_epoch")
+            out["feed_url"] = _drive(torch, f"{origin}/cifar10_epoch", local_feed["batch"],
+                                     local_feed["batches"],
+                                     host_root=os.path.join(keep, "cifar10_epoch"))
+            out["feed_local"] = {k: local_feed[k] for k in (
+                "batches", "batch", "launches", "seconds", "batches_per_s", "h2d_gb_per_s")}
+
+            # save to the URL (one PUT a leaf, the manifest last), then restore it
+            saved = sum(t.numel() * t.element_size() for t in flatten(want_raw, "param").values())
+            t0 = time.perf_counter()
+            save_checkpoint(f"{origin}/saved", 1, want_raw)
+            save_s = time.perf_counter() - t0
+            got, row = _restore(torch, f"{origin}/saved/step_00000001", like)
+            _same_tree(torch, got, want_raw, "checkpoint saved to the URL")
+            del got, want_raw
+            out["save_url"] = {"seconds": save_s, "bytes": saved,
+                               "gb_per_s": saved / save_s / 1e9, "restore": row}
+            remote.close_readers()
+            remote.reset_shared_cache()
+    finally:
+        if prev_token is None:
+            os.environ.pop("RA_REMOTE_TOKEN", None)
+        else:
+            os.environ["RA_REMOTE_TOKEN"] = prev_token
+    log(f"[remote] {json.dumps(out)}")
+    return out
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -2033,14 +2230,21 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_environment(torch)
+    # phase 4's CIFAR-10-shaped dataset and phase 5's checkpoints stay here
+    # for phase 12, which serves them by URL
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as keep:
+        return _phases(torch, card, keep, t_start)
+
+
+def _phases(torch, card: str, keep: str, t_start: float) -> int:
     build_s = phase_build()
     sass = phase_sass()
     rows = phase_kernels(torch)
     flash_rows, decode_rows = phase_attention(torch)
     ssd_rows = phase_ssd(torch)
     bwd_rows = phase_attention_bwd(torch)
-    runs = phase_main_path(torch)
-    serve = phase_serving(torch)
+    runs = phase_main_path(torch, keep)
+    serve = phase_serving(torch, keep)
     torch.cuda.empty_cache()
     ssm = phase_ssm_serving(torch)
     torch.cuda.empty_cache()
@@ -2053,6 +2257,8 @@ def main() -> int:
     g_train = phase_gemma3_training(torch)
     torch.cuda.empty_cache()
     zamba = phase_zamba2_serving(torch)
+    torch.cuda.empty_cache()
+    rem = phase_remote(torch, keep, serve, runs)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -2061,7 +2267,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dequant_u8.cu",
         "replaces": "src/repro/kernels/dequant_u8.py:31",
-        "launches": sum(feed_launches.values()) + serve["u8_cold_start"]["dequant_launches"],
+        "launches": sum(feed_launches.values()) + serve["u8_cold_start"]["dequant_launches"]
+        + rem["u8_url"]["dequant_launches"] + rem["feed_url"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "tolerance": 0.0,
         "ms": main_row["ms"],
@@ -2074,10 +2281,13 @@ def main() -> int:
         "build_s": build_s,
         "shapes": rows,
         "main_path_launches": {**feed_launches,
-                               "u8_cold_start": serve["u8_cold_start"]["dequant_launches"]},
+                               "u8_cold_start": serve["u8_cold_start"]["dequant_launches"],
+                               "u8_url_cold_start": rem["u8_url"]["dequant_launches"],
+                               "cifar10_epoch_url": rem["feed_url"]["launches"]},
     }]
     def by_phase(key):
-        return {serve["arch"]: serve[key], gemma["arch"]: gemma[key]}
+        return {serve["arch"]: serve[key], gemma["arch"]: gemma[key],
+                f"{rem['arch']} from the URL": rem["serve_url"][key]}
 
     def train_launches(kind):
         runs = {f"{small['arch']} train ({name})": row["launches"][kind]

@@ -8,13 +8,20 @@ from .coldstart import (
     restore_pipelined,
     shardings_from_specs,
 )
-from .store import CheckpointManager, latest_step, load_checkpoint, save_checkpoint
+from .store import (
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    restore_resharded,
+    save_checkpoint,
+)
 
 __all__ = [
     "CheckpointManager",
     "save_checkpoint",
     "load_checkpoint",
     "latest_step",
+    "restore_resharded",
     "restore_pipelined",
     "restore_naive",
     "ColdStartStats",

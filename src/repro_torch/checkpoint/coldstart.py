@@ -1,18 +1,21 @@
-"""Cold-start restore engine: checkpoint directory → tensors on the card in
-one overlapped pipeline (DESIGN.md §13), the torch twin of the JAX package's
-``checkpoint/coldstart.py`` for local checkpoints.
+"""Cold-start restore engine: checkpoint (path or URL) → tensors on the card
+in one overlapped pipeline (DESIGN.md §13), the torch twin of the JAX
+package's ``checkpoint/coldstart.py``.
 
 ``load_checkpoint`` reads phase by phase and leaves the upload to the
 caller. ``restore_pipelined`` overlaps the phases:
 
-1. **pin wave** — every leaf file is pinned by inode identity (mtime and
-   size, plus a held fd), so a checkpoint overwritten mid-restore fails
-   fast instead of silently mixing generations;
+1. **pin wave** — the whole remote version set pins in ONE ``/stat``
+   listing round trip per checkpoint directory (sizes + ETags; servers
+   without the route fall back to per-leaf HEADs), local leaves by inode
+   identity (mtime and size, plus a held fd), so a checkpoint overwritten
+   mid-restore fails fast instead of silently mixing generations; a
+   bounded number of keep-alive sockets pre-warm for the fetch wave;
 2. **bounded streaming** — leaves are admitted largest-first under an
    in-flight byte budget (knob ``RA_COLDSTART_INFLIGHT``); each admitted
    leaf's driver resolves its header, chunk table and quant schema and fans
-   its slab reads or chunk decodes onto the shared engine pool, straight
-   into a pinned host tensor;
+   its slab reads (local preads or pooled ranged requests) or chunk decodes
+   onto the shared engine pool, straight into a pinned host tensor;
 3. **overlapped device upload** — whichever pool thread completes a leaf
    queues its ``non_blocking`` copy to the card and, for a quantized-u8
    leaf, the ``dequant_u8`` CUDA kernel (``ops.dequant_rows``: uint8
@@ -22,7 +25,7 @@ caller. ``restore_pipelined`` overlaps the phases:
 
 The kernel library is built and loaded on a side thread while the first
 leaves are read. ``restore_naive`` keeps the phase-by-phase baseline.
-Sharded placements (``shardings``) and URL checkpoints are not ported yet.
+Sharded placements (``shardings``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,11 +59,12 @@ class ColdStartStats:
     leaves: int = 0
     logical_bytes: int = 0         # sum of restored (post-dequant) leaf bytes
     stored_bytes: int = 0          # sum of on-disk payload bytes
-    resolve_s: float = 0.0         # wave 1: version pins
+    resolve_s: float = 0.0         # wave 1: version pins + socket pre-warm
     restore_s: float = 0.0         # total time to all-weights-resident
     h2d_s: float = 0.0             # time queueing copies + dequant, and the final barrier
     h2d_bytes: int = 0             # bytes crossing the host->device boundary
     dequant_leaves: int = 0        # leaves decoded from u8
+    prewarmed_conns: int = 0       # sockets opened by pool pre-warm
     peak_inflight_bytes: int = 0   # observed max of the scheduler's budget
     inflight_cap: int = 0          # the budget it ran under
 
@@ -83,7 +87,7 @@ class _Plan:
     leaf: Leaf
     want: Tuple[int, ...] = ()
     cost: int = 0                  # budget charge while in flight
-    pin: Any = None                # (mtime_ns, size)
+    pin: Any = None                # (mtime_ns, size) local | ETag str remote
     pinned: Any = None             # Event: pin taken (or failed)
     pin_err: Any = None
     out: Any = None                # the restored tensor
@@ -94,8 +98,81 @@ def _local_pin(fpath: str) -> Tuple[int, int]:
     return (st.st_mtime_ns, st.st_size)
 
 
+def _pin_leaf(plan: _Plan, stat_pins: Optional[Dict[str, Tuple[int, Optional[str]]]] = None) -> None:
+    """Pin one leaf's version — local leaves by inode identity (mtime+size,
+    plus a held fd), remote leaves by ETag: from the checkpoint directory's
+    one-shot ``/stat`` listing when available (zero per-leaf round trips),
+    else a revalidating HEAD. Touches no payload bytes."""
+    leaf = plan.leaf
+    if ra.is_url(leaf.fpath):
+        from .. import remote
+
+        ent = stat_pins.get(leaf.fpath) if stat_pins else None
+        if ent is not None:
+            # a stale listing cannot slip through: every ranged response's
+            # ETag is checked against this pin, so a leaf replaced between
+            # listing and read fails loudly on its first byte
+            reader = remote.get_reader(leaf.fpath, pinned=ent)
+        else:
+            # revalidate: the pin must be the server's CURRENT generation,
+            # not whatever an earlier traversal cached
+            reader = remote.get_reader(leaf.fpath, revalidate=True)
+        leaf.src = reader
+        plan.pin = reader.etag
+    else:
+        plan.pin = _local_pin(leaf.fpath)
+        leaf.open()
+
+
+def _stat_pins(plans: List[_Plan]) -> Dict[str, Tuple[int, Optional[str]]]:
+    """Version-set pinning in one round trip per checkpoint directory: a
+    ``/stat`` listing returns (size, ETag) for every file, the HTTP
+    analogue of S3's ListObjectsV2; servers without the route leave the map
+    empty and leaves HEAD-pin individually."""
+    urls = [p.leaf.fpath for p in plans if ra.is_url(p.leaf.fpath)]
+    if not urls:
+        return {}
+    from .. import remote
+
+    pins: Dict[str, Tuple[int, Optional[str]]] = {}
+    for d in sorted({u.rsplit("/", 1)[0] for u in urls}):
+        try:
+            listing = remote.stat_dir(d)
+        except remote.RemoteAuthError:
+            raise  # denial is authoritative — don't retry it once per leaf
+        except ra.RawArrayError:
+            continue  # no /stat route (older server) — fall back per leaf
+        for name, ent in listing.items():
+            pins[f"{d}/{name}"] = ent
+    return pins
+
+
+def _prewarm_alloc(plans: List[_Plan]) -> Dict[str, int]:
+    """Socket pre-warm budget, per leaf: the fetch wave runs at most
+    ``engine.workers()`` tasks at once, so that is the total number of
+    sockets worth holding open across all leaves, spent largest-first (those
+    leaves are admitted first and are the only ones whose chunk fetches fan
+    out over several connections). Each reader's construction HEAD already
+    parks one socket, which ``prewarm`` counts."""
+    alloc: Dict[str, int] = {}
+    left = ra.engine.workers()
+    for p in sorted(plans, key=lambda p: p.cost, reverse=True):
+        if left <= 0:
+            break
+        if not ra.is_url(p.leaf.fpath):
+            continue
+        est = max(1, min(-(-p.cost // max(1, ra.engine.chunk_bytes())), left))
+        n = min(est, left)  # RemoteReader.prewarm re-caps at RA_REMOTE_CONNS
+        alloc[p.leaf.name] = n
+        left -= n
+    return alloc
+
+
 def _check_pin(plan: _Plan) -> None:
-    """Fail fast when a leaf file was replaced mid-restore."""
+    """Fail fast when a local leaf file was replaced mid-restore (the
+    remote twin is the per-response ETag check inside ``RemoteReader``)."""
+    if not isinstance(plan.pin, tuple):
+        return
     leaf = plan.leaf
     try:
         now = _local_pin(leaf.fpath)
@@ -218,6 +295,7 @@ def restore_pipelined(
     shardings: Any = None,
     opt_shardings: Any = None,
     inflight_bytes: Optional[int] = None,
+    prewarm: bool = True,
     stats: Optional[ColdStartStats] = None,
     _after_resolve: Optional[Callable[[], None]] = None,
 ) -> Tuple[Any, Any, Dict[str, Any]]:
@@ -228,12 +306,15 @@ def restore_pipelined(
     raises without one unless ``device="cpu"`` is passed):
 
     * ``inflight_bytes`` — override the ``RA_COLDSTART_INFLIGHT`` budget;
+    * ``prewarm`` — open keep-alive sockets for a URL checkpoint's fetch
+      wave during the pin wave;
     * ``stats`` — a :class:`ColdStartStats` to fill in;
     * ``_after_resolve`` — test hook, called between the pin wave and
       streaming (changing the checkpoint here must trip the pins).
 
-    Raises ``RawArrayError`` when a leaf file changes between its pin and
-    its upload (never a silently mixed checkpoint)."""
+    Raises ``RawArrayError`` when any leaf's pinned version (local
+    mtime+size, remote ETag) changes mid-restore, and propagates auth and
+    transport errors unchanged (never a silently mixed checkpoint)."""
     _no_shardings(shardings, opt_shardings)
     device = resolve_device(device)
     pin_host = device.type == "cuda"
@@ -257,6 +338,9 @@ def restore_pipelined(
     budget = _Budget(cap)
     try:
         warmup = _start_warmup(plans, device)
+        # one listing per checkpoint dir pins the whole remote version set
+        stat_pins = _stat_pins(plans)
+        alloc = _prewarm_alloc(plans) if prewarm else {}
         order = sorted(plans, key=lambda p: p.cost, reverse=True)
         first_err: List[BaseException] = []
         err_lock = threading.Lock()
@@ -281,8 +365,12 @@ def restore_pipelined(
 
         def _pin_task(plan: _Plan) -> None:
             try:
-                plan.pin = _local_pin(plan.leaf.fpath)
-                plan.leaf.open()
+                _pin_leaf(plan, stat_pins)
+                n = alloc.get(plan.leaf.name, 0)
+                if n and ra.is_url(plan.leaf.fpath):
+                    got = plan.leaf.src.prewarm(n)
+                    with stats_lock:
+                        st.prewarmed_conns += got
             except BaseException as e:  # noqa: BLE001 — re-raised by the driver
                 plan.pin_err = e
             finally:
@@ -385,7 +473,10 @@ def restore_pipelined(
                 pool.submit(_drive_leaf, plan)
         all_done.wait()
         if first_err:
-            raise first_err[0]
+            e = first_err[0]
+            if isinstance(e, ra.RawArrayError) and "changed on server during read" in str(e):
+                raise ra.RawArrayError(f"checkpoint overwritten during restore: {e}") from e
+            raise e
         # one barrier for every copy and decode the pool threads queued
         t1 = time.perf_counter()
         if device.type == "cuda":

@@ -14,6 +14,11 @@ other bit for bit::
   ``param``/``opt`` prefix, keys in sorted order (the JAX pytree order);
 * **atomic publish**: leaves and the manifest land in ``<dir>.tmp``, which
   is renamed once complete;
+* ``http(s)://`` checkpoint directories (DESIGN.md §9, §11): a restore
+  fetches the manifest over HTTP and streams every leaf by ranged reads in
+  the same one-wave plan as a local restore; a save ships each leaf as one
+  authenticated atomic PUT and uploads the manifest last, so a remote
+  checkpoint becomes visible only once complete;
 * ``quantize="u8"`` stores float16/32/64 leaves as uint8 codes with
   per-channel calibration (bfloat16 leaves verbatim, as the JAX package
   does); the schema rides in the manifest and in each leaf's metadata,
@@ -25,8 +30,9 @@ other bit for bit::
 Restores read every leaf in one engine wave (slab reads and chunk decodes
 share the pool). ``CheckpointManager`` drives saves for a train loop: one
 asynchronous save in flight at a time, leaves snapshotted to host memory
-before ``save`` returns, keep-last-k garbage collection. ``restore_resharded``
-is not ported yet, nor are ``http(s)://`` checkpoint directories.
+before ``save`` returns, keep-last-k garbage collection (local directories
+only: remote stores collect server-side). ``restore_resharded`` reads one
+leaf's row slice, locally or by ranged reads.
 """
 
 from __future__ import annotations
@@ -44,27 +50,23 @@ import numpy as np
 import torch
 
 from .. import core as ra
-from ..core.spec import ELTYPE_BRAIN, ELTYPE_UINT, U64, RawArrayError
+from ..core.spec import ELTYPE_BRAIN, ELTYPE_UINT, RawArrayError
 from ..data.device_loader import torch_dtype
 from ..kernels import ref
 
 MANIFEST = "manifest.json"
 _SEP = "__"
-_ELTYPE_OFFSET = 2 * U64.size  # header words: magic, flags, eltype, ...
 #: leaf dtypes ``quantize`` turns into codes: numpy's floating types
 _QUANTIZED = (torch.float16, torch.float32, torch.float64)
 
 _join = ra.join_path
 
 
-def _reject_url(path: str) -> None:
-    if ra.is_url(path):
-        raise RawArrayError("URL checkpoints are not ported yet (ROADMAP.md); "
-                            "the port reads and writes local directories")
-
-
 def _load_manifest(path: str) -> Dict[str, Any]:
-    _reject_url(path)
+    if ra.is_url(path):
+        from .. import remote
+
+        return json.loads(remote.fetch_bytes(_join(path, MANIFEST)))
     with open(os.path.join(path, MANIFEST)) as f:
         return json.load(f)
 
@@ -132,14 +134,6 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _mark_brain(fpath: str) -> None:
-    """Set a written file's eltype word to ``ELTYPE_BRAIN`` (bfloat16); the
-    payload, the CRC and the chunk table cover the data, not the header."""
-    with open(fpath, "r+b") as f:
-        f.seek(_ELTYPE_OFFSET)
-        f.write(U64.pack(ELTYPE_BRAIN))
-
-
 def save_checkpoint(
     directory: str,
     step: int,
@@ -160,13 +154,22 @@ def save_checkpoint(
     codes, calibrated per channel of the last axis, with ``orig_dtype`` the
     leaf's own dtype. bfloat16 leaves are stored verbatim, as the JAX
     package's writer stores them (numpy does not count ``ml_dtypes.bfloat16``
-    as floating), so both packages write the same files."""
-    _reject_url(directory)
+    as floating), so both packages write the same files.
+
+    ``directory`` may be an ``http(s)://`` URL of a write-enabled byte-range
+    server: every leaf ships as one authenticated PUT with server-side
+    atomic publish (token knob ``RA_REMOTE_TOKEN``), and the manifest is
+    uploaded last, so the checkpoint does not exist remotely until the final
+    PUT lands."""
+    remote_save = ra.is_url(directory)
     final = _join(directory, f"step_{step:08d}")
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    if remote_save:
+        tmp = final  # leaf PUTs are individually atomic; manifest-last publishes
+    else:
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
 
     leaves: Dict[str, Any] = flatten(params, "param")
     if opt_state is not None:
@@ -196,17 +199,22 @@ def save_checkpoint(
         else:
             arr = _host_array(t)
 
-        def write(p=fpath, a=arr, m=meta, b=brain) -> None:
-            ra.write(p, a, metadata=m, crc32=crc32, chunked=chunked, codec=codec,
-                     chunk_bytes=chunk_bytes)
-            if b:
-                _mark_brain(p)
-
-        write_tasks.append(write)
+        write_tasks.append(
+            lambda p=fpath, a=arr, m=meta, b=brain: ra.write(
+                p, a, metadata=m, crc32=crc32, chunked=chunked, codec=codec,
+                chunk_bytes=chunk_bytes, eltype=ELTYPE_BRAIN if b else None,
+            )
+        )
         manifest["leaves"][name] = entry
     ra.engine.run_tasks(write_tasks)
+    body = json.dumps(manifest, indent=1).encode()
+    if remote_save:
+        from .. import remote
+
+        remote.upload_bytes(_join(final, MANIFEST), body)  # publish: manifest LAST
+        return final
     with open(os.path.join(tmp, MANIFEST), "wb") as f:
-        f.write(json.dumps(manifest, indent=1).encode())
+        f.write(body)
         f.flush()
         os.fsync(f.fileno())
     if os.path.exists(final):
@@ -240,8 +248,13 @@ def _read_whole(fpath: str, hdr, mv: memoryview) -> None:
     """Payload of a file the slab and chunk readers do not take (a CRC
     trailer, whole-file zlib, big-endian), checked and converted to native
     byte order, into ``mv``."""
-    with open(fpath, "rb") as f:
-        blob = f.read()
+    if ra.is_url(fpath):
+        from .. import remote
+
+        blob = remote.fetch_bytes(fpath)
+    else:
+        with open(fpath, "rb") as f:
+            blob = f.read()
     payload = blob[hdr.nbytes: hdr.nbytes + hdr.data_length]
     if len(payload) != hdr.data_length:
         raise RawArrayError(f"{fpath}: truncated data segment")
@@ -269,18 +282,26 @@ def _byte_view(t: torch.Tensor) -> memoryview:
 @dataclass
 class Leaf:
     """One leaf file on its way in: resolved header, chunk table and quant
-    schema, and the engine tasks that fill a host buffer with its payload."""
+    schema, and the engine tasks that fill a host buffer with its payload.
+    ``src`` is what the reads go through: a held fd for a local file, the
+    pooled ``RemoteReader`` for a URL."""
 
     name: str
     fpath: str
     entry: Dict[str, Any]
+    src: Any = None                # int fd or RemoteReader
     fd: Optional[int] = None       # owned; the caller closes it
     hdr: Any = None
     table: Any = None
     quant: Any = None
 
     def open(self) -> None:
-        self.fd = os.open(self.fpath, os.O_RDONLY)
+        if ra.is_url(self.fpath):
+            from .. import remote
+
+            self.src = remote.get_reader(self.fpath)
+        else:
+            self.fd = self.src = os.open(self.fpath, os.O_RDONLY)
 
     def close(self) -> None:
         if self.fd is not None:
@@ -289,15 +310,22 @@ class Leaf:
             except OSError:
                 pass
             self.fd = None
+        self.src = None
 
     def resolve(self, want: Optional[Tuple[int, ...]] = None) -> None:
-        hdr = self.hdr = ra.header_of(self.fpath)
+        if self.src is None:
+            self.open()
+        if ra.is_url(self.fpath):
+            # a pooled ranged read instead of header_of's own connection; the
+            # block cache keeps the fetched prefix for the payload reads
+            head = self.src.read_range(0, min(self.src.size, 4096))
+            hdr = self.hdr = ra.decode_header(head)
+        else:
+            hdr = self.hdr = ra.header_of(self.fpath)
         if want is not None and tuple(hdr.shape) != want:
             raise ValueError(f"{self.name}: checkpoint {tuple(hdr.shape)} vs model {want}")
-        if self.fd is None:
-            self.open()
         if hdr.flags & ra.FLAG_CHUNKED and not hdr.big_endian and hdr.data_length:
-            self.table = ra.codec.read_table(self.fd, hdr)
+            self.table = ra.codec.read_table(self.src, hdr)
         self.quant = _entry_quant(self.entry, self.fpath, hdr)
 
     def buffer(self, pin: bool = False) -> torch.Tensor:
@@ -310,9 +338,9 @@ class Leaf:
             return []
         mv = _byte_view(buf)
         if self.table is not None:
-            return ra.codec.chunk_read_tasks(self.fd, hdr, self.table, 0, hdr.logical_nbytes, mv)
+            return ra.codec.chunk_read_tasks(self.src, hdr, self.table, 0, hdr.logical_nbytes, mv)
         if hdr.plain:
-            return ra.engine.span_read_tasks([(self.fd, hdr.nbytes, mv)])
+            return ra.engine.span_read_tasks([(self.src, hdr.nbytes, mv)])
         return [lambda: _read_whole(self.fpath, hdr, mv)]
 
 
@@ -363,7 +391,9 @@ def load_checkpoint(
 ) -> Tuple[Any, Any, Dict[str, Any]]:
     """Restore into the structure of ``params_like`` (a nested dict whose
     leaves have ``.shape``: tensors, numpy arrays, meta tensors). Leaves come
-    back as CPU tensors, quantized ones decoded to their ``orig_dtype``."""
+    back as CPU tensors, quantized ones decoded to their ``orig_dtype``.
+    ``path`` may be an ``http(s)://`` checkpoint URL: the same wave plan
+    over ranged reads."""
     manifest = _load_manifest(path)
 
     def restore(tree: Any, prefix: str) -> Any:
@@ -378,6 +408,59 @@ def load_checkpoint(
     params = restore(params_like, "param")
     opt = restore(opt_like, "opt") if opt_like is not None else None
     return params, opt, manifest.get("extra", {})
+
+
+def restore_resharded(
+    path: str,
+    name: str,
+    *,
+    row_start: int,
+    row_stop: int,
+    dequantize: bool = False,
+) -> torch.Tensor:
+    """Elastic restore: rows [start, stop) of one leaf as a CPU tensor —
+    offset arithmetic on the .ra file, no full-array read. Works on a
+    checkpoint URL too (the row slab becomes ranged requests) and on
+    chunked-compressed leaves (only the chunks overlapping the slab are
+    fetched and decoded).
+
+    ``dequantize=True`` reconstructs logical floats from a quantized-u8
+    leaf; row slicing composes with the quant schema because calibration is
+    per-channel over the last axis (every row carries all channels)."""
+    manifest = _load_manifest(path)
+    entry = manifest["leaves"][name]
+    leaf = Leaf(name, _join(path, entry["file"]), entry)
+    hdr = ra.header_of(leaf.fpath)
+    quant = _entry_quant(entry, leaf.fpath, hdr) if dequantize else None
+    chunked = bool(hdr.flags & ra.FLAG_CHUNKED)
+    if hdr.compressed and not chunked:
+        raise RawArrayError("cannot row-slice a whole-file-compressed payload; "
+                            "save the checkpoint with chunked=True")
+    if not hdr.shape:
+        raise RawArrayError("cannot row-slice a 0-d array")
+    n = hdr.shape[0]
+    row_start, row_stop = max(0, row_start), min(row_stop, n)
+    if row_stop < row_start:
+        raise RawArrayError(f"bad slice [{row_start}, {row_stop})")
+    row = hdr.elbyte * numel(hdr.shape[1:])
+    out = torch.empty((row_stop - row_start,) + tuple(hdr.shape[1:]), dtype=stored_dtype(hdr))
+    if out.numel():
+        leaf.open()
+        try:
+            mv = _byte_view(out)
+            if chunked:
+                table = ra.codec.read_table(leaf.src, hdr)
+                ra.engine.run_tasks(ra.codec.chunk_read_tasks(
+                    leaf.src, hdr, table, row_start * row, row_stop * row, mv))
+            else:
+                ra.engine.parallel_read_into(leaf.src, hdr.nbytes + row_start * row, mv)
+        finally:
+            leaf.close()
+        if hdr.big_endian and hdr.elbyte > 1:
+            wire = hdr.dtype()
+            out = torch.from_numpy(
+                np.frombuffer(mv, wire).astype(wire.newbyteorder("=")).reshape(out.shape))
+    return dequant_host(out, quant) if quant is not None else out
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -414,7 +497,6 @@ class CheckpointManager:
     raised. ``save_s`` sums the seconds the writes took."""
 
     def __init__(self, directory: str, *, keep: int = 3):
-        _reject_url(directory)
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
@@ -423,7 +505,8 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self.save_s = 0.0  # guarded-by: _lock
         self._error: Optional[BaseException] = None  # guarded-by: _lock
-        os.makedirs(directory, exist_ok=True)
+        if not ra.is_url(directory):
+            os.makedirs(directory, exist_ok=True)
 
     def wait(self) -> None:
         """Block until the save in flight (if any) is on disk; re-raise its
@@ -457,6 +540,8 @@ class CheckpointManager:
         self._thread.start()
 
     def _gc(self) -> None:
+        if ra.is_url(self.directory):
+            return  # remote stores garbage-collect server-side, not from here
         steps = sorted(
             int(d[5:])
             for d in os.listdir(self.directory)

@@ -12,14 +12,14 @@ plus a trailer chunk table, decoded chunk-parallel on the engine pool, with
 partial reads touching only the chunks that overlap the request.
 
 Large payloads (>= ``RA_IO_PARALLEL_MIN``) are read and written through the
-slab-parallel engine (``repro.core.engine``, DESIGN.md §8); ``read_into``
+slab-parallel engine (``repro_torch.core.engine``, DESIGN.md §8); ``read_into``
 streams a file into a caller-owned preallocated array with zero intermediate
 copies.
 
 Every read-side entry point also accepts ``http(s)://`` URLs and dispatches
-to the remote data plane (``repro.remote``, DESIGN.md §9): the same header
+to the remote data plane (``repro_torch.remote``, DESIGN.md §9): the same header
 decode and engine-planned slab reads, issued as parallel byte-range
-requests. The URL may just as well point at a ``repro.fleet`` router
+requests. The URL may just as well point at a ``repro_torch.fleet`` router
 (DESIGN.md §14) — the consistent-hash edge tier speaks the same
 byte-range dialect and serves the origin's ETag, so slab, span, and
 gather waves run unchanged through the proxy.
@@ -28,13 +28,14 @@ The streaming ingest plane (DESIGN.md §11): ``RaWriter`` writes a file
 incrementally — unknown leading dimension, row batches, chunk-parallel
 compression as batches arrive, crash-safe temp-file + rename publish.
 ``write`` also accepts an ``http(s)://`` destination (one authenticated
-PUT, server-side atomic publish); ``repro.remote.RemoteWriter`` is the
+PUT, server-side atomic publish); ``repro_torch.remote.RemoteWriter`` is the
 streaming equivalent. ``memmap``/``memmap_slice``/``append_metadata``
 remain local-only and refuse URLs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import zlib
@@ -79,9 +80,11 @@ def join_path(base: str, name: str) -> str:
 
 
 def _remote():
-    # the remote data plane (URL sources and sinks) is not part of this
-    # package yet: every URL path funnels through here and stops cleanly
-    raise RawArrayError("URL sources are not ported yet")
+    # deferred: repro_torch.remote imports this module; function-local import
+    # breaks the cycle and keeps purely-local workloads free of it
+    from .. import remote
+
+    return remote
 
 
 def _reject_url(path: PathLike, op: str) -> None:
@@ -113,8 +116,13 @@ def write(
     chunk_bytes: Optional[int] = None,
     quantize: Optional[str] = None,
     stats: bool = False,
+    eltype: Optional[int] = None,
 ) -> int:
     """Write ``arr`` as a RawArray file. Returns bytes written.
+
+    ``eltype`` overrides the header's element kind for the bits ``arr``
+    holds: ``ELTYPE_BRAIN`` stores bfloat16 patterns held as uint16, so the
+    file names bfloat16 without ``ml_dtypes``.
 
     ``stats=True`` (DESIGN.md §16) additionally emits a ``rastats``
     block — per-chunk min/max/NaN-count/count — at the head of the
@@ -145,7 +153,7 @@ def write(
     server (DESIGN.md §11): the identical bytes are shipped as ONE
     authenticated PUT with server-side atomic publish (token knob
     ``RA_REMOTE_TOKEN``). Incremental / unknown-length writes go through
-    ``RaWriter`` (local) or ``repro.remote.RemoteWriter`` (URL) instead."""
+    ``RaWriter`` (local) or ``repro_torch.remote.RemoteWriter`` (URL) instead."""
     chunked = chunked or codec is not None or chunk_bytes is not None
     if compress and chunked:
         raise RawArrayError(
@@ -209,6 +217,8 @@ def write(
         flags |= FLAG_CRC32_TRAILER
     data_length = sum(v.nbytes for v in stored_views)
     hdr = Header.for_array(arr, flags=flags, data_length=data_length)
+    if eltype is not None:
+        hdr = dataclasses.replace(hdr, eltype=eltype)
     views = [memoryview(hdr.encode())] + stored_views + trailer_views
     if metadata:
         views.append(memoryview(metadata))
@@ -319,7 +329,7 @@ class RaWriter:
     use ``chunked`` (DESIGN.md §10).
 
     ``sink`` is the byte-sink escape hatch the remote plane plugs into
-    (``repro.remote.RemoteWriter`` streams the same bytes as authenticated
+    (``repro_torch.remote.RemoteWriter`` streams the same bytes as authenticated
     PUT appends); local callers never pass it.
 
     Usage::
@@ -789,7 +799,7 @@ def read_stats(path: PathLike):
 
     Cheap for both local files (header + two tail reads) and
     ``http(s)://`` URLs (header fast path + tail ranges, never the
-    payload). Returns :class:`repro.core.stats.ChunkStats`, or ``None``
+    payload). Returns :class:`repro_torch.core.stats.ChunkStats`, or ``None``
     for files without a (valid) ``rastats`` block — corrupt blocks warn
     and return ``None`` so callers degrade to a full scan."""
     if is_url(path):

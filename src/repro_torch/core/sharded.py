@@ -19,7 +19,7 @@ the parallel I/O engine straight into one output buffer (DESIGN.md §8).
 
 ``dirpath`` may also be an ``http(s)://`` URL of a served shard directory
 (DESIGN.md §9): the index is fetched over HTTP and every shard read becomes
-engine-planned parallel byte-range requests through ``repro.remote`` —
+engine-planned parallel byte-range requests through ``repro_torch.remote`` —
 the same wave structure, remote sources.
 
 Writing is streaming-capable too (DESIGN.md §11): ``ShardedWriter`` feeds
@@ -322,7 +322,7 @@ class ShardedWriter:
 
 def load_index(dirpath: str) -> ShardIndex:
     if is_url(dirpath):
-        remote = raio._remote()
+        from .. import remote
 
         return ShardIndex.from_json(
             remote.fetch_bytes(_join(dirpath, INDEX_NAME)).decode()
@@ -410,7 +410,7 @@ def read_slice(
         # chunk fast path would stream BE bytes into a native-LE buffer)
         if hdr.flags & FLAG_CHUNKED and not hdr.big_endian:
             if is_url(path):
-                remote = raio._remote()
+                from .. import remote
 
                 src = remote.get_reader(path)  # registry-pooled; not closed here
             else:
@@ -444,7 +444,7 @@ def read_slice(
                 tasks.append(lambda p=path, a=a, b=b, d=dst: _decode_rows(p, a, b, d))
             else:
                 if is_url(path):
-                    remote = raio._remote()
+                    from .. import remote
 
                     src = remote.get_reader(path)  # registry-pooled; not closed here
                 else:

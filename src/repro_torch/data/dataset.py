@@ -18,7 +18,7 @@ what makes multi-host sharded reads and exact-resume trivial.
 
 ``root`` may also be an ``http(s)://`` URL of a served dataset directory
 (DESIGN.md §9): the manifest is fetched over HTTP, every positioned read
-becomes a pooled byte-range request through ``repro.remote``, and the
+becomes a pooled byte-range request through ``repro_torch.remote``, and the
 block cache turns repeated epoch traversals into RAM hits. The engine's
 ``rows``/``gather`` wave plans are identical in both modes; only the
 sparse-leftover path differs (ranged reads instead of mmap fancy
@@ -41,7 +41,6 @@ import numpy as np
 from .. import core as ra
 from ..core import codec as chunked_codec
 from ..core import engine
-from ..core.io import _remote
 
 MANIFEST = "manifest.json"
 
@@ -50,7 +49,7 @@ _join = ra.join_path
 
 def dataset_manifest(root: str) -> Dict[str, Any]:
     if ra.is_url(root):
-        remote = _remote()
+        from .. import remote
 
         return json.loads(remote.fetch_bytes(_join(root, MANIFEST)))
     with open(os.path.join(root, MANIFEST)) as f:
@@ -67,7 +66,7 @@ class DatasetBuilder:
     until ``finish`` succeeds.
 
     This is the MNIST/CIFAR-style converter entry point the paper sketches
-    (``repro.formats`` converters call it; see ``examples/streaming_ingest.py``).
+    (``repro_torch.formats`` converters call it; see ``examples/streaming_ingest.py``).
     ``chunked=True`` (or ``codec=``/``chunk_bytes=``) writes every shard
     file chunk-compressed (DESIGN.md §10) — compression runs chunk-parallel
     WHILE samples arrive; readers then decode only the chunks overlapping
@@ -383,7 +382,7 @@ class RaDataset:
             for d in hdr.shape[1:]:
                 row_nbytes *= d
             if self.is_remote:
-                remote = _remote()
+                from .. import remote
 
                 src: Any = remote.get_reader(path)
             else:
@@ -717,7 +716,7 @@ class RaDataset:
     ) -> Dict[str, np.ndarray]:
         """Read every row matching ``where`` (DESIGN.md §16).
 
-        The predicate (built with ``repro.core.col``) is pushed down to
+        The predicate (built with ``repro_torch.core.col``) is pushed down to
         the per-chunk statistics: chunks whose ``[min, max]`` intervals
         prove no row can match are pruned without fetching a single
         payload byte, chunks proved all-matching are taken wholesale, and

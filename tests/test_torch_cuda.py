@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
 its plain PyTorch version (the attention's backward too), the device feed
-on the card against the host decode, a dense train step and a reduced
+on the card against the host decode, a URL cold start and a URL feed on
+the card against the local ones, a dense train step and a reduced
 Zamba2's serving path on the card against the CPU's, and dense, Mamba2 and
 Zamba2 decode steps that must not sync with the host. Each skips without a
 card. This file imports nothing of JAX, so it
@@ -115,6 +116,48 @@ def test_device_feed_on_card_matches_host_decode(card, tmp_path):
     finally:
         host.stop()
         dev.stop()
+
+
+def test_url_cold_start_and_feed_on_card_match_local(card, tmp_path):
+    """From a byte-range server: a u8 and a bf16 checkpoint restored onto
+    the card (pinned host buffers filled by ranged reads, codes decoded by
+    the kernel) equal the local restore, and a URL feed's batches equal the
+    local feed's."""
+    from repro_torch import remote
+    from repro_torch.checkpoint import ColdStartStats, restore_pipelined, save_checkpoint
+
+    rng = np.random.default_rng(3)
+    tree = {"w": torch.from_numpy(rng.standard_normal((96, 130)).astype(np.float32)),
+            "e": torch.from_numpy(rng.standard_normal((40, 16)).astype(np.float32)).bfloat16()}
+    builder = DatasetBuilder(str(tmp_path / "imgs"), {"image": ((8, 8, 3), "float32")},
+                             quantize={"image": "u8"})
+    builder.append(image=rng.random((64, 8, 8, 3)).astype(np.float32))
+    builder.finish()
+    server = remote.serve(str(tmp_path), port=0)
+    try:
+        for step, kw in ((1, {"quantize": "u8"}), (2, {"chunked": True})):
+            path = save_checkpoint(str(tmp_path / "ck"), step, tree, **kw)
+            local, _, _ = restore_pipelined(path, tree, device=card)
+            st = ColdStartStats()
+            before = dq.launches
+            got, _, _ = restore_pipelined(f"{server.url}/ck/step_{step:08d}", tree,
+                                          device=card, stats=st)
+            assert dq.launches - before == st.dequant_leaves == (1 if kw.get("quantize") else 0)
+            for name in tree:
+                assert got[name].device == card and torch.equal(got[name], local[name])
+        feeds = [DeviceLoader(DataLoader(RaDataset(root), 16, seed=7, reuse_buffers=True))
+                 for root in (str(tmp_path / "imgs"), f"{server.url}/imgs")]
+        try:
+            for _ in range(4):
+                a, b = (next(f) for f in feeds)
+                assert torch.equal(a["image"], b["image"])
+        finally:
+            for f in feeds:
+                f.stop()
+    finally:
+        server.shutdown()
+        server.server_close()
+        remote.close_readers()
 
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py:19

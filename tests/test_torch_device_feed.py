@@ -235,7 +235,9 @@ def test_decoded_dtype_must_be_a_torch_float():
 
 
 def test_url_sources_are_not_ported():
-    with pytest.raises(RawArrayError, match="URL sources are not ported yet"):
+    # URL sources are ported now: a dataset URL goes to its server (here
+    # none listens) instead of stopping at a stub
+    with pytest.raises(RawArrayError, match="manifest.json failed"):
         RaDataset("http://127.0.0.1:9/ds")
 
 

@@ -4,7 +4,9 @@ reference's, so the two copies cannot drift apart."""
 
 import ast
 import dataclasses
+import difflib
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -85,6 +87,8 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.models, repro_torch.models.convert, repro_torch.configs\n"
         "import repro_torch.models.ssm_lm, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.checkpoint, repro_torch.serving, repro_torch.serving.__main__\n"
+        "import repro_torch.remote, repro_torch.fleet, repro_torch.formats\n"
+        "import repro_torch.core.racat, repro_torch.devtools.tsan, repro_torch.devtools.doctor\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "        or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(mods))\n"
@@ -93,6 +97,127 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == ""
+
+
+def test_the_url_plane_loads_no_torch():
+    """``racat header`` and the byte-range server stay as light as the JAX
+    package's: the remote plane, the fleet and the formats import no torch."""
+    code = (
+        "import sys\n"
+        "import repro_torch.remote, repro_torch.fleet, repro_torch.formats\n"
+        "import repro_torch.core.racat, repro_torch.devtools.doctor\n"
+        "print([m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+#: modules the port carries as copies of the JAX package's, and where each
+#: may differ from the reference's text once ``repro`` reads ``repro_torch``:
+#: ``-`` the reference's line numbers (the reference does not change), ``+``
+#: the port's lines that stand in for them
+COPIES = {
+    **{f"{pkg}/{mod}.py": {} for pkg, mods in (
+        ("remote", ("__init__", "cache", "client", "server")),
+        ("fleet", ("__init__", "_proxy", "loadgen")),
+        ("formats", ("__init__", "hdf5min", "ingest", "npy", "nrrd", "png")),
+    ) for mod in mods},
+    "devtools/doctor.py": {},
+    "core/sharded.py": {},
+    # comments that named the reference project's change numbers say what
+    # they meant instead
+    "fleet/edge.py": {
+        "-": [6],
+        "+": ["hierarchy: the remote plane's block LRU in RAM (``RA_FLEET_CACHE_MB``), a"],
+    },
+    "fleet/router.py": {
+        "-": [438],
+        "+": ["# shape once fixed in the loader ring. _stop.set() wakes the"],
+    },
+    "core/io.py": {
+        # the stored element kind of bfloat16 bits held as uint16 (the
+        # checkpoint store's bf16 leaves, local and over a URL)
+        "-": [132],
+        "+": ["import dataclasses", "eltype: Optional[int] = None,", "",
+              "``eltype`` overrides the header's element kind for the bits ``arr``",
+              "holds: ``ELTYPE_BRAIN`` stores bfloat16 patterns held as uint16, so the",
+              "file names bfloat16 without ``ml_dtypes``.",
+              "True)`` — or the on-device CUDA kernel — reconstructs the logical",
+              "if eltype is not None:", "hdr = dataclasses.replace(hdr, eltype=eltype)"],
+    },
+    "data/dataset.py": {
+        "-": [80],
+        "+": ["(``DeviceLoader`` via the CUDA dequant kernel). ``spec`` is ``\"u8\"``"],
+    },
+    "core/racat.py": {
+        # ``racat owners`` needs the data mesh (ROADMAP.md, item 8)
+        "-": [344, 715, 716, 717, 718, 719, 720, 721, 722],
+        "+": ["\"no rastats block (written before rastats existed, or with stats=False); \"",
+              "# the data mesh (owners_table) is not part of this package yet",
+              "raise RawArrayError(\"racat owners needs the data mesh, which is \"",
+              "\"not ported yet (ROADMAP.md, item 8)\")"],
+    },
+    "devtools/tsan.py": {
+        # ralint's scanner is devtools/guards.py here; no pytest plugin
+        "-": [3, 20, 29, 33, 425, 439],
+        "+": ["Two instruments, installed by a caller (:func:`install`, :func:`watch_all`;",
+              "the JAX package's copy is also activated under pytest with",
+              "``--ra-sanitize``):",
+              "protected object dead (:meth:`finalize`); the loader ring's old zombie writer",
+              "field (maps come from ``repro_torch.devtools.guards``' comment scanner via",
+              "error is recorded.  The block cache's old counter race (``cache.hits += 1``",
+              "from .guards import collect_guards",
+              "#: the threaded modules of this package that :func:`watch_all` traces"],
+    },
+}
+
+
+def _renamed_reference(rel):
+    with open(os.path.join(REPO, "src", "repro", rel), encoding="utf-8") as f:
+        return re.sub(r"\brepro\b", "repro_torch", f.read())
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copied_module_matches_reference(rel):
+    """Each copy equals its reference after the package rename, but where
+    ``COPIES`` says: the copies cannot drift silently."""
+    with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+        port = f.read().splitlines()
+    ref = _renamed_reference(rel).splitlines()
+    removed, added = [], []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, ref, port,
+                                                       autojunk=False).get_opcodes():
+        if tag in ("replace", "delete"):
+            removed += range(i1 + 1, i2 + 1)
+        if tag in ("replace", "insert"):
+            added += [line.strip() for line in port[j1:j2]]
+    allowed = COPIES[rel]
+    assert removed == allowed.get("-", []), rel
+    assert sorted(added) == sorted(allowed.get("+", [])), rel
+
+
+def test_guard_scanner_is_ralints():
+    """``devtools/guards.py`` holds ralint's ``# guarded-by:`` scanner as the
+    JAX package's ``devtools/lint.py`` defines it, definition for definition."""
+    def defs(path):
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        out = {}
+        for node in ast.parse(src).body:
+            if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+                out[node.name] = ast.get_source_segment(src, node)
+            elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+                out[node.targets[0].id] = ast.get_source_segment(src, node)
+        return out
+
+    port = defs(os.path.join(PORT, "devtools", "guards.py"))
+    ref = defs(os.path.join(REPO, "src", "repro", "devtools", "lint.py"))
+    assert set(port) == {"GUARDED_RE", "ALLOW_RE", "FileInfo", "_collect_guards",
+                         "collect_guards"}
+    for name, text in port.items():
+        assert text == ref[name], name
 
 
 def _geometry(layout):

@@ -151,7 +151,23 @@ Phases (any failure exits non-zero and prints no result):
    to phase 5's engine's; the device feed over the URL for one epoch (every
    batch bit-equal to the host decode of the local files); a save of the
    restored weights to the URL, restored from it bit-equal. Loopback HTTP
-   on one host: its rates are bound by the host, not by a network.
+   on one host: its rates are bound by the host, not by a network;
+13. the data mesh (DESIGN.md §15) over phase 4's dataset and phase 5's
+   checkpoints: (a) one CIFAR epoch through ``DataLoader(mesh=DataMesh("h0",
+   ["h0"]))`` and the global ``DeviceLoader`` over a one-rank NCCL group,
+   every batch a ``DTensor`` bit-equal to the host decode, one
+   ``dequant_u8`` launch a batch, batches/s beside phase 4's; (b) four
+   simulated hosts ``h0..h3`` in this process, each a mesh loader feeding
+   ``DeviceLoader(global_arrays=False)`` on the card for one epoch (the
+   first whose ring deal gives every host a shard; a zero-step epoch before
+   it must raise), every row once, every batch the host decode of its
+   planned rows, steps and dropped tails equal across hosts; (c) the raw
+   and u8 InternLM2 checkpoints restored with the layer axis of every
+   stacked leaf sharded over ``"data"`` (u8 decoded on the host, no
+   launch), bit-equal to the unsharded restore beside it (u8 by the
+   kernel); (d) paper_lm through ``launch.train`` with ``--device-feed`` on a
+   one-host mesh by flags, then by ``RA_MESH_HOSTS``/``RA_MESH_HOST``:
+   equal losses, the flash forward and backward launches of each.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -2205,6 +2221,301 @@ def phase_remote(torch, keep: str, serve: dict, runs: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 13
+#: the simulated hosts of phase 13b (tests/test_data_mesh.py:386's four)
+MESH_HOSTS = ("h0", "h1", "h2", "h3")
+#: paper_lm steps of each of phase 13d's two mesh-fed CLI runs
+MESH_TRAIN_STEPS = 10
+
+
+def _layer_specs(tree, stacked: bool = False):
+    """Partition specs for a parameter tree: axis 0 (the layer axis) of every
+    stacked layer leaf over ``"data"``, every other leaf replicated."""
+    if isinstance(tree, dict):
+        return {k: _layer_specs(v, stacked or k.endswith("layers")) for k, v in tree.items()}
+    return ("data",) + (None,) * (tree.dim() - 1) if stacked else None
+
+
+def _mesh_feed(torch, root: str, batch: int, dev) -> dict:
+    """13a: one epoch of the global feed over a one-host mesh, each batch a
+    DTensor held against the host decode of the same rows."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset
+    from repro_torch.distributed.data_mesh import DataMesh
+    from repro_torch.kernels import dequant_u8
+
+    feed = DeviceLoader(DataLoader(RaDataset(root), batch, seed=SEED, reuse_buffers=True,
+                                   mesh=DataMesh("h0", ["h0"])), device=dev)
+    if not feed.global_arrays or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise SystemExit(f"chip_smoke: the mesh feed is not global over a one-rank NCCL "
+                         f"group: {feed.global_arrays}, {dist.get_backend()}")
+    nbatches = feed.steps_per_epoch()
+    tail = feed.stats()["dropped_tail_rows"]
+    dequant_u8.launches = 0
+    t0 = time.perf_counter()
+    got = [next(feed)]
+    first_s = time.perf_counter() - t0  # start-up, apart from the rate after it
+    got += [next(feed) for _ in range(nbatches - 1)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    feed.stop()
+    launches = dequant_u8.launches
+    stats = feed.stats()
+    host = DataLoader(RaDataset(root), batch, seed=SEED, dequant=True,
+                      mesh=DataMesh("h0", ["h0"]))
+    try:
+        for i, db in enumerate(got):
+            hb = next(host)
+            if hb["_state"].__dict__ != db["_state"].__dict__:
+                raise SystemExit(f"chip_smoke: mesh batch {i} state {db['_state']} != "
+                                 f"{hb['_state']}")
+            for f in ("image", "label"):
+                g = db[f]
+                if not isinstance(g, DTensor) or g.device_mesh.device_type != "cuda" \
+                        or tuple(g.shape) != hb[f].shape:
+                    raise SystemExit(f"chip_smoke: mesh batch {i} {f} is not a global "
+                                     f"DTensor on the card: {type(g)}")
+                if not torch.equal(g.to_local().cpu(), torch.from_numpy(np.asarray(hb[f]))):
+                    raise SystemExit(f"chip_smoke: mesh batch {i} {f} differs from the "
+                                     "host decode")
+    finally:
+        host.stop()
+    moved = int(stats["h2d_batches"])
+    if launches != moved or not nbatches <= moved <= nbatches + feed.bufs + 1:
+        raise SystemExit(f"chip_smoke: mesh feed: {launches} launches for {moved} moved "
+                         f"batches ({nbatches} consumed)")
+    return {"batches": nbatches, "batch": batch, "launches": launches, "moved": moved,
+            "seconds": seconds, "batches_per_s": nbatches / seconds,
+            "first_batch_s": first_s,
+            "after_first_batches_per_s": (nbatches - 1) / (seconds - first_s),
+            "dropped_tail_rows": tail,
+            "h2d_gb_per_s": stats["h2d_bytes"] / stats["h2d_s"] / 1e9,
+            "device_wait_s": stats["device_wait_s"]}
+
+
+def _mesh_hosts(torch, root: str, batch: int, dev) -> dict:
+    """13b: four simulated hosts in this process, each a mesh loader feeding
+    ``DeviceLoader(global_arrays=False)`` on the card for one epoch: every
+    row once across the hosts, every batch the host decode of its planned
+    rows. Phase 4's dataset has 7 shards of up to 8,192 rows, which the ring
+    deals per epoch; an epoch that leaves a host without a shard has zero
+    lockstep steps (the loader's sticky error, as the reference's). The
+    phase checks that epoch 0 is such an epoch, then runs the first epoch
+    whose deal gives every host rows."""
+    import numpy as np
+
+    from repro_torch.core.spec import RawArrayError
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset
+    from repro_torch.distributed.data_mesh import DataMesh, owners_table
+    from repro_torch.kernels import dequant_u8
+
+    hosts = list(MESH_HOSTS)
+    ds = RaDataset(root)
+    shard_rows = [s["rows"] for s in owners_table(root, hosts)["shards"]]
+    out: dict = {"hosts": hosts, "shards": len(shard_rows), "empty_epochs": []}
+    epoch = 0
+    while DataMesh("h0", hosts).plan(shard_rows, seed=SEED, epoch=epoch,
+                                     batch_size=batch).steps() == 0:
+        out["empty_epochs"].append({"epoch": epoch, "owners": [
+            s["owner"] for s in owners_table(root, hosts, epoch=epoch)["shards"]]})
+        epoch += 1
+        if epoch > 16:
+            raise SystemExit(f"chip_smoke: no epoch in 0..16 deals every host a shard: {out}")
+    if out["empty_epochs"]:
+        # the lockstep contract where a host owns nothing: zero steps, a sticky error
+        dl = DataLoader(ds, batch, seed=SEED, mesh=DataMesh("h0", hosts))
+        try:
+            next(dl)
+            raise SystemExit("chip_smoke: a zero-step mesh epoch delivered a batch")
+        except RawArrayError as e:
+            if "zero steps" not in str(e):
+                raise
+        finally:
+            dl.stop()
+    out["epoch"] = epoch
+    feeds = {}
+    for h in hosts:
+        dl = DataLoader(RaDataset(root), batch, seed=SEED, reuse_buffers=True,
+                        mesh=DataMesh(h, hosts))
+        dl.seek(epoch, 0)
+        feeds[h] = DeviceLoader(dl, global_arrays=False, device=dev)
+    spe = {h: f.steps_per_epoch() for h, f in feeds.items()}
+    tails = {h: f.stats()["dropped_tail_rows"] for h, f in feeds.items()}
+    if len(set(spe.values())) != 1 or len(set(tails.values())) != 1:
+        raise SystemExit(f"chip_smoke: steps per epoch {spe} or dropped tails {tails} "
+                         "differ across hosts")
+    steps = spe["h0"]
+    plan = feeds["h0"].loader._mesh_plan(epoch)
+    dequant_u8.launches = 0
+    t0 = time.perf_counter()
+    try:
+        got = {h: [next(feed) for _ in range(steps)] for h, feed in feeds.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for feed in feeds.values():
+            feed.stop()
+    launches = dequant_u8.launches
+    seen = []
+    for h, batches in got.items():
+        order = plan.host_order(h)
+        for t, db in enumerate(batches):
+            rows = order[t * batch:(t + 1) * batch]
+            want = ds.gather(rows)
+            img = ds.quant["image"].dequantize(want["image"])
+            if db["_state"].epoch != epoch or db["_state"].step != t \
+                    or not torch.equal(db["image"].cpu(), torch.from_numpy(img)) \
+                    or not torch.equal(db["label"].cpu(), torch.from_numpy(want["label"])):
+                raise SystemExit(f"chip_smoke: host {h} batch {t} is not the host decode "
+                                 "of its planned rows")
+            seen.append(rows)
+    del got
+    allr = np.concatenate(seen)
+    once = len(np.unique(allr)) == len(allr) == steps * batch * len(hosts)
+    if not once or len(allr) + tails["h0"] != ds.total_rows:
+        raise SystemExit(f"chip_smoke: four hosts: rows once {once}, {len(allr)} rows + "
+                         f"{tails['h0']} dropped of {ds.total_rows}")
+    moved = sum(int(f.stats()["h2d_batches"]) for f in feeds.values())
+    if launches != moved:
+        raise SystemExit(f"chip_smoke: four hosts: {launches} launches for {moved} batches")
+    out.update(steps_per_epoch=steps, rows_delivered=int(len(allr)),
+               dropped_tail_rows=tails["h0"], launches=launches, moved=moved,
+               seconds=seconds, batches_per_s=steps * len(hosts) / seconds,
+               owned_rows={h: t["rows"] for h, t in
+                           owners_table(root, hosts, epoch=epoch)["per_host"].items()})
+    return out
+
+
+def _mesh_restore(torch, keep: str, dev) -> dict:
+    """13c: phase 5's raw and u8 InternLM2 checkpoints restored onto the
+    one-rank mesh with the layer axis of every stacked leaf sharded, each
+    leaf's local block bit-equal to the unsharded restore run beside it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import ColdStartStats, restore_pipelined, shardings_from_specs
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.data_mesh import data_sharding
+    from repro_torch.kernels import dequant_u8
+    from repro_torch.models import build_model
+
+    cfg = get_config("internlm2_1_8b")
+    like = build_model(cfg, device=dev, seed=SEED).param_tree()
+    mesh = data_sharding(device=dev)[0]
+    sh = shardings_from_specs(mesh, _layer_specs(like))
+    n_sharded = sum(1 for s in flatten(_layer_specs(like), "param").values() if s)
+    out: dict = {"arch": cfg.name, "sharded_leaves": n_sharded, "mesh": list(mesh.shape)}
+    for name in ("raw", "u8"):
+        path = os.path.join(keep, name, "step_00000001")
+        plain_st, mesh_st = ColdStartStats(), ColdStartStats()
+        dequant_u8.launches = 0
+        want, _, _ = restore_pipelined(path, like, device=dev, stats=plain_st)
+        plain_launches = dequant_u8.launches
+        dequant_u8.launches = 0
+        got, _, _ = restore_pipelined(path, like, device=dev, shardings=sh, stats=mesh_st)
+        mesh_launches = dequant_u8.launches
+        want, got = flatten(want, "param"), flatten(got, "param")
+        floats = sum(1 for t in want.values() if t.is_floating_point() and t.dim())
+        # every leaf has a placement (None specs replicate), so the u8 leaves
+        # decode on the host; the unsharded restore decodes them on the card
+        if mesh_launches != 0 or plain_launches != mesh_st.dequant_leaves \
+                or mesh_st.dequant_leaves != (floats if name == "u8" else 0):
+            raise SystemExit(f"chip_smoke: sharded restore ({name}): {mesh_launches} and "
+                             f"{plain_launches} dequant launches, {mesh_st.dequant_leaves} "
+                             "decoded leaves")
+        for leaf, w in want.items():
+            g = got[leaf]
+            if not isinstance(g, DTensor) or g.device_mesh is not mesh:
+                raise SystemExit(f"chip_smoke: sharded restore ({name}): {leaf} is {type(g)}")
+            local = g.to_local()
+            if local.device != dev or local.dtype != w.dtype or not torch.equal(local, w):
+                raise SystemExit(f"chip_smoke: sharded restore ({name}): {leaf} differs from "
+                                 "the unsharded restore")
+        del want, got
+        out[name] = {"unsharded": {**_cold(plain_st), "dequant_launches": plain_launches},
+                     "sharded": {**_cold(mesh_st), "dequant_launches": mesh_launches,
+                                 "dequant_leaves": mesh_st.dequant_leaves}}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_training(torch, dev) -> dict:
+    """13d: paper_lm through the CLI with the device feed on a one-host
+    mesh, once by flags and once by ``RA_MESH_HOSTS``/``RA_MESH_HOST``: the
+    same rows, so the same losses; the flash launches of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import parse_args, run
+
+    cfg = get_config("paper_lm")
+    out: dict = {"arch": cfg.name, "steps": MESH_TRAIN_STEPS}
+    saved = {k: os.environ.pop(k, None) for k in ("RA_MESH_HOSTS", "RA_MESH_HOST")}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            ds = os.path.join(tmp, "flags", "dataset")  # the first run builds it
+            for how, extra in (("flags", ["--mesh-hosts", "h0", "--mesh-host", "h0"]),
+                               ("env", ["--dataset", ds])):
+                if how == "env":
+                    os.environ["RA_MESH_HOSTS"] = os.environ["RA_MESH_HOST"] = "h0"
+                args = parse_args(["--arch", "paper_lm", "--device-feed", "--batch", "8",
+                                   "--steps", str(MESH_TRAIN_STEPS), "--ckpt-every", "1000",
+                                   "--seed", str(SEED), "--device", str(dev), "--fresh",
+                                   "--workdir", os.path.join(tmp, how), *extra])
+                if args.mesh is None or args.mesh.hosts != ("h0",):
+                    raise SystemExit(f"chip_smoke: the {how} run has no one-host mesh")
+                _reset_flash_counts()
+                res = run(args)
+                torch.cuda.synchronize()
+                launches = _flash_counts()
+                want = {"forward": cfg.n_layers * MESH_TRAIN_STEPS * (2 if cfg.remat else 1),
+                        "backward": cfg.n_layers * MESH_TRAIN_STEPS}
+                if launches != want:
+                    raise SystemExit(f"chip_smoke: mesh {how} run launched {launches}, "
+                                     f"wanted {want}")
+                out[how] = {"losses": res["losses"], "launches": launches,
+                            "median_step_s": statistics.median(res["step_s"]),
+                            "wall_s": res["wall_s"],
+                            "dropped_tail_rows": res["loader_stats"]["dropped_tail_rows"]}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["losses_equal"] = out["flags"]["losses"] == out["env"]["losses"]
+    if not out["losses_equal"]:
+        raise SystemExit(f"chip_smoke: flag and env mesh runs differ: {out}")
+    return out
+
+
+def phase_data_mesh(torch, keep: str, runs: list) -> dict:
+    """The data mesh on the card: phase 4's CIFAR-10-shaped dataset through
+    a one-host mesh's global feed (a one-rank NCCL group) and through four
+    simulated hosts, phase 5's InternLM2 checkpoints restored onto the mesh,
+    and the train CLI fed by its mesh from flags and from the environment."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    root = os.path.join(keep, "cifar10_epoch")
+    local = next(r for r in runs if r["name"] == "cifar10_epoch")
+    out: dict = {"rows": local["rows"]}
+    try:
+        out["global_feed"] = _mesh_feed(torch, root, local["batch"], dev)
+        out["global_feed"]["phase4_batches_per_s"] = local["batches_per_s"]
+        out["four_hosts"] = _mesh_hosts(torch, root, local["batch"], dev)
+        out["restore"] = _mesh_restore(torch, keep, dev)
+        out["training"] = _mesh_training(torch, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[data mesh] {json.dumps(out)}")
+    return out
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -2259,6 +2570,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     zamba = phase_zamba2_serving(torch)
     torch.cuda.empty_cache()
     rem = phase_remote(torch, keep, serve, runs)
+    torch.cuda.empty_cache()
+    mesh = phase_data_mesh(torch, keep, runs)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -2268,7 +2581,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         "source": "src/repro_torch/kernels/csrc/dequant_u8.cu",
         "replaces": "src/repro/kernels/dequant_u8.py:31",
         "launches": sum(feed_launches.values()) + serve["u8_cold_start"]["dequant_launches"]
-        + rem["u8_url"]["dequant_launches"] + rem["feed_url"]["launches"],
+        + rem["u8_url"]["dequant_launches"] + rem["feed_url"]["launches"]
+        + mesh["global_feed"]["launches"] + mesh["four_hosts"]["launches"]
+        + mesh["restore"]["u8"]["unsharded"]["dequant_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "tolerance": 0.0,
         "ms": main_row["ms"],
@@ -2283,7 +2598,11 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         "main_path_launches": {**feed_launches,
                                "u8_cold_start": serve["u8_cold_start"]["dequant_launches"],
                                "u8_url_cold_start": rem["u8_url"]["dequant_launches"],
-                               "cifar10_epoch_url": rem["feed_url"]["launches"]},
+                               "cifar10_epoch_url": rem["feed_url"]["launches"],
+                               "cifar10_epoch_mesh": mesh["global_feed"]["launches"],
+                               "cifar10_mesh_4_hosts": mesh["four_hosts"]["launches"],
+                               "u8_cold_start_beside_mesh":
+                                   mesh["restore"]["u8"]["unsharded"]["dequant_launches"]},
     }]
     def by_phase(key):
         return {serve["arch"]: serve[key], gemma["arch"]: gemma[key],
@@ -2294,6 +2613,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 for name, row in small["runs"].items()}
         runs[f"{big['arch']} train"] = big["train"]["launches"][kind]
         runs[f"{g_train['arch']} train"] = g_train["train"]["launches"][kind]
+        for how in ("flags", "env"):
+            runs[f"{small['arch']} mesh train ({how})"] = mesh["training"][how]["launches"][kind]
         return runs
 
     zamba_prefill = f"{zamba['arch']} prefill"

@@ -25,7 +25,10 @@ caller. ``restore_pipelined`` overlaps the phases:
 
 The kernel library is built and loaded on a side thread while the first
 leaves are read. ``restore_naive`` keeps the phase-by-phase baseline.
-Sharded placements (``shardings``) are not ported yet.
+``shardings`` restores onto a ``DeviceMesh`` (see :func:`shardings_from_specs`):
+each process builds its own block of a sharded leaf with
+``DTensor.from_local``, as ``jax.device_put(arr, sharding)`` does when every
+process holds the host array.
 """
 
 from __future__ import annotations
@@ -69,17 +72,116 @@ class ColdStartStats:
     inflight_cap: int = 0          # the budget it ran under
 
 
-def _no_shardings(shardings: Any, opt_shardings: Any) -> None:
-    if shardings is not None or opt_shardings is not None:
-        raise NotImplementedError(
-            "sharded restore is not ported yet (ROADMAP.md, modules to port, item 8)"
-        )
+def _is_spec(x: Any) -> bool:
+    """A partition spec: None, or a tuple of one mesh-axis name or None per
+    dimension (what a ``PartitionSpec`` holds)."""
+    return x is None or (isinstance(x, tuple)
+                         and all(e is None or isinstance(e, str) for e in x))
+
+
+def _is_placement(x: Any) -> bool:
+    """A per-leaf placement: None (the ``device`` path), or ``(mesh,
+    placements)`` as :func:`shardings_from_specs` makes it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return x is None or (isinstance(x, tuple) and len(x) == 2
+                         and isinstance(x[0], DeviceMesh))
+
+
+def _flatten_shardings(tree: Any) -> List[Any]:
+    """The placements of a shardings tree in ``store.flatten``'s leaf order
+    (dict keys sorted), None leaves kept: one entry per parameter leaf."""
+    out: List[Any] = []
+
+    def walk(node: Any) -> None:
+        if _is_placement(node):
+            out.append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            raise TypeError(f"not a placement or a tree of them: {node!r}")
+
+    walk(tree)
+    return out
 
 
 def shardings_from_specs(mesh, tree: Any) -> Any:
-    raise NotImplementedError(
-        "sharded restore is not ported yet (ROADMAP.md, modules to port, item 8)"
-    )
+    """Map a tree of partition specs (None, or a tuple of one mesh-axis name
+    or None per dimension) to ``(mesh, placements)`` per leaf on the
+    ``DeviceMesh`` ``mesh``: ``Shard(d)`` on the mesh dimension a spec names
+    for dimension ``d``, ``Replicate()`` elsewhere (None replicates the whole
+    leaf). The bridge from per-leaf rule specs to the placement
+    :func:`restore_pipelined` consumes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names or ())
+
+    def one(spec: Any) -> Tuple[Any, Tuple[Any, ...]]:
+        placements: List[Any] = [Replicate()] * mesh.ndim
+        for dim, axis in enumerate(spec or ()):
+            if axis is None:
+                continue
+            if axis not in names:
+                raise ValueError(f"mesh axis {axis!r} of spec {spec} is not in mesh {names}")
+            i = names.index(axis)
+            if not isinstance(placements[i], Replicate):
+                raise ValueError(f"mesh axis {axis!r} is named twice in spec {spec}")
+            placements[i] = Shard(dim)
+        return mesh, tuple(placements)
+
+    def walk(node: Any) -> Any:
+        if _is_spec(node):
+            return one(node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        raise TypeError(f"not a partition spec or a tree of them: {node!r}")
+
+    return walk(tree)
+
+
+def _shardings_list(shtree: Any, n: int, prefix: str) -> List[Any]:
+    if shtree is None:
+        return [None] * n
+    flat = _flatten_shardings(shtree)
+    if len(flat) != n:
+        raise ValueError(f"shardings tree has {len(flat)} leaves, {prefix} tree has {n}")
+    return flat
+
+
+def _place_sharded(quant: Any, buf: torch.Tensor, sharding: Any, name: str) -> torch.Tensor:
+    """This process's block of a sharded leaf as a ``DTensor``. A quantized
+    leaf is decoded on the host first (the reference's algorithm, so the
+    result is bit-equal to the host decode); the block goes to this
+    process's device. A sharded dimension must divide over its mesh
+    dimension, as ``jax.device_put`` to a ``NamedSharding`` requires."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..distributed.data_mesh import mesh_device
+
+    if quant is not None:
+        buf = dequant_host(buf, quant)
+    mesh, placements = sharding
+    coord = mesh.get_coordinate()
+    local = buf
+    for i, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        n, d = mesh.size(i), p.dim
+        if buf.shape[d] % n:
+            raise ValueError(
+                f"{name}: dimension {d} of {tuple(buf.shape)} does not divide over "
+                f"the {n} devices of mesh axis {mesh.mesh_dim_names[i]!r}")
+        per = buf.shape[d] // n
+        local = local.narrow(d, coord[i] * per, per)
+    local = local.to(mesh_device(mesh), non_blocking=True, copy=True)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=buf.shape, stride=buf.stride())
 
 
 @dataclass
@@ -90,6 +192,7 @@ class _Plan:
     pin: Any = None                # (mtime_ns, size) local | ETag str remote
     pinned: Any = None             # Event: pin taken (or failed)
     pin_err: Any = None
+    sharding: Any = None           # (mesh, placements), or None: ``device``
     out: Any = None                # the restored tensor
 
 
@@ -236,6 +339,19 @@ def _upload(quant: Any, buf: torch.Tensor, device: torch.device) -> Tuple[torch.
     return ops.dequant_rows(moved, scale, bias, out_dtype=torch_dtype(quant.orig_dtype)), True
 
 
+def _place(quant: Any, buf: torch.Tensor, device: torch.device, sharding: Any,
+           name: str) -> Tuple[torch.Tensor, bool, int]:
+    """One leaf's placement: this process's block of a sharded leaf, else
+    the whole leaf on ``device`` (a u8 leaf through the dequant kernel).
+    Returns (tensor, dequantized, bytes that crossed to the device)."""
+    if sharding is None:
+        out, dequant = _upload(quant, buf, device)
+        return out, dequant, buf.numel() * buf.element_size()
+    out = _place_sharded(quant, buf, sharding, name)
+    local = out.to_local()
+    return out, quant is not None, local.numel() * local.element_size()
+
+
 def _start_warmup(plans: List[_Plan], device: torch.device) -> Optional[threading.Thread]:
     """Build and load the dequant kernel's library while the first leaves
     are read, when the checkpoint has quantized leaves for the card. The
@@ -261,21 +377,24 @@ def _start_warmup(plans: List[_Plan], device: torch.device) -> Optional[threadin
 def _plans(path: str, manifest: Dict[str, Any], trees, st: ColdStartStats):
     plans: List[_Plan] = []
     tree_meta = []
-    for prefix, tree in trees:
+    for prefix, tree, shtree in trees:
         flat = flatten(tree, prefix)
-        for name, like in flat.items():
+        shards = _shardings_list(shtree, len(flat), prefix)
+        for (name, like), sh in zip(flat.items(), shards):
             entry = manifest["leaves"].get(name)
             if entry is None:
                 raise ra.RawArrayError(f"{name}: missing from checkpoint manifest")
             want = tuple(int(d) for d in like.shape)
             if "shape" in entry and tuple(entry["shape"]) != want:
                 raise ValueError(f"{name}: checkpoint {tuple(entry['shape'])} vs model {want}")
-            plan = _Plan(Leaf(name, ra.join_path(path, entry["file"]), entry), want=want)
+            plan = _Plan(Leaf(name, ra.join_path(path, entry["file"]), entry), want=want,
+                         sharding=sh)
             elems = numel(want)
             if entry.get("quant") is not None:
                 orig = torch_dtype(entry["quant"].get("orig_dtype", "float32"))
                 st.logical_bytes += elems * orig.itemsize
-                plan.cost = elems  # uint8 codes on the host
+                # uint8 codes on the host, but a sharded leaf is decoded there
+                plan.cost = elems * (orig.itemsize if sh is not None else 1)
             else:
                 logical = elems * like.element_size() if hasattr(like, "element_size") \
                     else int(getattr(like, "nbytes", elems))
@@ -305,6 +424,12 @@ def restore_pipelined(
     that the leaves land on ``device`` (default: the current CUDA device;
     raises without one unless ``device="cpu"`` is passed):
 
+    * ``shardings``/``opt_shardings`` — optional trees (matching
+      ``params_like``/``opt_like``) of ``(mesh, placements)`` per leaf, or
+      None for ``device``, for a resharded restore onto a live mesh (see
+      :func:`shardings_from_specs`); a sharded leaf comes back as a
+      ``DTensor`` holding this process's block, a sharded quantized leaf
+      decoded on the host first;
     * ``inflight_bytes`` — override the ``RA_COLDSTART_INFLIGHT`` budget;
     * ``prewarm`` — open keep-alive sockets for a URL checkpoint's fetch
       wave during the pin wave;
@@ -315,7 +440,6 @@ def restore_pipelined(
     Raises ``RawArrayError`` when any leaf's pinned version (local
     mtime+size, remote ETag) changes mid-restore, and propagates auth and
     transport errors unchanged (never a silently mixed checkpoint)."""
-    _no_shardings(shardings, opt_shardings)
     device = resolve_device(device)
     pin_host = device.type == "cuda"
     st = stats if stats is not None else ColdStartStats()
@@ -323,7 +447,8 @@ def restore_pipelined(
                                 else default_inflight_bytes())
     t_all = time.perf_counter()
     manifest = _load_manifest(path)
-    trees = [("param", params_like)] + ([("opt", opt_like)] if opt_like is not None else [])
+    trees = [("param", params_like, shardings)] + (
+        [("opt", opt_like, opt_shardings)] if opt_like is not None else [])
     plans, tree_meta = _plans(path, manifest, trees, st)
     by_name = {p.leaf.name: p for p in plans}
     st.leaves = len(plans)
@@ -404,10 +529,11 @@ def restore_pipelined(
             try:
                 _check_pin(plan)
                 t1 = time.perf_counter()
-                plan.out, dequant = _upload(plan.leaf.quant, buf, device)
+                plan.out, dequant, nbytes = _place(plan.leaf.quant, buf, device,
+                                                   plan.sharding, plan.leaf.name)
                 with stats_lock:
                     st.h2d_s += time.perf_counter() - t1
-                    st.h2d_bytes += buf.numel() * buf.element_size()
+                    st.h2d_bytes += nbytes
                     st.dequant_leaves += int(dequant)
             except BaseException as e:  # noqa: BLE001 — forwarded
                 _fail(e)
@@ -510,19 +636,20 @@ def restore_naive(
     (and dequantize on the card) leaf by leaf, waiting for each. The same
     per-leaf decode as :func:`restore_pipelined`, so the two are bit-exact
     and differ only in overlap. The baseline and the escape hatch."""
-    _no_shardings(shardings, opt_shardings)
     device = resolve_device(device)
     st = stats if stats is not None else ColdStartStats()
     t_all = time.perf_counter()
     manifest = _load_manifest(path)
-    trees = [("param", params_like)] + ([("opt", opt_like)] if opt_like is not None else [])
+    trees = [("param", params_like, shardings)] + (
+        [("opt", opt_like, opt_shardings)] if opt_like is not None else [])
     outs: List[Any] = []
-    for prefix, tree in trees:
+    for prefix, tree, shtree in trees:
         flat = flatten(tree, prefix)
+        shards = _shardings_list(shtree, len(flat), prefix)
         quants: Dict[str, Any] = {}
         host = _read_leaves_parallel(path, manifest, list(flat), quants_out=quants)
         moved: Dict[str, torch.Tensor] = {}
-        for name, like in flat.items():
+        for (name, like), sh in zip(flat.items(), shards):
             buf = host[name]
             want = tuple(int(d) for d in like.shape)
             if tuple(buf.shape) != want:
@@ -533,11 +660,11 @@ def restore_naive(
                 torch_dtype(quant.orig_dtype).itemsize if quant is not None else buf.element_size()
             )
             t0 = time.perf_counter()
-            moved[name], dequant = _upload(quant, buf, device)
+            moved[name], dequant, nbytes = _place(quant, buf, device, sh, name)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             st.h2d_s += time.perf_counter() - t0
-            st.h2d_bytes += buf.numel() * buf.element_size()
+            st.h2d_bytes += nbytes
             st.dequant_leaves += int(dequant)
         outs.append(unflatten(tree, prefix, moved))
     st.restore_s = time.perf_counter() - t_all

@@ -712,9 +712,14 @@ def main(argv=None) -> int:
             hosts = _parse_hosts(args.hosts)
             if not hosts:
                 p.error(f"--hosts {args.hosts!r} names no hosts")
-            # the data mesh (owners_table) is not part of this package yet
-            raise RawArrayError("racat owners needs the data mesh, which is "
-                                "not ported yet (ROADMAP.md, item 8)")
+            # deferred: the mesh module (numpy + the fleet's hash ring only)
+            from ..distributed.data_mesh import owners_table
+
+            table = owners_table(
+                args.path, hosts, epoch=args.epoch, vnodes=args.vnodes
+            )
+            print(format_owners(table))
+            return 0
 
         if args.cmd == "inspect":
             ckpt = _checkpoint_dir(args.path)

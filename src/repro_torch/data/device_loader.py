@@ -17,7 +17,11 @@ would then pay the host→device copy inside its critical path. The torch
   dequantization is turned off automatically;
 * ``stats()`` folds ``h2d_s`` (time inside device transfers), ``h2d_bytes``
   (bytes actually moved) and ``device_wait_s`` (consumer starved on the
-  device queue) into the wrapped loader's counters.
+  device queue) into the wrapped loader's counters;
+* wrapping a mesh loader (``DataLoader(mesh=...)``, DESIGN.md §15) turns on
+  **global assembly**: each host's decoded local batch is declared as its
+  ``Shard(0)`` block of one global ``DTensor`` (data axis = mesh hosts,
+  one process and one device per host) via ``DTensor.from_local``.
 
 Buffer safety: after queueing a batch's copies the feeder records a
 copy-done event and waits on it before it pulls the next host batch, so
@@ -120,12 +124,31 @@ class DeviceLoader:
                 "iterating (stop() it first)"
             )
         mesh = getattr(loader, "mesh", None)
-        if global_arrays or (global_arrays is None and mesh is not None):
-            raise NotImplementedError(
-                "global batch assembly over a data mesh is not ported yet "
-                "(ROADMAP.md, modules to port: data-mesh device assembly)"
-            )
+        # a mesh loader assembles global DTensors by default; override only
+        # to keep plain per-host tensors (e.g. non-collective eval loops)
+        self.global_arrays = (mesh is not None) if global_arrays is None else bool(global_arrays)
+        if self.global_arrays:
+            if mesh is None:
+                raise RawArrayError(
+                    "global_arrays=True requires DataLoader(mesh=...)"
+                )
+            from ..distributed.data_mesh import world_size
+
+            if mesh.host_count > 1 and world_size() != mesh.host_count:
+                raise RawArrayError(
+                    f"global assembly needs one process per mesh host: "
+                    f"mesh has {mesh.host_count} hosts but "
+                    f"torch.distributed world size={world_size()} (use "
+                    f"data_mesh.make_global_batch directly to simulate)"
+                )
         self.device = resolve_device(device)
+        # the mesh (and, in a world of one, its process group) is made here
+        # on the caller's thread, never on the feeder's
+        self._gsharding: Any = None
+        if self.global_arrays:
+            from ..distributed.data_mesh import data_sharding
+
+            self._gsharding = data_sharding(device=self.device)
         self.loader = loader
         # device decode replaces host decode: raw uint8 over the wire
         loader.dequant = False
@@ -198,6 +221,8 @@ class DeviceLoader:
                         self._h2d_n += 1
                     if stream is None:
                         self._dequant_on_device(moved)
+                    if self.global_arrays:
+                        moved = self._globalize(moved)
                     item: Any = (moved, state, ready)
                 except Exception as e:  # surface in consumer (sticky there)
                     item = e
@@ -240,6 +265,21 @@ class DeviceLoader:
         copied.synchronize()
         return moved, ready
 
+    # ---- global assembly (DESIGN.md §15) ------------------------------------
+    def _globalize(self, moved: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """This host's decoded block on its device → global ``DTensor``s:
+        declared as this process's ``Shard(0)`` block of the
+        ``(host_count * local_B, ...)`` global batch. One process drives one
+        device, so the block is not split further; the copy and the decode
+        already ran (the copy finished before the staging ring may recycle,
+        the decode by the dequant kernel on this device with its own scale
+        and bias). The assembly itself is metadata only: no collective."""
+        from ..distributed import data_mesh
+
+        host_count = self.loader.mesh.host_count
+        return {k: data_mesh.global_block(v, host_count, self._gsharding)
+                for k, v in moved.items()}
+
     # ---- iteration ----------------------------------------------------------
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         return self
@@ -277,7 +317,7 @@ class DeviceLoader:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(ready)
             for t in moved.values():
-                t.record_stream(consumer)
+                (t.to_local() if self.global_arrays else t).record_stream(consumer)
         moved["_state"] = state
         with self._stats_lock:
             self._n_batches += 1

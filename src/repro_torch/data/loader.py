@@ -118,7 +118,7 @@ class DataLoader:
             )
         if mesh is not None and naive:
             raise ValueError("naive=True is the seed baseline; it has no mesh mode")
-        self.mesh = mesh  # repro.distributed.data_mesh.DataMesh (duck-typed)
+        self.mesh = mesh  # repro_torch.distributed.data_mesh.DataMesh (duck-typed)
         if mesh is not None:
             host_id, host_count = mesh.host_index, mesh.host_count
         self.ds = dataset

@@ -1,2 +1,3 @@
-"""Launchers: the train driver. The mesh, dry-run and HLO tooling of the JAX
-package are ROADMAP.md items 8 and 12."""
+"""Launchers: the train launcher, with its data mesh (``--mesh-hosts`` /
+``RA_MESH_HOSTS``, DESIGN.md §15). The dry-run and HLO tooling of the JAX
+package are ROADMAP.md item 12."""

@@ -13,7 +13,7 @@ import argparse
 import os
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="paper_lm")
     p.add_argument("--steps", type=int, default=200)
@@ -43,20 +43,41 @@ def parse_args(argv=None) -> argparse.Namespace:
              "read/decode/H2D/dequant under the RA_COLDSTART_INFLIGHT "
              "budget; 'naive' is the phase-by-phase baseline",
     )
-    p.add_argument("--mesh-hosts", default=None,
-                   help="data-mesh membership (not ported yet: ROADMAP.md item 8)")
-    p.add_argument("--mesh-host", default=None,
-                   help="this process's mesh host name (not ported yet: ROADMAP.md item 8)")
-    return p.parse_args(argv)
+    p.add_argument(
+        "--mesh-hosts", default=None,
+        help="data-mesh membership (DESIGN.md §15): comma-separated host "
+             "names, one process per host, listed in process-rank order "
+             "(default: RA_MESH_HOSTS)",
+    )
+    p.add_argument(
+        "--mesh-host", default=None,
+        help="this process's mesh host name (default: RA_MESH_HOST)",
+    )
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse the CLI, and build its data mesh as ``args.mesh``: from
+    ``--mesh-hosts``/``--mesh-host`` (both or neither), else from
+    ``RA_MESH_HOSTS``/``RA_MESH_HOST``, else None."""
+    from repro_torch.distributed.data_mesh import DataMesh
+
+    p = _parser()
+    args = p.parse_args(argv)
+    # data mesh (DESIGN.md §15): shard-ownership ingest across processes
+    if args.mesh_hosts or args.mesh_host:
+        names = [h.strip() for h in (args.mesh_hosts or "").split(",") if h.strip()]
+        if not names or not args.mesh_host:
+            p.error("--mesh-hosts and --mesh-host must be given together")
+        args.mesh = DataMesh(args.mesh_host, names)
+    else:
+        args.mesh = DataMesh.from_env()  # RA_MESH_HOSTS / RA_MESH_HOST, else None
+    return args
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Train as ``args`` say; returns ``repro_torch.train.train``'s summary."""
-    if args.mesh_hosts or args.mesh_host:
-        raise NotImplementedError(
-            "the data mesh (--mesh-hosts/--mesh-host) is not ported yet "
-            "(ROADMAP.md, modules to port, item 8)")
-
+    """Train as ``args`` (from :func:`parse_args`) say; returns
+    ``repro_torch.train.train``'s summary."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataLoader, RaDataset, make_token_dataset
     from repro_torch.data.device_loader import resolve_device
@@ -74,7 +95,8 @@ def run(args: argparse.Namespace) -> dict:
     # reuse_buffers is safe: the step copies each batch to the device (or to
     # int64 ids) before asking for the next; with --device-feed the
     # DeviceLoader's feeder confirms each transfer before recycling the ring
-    loader = DataLoader(RaDataset(ds_root), args.batch, seed=args.seed, reuse_buffers=True)
+    loader = DataLoader(RaDataset(ds_root), args.batch, seed=args.seed,
+                        reuse_buffers=True, mesh=args.mesh)
     if args.device_feed:
         from repro_torch.data import DeviceLoader
 

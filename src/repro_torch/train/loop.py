@@ -14,7 +14,10 @@ Fault-tolerance contract (DESIGN.md §3):
 Two departures from the JAX package: the model comes with its weights (the
 port's model owns its parameters; a resume overwrites them in place), and
 the loop runs on ``model.device``. A step is eager: ``train_loss`` with
-autograd, ``backward``, then ``optimizer.apply_updates`` in place.
+autograd, ``backward``, then ``optimizer.apply_updates`` in place. A mesh
+feed's global ``DTensor`` batch trains on this process's block with the
+gradients averaged over the mesh (see :func:`make_step`), as the JAX
+package's jitted step trains on a global array across processes.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import signal
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -52,19 +55,55 @@ def _copy_into(dst: Any, src: Any) -> None:
         dst.copy_(src)
 
 
+def _local_batch(batch: Dict[str, Any]) -> Tuple[Dict[str, Any], Any]:
+    """A batch as the step takes it, and the process group its global
+    ``DTensor`` fields span (None for a plain batch or a mesh of one): this
+    process's block of a mesh feed's batch, which in a world of one is the
+    whole batch."""
+    from torch.distributed.tensor import DTensor
+
+    meshes = [v.device_mesh for v in batch.values() if isinstance(v, DTensor)]
+    if not meshes:
+        return batch, None
+    local = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in batch.items()}
+    return local, (meshes[0].get_group() if meshes[0].size() > 1 else None)
+
+
+def _mean_over(group: Any, tensors: List[torch.Tensor]) -> None:
+    """Replace each tensor by its mean over ``group``'s processes, in place."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(n)
+
+
 def make_step(model, adamw: optim.AdamWConfig) -> Callable:
     """The default step: ``(params, opt_state, batch) -> (params, opt_state,
     metrics)``, with the parameters and the state updated in place and each
-    gradient freed once applied."""
+    gradient freed once applied.
+
+    A mesh feed's global batch over several processes trains as the JAX
+    package's jitted step trains on a global array: the loss is the global
+    batch's, so each process takes the gradient of its block's mean and the
+    gradients (and the metrics) are averaged over the mesh before the
+    update, which then runs alike everywhere (every host's block has the
+    same rows and positions, so the mean of the means is the global mean)."""
     def step(params, opt_state, batch):
+        batch, group = _local_batch(batch)
         loss, metrics = model.train_loss(batch)
         loss.backward()
         grads = optim.tree_map(
             lambda p: p.grad if p.grad is not None else torch.zeros_like(p), params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            metrics = {k: v.clone() for k, v in metrics.items()}  # storage of their own
+            _mean_over(group, optim.leaves(grads) + list(metrics.values()))
         params, opt_state, info = optim.apply_updates(params, grads, opt_state, adamw)
         for p in optim.leaves(params):
             p.grad = None
-        return params, opt_state, {**{k: v.detach() for k, v in metrics.items()}, **info}
+        return params, opt_state, {**metrics, **info}
 
     return step
 

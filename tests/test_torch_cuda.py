@@ -1,10 +1,11 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
 its plain PyTorch version (the attention's backward too), the device feed
-on the card against the host decode, a URL cold start and a URL feed on
-the card against the local ones, a dense train step and a reduced
-Zamba2's serving path on the card against the CPU's, and dense, Mamba2 and
-Zamba2 decode steps that must not sync with the host. Each skips without a
-card. This file imports nothing of JAX, so it
+on the card against the host decode (a mesh feed's global DTensors over
+a one-rank NCCL group too), a sharded cold start on the card, a URL cold
+start and a URL feed on the card against the local ones, a dense train
+step and a reduced Zamba2's serving path on the card against the CPU's,
+and dense, Mamba2 and Zamba2 decode steps that must not sync with the
+host. Each skips without a card. This file imports nothing of JAX, so it
 runs on a machine that has a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -116,6 +117,82 @@ def test_device_feed_on_card_matches_host_decode(card, tmp_path):
     finally:
         host.stop()
         dev.stop()
+
+
+@pytest.fixture
+def one_rank_group(card):
+    """A mesh test starts a one-rank process group in this process; it is
+    gone again after the test."""
+    import torch.distributed as dist
+
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_feed_on_card_is_global_and_matches_host_decode(card, tmp_path, one_rank_group):
+    """A one-host mesh loader's global feed on the card: a one-rank NCCL
+    group, DTensor batches whose local blocks the dequant kernel decoded,
+    bit-equal to the host decode of the same rows, one launch a batch."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.data_mesh import DataMesh
+
+    rng = np.random.default_rng(1)
+    root = str(tmp_path / "imgs")
+    builder = DatasetBuilder(root, {"image": ((8, 8, 3), "float32"), "label": ((), "int32")},
+                             shard_rows=32, quantize={"image": "u8"})
+    builder.append(image=rng.random((256, 8, 8, 3)).astype(np.float32),
+                   label=rng.integers(0, 10, 256).astype(np.int32))
+    builder.finish()
+    host = DataLoader(RaDataset(root), 16, seed=7, dequant=True, mesh=DataMesh("h0", ["h0"]))
+    dev = DeviceLoader(DataLoader(RaDataset(root), 16, seed=7, reuse_buffers=True,
+                                  mesh=DataMesh("h0", ["h0"])))
+    try:
+        assert dev.global_arrays and dist.get_backend() == "nccl"
+        before = dq.launches
+        for _ in range(6):
+            hb, db = next(host), next(dev)
+            assert hb["_state"].__dict__ == db["_state"].__dict__
+            for f in ("image", "label"):
+                assert isinstance(db[f], DTensor) and db[f].device_mesh.device_type == "cuda"
+                local = db[f].to_local()
+                assert local.device == card
+                assert np.array_equal(local.cpu().numpy(), hb[f]), f
+        torch.cuda.synchronize()
+        assert dq.launches - before >= 6
+    finally:
+        host.stop()
+        dev.stop()
+
+
+def test_sharded_restore_on_card_matches_host_decode(card, tmp_path, one_rank_group):
+    """A u8 checkpoint restored onto a one-rank NCCL mesh: sharded leaves are
+    DTensors on the card, decoded on the host (bit-equal to the plain
+    decode), an unsharded u8 leaf still goes through the kernel."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import load_checkpoint, restore_pipelined, save_checkpoint
+    from repro_torch.checkpoint import shardings_from_specs
+    from repro_torch.distributed.data_mesh import data_sharding
+
+    rng = np.random.default_rng(4)
+    tree = {"w": torch.from_numpy(rng.standard_normal((64, 130)).astype(np.float32)),
+            "v": torch.from_numpy(rng.standard_normal((40, 16)).astype(np.float32))}
+    path = save_checkpoint(str(tmp_path / "ck"), 1, tree, quantize="u8")
+    mesh = data_sharding(device=card)[0]
+    sh = shardings_from_specs(mesh, {"w": ("data", None), "v": None})
+    before = dq.launches
+    got, _, _ = restore_pipelined(path, tree, device=card, shardings=sh)
+    plain, _, _ = load_checkpoint(path, tree)
+    assert dq.launches == before
+    for name in tree:
+        assert isinstance(got[name], DTensor)
+        assert torch.equal(got[name].to_local().cpu(), plain[name]), name
+    unsharded, _, _ = restore_pipelined(path, tree, device=card, shardings={"w": None, "v": sh["v"]})
+    assert dq.launches == before + 1
+    assert torch.equal(unsharded["w"].cpu(), plain["w"])
 
 
 def test_url_cold_start_and_feed_on_card_match_local(card, tmp_path):

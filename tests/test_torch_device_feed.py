@@ -205,17 +205,6 @@ def test_device_bufs_knob(token_root, monkeypatch):
     dev2.stop()
 
 
-def test_global_arrays_not_ported(token_root):
-    with pytest.raises(NotImplementedError, match="data-mesh device assembly"):
-        DeviceLoader(DataLoader(RaDataset(token_root), 16), global_arrays=True, device=CPU)
-
-    class Mesh:  # a mesh loader asks for global assembly by default
-        host_index, host_count = 0, 1
-
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DeviceLoader(DataLoader(RaDataset(token_root), 16, mesh=Mesh()), device=CPU)
-
-
 def test_no_device_without_cuda_raises(token_root, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dl = DataLoader(RaDataset(token_root), 16)
@@ -234,9 +223,8 @@ def test_decoded_dtype_must_be_a_torch_float():
         dl_mod.torch_dtype("int32")
 
 
-def test_url_sources_are_not_ported():
-    # URL sources are ported now: a dataset URL goes to its server (here
-    # none listens) instead of stopping at a stub
+def test_dataset_url_reaches_its_server():
+    # a dataset URL goes to its server (here none listens)
     with pytest.raises(RawArrayError, match="manifest.json failed"):
         RaDataset("http://127.0.0.1:9/ds")
 

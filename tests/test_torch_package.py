@@ -89,6 +89,7 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch.checkpoint, repro_torch.serving, repro_torch.serving.__main__\n"
         "import repro_torch.remote, repro_torch.fleet, repro_torch.formats\n"
         "import repro_torch.core.racat, repro_torch.devtools.tsan, repro_torch.devtools.doctor\n"
+        "import repro_torch.distributed.data_mesh, repro_torch.launch.train\n"
         "mods = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "        or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(mods))\n"
@@ -106,6 +107,7 @@ def test_the_url_plane_loads_no_torch():
         "import sys\n"
         "import repro_torch.remote, repro_torch.fleet, repro_torch.formats\n"
         "import repro_torch.core.racat, repro_torch.devtools.doctor\n"
+        "import repro_torch.distributed.data_mesh\n"
         "print([m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro')])\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -117,7 +119,9 @@ def test_the_url_plane_loads_no_torch():
 #: modules the port carries as copies of the JAX package's, and where each
 #: may differ from the reference's text once ``repro`` reads ``repro_torch``:
 #: ``-`` the reference's line numbers (the reference does not change), ``+``
-#: the port's lines that stand in for them
+#: the port's lines that stand in for them; ``block`` a rewritten span, the
+#: reference's lines ``first..last`` standing against the port's lines from
+#: the one that reads ``start`` to the next that reads ``end``
 COPIES = {
     **{f"{pkg}/{mod}.py": {} for pkg, mods in (
         ("remote", ("__init__", "cache", "client", "server")),
@@ -152,12 +156,21 @@ COPIES = {
         "+": ["(``DeviceLoader`` via the CUDA dequant kernel). ``spec`` is ``\"u8\"``"],
     },
     "core/racat.py": {
-        # ``racat owners`` needs the data mesh (ROADMAP.md, item 8)
-        "-": [344, 715, 716, 717, 718, 719, 720, 721, 722],
-        "+": ["\"no rastats block (written before rastats existed, or with stats=False); \"",
-              "# the data mesh (owners_table) is not part of this package yet",
-              "raise RawArrayError(\"racat owners needs the data mesh, which is \"",
-              "\"not ported yet (ROADMAP.md, item 8)\")"],
+        "-": [344],
+        "+": ["\"no rastats block (written before rastats existed, or with stats=False); \""],
+    },
+    "data/loader.py": {
+        "-": [40],
+        "+": ["there with the CUDA dequant kernel."],
+    },
+    # global assembly builds DTensors over a DeviceMesh instead of jax.Arrays
+    "distributed/data_mesh.py": {
+        "-": [38, 39],
+        "+": ["``DTensor``s (``Shard(0)`` over a 1-D ``DeviceMesh`` of the process group,",
+              "one process per card) via ``DTensor.from_local``, the counterpart of the",
+              "JAX package's ``jax.make_array_from_single_device_arrays``."],
+        "block": (393, 457, "# global assembly (torch deferred: the mesh schedule itself is numpy)",
+                  "    return out"),
     },
     "devtools/tsan.py": {
         # ralint's scanner is devtools/guards.py here; no pytest plugin
@@ -186,14 +199,21 @@ def test_copied_module_matches_reference(rel):
     with open(os.path.join(PORT, rel), encoding="utf-8") as f:
         port = f.read().splitlines()
     ref = _renamed_reference(rel).splitlines()
+    allowed = COPIES[rel]
+    numbers = list(range(1, len(ref) + 1))  # the reference's line numbers
+    if "block" in allowed:
+        first, last, start, end = allowed["block"]
+        j0 = port.index(start)
+        j1 = port.index(end, j0)
+        ref, numbers = ref[:first - 1] + ref[last:], numbers[:first - 1] + numbers[last:]
+        port = port[:j0] + port[j1 + 1:]
     removed, added = [], []
     for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, ref, port,
                                                        autojunk=False).get_opcodes():
         if tag in ("replace", "delete"):
-            removed += range(i1 + 1, i2 + 1)
+            removed += numbers[i1:i2]
         if tag in ("replace", "insert"):
             added += [line.strip() for line in port[j1:j2]]
-    allowed = COPIES[rel]
     assert removed == allowed.get("-", []), rel
     assert sorted(added) == sorted(allowed.get("+", [])), rel
 

@@ -475,9 +475,3 @@ def test_cli_run_returns_the_train_summary(tmp_path):
     assert np.isfinite(out["losses"]).all()
     assert out["cold_start"] is None and not out["preempted"]
     assert latest_step(str(tmp_path / "run" / "ckpt")) == 2
-
-
-def test_cli_mesh_flags_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_main(["--device", "cpu", "--mesh-hosts", "a,b", "--mesh-host", "a",
-                    "--workdir", str(tmp_path)])

@@ -22,7 +22,13 @@ Phases (any failure exits non-zero and prints no result):
    and its decode, group 1, over 288 rows), 256 (gemma3-12b, phase 7) and
    at the training forwards (InternLM2's, paper_lm's q/k/v (8,4,256,64)
    f32, phase 8, and gemma3's q (2,16,2048,256) bf16, global and window
-   1024, phase 10); at the
+   1024, phase 10), llava-next-mistral-7b's prefills (q (4,32,2176,128),
+   (1,32,4352,128) and the engine's (8,32,576,128), over 8 KV heads, window
+   4096) and decode (group 4), and
+   whisper-medium's three attention shapes (hd 64, group 1: the encoder
+   (8,16,1500,64) non-causal, the decoder (8,16,128,64) causal, the
+   cross-attention's 128 rows over 1,500) and its two decodes (over the
+   128-row cache and over the 1,500 encoder states); at the
    main-path shapes the device time of the kernel, of the plain version and
    of one library call computing the same function (profiler trace of 25
    calls, L2 flushed before each; a ``decode_attention`` call must show
@@ -167,7 +173,34 @@ Phases (any failure exits non-zero and prints no result):
    launch), bit-equal to the unsharded restore beside it (u8 by the
    kernel); (d) paper_lm through ``launch.train`` with ``--device-feed`` on a
    one-host mesh by flags, then by ``RA_MESH_HOSTS``/``RA_MESH_HOST``:
-   equal losses, the flash forward and backward launches of each.
+   equal losses, the flash forward and backward launches of each;
+14. serving: llava-next-mistral-7b at its full size (the Mistral-7B
+   backbone, 32 layers, d_model 4,096, 32 heads over 8 KV heads of 128, the
+   window 4,096 on every layer, and ``mm_proj`` for the stub vision front
+   end's 1,152 patches; bf16, 7.26 B parameters, nothing cut), random
+   weights from seed 0 tempered as in phase 5, saved as a raw RawArray
+   checkpoint (14.5 GB, deleted after the restore) and restored through
+   ``ServeEngine(checkpoint=raw)`` (leaves bit-equal); (a) ``model.prefill``
+   with patches, 4 × (1,152 + 1,024) and 1 × (1,152 + 3,200) positions (past
+   the window), 32 tensor-core flash launches each, last-position logits
+   within a bf16 tolerance of plain attention's; (b) the engine, text-only
+   as the JAX engine serves this family: 8 prompts of 512 with 64 new tokens
+   (32 flash and 32 × 64 decode launches), warm again, first-step logits
+   against plain attention;
+15. serving: whisper-medium at its full size (24 encoder and 24 decoder
+   layers, d_model 1,024, 16 heads of 64, 1,500 encoder positions, vocab
+   51,865; bf16, nothing cut), random weights from seed 0 with all three
+   attention kinds tempered, saved as a raw RawArray checkpoint and restored
+   by ``restore_pipelined`` onto a meta-device model (leaves bit-equal); the
+   encoder over 8 × 1,500 random frames (the stub audio front end; 24
+   non-causal flash launches), its output within a bf16 tolerance of plain
+   attention's; then 8 requests of a 16-token prompt and 112 new tokens by
+   the JAX engine's algorithm on the model's own entry points (which the
+   engine cannot serve: prefill right-padded to 128 with the frames, rewind,
+   greedy ``decode_step``s): 24 encoder, 24 decoder and 24 cross flash
+   launches, 24 × 112 self- and 24 × 112 cross-attention decode launches,
+   first-step logits against plain attention, 8 profiled decode steps
+   (device idle share).
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -294,7 +327,9 @@ def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None) -
     count is not a multiple of REPS (a library call, cuDNN's masked SDPA,
     has shown one now and then) is taken again, up to ``attempts`` times.
     With ``events``, a trace must show exactly that many device events per
-    call, or the run fails."""
+    call; one that does not (the profiler has dropped a few events now and
+    then) is taken again, and if no trace of ``attempts`` does, the run
+    fails."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -317,13 +352,15 @@ def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None) -
             total_us += evt.time_range.elapsed_us()
             names[evt.name[:120]] += 1
         count = sum(names.values())
-        if events is not None and count != events * REPS:
-            raise SystemExit(f"chip_smoke: {count} device events in {REPS} calls, wanted "
-                             f"{events} per call: {dict(names)}")
-        if count and count % REPS == 0:
+        if events is not None and count == events * REPS:
+            return total_us / REPS / 1e3
+        if events is None and count and count % REPS == 0:
             return total_us / REPS / 1e3
         log(f"[kernels] the profiler saw {count} device events in {REPS} calls: "
             f"{dict(names)}")
+    if events is not None:
+        raise SystemExit(f"chip_smoke: {attempts} profiler traces of {REPS} calls each, "
+                         f"none with {events} device events per call")
     raise SystemExit(f"chip_smoke: {attempts} profiler traces of {REPS} calls each "
                      f"saw a number of device events that is not a multiple of {REPS}")
 
@@ -504,6 +541,19 @@ def phase_attention(torch) -> tuple:
         # Zamba2-1.2B's model.prefill (phase 11): the shared block's MHA over
         # concat([x, x0]), 32 heads of 128, 8 prompts of 256 tokens
         ("zamba2_prefill", 8, 32, 32, 256, 256, 128, "bfloat16", True, 0, True),
+        # llava-next-mistral-7b (phase 14): 32 heads over 8 KV heads of 128, the
+        # window 4096 on every layer; model.prefill of 4 × (1,152 patches + 1,024
+        # tokens), and of 1 × (1,152 + 3,200), past the window; the engine's
+        # text-only prefill, 8 prompts padded to 512 + 64 rows
+        ("llava_prefill", 4, 32, 8, 2176, 2176, 128, "bfloat16", True, 4096, True),
+        ("llava_long_prefill", 1, 32, 8, 4352, 4352, 128, "bfloat16", True, 4096, True),
+        ("llava_engine_prefill", 8, 32, 8, 576, 576, 128, "bfloat16", True, 4096, True),
+        # whisper-medium (phase 15): 16 heads of 64 (group 1); the encoder over
+        # 1,500 frames, the decoder's self-attention over its 128-row capacity,
+        # and its cross-attention, 128 rows over the 1,500 encoder states
+        ("whisper_encoder", 8, 16, 16, 1500, 1500, 64, "bfloat16", False, 0, True),
+        ("whisper_decoder", 8, 16, 16, 128, 128, 64, "bfloat16", True, 0, True),
+        ("whisper_cross", 8, 16, 16, 128, 1500, 64, "bfloat16", False, 0, True),
     ]
     flash_rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in flash_cases:
@@ -523,7 +573,7 @@ def phase_attention(torch) -> tuple:
                 library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                                  enable_gqa=True)
             else:
-                library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                  enable_gqa=True)
             row.update(_timings(
                 torch,
@@ -561,6 +611,14 @@ def phase_attention(torch) -> tuple:
         # Zamba2-1.2B (phase 11): the shared block's decode at the last step's pos
         # (256 + 32 rows, group 1)
         ("zamba2_decode", 8, 32, 1, 288, 128, 287, "bfloat16", 0, False, True),
+        # llava-next-mistral-7b (phase 14): the engine's last step (512 + 64 rows,
+        # group 4, the window 4096)
+        ("llava_decode", 8, 8, 4, 576, 128, 575, "bfloat16", 4096, False, True),
+        # whisper-medium (phase 15): the last step's self-attention over the
+        # 128-row cache (pos 126), and cross-attention over all 1,500 encoder
+        # states (group 1, hd 64)
+        ("whisper_self_decode", 8, 16, 1, 128, 64, 126, "bfloat16", 0, False, True),
+        ("whisper_cross_decode", 8, 16, 1, 1500, 64, 1499, "bfloat16", 0, False, True),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
@@ -890,7 +948,8 @@ def phase_main_path(torch, keep: str) -> list:
 def _temper_attention(torch, model) -> None:
     """Rescale the random attention projections to their contraction fan-in
     (for Zamba2 those of its shared block, which attends over
-    ``concat([x, x0])``, 2·d_model wide).
+    ``concat([x, x0])``, 2·d_model wide; for Whisper all three kinds: the
+    encoder's, the decoder's self-attention and its cross-attention).
 
     The JAX package's ``Initializer.fanin`` (which the port's init follows)
     divides by ``shape[-2]``: the head count for ``wq``/``wk``/``wv``
@@ -903,15 +962,19 @@ def _temper_attention(torch, model) -> None:
     std near 1 and the comparison below is meaningful."""
     cfg = model.cfg
     if cfg.family == "hybrid":
-        a, d = model.shared.attn, 2 * cfg.d_model
+        attns, d = [model.shared.attn], 2 * cfg.d_model
+    elif cfg.family == "encdec":
+        attns = [model.enc_layers.attn, model.dec_layers.self_attn, model.dec_layers.cross_attn]
+        d = cfg.d_model
     else:
-        a, d = model.dense_layers.attn, cfg.d_model
+        attns, d = [model.dense_layers.attn], cfg.d_model
     H, KV = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
     with torch.no_grad():
-        a.wq.mul_((H / d) ** 0.5)
-        a.wk.mul_((KV / d) ** 0.5)
-        a.wv.mul_((KV / d) ** 0.5)
-        a.wo.mul_((1 / H) ** 0.5)
+        for a in attns:
+            a.wq.mul_((H / d) ** 0.5)
+            a.wk.mul_((KV / d) ** 0.5)
+            a.wv.mul_((KV / d) ** 0.5)
+            a.wo.mul_((1 / H) ** 0.5)
 
 
 def _score_std(torch, model, tokens) -> float:
@@ -1286,25 +1349,22 @@ def phase_gemma3_serving(torch) -> dict:
     kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels:
-        k.launches = 0
-    flash_attention.tc_launches = 0
+    _reset_counts(kernels)
     tokens = engine.generate(prompts, max_new=max_new)
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    launches = _counts(kernels)
     out["launches"] = launches
     out["flash_attention_launches"] = launches["flash_attention"]
-    out["flash_attention_tc_launches"] = flash_attention.tc_launches
+    out["flash_attention_tc_launches"] = launches["flash_attention_tc"]
     out["decode_attention_launches"] = launches["decode_attention"]
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     out.update(engine.throughput())
     if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
         raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
     want = {"dequant_u8": 0, "flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * max_new, "ssd_scan": 0}
-    if launches != want or out["flash_attention_tc_launches"] != cfg.n_layers:
-        raise SystemExit(f"chip_smoke: gemma3 generate launched {launches} "
-                         f"({out['flash_attention_tc_launches']} on the tensor cores), "
-                         f"wanted {want}, all flash launches on the tensor cores")
+            "decode_attention": cfg.n_layers * max_new, "ssd_scan": 0,
+            "flash_attention_tc": cfg.n_layers}  # all flash launches on the tensor cores
+    if launches != want:
+        raise SystemExit(f"chip_smoke: gemma3 generate launched {launches}, wanted {want}")
 
     # the same requests again: warm (launches from here on are not counted)
     engine.stats = {key: 0.0 for key in engine.stats}
@@ -1348,6 +1408,23 @@ def _tee_stdout():
     buf = Tee()
     with contextlib.redirect_stdout(buf):
         yield buf
+
+
+def _counts(kernels) -> dict:
+    """Each kernel module's launch count, and the flash tensor-core ones."""
+    from repro_torch.kernels import flash_attention
+
+    out = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    out["flash_attention_tc"] = flash_attention.tc_launches
+    return out
+
+
+def _reset_counts(kernels) -> None:
+    from repro_torch.kernels import flash_attention
+
+    for k in kernels:
+        k.launches = 0
+    flash_attention.tc_launches = 0
 
 
 def _reset_flash_counts() -> None:
@@ -1848,7 +1925,7 @@ def _first_logits_gate(torch, out: dict, key: str, got, plain, what: str) -> Non
     diff = float((got - plain).abs().max())
     out[key] = {"max_abs_diff": diff, "max_abs": scale, "tolerance": LOGITS_TOL * scale}
     if not np.isfinite(diff) or diff > LOGITS_TOL * scale:
-        raise SystemExit(f"chip_smoke: Zamba2 {what} differ from the plain versions': {out}")
+        raise SystemExit(f"chip_smoke: {what} differ from the plain versions': {out}")
 
 
 def _profiled_steps(torch, model, prompts, capacity: int, n: int = 8) -> dict:
@@ -1932,10 +2009,9 @@ def phase_zamba2_serving(torch) -> dict:
     kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels:
-        k.launches = 0
+    _reset_counts(kernels)
     tokens = engine.generate(prompts, max_new=max_new)
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    launches = _counts(kernels)
     out["launches"] = launches
     out["decode_attention_launches"] = launches["decode_attention"]
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -1943,7 +2019,8 @@ def phase_zamba2_serving(torch) -> dict:
     if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
         raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
     want = {"dequant_u8": 0, "flash_attention": 0,
-            "decode_attention": n_inv * (S + max_new - 1), "ssd_scan": 0}
+            "decode_attention": n_inv * (S + max_new - 1), "ssd_scan": 0,
+            "flash_attention_tc": 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: Zamba2 generate launched {launches}, wanted {want}")
 
@@ -1960,7 +2037,8 @@ def phase_zamba2_serving(torch) -> dict:
     with _plain_attention(), _plain_scan():
         plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
         plain_tokens = engine.generate(prompts, max_new=max_new)
-    _first_logits_gate(torch, out, "first_logits", first, plain_first, "first-step logits")
+    _first_logits_gate(torch, out, "first_logits", first, plain_first,
+                       "Zamba2 first-step logits")
     out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
     out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
 
@@ -1985,7 +2063,7 @@ def phase_zamba2_serving(torch) -> dict:
     with _plain_attention(), _plain_scan():
         plain_prefill = model.prefill(tokens_dev)[0].float()
     _first_logits_gate(torch, out, "prefill_logits", prefill_logits, plain_prefill,
-                       "prefill logits")
+                       "Zamba2 prefill logits")
     out["prefill_vs_replay_bf16"] = {
         "max_abs_diff": float((prefill_logits - first).abs().max()),
         "max_abs": float(first.abs().max()),
@@ -2516,6 +2594,306 @@ def phase_data_mesh(torch, keep: str, runs: list) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 14
+#: (prompts, text tokens after the 1,152 patches) of phase 14's model.prefill
+#: runs; 1,152 + 3,200 = 4,352 positions cross the window of 4,096
+LLAVA_PREFILLS = ((4, 1024), (1, 3200))
+
+
+def phase_llava_serving(torch) -> dict:
+    """llava-next-mistral-7b at its full size: raw checkpoint, cold start,
+    the model's prefill with image patches (the vlm path), then a batch of
+    text-only requests through the engine (as the JAX engine serves it)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("llava_next_mistral_7b")
+    B, S, max_new, P, L = 8, 512, 64, cfg.n_patches, cfg.n_layers
+    out: dict = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model, "heads": cfg.n_heads,
+                 "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "sliding_window": cfg.sliding_window, "n_patches": P,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    _temper_attention(torch, model)
+    saved = flatten(model.param_tree(), "param")  # the random weights, kept for the check
+    out["params"] = sum(t.numel() for t in saved.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_llava_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        engine = ServeEngine(model, checkpoint=raw)
+        if engine.device != dev:
+            raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+        for name, t in flatten(model.param_tree(), "param").items():
+            if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+                raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+        out["raw_cold_start"] = _cold(engine.cold_start)
+    del saved
+    torch.cuda.empty_cache()
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+
+    # (a) the vlm path: model.prefill with the stub vision front end's patches
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out["prefill"] = []
+    for b, s in LLAVA_PREFILLS:
+        tokens = torch.randint(1, cfg.vocab, (b, s), device=dev, generator=gen)
+        patches = (torch.randn((b, P, cfg.d_model), device=dev, generator=gen) * 0.1).to(
+            cfg.cdtype)
+        row = {"batch": b, "patches": P, "tokens": s, "positions": P + s,
+               "past_window": P + s > cfg.sliding_window}
+        torch.cuda.synchronize()
+        _reset_counts(kernels)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(tokens, patches)
+        torch.cuda.synchronize()
+        row["first_prefill_s"] = time.perf_counter() - t0
+        row["launches"] = _counts(kernels)
+        want = {"dequant_u8": 0, "flash_attention": L, "decode_attention": 0, "ssd_scan": 0,
+                "flash_attention_tc": L}
+        if row["launches"] != want or int(cache["pos"]) != P + s:
+            raise SystemExit(f"chip_smoke: llava prefill launched {row['launches']} with pos "
+                             f"{int(cache['pos'])}, wanted {want} and {P + s}")
+        del cache
+        t0 = time.perf_counter()
+        model.prefill(tokens, patches)  # warm: launches from here on are not counted
+        torch.cuda.synchronize()
+        row["prefill_s"] = time.perf_counter() - t0
+        with _plain_attention():
+            plain = model.prefill(tokens, patches)[0].float()
+        _first_logits_gate(torch, row, "last_logits", logits.float(), plain,
+                           f"llava prefill ({b} x {P} + {s}) last-position logits")
+        out["prefill"].append(row)
+        del logits, plain, tokens, patches
+        torch.cuda.empty_cache()
+
+    # (b) text-only requests through the engine
+    prompts = np.random.default_rng(SEED + 6).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(kernels)
+    tokens = engine.generate(prompts, max_new=max_new)
+    launches = _counts(kernels)
+    out["launches"] = launches
+    out["flash_attention_launches"] = launches["flash_attention"]
+    out["flash_attention_tc_launches"] = launches["flash_attention_tc"]
+    out["decode_attention_launches"] = launches["decode_attention"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    want = {"dequant_u8": 0, "flash_attention": L, "decode_attention": L * max_new,
+            "ssd_scan": 0, "flash_attention_tc": L}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: llava generate launched {launches}, wanted {want}")
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    with _plain_attention():
+        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=max_new)
+    _first_logits_gate(torch, out, "first_logits", first, plain_first,
+                       "llava first-step logits")
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    del engine, model
+    torch.cuda.empty_cache()
+    log(f"[llava serving] {json.dumps(out)}")
+    return out
+
+
+# --------------------------------------------------------------- phase 15
+@contextlib.contextmanager
+def _launches_by_kind(kinds: dict, enc_rows: int):
+    """Attribute each attention call's kernel launches (the kernel wrappers'
+    own counts) to the kind of attention that made it: flash ``encoder``
+    (non-causal, Sq = Sk), ``decoder`` (causal) and ``cross`` (non-causal,
+    Sq != Sk); decode ``self_decode`` and ``cross_decode`` (over the
+    ``enc_rows`` encoder states)."""
+    from repro_torch.kernels import decode_attention, flash_attention, ops
+
+    kept = ops.flash_attention, ops.decode_attention
+
+    def tally(kind, before, after):
+        kinds[kind] = kinds.get(kind, 0) + after - before
+
+    def flash(q, k, v, *, causal=True, **kw):
+        before = flash_attention.launches
+        o = kept[0](q, k, v, causal=causal, **kw)
+        kind = "decoder" if causal else "encoder" if q.shape[2] == k.shape[2] else "cross"
+        tally(kind, before, flash_attention.launches)
+        return o
+
+    def decode(q, k, v, pos, **kw):
+        before = decode_attention.launches
+        o = kept[1](q, k, v, pos, **kw)
+        tally("cross_decode" if k.shape[2] == enc_rows else "self_decode", before,
+              decode_attention.launches)
+        return o
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = kept
+
+
+def _whisper_generate(torch, model, frames, prompts, max_new: int) -> tuple:
+    """The JAX engine's algorithm for attention families
+    (``src/repro/serving/engine.py:106-112``) on the model's own entry
+    points, which its engine cannot call (it passes no frames): prefill the
+    first S-1 prompt tokens right-padded to the capacity S + max_new with the
+    frames, rewind ``pos`` to S-1, feed the last prompt token as a decode
+    step, then greedy decode steps. Returns (tokens (B, max_new) on the host,
+    the first step's logits, {prefill_s, decode_s, decode_tok_per_s})."""
+    B, S = prompts.shape
+    dev = model.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    padded = torch.zeros((B, S + max_new), dtype=torch.long, device=dev)
+    padded[:, :S - 1] = prompts[:, :S - 1]
+    _, cache = model.prefill(frames, padded)
+    cache["pos"] = torch.full((), S - 1, dtype=torch.int32, device=dev)
+    logits, cache = model.decode_step(cache, prompts[:, S - 1:])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first = logits.float()
+    t0 = time.perf_counter()
+    toks = [logits.argmax(-1, keepdim=True)]
+    for _ in range(1, max_new):
+        logits, cache = model.decode_step(cache, toks[-1])
+        toks.append(logits.argmax(-1, keepdim=True))
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    decode_s = time.perf_counter() - t0
+    return out, first, {"prefill_s": prefill_s, "decode_s": decode_s,
+                        "decode_tok_per_s": B * max_new / decode_s}
+
+
+def phase_whisper_serving(torch) -> dict:
+    """whisper-medium at its full size: raw checkpoint restored onto a
+    meta-device model, the encoder over 1,500 frames, and 8 requests served
+    by the engine's algorithm on the model's own prefill and decode_step."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ColdStartStats, restore_pipelined, save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("whisper_medium")
+    B, S, max_new, L = 8, 16, 112, cfg.n_layers
+    out: dict = {"arch": cfg.name, "enc_layers": cfg.n_enc_layers, "dec_layers": L,
+                 "d_model": cfg.d_model, "heads": cfg.n_heads, "head_dim": cfg.head_dim,
+                 "d_ff": cfg.d_ff, "vocab": cfg.vocab, "enc_seq": cfg.enc_seq,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new}
+    t0 = time.perf_counter()
+    src = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    _temper_attention(torch, src)
+    saved = flatten(src.param_tree(), "param")
+    out["params"] = sum(t.numel() for t in saved.values())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_whisper_") as tmp:
+        t0 = time.perf_counter()
+        raw = save_checkpoint(os.path.join(tmp, "raw"), 1, src.param_tree())
+        out["save_raw_s"] = time.perf_counter() - t0
+        del src
+        model = build_model(cfg, device="meta")  # the cold start fills it
+        st = ColdStartStats()
+        params, _, _ = restore_pipelined(raw, model.param_tree(), device=dev, stats=st)
+        load_params(model, params)
+        del params
+        out["raw_cold_start"] = _cold(st)
+    if model.device != dev:
+        raise SystemExit(f"chip_smoke: the restored whisper model is on {model.device}")
+    for name, t in flatten(model.param_tree(), "param").items():
+        if t.data_ptr() == saved[name].data_ptr() or not torch.equal(t, saved[name]):
+            raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+    del saved
+    torch.cuda.empty_cache()
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    frames = (torch.randn((B, cfg.enc_seq, cfg.d_model), device=dev, generator=gen) * 0.1).to(
+        cfg.cdtype)  # the stub audio front end's output
+    prompts = torch.randint(1, cfg.vocab, (B, S), device=dev, generator=gen)
+
+    # the encoder alone: 24 non-causal flash launches over the 1,500 frames
+    torch.cuda.synchronize()
+    _reset_counts(kernels)
+    enc = model.encode(frames)
+    torch.cuda.synchronize()
+    out["encode_launches"] = _counts(kernels)
+    want = {"dequant_u8": 0, "flash_attention": cfg.n_enc_layers, "decode_attention": 0,
+            "ssd_scan": 0, "flash_attention_tc": cfg.n_enc_layers}
+    if out["encode_launches"] != want:
+        raise SystemExit(f"chip_smoke: whisper encode launched {out['encode_launches']}, "
+                         f"wanted {want}")
+    t0 = time.perf_counter()
+    model.encode(frames)
+    torch.cuda.synchronize()
+    out["encode_s"] = time.perf_counter() - t0
+    with _plain_attention():
+        plain_enc = model.encode(frames)
+    _first_logits_gate(torch, out, "encoder_output", enc.float(), plain_enc.float(),
+                       "whisper encoder states")
+    del enc, plain_enc
+
+    # the main path: 8 requests, counted by attention kind
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(kernels)
+    kinds: dict = {}
+    with _launches_by_kind(kinds, cfg.enc_seq):
+        tokens, first, stats = _whisper_generate(torch, model, frames, prompts, max_new)
+    launches = _counts(kernels)
+    out.update(stats)
+    out["launches"] = launches
+    out["launches_by_kind"] = kinds
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: whisper gave {tokens.shape} tokens out of range")
+    want = {"dequant_u8": 0, "flash_attention": cfg.n_enc_layers + 2 * L,
+            "decode_attention": 2 * L * max_new, "ssd_scan": 0,
+            "flash_attention_tc": cfg.n_enc_layers + 2 * L}
+    want_kinds = {"encoder": cfg.n_enc_layers, "decoder": L, "cross": L,
+                  "self_decode": L * max_new, "cross_decode": L * max_new}
+    if launches != want or kinds != want_kinds:
+        raise SystemExit(f"chip_smoke: whisper launched {launches} ({kinds}), wanted {want} "
+                         f"({want_kinds})")
+    out["warm"] = _whisper_generate(torch, model, frames, prompts, max_new)[2]
+    out["profiled_steps"] = _profiled_steps(torch, model, prompts.cpu().numpy(), S + max_new)
+    with _plain_attention():
+        plain_tokens, plain_first, _ = _whisper_generate(torch, model, frames, prompts, max_new)
+    _first_logits_gate(torch, out, "first_logits", first, plain_first,
+                       "whisper first-step logits")
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    # the cross-attention K/V every decode step reads: 24 layers of (8, 16, 1,500, 64) × 2
+    esize = torch.empty(0, dtype=cfg.cdtype).element_size()
+    cross_bytes = 2 * L * B * cfg.n_heads * cfg.enc_seq * cfg.head_dim * esize
+    out["cross_kv_bytes_per_step"] = cross_bytes
+    out["cross_kv_bound_ms_per_step"] = cross_bytes / HBM_BYTES_PER_S * 1e3
+    del model, frames
+    torch.cuda.empty_cache()
+    log(f"[whisper serving] {json.dumps(out)}")
+    return out
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -2572,6 +2950,10 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     rem = phase_remote(torch, keep, serve, runs)
     torch.cuda.empty_cache()
     mesh = phase_data_mesh(torch, keep, runs)
+    torch.cuda.empty_cache()
+    llava = phase_llava_serving(torch)
+    torch.cuda.empty_cache()
+    whisper = phase_whisper_serving(torch)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -2606,7 +2988,12 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     }]
     def by_phase(key):
         return {serve["arch"]: serve[key], gemma["arch"]: gemma[key],
-                f"{rem['arch']} from the URL": rem["serve_url"][key]}
+                f"{rem['arch']} from the URL": rem["serve_url"][key], llava["arch"]: llava[key]}
+
+    llava_prefills = {f"{llava['arch']} prefill {r['batch']} x ({r['patches']} + {r['tokens']})":
+                      r["launches"] for r in llava["prefill"]}
+    whisper_kinds = {f"{whisper['arch']} {kind}": n
+                     for kind, n in whisper["launches_by_kind"].items()}
 
     def train_launches(kind):
         runs = {f"{small['arch']} train ({name})": row["launches"][kind]
@@ -2621,12 +3008,15 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
          {**by_phase("flash_attention_launches"), **train_launches("forward"),
-          zamba_prefill: zamba["prefill_launches"]["flash_attention"]},
+          zamba_prefill: zamba["prefill_launches"]["flash_attention"],
+          **{k: v["flash_attention"] for k, v in llava_prefills.items()},
+          **{k: v for k, v in whisper_kinds.items() if not k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
          "enable_gqa=True)"),
         ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
          {**by_phase("decode_attention_launches"),
-          zamba["arch"]: zamba["decode_attention_launches"]},
+          zamba["arch"]: zamba["decode_attention_launches"],
+          **{k: v for k, v in whisper_kinds.items() if k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows,
@@ -2654,7 +3044,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         kernels[-1]["sass"] = sass[f"{name}.cu"]
         if name == "flash_attention":
             kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values()) \
-                + zamba["prefill_launches"]["flash_attention_tc"]
+                + zamba["prefill_launches"]["flash_attention_tc"] \
+                + sum(v["flash_attention_tc"] for v in llava_prefills.values()) \
+                + whisper["launches"]["flash_attention_tc"]
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
                 + zamba["prefill_launches"]["ssd_scan_tc"]

@@ -1,4 +1,4 @@
-"""Model zoo (dense, ssm and hybrid families so far)."""
+"""Model zoo (dense, vlm, ssm, hybrid and encdec families so far)."""
 
 from .config import MLAConfig, MoEConfig, ModelConfig, SSMConfig
 from .registry import build_model

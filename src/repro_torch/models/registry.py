@@ -1,6 +1,6 @@
-"""Family -> model class dispatch. The port serves the dense, ssm and
-hybrid families; every other family raises ``NotImplementedError`` naming
-its ROADMAP item."""
+"""Family -> model class dispatch. The port serves the dense, vlm, ssm,
+hybrid and encdec families; the moe family raises ``NotImplementedError``
+naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ def build_model(cfg: ModelConfig, *, device: Any = None, seed: int = 0):
     ``seed``."""
     from .ssm_lm import Mamba2LM, Zamba2LM
     from .transformer import TransformerLM
+    from .whisper import WhisperModel
 
-    cls = {"ssm": Mamba2LM, "hybrid": Zamba2LM}.get(cfg.family, TransformerLM)
+    cls = {"ssm": Mamba2LM, "hybrid": Zamba2LM, "encdec": WhisperModel}.get(
+        cfg.family, TransformerLM)
     return cls(cfg, device=device, seed=seed)

@@ -24,8 +24,12 @@ logits never exist at once. The parameters are built with
 ``requires_grad=False`` for serving; a trainer turns them on
 (``model.requires_grad_(True)``).
 
-MoE, VLM patch inputs and MTP raise ``NotImplementedError`` naming their
-ROADMAP items.
+The vlm family (llava-next) is this model with ``mm_proj`` (d, d): its
+``prefill`` and ``train_loss`` take the stub vision front end's patch
+embeddings (B, P, d), project them, prepend them to the tokens and run the
+layers over ``P + S`` positions; the loss scores the text positions only.
+``decode_step`` and the engine are text-only, as the JAX package's are. MoE
+and MTP raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -102,7 +106,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "vlm"):
             raise NotImplementedError(_not_ported(cfg.family))
         if cfg.moe and cfg.moe.n_experts:
             raise NotImplementedError(_not_ported("moe"))
@@ -128,6 +132,9 @@ class TransformerLM(nn.Module):
                 requires_grad=False,
             )
         self.dense_layers = ParamTree(stack_init(self.n_dense, lambda: _init_layer(ini, cfg)))
+        if cfg.n_patches:  # projects the (stub) vision encoder's patch embeddings
+            self.mm_proj = nn.Parameter(ini.fanin((cfg.d_model, cfg.d_model)),
+                                        requires_grad=False)
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[Dict[str, Any]]] = None  # per-layer views, made lazily
 
@@ -142,6 +149,8 @@ class TransformerLM(nn.Module):
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
         tree["dense_layers"] = self.dense_layers.tree()
+        if self.cfg.n_patches:
+            tree["mm_proj"] = self.mm_proj
         return tree
 
     # ---- helpers ------------------------------------------------------------
@@ -183,11 +192,18 @@ class TransformerLM(nn.Module):
             self._freqs[key] = rope_freqs(head_dim, theta, device=self.device)
         return self._freqs[key]
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S, d) token embeddings; with ``patch_embeds`` (B, P, d) and a
+        vlm config, those projected by ``mm_proj`` in the compute dtype and
+        prepended: (B, P + S, d). A config without patches ignores them, as
+        the reference does."""
         cfg = self.cfg
-        if cfg.n_patches:
-            raise NotImplementedError(_not_ported("vlm"))
-        return embed_lookup(self.embed, tokens.to(self.device), cfg.embed_scale, cfg.cdtype)
+        x = embed_lookup(self.embed, tokens.to(self.device), cfg.embed_scale, cfg.cdtype)
+        if patch_embeds is None or not cfg.n_patches:
+            return x
+        pe = torch.as_tensor(patch_embeds).to(device=self.device, dtype=cfg.cdtype)
+        return torch.cat([pe @ self.mm_proj.to(cfg.cdtype), x], dim=1)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -247,13 +263,15 @@ class TransformerLM(nn.Module):
         return tl / torch.clamp_min(tc, 1e-9), ta / torch.clamp_min(tc, 1e-9)
 
     def train_loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: ``tokens`` (B,S). The next-token LM loss, on the module's
-        device: labels are the tokens shifted by one, the last position
-        masked. Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32."""
+        """batch: ``tokens`` (B,S) [+ ``patch_embeds`` (B,P,d), vlm]. The
+        next-token LM loss over the text positions, on the module's device:
+        labels are the tokens shifted by one, the last position masked.
+        Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32."""
         tokens = token_ids(batch["tokens"], self.device)
-        x = self._embed_inputs(tokens)
+        x = self._embed_inputs(tokens, batch.get("patch_embeds"))
         positions = torch.arange(x.shape[1], device=self.device)
         h, aux = self._backbone(x, positions)
+        h = h[:, h.shape[1] - tokens.shape[1]:]  # the text positions, after the patches
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -1] = 0.0
@@ -263,11 +281,13 @@ class TransformerLM(nn.Module):
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Process prompts ``tokens`` (B, S); returns (last-position logits
-        (B, V), cache with capacity S and ``pos`` = S)."""
+    def prefill(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Process prompts ``tokens`` (B, S), after ``patch_embeds`` (B, P, d)
+        when given (vlm); returns (last-position logits (B, V), cache with
+        capacity P + S and ``pos`` = P + S)."""
         cfg = self.cfg
-        x = self._embed_inputs(tokens)
+        x = self._embed_inputs(tokens, patch_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
         cache = self.empty_cache(B, S)
@@ -317,8 +337,8 @@ class TransformerLM(nn.Module):
 
 
 def _not_ported(family: str) -> str:
-    if family in ("ssm", "hybrid"):
-        return ("TransformerLM serves the dense family; the ssm and hybrid families are "
-                "Mamba2LM and Zamba2LM (build_model)")
+    if family in ("ssm", "hybrid", "encdec"):
+        return ("TransformerLM serves the dense and vlm families; the ssm, hybrid and "
+                "encdec families are Mamba2LM, Zamba2LM and WhisperModel (build_model)")
     return (f"the {family} family is not ported yet (ROADMAP.md, modules to port, "
-            "item 10); the port serves the dense, ssm and hybrid families")
+            "item 10); the port serves the dense, vlm, ssm, hybrid and encdec families")

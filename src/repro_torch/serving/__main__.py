@@ -3,13 +3,17 @@
     PYTHONPATH=src python -m repro_torch.serving --arch internlm2_1_8b --random
     PYTHONPATH=src python -m repro_torch.serving --arch mamba2_780m --random
     PYTHONPATH=src python -m repro_torch.serving --arch zamba2_1_2b --random --prompt 256
+    PYTHONPATH=src python -m repro_torch.serving --arch llava_next_mistral_7b --random
     PYTHONPATH=src python -m repro_torch.serving --workdir D   # D/ckpt/step_*
 
 The twin of the JAX package's ``examples/serve_lm.py``: restores the newest
 checkpoint under ``<workdir>/ckpt`` through the cold start when there is
 one (unless ``--random``), else serves random weights from ``--seed``.
 The hybrid family (``--arch zamba2_1_2b``) replays each prompt through the
-decode step one token at a time, as the JAX package's engine does.
+decode step one token at a time, as the JAX package's engine does. The vlm
+family (``--arch llava_next_mistral_7b``) serves text-only prompts, as the
+JAX package's engine does; ``--arch whisper_medium`` (encdec) raises, since
+neither package's engine serves that family.
 ``--device cpu`` runs the plain PyTorch path on the host.
 """
 
@@ -37,9 +41,12 @@ def main(argv=None) -> None:
     from ..checkpoint import latest_step
     from ..configs import get_config
     from ..models import build_model
-    from .engine import ServeEngine
+    from .engine import ServeEngine, check_servable
 
     cfg = get_config(args.arch)
+    # The engine checks too, but only once the model is built; refusing here
+    # spares building (or restoring) full-size weights it would not serve.
+    check_servable(cfg)
     ckpt_dir = os.path.join(args.workdir, "ckpt") if args.workdir else None
     step = None if args.random or ckpt_dir is None else latest_step(ckpt_dir)
     t0 = time.perf_counter()

@@ -1,10 +1,12 @@
 """Minimal batched serving engine on the card.
 
 The torch twin of the JAX package's ``serving/engine.py`` for the dense,
-ssm and hybrid families. Weights come from the model itself or from a RawArray
-checkpoint through the cold start (``restore_pipelined`` by default: read, upload and
-on-card dequant of u8 leaves overlapped; cold-start latency is checkpoint
-read latency). Requests are batched with equal-length prompts, prefilled
+vlm (text-only, as there), ssm and hybrid families. The encdec family is
+refused: the JAX engine cannot serve it either (``check_servable``).
+Weights come from the model itself or from a RawArray checkpoint through
+the cold start (``restore_pipelined`` by default: read, upload and on-card
+dequant of u8 leaves overlapped; cold-start latency is checkpoint read
+latency). Requests are batched with equal-length prompts, prefilled
 together, then decoded step by step with a shared cache (KV for attention,
 the O(1) state for SSM, both for the hybrid).
 
@@ -30,6 +32,19 @@ from ..models.config import ModelConfig
 from ..models.convert import load_params
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a family the engine does not serve: encdec, whose prefill
+    needs audio frames that the JAX engine's prefill never passes (ROADMAP.md
+    §3, the reference's faults). Such a model serves through its own
+    ``prefill(frames, tokens)`` and ``decode_step``."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"ServeEngine does not serve the encdec family ({cfg.name}): the JAX package's "
+            "engine passes its prefill only tokens, and WhisperModel.prefill needs frames "
+            "(ROADMAP.md §3, fault 9); serve it through WhisperModel.prefill(frames, tokens) "
+            "and WhisperModel.decode_step")
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -43,6 +58,7 @@ class ServeEngine:
         """``model`` (its weights are used unless ``params`` or ``checkpoint``
         replaces them) runs on ``device``: by default the model's own device,
         or the current CUDA device for a model on the meta device."""
+        check_servable(model.cfg)
         self.model = model
         self.cfg: ModelConfig = model.cfg
         if device is None and model.device.type != "meta":
@@ -101,7 +117,7 @@ class ServeEngine:
         """Prefill such that the returned cache can take ``capacity - S``
         further decode steps. By family:
 
-        * attention (dense): prefill the first S-1 prompt tokens right-padded
+        * attention (dense, vlm): prefill the first S-1 prompt tokens right-padded
           to ``capacity`` (so the cache has room; causal masking keeps the
           padding dead until it is overwritten), rewind ``pos`` to S-1, then
           feed the last prompt token as a decode step: its logits are the

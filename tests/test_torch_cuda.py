@@ -3,10 +3,11 @@ its plain PyTorch version (the attention's backward too), the device feed
 on the card against the host decode (a mesh feed's global DTensors over
 a one-rank NCCL group too), a sharded cold start on the card, a URL cold
 start and a URL feed on the card against the local ones, a dense train
-step and a reduced Zamba2's serving path on the card against the CPU's,
-and dense, Mamba2 and Zamba2 decode steps that must not sync with the
-host. Each skips without a card. This file imports nothing of JAX, so it
-runs on a machine that has a card and no JAX:
+step, a reduced Zamba2's serving path and a reduced llava's prefill with
+patches on the card against the CPU's, and dense, Whisper, Mamba2 and
+Zamba2 decode steps that must not sync with the host. Each skips without a
+card. This file imports nothing of JAX, so it runs on a machine that has a
+card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -288,6 +289,9 @@ def test_flash_attention_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd
     (2, 4, 2, 130, 130, 256, True, 0),    # hd 256, a tail tile of 2 rows
     (1, 4, 2, 300, 300, 256, False, 0),   # hd 256, non-causal
     (1, 2, 2, 5, 0, 256, False, 0),       # hd 256, Sk = 0
+    (1, 16, 16, 1500, 1500, 64, False, 0),  # whisper's encoder: g 1, hd 64, 1,500 frames
+    (2, 16, 16, 128, 1500, 64, False, 0),   # whisper's cross-attention: 128 rows over 1,500
+    (1, 8, 2, 4352, 4352, 128, True, 4096),  # llava's prefill (1,152 + 3,200), past its window
 ])
 def test_flash_attention_tensor_core_kernel_matches_plain_version(card, B, H, KV, Sq, Sk, hd,
                                                                   causal, window):
@@ -498,6 +502,8 @@ def test_dense_train_step_on_card_matches_cpu(card):
     (2, 4, 1, 128, 64, 0, 0),
     (3, 2, 6, 300, 32, 299, 64),
     (8, 8, 2, 576, 128, 575, 0),
+    (2, 16, 1, 1500, 64, 1499, 0),  # whisper's cross-attention decode: every row live
+    (2, 8, 4, 576, 128, 575, 0),    # llava's decode: g 4, hd 128
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_kernel_matches_plain_version(card, B, KV, g, S, hd, pos, window,
@@ -609,6 +615,59 @@ def test_decode_step_does_not_sync_with_the_host(card):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert int(cache["pos"]) == 12
+
+
+def test_whisper_decode_step_does_not_sync_with_the_host(card):
+    """Both decode launches a layer (self-attention at ``pos``, cross-attention
+    at S_audio - 1) take their positions on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper_medium").reduced()
+    model = build_model(cfg, device=card, seed=0)
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model), device=card) * 0.1
+    tokens = torch.randint(1, cfg.vocab, (2, 12), device=card)
+    with torch.inference_mode():
+        _, cache = model.prefill(frames, tokens)
+        cache["pos"] = torch.full((), 8, dtype=torch.int32, device=card)
+        logits, cache = model.decode_step(cache, tokens[:, 8:9])  # builds the kernels
+        step = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        before = decode_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, cache = model.decode_step(cache, step)
+                step = logits.argmax(-1, keepdim=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(cache["pos"]) == 12
+    assert decode_attention.launches - before == 3 * 2 * cfg.n_layers
+
+
+def test_vlm_prefill_with_patches_on_card_matches_cpu(card):
+    """A reduced llava's prefill with patches past its window, on the card
+    (the kernels) against the CPU (the plain versions), f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+
+    cfg = get_config("llava_next_mistral_7b").reduced()
+    host = build_model(cfg, device="cpu", seed=0)
+    model = build_model(cfg, device=card, seed=1)
+    load_params(model, host.param_tree())
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 70)))
+    patches = torch.from_numpy(rng.normal(size=(2, cfg.n_patches, cfg.d_model))
+                               .astype(np.float32) * 0.1)
+    want, want_cache = host.prefill(tokens, patches)
+    got, cache = model.prefill(tokens.to(card), patches.to(card))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert int(cache["pos"]) == cfg.n_patches + 70
+    torch.testing.assert_close(cache["dense"]["k"].cpu(), want_cache["dense"]["k"],
+                               rtol=1e-4, atol=1e-4 * float(want_cache["dense"]["k"].abs().max()))
 
 
 def _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow=False):

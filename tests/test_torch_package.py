@@ -1,5 +1,6 @@
-"""The port (``src/repro_torch``) stands alone: it imports nothing of JAX or
-of the JAX package ``repro``, and its copy of the on-disk format equals the
+"""The port (``src/repro_torch``, the examples' torch twins and
+``chip_smoke.py``) stands alone: it imports nothing of JAX or of the JAX
+package ``repro``, and its copy of the on-disk format equals the
 reference's, so the two copies cannot drift apart."""
 
 import ast
@@ -25,6 +26,9 @@ FORBIDDEN = ("jax", "repro")
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, f) for f in sorted(os.listdir(examples))
+            if f.endswith("_torch.py")]  # the examples' torch twins
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in sorted(filenames) if f.endswith(".py")]
@@ -85,7 +89,8 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels.ops\n"
         "import repro_torch.data.device_loader, repro_torch.kernels._build\n"
         "import repro_torch.models, repro_torch.models.convert, repro_torch.configs\n"
-        "import repro_torch.models.ssm_lm, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.models.ssm_lm, repro_torch.models.whisper\n"
+        "import repro_torch.kernels.ssd_scan\n"
         "import repro_torch.checkpoint, repro_torch.serving, repro_torch.serving.__main__\n"
         "import repro_torch.remote, repro_torch.fleet, repro_torch.formats\n"
         "import repro_torch.core.racat, repro_torch.devtools.tsan, repro_torch.devtools.doctor\n"

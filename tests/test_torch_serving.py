@@ -205,12 +205,15 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek_v3_671b", "item 10"),
-    ("whisper_medium", "item 10"), ("llava_next_mistral_7b", "item 10"),
+    ("deepseek_v3_671b", "item 10"), ("kimi_k2_1t", "item 10"),
+    ("whisper_medium", "item 10"),
 ])
 def test_other_families_are_not_ported_yet(arch, item):
+    """The moe family does not build; whisper (encdec) builds and serves,
+    and its training raises (llava, the vlm family, is ported:
+    tests/test_torch_vlm.py)."""
     with pytest.raises(NotImplementedError, match=item):
-        build_model(get_config(arch).reduced(), device="meta")
+        build_model(get_config(arch).reduced(), device="meta").train_loss({})
 
 
 def test_serving_cli_runs_random_and_from_a_checkpoint(tmp_path, capsys):

@@ -2,7 +2,8 @@
 dataset layout DESIGN.md §4, streamed through the §11 ingest plane).
 
 * ``make_token_dataset`` — Zipfian token documents packed to fixed length,
-  written as a RaDataset (uint32 tokens). Used by the e2e LM example.
+  written as a RaDataset (uint32 tokens). Used by the e2e LM example; its
+  generator is ``markov_tokens``.
 * ``make_image_dataset`` — MNIST-like (28x28x1) or CIFAR-like (36x36x3)
   uint8 images with enough spatial structure that PNG compresses
   realistically (~2-3x), for the paper's Fig-3 benchmark.
@@ -18,6 +19,21 @@ import numpy as np
 from .dataset import RaDatasetWriter
 
 
+def markov_tokens(rng: np.random.Generator, perm: np.ndarray, n: int, seq_len: int) -> np.ndarray:
+    """(n, seq_len) int64 tokens below ``len(perm)``: Zipf(1.3) starts, then
+    each token's fixed successor ``perm[token]`` with probability 0.7, else a
+    Zipf(1.3) draw, so token t+1 correlates with token t and a model has
+    something to learn in a few steps."""
+    vocab = len(perm)
+    out = np.empty((n, seq_len), dtype=np.int64)
+    cur = rng.zipf(1.3, size=n).clip(1, vocab - 1)
+    for t in range(seq_len):
+        out[:, t] = cur
+        noise = rng.zipf(1.3, size=n).clip(1, vocab - 1)
+        cur = np.where(rng.random(n) < 0.7, perm[cur], noise) % vocab
+    return out
+
+
 def make_token_dataset(
     root: str,
     *,
@@ -31,19 +47,10 @@ def make_token_dataset(
     LM has something learnable: token t+1 correlates with token t)."""
     rng = np.random.default_rng(seed)
     w = RaDatasetWriter(root, {"tokens": ((seq_len,), "uint32")}, shard_rows=shard_rows)
-    # markov-ish: next token = f(current) with noise
     perm = rng.permutation(vocab)
     for lo in range(0, n_docs, 256):
         n = min(256, n_docs - lo)
-        toks = np.empty((n, seq_len), dtype=np.uint32)
-        cur = rng.zipf(1.3, size=n).clip(1, vocab - 1)
-        for t in range(seq_len):
-            toks[:, t] = cur
-            follow = perm[cur]  # deterministic successor
-            noise = rng.zipf(1.3, size=n).clip(1, vocab - 1)
-            take_follow = rng.random(n) < 0.7
-            cur = np.where(take_follow, follow, noise) % vocab
-        w.append(tokens=toks)
+        w.append(tokens=markov_tokens(rng, perm, n, seq_len).astype(np.uint32))
     w.finish({"vocab": vocab, "seq_len": seq_len, "seed": seed})
     return root
 

@@ -10,7 +10,13 @@
 // or 256. flash_attention_launch dispatches by dtype to one of two kernels. Both
 // can also write each row's log-sum-exp, m + ln l in f32, through an optional
 // pointer: the training forward asks for it, since the backward
-// (flash_attention_bwd.cu) rebuilds P from it; serving passes null.
+// (flash_attention_bwd.cu) rebuilds P from it; serving passes null. The bf16
+// kernel can also write the output before its rounding, in f32, through a second
+// optional pointer: the backward's D = rowsum(dO ∘ O) needs O to f32 precision.
+// From the rounded O, D is off by up to 2^-9 of |dO||O|, and dQ = Σ P(dP − D)K
+// carries that error times the attention-weighted mean key, which the true dQ
+// does not contain; where keys share a large common part and the softmax spreads
+// over many keys (whisper's encoder states) that error outgrows the true dQ.
 //
 // bfloat16: flash_attention_tc, on the tensor cores. What bounds it: at a long
 // prompt (q (1,16,4096,128)) the causal products are ~69 GFLOP against 50 MB of
@@ -45,6 +51,15 @@
 //   * one deliberate difference from f32: the tensor core takes P in bf16, so P
 //     is rounded to bf16 for the P·V product (l sums the f32 values). That adds at
 //     most about 2^-9 · max|v| to an output, inside the bf16 tolerance of 2e-2.
+//     Training (o32 given) runs a second P·V product with the remainder P − bf16(P),
+//     also in bf16 and in the same wgmma group as the first, in an instance of the
+//     kernel of its own (serving's keeps its registers and its code), so O carries
+//     P to about 2^-16: the backward's D = rowsum(dO ∘ O) must be the sum of P·dP
+//     over the P it rebuilds in f32, or dQ gets D's error times the attention-
+//     weighted mean key, which the true dQ does not contain (whisper's encoder
+//     states share a large common part). The f32 accumulator of bf16(P)·V alone
+//     is not enough: on keys 3× their spread off a common vector its dQ missed
+//     the bf16 tolerance by up to 1.6× on the card, where this design holds it.
 //   Shared memory at hd 128: Q 32 KB + 2 stages × (K + V) 64 KB = 160 KB, one CTA
 //   per SM. K/V tiles are 128 rows up to hd 128: registers hold S (64 f32), O (up to
 //   64 f32) and P (32 words) per thread, within the 168 that 288 threads allow.
@@ -353,12 +368,16 @@ struct Cfg {
     static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
 };
 
-template <int HD>
+// kF32Out: the training instance, which also writes O in f32 through o32 (see
+// above); serving instantiates the kernel without it, so the second product and
+// its registers cost serving nothing.
+template <int HD, bool kF32Out>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                   float* __restrict__ lse, float* __restrict__ o32, int H, int KV, int Sq,
+                   int Sk, int causal,
                    int window, float scale_log2) {
     using C = Cfg<HD>;
     using T = Tile<HD>;
@@ -523,27 +542,47 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
             }
         }
         // P in bf16 as wgmma's register A operand: for keys 16kk..16kk+15 the four
-        // words are the consecutive pairs of s[8kk .. 8kk+7]
+        // words are the consecutive pairs of s[8kk .. 8kk+7]. Training (kF32Out) also
+        // packs the remainder P − bf16(P), the part P lost, for a second product
+        // issued in the same group: S dies here, so the two packed halves take its
+        // registers and nothing stays live across the products.
+        uint32_t p_lo[kF32Out ? kBK / 4 : 1];
 #pragma unroll
-        for (int i2 = 0; i2 < kBK / 4; ++i2) p[i2] = pack_bf16(s[2 * i2], s[2 * i2 + 1]);
+        for (int i2 = 0; i2 < kBK / 4; ++i2) {
+            p[i2] = pack_bf16(s[2 * i2], s[2 * i2 + 1]);
+            if constexpr (kF32Out) {
+                const float2 hi = unpack_bf16(p[i2]);
+                p_lo[i2] = pack_bf16(s[2 * i2] - hi.x, s[2 * i2 + 1] - hi.y);
+            }
+        }
 
-        // O += P V: kBK/16 steps of 16 keys; V is hd-contiguous, read MN-major
+        // O += P V (and, training, + (P − bf16(P)) V): kBK/16 steps of 16 keys each;
+        // V is hd-contiguous, read MN-major; one commit, one wait
         bar_wait(v_full(st), parity);
         pin(acc);
         pin(p);
+        if constexpr (kF32Out) pin(p_lo);
         wgmma_fence();
         const uint32_t tV = sV + st * C::kKVBytes;
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
             mma_pv<HD>(acc, &p[4 * kk], desc_mn<HD>(tV, kBK, kk), desc_mn<HD>(tV, kBK, kk, 2));
+        if constexpr (kF32Out) {
+#pragma unroll
+            for (int kk = 0; kk < kBK / 16; ++kk)
+                mma_pv<HD>(acc, &p_lo[4 * kk], desc_mn<HD>(tV, kBK, kk),
+                           desc_mn<HD>(tV, kBK, kk, 2));
+        }
         wgmma_commit();
         wgmma_wait_all();
         pin(acc);
         pin(p);
+        if constexpr (kF32Out) pin(p_lo);
         if (threadIdx.x % 128 == 0) bar_arrive(empty(st));  // this warpgroup is done with the stage
     }
 
-    // epilogue: O / max(l, 1e-30), rounded once to bf16; rows past Sq are not stored
+    // epilogue: O / max(l, 1e-30), rounded once to bf16 (and, where o32 is given, in
+    // f32 as well); rows past Sq are not stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         float lr = l[r];
@@ -556,25 +595,29 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         if (lse != nullptr && lane % 4 == 0)
             lse[static_cast<size_t>(bh) * Sq + qpos] = (m[r] + log2f(lr)) * kLn2;
         const float denom = fmaxf(lr, 1e-30f);
-        __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
+        const size_t at = (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-                acc[4 * j + 2 * r] / denom, acc[4 * j + 2 * r + 1] / denom);
+        for (int j = 0; j < HD / 8; ++j) {
+            const float x0 = acc[4 * j + 2 * r] / denom, x1 = acc[4 * j + 2 * r + 1] / denom;
+            *reinterpret_cast<__nv_bfloat162*>(o + at + 8 * j) = __floats2bfloat162_rn(x0, x1);
+            if constexpr (kF32Out)
+                *reinterpret_cast<float2*>(o32 + at + 8 * j) = make_float2(x0, x1);
+        }
     }
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int H, int KV, int Sq, int Sk, int causal, int window, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   float* o32, int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                   float scale, cudaStream_t stream) {
     using C = Cfg<HD>;
     // with Sk = 0 no K/V tile is visited; the maps must still encode, so they
     // describe q, and no load is issued through them
     const bool any_k = Sk > 0;
     CUtensorMap mq, mk, mv;
     constexpr int kBoxCols = Tile<HD>::kBoxCols;
-    cudaError_t err = make_map(&mq, q, HD, Sq, B * H, kBoxCols, kBQ);
+    cudaError_t err = bind_device_of(q);  // the encoder needs a current context
+    if (err == cudaSuccess) err = make_map(&mq, q, HD, Sq, B * H, kBoxCols, kBQ);
     if (err == cudaSuccess)
         err = make_map(&mk, any_k ? k : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
                        kBoxCols, C::kBK);
@@ -582,25 +625,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
         err = make_map(&mv, any_k ? v : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
                        kBoxCols, C::kBK);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_attention_tc<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto kernel = o32 != nullptr ? flash_attention_tc<HD, true>
+                                       : flash_attention_tc<HD, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(C::kBytes));
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-    flash_attention_tc<HD><<<grid, C::kThreads, C::kBytes, stream>>>(
-        mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Sk, causal, window,
+    kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, o32, H, KV, Sq, Sk, causal, window,
         scale * kLog2e);
     return cudaGetLastError();
 }
 
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int H, int KV, int Sq, int Sk, int hd, int causal, int window,
-                      float scale, cudaStream_t stream) {
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+                      float* o32, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
+                      int window, float scale, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 256: return launch<256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 32: return launch<32>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 64: return launch<64>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 128: return launch<128>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
+        case 256: return launch<256>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -611,6 +655,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 // q (B,H,Sq,hd), k/v (B,KV,Sk,hd), o (B,H,Sq,hd), all contiguous and 16-byte aligned.
 // lse: null, or (B,H,Sq) float32 that receives each row's log-sum-exp of its scaled,
 // masked scores (natural log), which the backward (flash_attention_bwd.cu) reads.
+// o32: null, or for bfloat16 a (B,H,Sq,hd) float32 that receives the output before
+// its rounding to bf16, whose D the backward reads; float32 takes null (o is it).
 // dtype: 0 = float32 (the SIMT kernel), 2 = bfloat16 (the tensor-core kernel).
 // hd in {32, 64, 128, 256}; H a multiple of KV. Returns the cudaError_t of the launch
 // (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, or a
@@ -619,17 +665,18 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Sq, int Sk, int hd,
                                       int dtype, int causal, int window, float scale,
-                                      void* lse, void* stream) {
+                                      void* lse, void* o32, void* stream) {
     if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
     if (KV <= 0 || H % KV != 0 || Sk < 0) return cudaErrorInvalidValue;
+    if (o32 != nullptr && dtype != 2) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case 0: return static_cast<int>(
             simt::launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd,
                                    causal, window, scale, st));
         case 2: return static_cast<int>(
-            tc::launch_hd(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd, causal,
-                          window, scale, st));
+            tc::launch_hd(q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32), B, H,
+                          KV, Sq, Sk, hd, causal, window, scale, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -5,8 +5,12 @@
 // (jax.value_and_grad over models/attention.py:gqa_attention). The port trains
 // through its forward kernel (flash_attention.cu), so the gradient of that
 // kernel's function is a kernel too. The semantics are the forward's: scores
-// scale·q·kᵀ in f32, causal keeps kpos <= qpos, window > 0 adds kpos > qpos -
-// window, q head h reads KV head h / (H / KV); here Sq = Sk = S.
+// scale·q·kᵀ in f32, causal keeps kpos <= qpos and window > 0 adds kpos > qpos -
+// window (both positions counted from 0, so the mask is top-left aligned when
+// Sq != Sk), q head h reads KV head h / (H / KV). Sq q rows attend over Sk keys:
+// the encoder-decoder's cross-attention has Sq = 448 text rows over Sk = 1,500
+// audio frames. A key that no row sees gets dK = dV = 0; a row that sees no key
+// gives no gradient (its P is 0), as the plain version's.
 //
 // The FlashAttention-2 backward. With the forward's per-row log-sum-exp (lse,
 // natural log, f32) and D = rowsum(dO ∘ O):
@@ -15,23 +19,25 @@
 //   dK = scale · dSᵀ Q               dQ = scale · dS K
 // Two kernels, one after the other on the caller's stream, and no atomics, so
 // two calls give bit-equal gradients:
-//   * dq_kernel: one CTA per (q tile, q head, batch). It computes D (and writes it
-//     with the LSE for the next kernel), then walks the K/V tiles its rows can
-//     see, rebuilding S, P, dP and dS, and accumulates dQ in registers; the
-//     heaviest causal q tiles start first;
-//   * dkdv_kernel: one CTA per (K/V tile, KV head, batch). It keeps its K and V
-//     tile in shared memory and walks the q heads of its GQA group and, for each,
-//     the q tiles that can see the tile (causal: from the diagonal on; window: up
-//     to the last key + window − 1), accumulating dK and dV in registers. So a
-//     group's q heads are summed by one CTA, in a fixed order; the heaviest
-//     causal K/V tiles start first.
+//   * dq_kernel: one CTA per (q tile of the Sq rows, q head, batch). It computes D
+//     (and writes it with the LSE for the next kernel), then walks the K/V tiles
+//     of the Sk keys its rows can see, rebuilding S, P, dP and dS, and accumulates
+//     dQ in registers; the heaviest causal q tiles start first;
+//   * dkdv_kernel: one CTA per (K/V tile of the Sk keys, KV head, batch). It keeps
+//     its K and V tile in shared memory and walks the q heads of its GQA group
+//     and, for each, the q tiles of the Sq rows that can see the tile (causal:
+//     from the diagonal on; window: up to the last key + window − 1), accumulating
+//     dK and dV in registers. So a group's q heads are summed by one CTA, in a
+//     fixed order; the heaviest causal K/V tiles start first. A tile that no row
+//     sees (causal, Sk > Sq) walks nothing and writes zeros: the outputs come
+//     from torch.empty_like.
 // Everything is accumulated in f32 and written once in the inputs' dtype.
 //
-// What bounds it: with S² / 2 live pairs a head it does seven products of the
-// forward's size (Q·Kᵀ and dO·Vᵀ in both kernels, Pᵀ·dO, dSᵀ·Q, dS·K), so it is
-// bound by operations at every training shape; the least time counts five (one
-// kernel that adds dQ across CTAs would do five), so two kernels cannot come
-// closer than 1.4× that bound. flash_attention_bwd_launch dispatches by dtype to
+// What bounds it: over the live (q row, key) pairs of a head it does seven
+// products of the forward's size (Q·Kᵀ and dO·Vᵀ in both kernels, Pᵀ·dO, dSᵀ·Q,
+// dS·K), so it is bound by operations at every training shape; the least time
+// counts five (one kernel that adds dQ across CTAs would do five), so two kernels
+// cannot come closer than 1.4× that bound. flash_attention_bwd_launch dispatches by dtype to
 // one of two pairs of kernels.
 //
 // bfloat16: tc::, on the tensor cores, FlashAttention-3's shape of kernel:
@@ -42,8 +48,9 @@
 //     visited tile into a 2-stage ring, an mbarrier per stage for "full" (TMA
 //     transaction bytes) and one for "empty" (an arrival per consumer warpgroup
 //     once its last product on the stage has retired), so the next tile's load
-//     overlaps this tile's products. Tensor maps are the forward's, 3-D (hd, S,
-//     B·heads): rows past S are zero-filled inside their own head (sm90.cuh);
+//     overlaps this tile's products. Tensor maps are the forward's, 3-D (hd, rows,
+//     B·heads), Sq rows for Q and dO and Sk for K and V: rows past the end are
+//     zero-filled inside their own head (sm90.cuh);
 //   * operations: every product is wgmma m64nNk16, bf16 in, f32 accumulators in
 //     registers. Q·Kᵀ-shaped products (S, dP; Sᵀ = K Qᵀ, dPᵀ = V dOᵀ) read both
 //     operands from shared memory K-major. P·V-shaped ones (dQ += dS K, dV += Pᵀ
@@ -55,8 +62,10 @@
 //   * dq_kernel: Q and dO of 128 rows resident, 64 a warpgroup; K/V tiles of 128
 //     keys (32 at hd 256, where Q and dO take 128 KB); S and dP are issued
 //     together and dP runs while P is formed. D is summed by each quad from O
-//     and dO in device memory, and the LSE (in log2 units) and D are written to
-//     a scratch padded to 64-row chunks;
+//     and dO in device memory, O in f32 as the forward kernel wrote it before
+//     rounding (flash_attention.cu: from the bf16 O, D's error times the mean key
+//     can outgrow dQ itself), and the LSE (in log2 units) and D are written to
+//     a scratch of one row a query, padded with zeros to 64-row chunks;
 //   * dkdv_kernel: K and V of 128 keys resident, 64 a warpgroup owning their dK
 //     and dV; Q and dO tiles of 64 rows and their LSE and D rows (two bulk copies
 //     from the scratch) through the ring. Each product is its own wgmma group:
@@ -65,7 +74,7 @@
 //     warpgroup 0 computes Pᵀ and owns dV, warpgroup 1 computes dPᵀ and owns dK,
 //     and Pᵀ passes from 0 to 1 through 16 KB of shared memory under two named
 //     barriers, as FlashAttention-3 does at hd 256;
-//   * masks are built only on tiles that cross S, the diagonal or the window
+//   * masks are built only on tiles that cross Sq or Sk, the diagonal or the window
 //     edge; P rounds to bf16 as the forward's P·V product rounds it, dS once
 //     (about 2^-9 relative), inside the bf16 tolerance of 2e-2.
 //   Shared memory at hd 128: 192 KB (dQ) and 129 KB (dK/dV); at hd 256 192 KB
@@ -85,8 +94,8 @@
 //     need no padding;
 //   * tiles: kBQ = 32 q rows; kBK = 32 keys at hd 128 (dK + dV: 64 f32 registers a
 //     thread), 64 at hd 32 and 64. Shared memory: 76 KB at hd 128, two CTAs an SM.
-//   Rows past S are staged as zeros and masked, so S need not be a multiple of a
-//   tile. hd 256 is not instantiated in f32: no model trains there in f32.
+//   Rows past Sq and keys past Sk are staged as zeros and masked, so neither need
+//   be a multiple of a tile. hd 256 is not instantiated in f32: no model trains there in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,8 +105,9 @@
 
 namespace {
 
-__device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal, int window) {
-    bool ok = qpos < S && kpos < S;
+__device__ __forceinline__ bool live(int qpos, int kpos, int Sq, int Sk, int causal,
+                                     int window) {
+    bool ok = qpos < Sq && kpos < Sk;
     if (causal) ok = ok && kpos <= qpos;
     if (window > 0) ok = ok && kpos > qpos - window;
     return ok;
@@ -157,8 +167,8 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 template <int HD, bool WANT_P>
 __device__ __forceinline__ void scores(const float* sK, const float* sV, const float* sQ,
                                        const float* sO, const float* sL, const float* sD,
-                                       float* sP, float* sS, int q0, int k0, int S,
-                                       int causal, int window, float scale) {
+                                       float* sP, float* sS, int q0, int k0, int Sq,
+                                       int Sk, int causal, int window, float scale) {
     using C = Cfg<HD>;
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
@@ -199,7 +209,7 @@ __device__ __forceinline__ void scores(const float* sK, const float* sV, const f
 #pragma unroll
         for (int j = 0; j < C::kCK; ++j) {
             const int c = tx + 16 * j;
-            const float p = live(q0 + r, k0 + c, S, causal, window)
+            const float p = live(q0 + r, k0 + c, Sq, Sk, causal, window)
                                 ? expf(s[i][j] * scale - lse) : 0.f;
             if (WANT_P) sP[r * C::kLdP + c] = p;
             sS[r * C::kLdP + c] = p * (dp[i][j] - dd);
@@ -211,8 +221,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
-          float* __restrict__ delta, float* __restrict__ dq, int H, int KV, int S, int causal,
-          int window, float scale) {
+          float* __restrict__ delta, float* __restrict__ dq, int H, int KV, int Sq, int Sk,
+          int causal, int window, float scale) {
     using C = Cfg<HD>;
     constexpr int kBK = C::kBK;
     extern __shared__ float4 smem4[];
@@ -231,9 +241,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     const int kvh = h / (H / KV);
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
-    const size_t row_bh = (static_cast<size_t>(b) * H + h) * S;  // first row of (b, h)
-    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * S;
-    const int q_valid = min(kBQ, S - q0);
+    const size_t row_bh = (static_cast<size_t>(b) * H + h) * Sq;  // first row of (b, h)
+    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * Sk;
+    const int q_valid = min(kBQ, Sq - q0);
 
     stage<HD, kBQ, HD>(sQ, q + (row_bh + q0) * HD, q_valid);
     stage<HD, kBQ, HD>(sO, dout + (row_bh + q0) * HD, q_valid);
@@ -261,7 +271,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     }
 
     // K/V tiles some row of this q tile can see: [t_lo, t_hi)
-    const int n_tiles = (S + kBK - 1) / kBK;
+    const int n_tiles = (Sk + kBK - 1) / kBK;
     int t_hi = n_tiles;
     if (causal) t_hi = min(n_tiles, (q0 + q_valid - 1) / kBK + 1);
     int t_lo = 0;
@@ -276,11 +286,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     for (int t = t_lo; t < t_hi; ++t) {
         const int k0 = t * kBK;
         __syncthreads();  // the previous tile's K and dS reads are done
-        stage<HD, kBK, C::kLdK>(sK, k + (row_bk + k0) * HD, min(kBK, S - k0));
-        stage<HD, kBK, C::kLdK>(sV, v + (row_bk + k0) * HD, min(kBK, S - k0));
+        stage<HD, kBK, C::kLdK>(sK, k + (row_bk + k0) * HD, min(kBK, Sk - k0));
+        stage<HD, kBK, C::kLdK>(sV, v + (row_bk + k0) * HD, min(kBK, Sk - k0));
         __syncthreads();
-        scores<HD, false>(sK, sV, sQ, sO, sL, sD, nullptr, sS, q0, k0, S, causal, window,
-                             scale);
+        scores<HD, false>(sK, sV, sQ, sO, sL, sD, nullptr, sS, q0, k0, Sq, Sk, causal,
+                          window, scale);
         __syncthreads();
         // dQ[r][c] += sum_key dS[r][key] K[key][c]
 #pragma unroll 2
@@ -321,7 +331,7 @@ __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
             const float* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int H,
-            int KV, int S, int causal, int window, float scale) {
+            int KV, int Sq, int Sk, int causal, int window, float scale) {
     using C = Cfg<HD>;
     constexpr int kBK = C::kBK;
     constexpr int kRK = C::kRK;
@@ -342,14 +352,15 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     const int group = H / KV;
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
-    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * S;
-    const int k_valid = min(kBK, S - k0);
+    const size_t row_bk = (static_cast<size_t>(b) * KV + kvh) * Sk;
+    const int k_valid = min(kBK, Sk - k0);
 
     stage<HD, kBK, C::kLdK>(sK, k + (row_bk + k0) * HD, k_valid);
     stage<HD, kBK, C::kLdK>(sV, v + (row_bk + k0) * HD, k_valid);
 
-    // q tiles some key of this tile is seen by: [u_lo, u_hi)
-    const int n_qtiles = (S + kBQ - 1) / kBQ;
+    // q tiles some key of this tile is seen by: [u_lo, u_hi), empty for keys that
+    // no row sees (causal, k0 >= Sq), whose dK and dV are then written as zeros
+    const int n_qtiles = (Sq + kBQ - 1) / kBQ;
     const int u_lo = causal ? k0 / kBQ : 0;
     int u_hi = n_qtiles;
     if (window > 0) u_hi = min(n_qtiles, (k0 + k_valid - 1 + window - 1) / kBQ + 1);
@@ -361,10 +372,10 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
         for (int c = 0; c < C::kCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
     for (int g = 0; g < group; ++g) {
-        const size_t row_bh = (static_cast<size_t>(b) * H + kvh * group + g) * S;
+        const size_t row_bh = (static_cast<size_t>(b) * H + kvh * group + g) * Sq;
         for (int u = u_lo; u < u_hi; ++u) {
             const int q0 = u * kBQ;
-            const int q_valid = min(kBQ, S - q0);
+            const int q_valid = min(kBQ, Sq - q0);
             __syncthreads();  // the previous q tile's reads are done
             stage<HD, kBQ, HD>(sQ, q + (row_bh + q0) * HD, q_valid);
             stage<HD, kBQ, HD>(sO, dout + (row_bh + q0) * HD, q_valid);
@@ -374,8 +385,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
                 sD[r] = r < q_valid ? delta[row_bh + q0 + r] : 0.f;
             }
             __syncthreads();
-            scores<HD, true>(sK, sV, sQ, sO, sL, sD, sP, sS, q0, k0, S, causal, window,
-                                scale);
+            scores<HD, true>(sK, sV, sQ, sO, sL, sD, sP, sS, q0, k0, Sq, Sk, causal, window,
+                             scale);
             __syncthreads();
             // dV[key][c] += sum_r P[r][key] dO[r][c];  dK[key][c] += sum_r dS[r][key] Q[r][c]
 #pragma unroll 2
@@ -419,8 +430,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                   void* dv, int B, int H, int KV, int S, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   void* dv, int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                   float scale, cudaStream_t stream) {
     using C = Cfg<HD>;
     // above 48 KiB of dynamic shared memory a kernel must opt in; set on every
     // call: cheap next to the kernels and free of races
@@ -436,27 +447,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     const float* tk = static_cast<const float*>(k);
     const float* tv = static_cast<const float*>(v);
     const float* tdo = static_cast<const float*>(dout);
-    dq_kernel<HD><<<dim3((S + kBQ - 1) / kBQ, H, B), kThreads, C::kBytes, stream>>>(
+    dq_kernel<HD><<<dim3((Sq + kBQ - 1) / kBQ, H, B), kThreads, C::kBytes, stream>>>(
         tq, tk, tv, static_cast<const float*>(o), tdo, lse, delta, static_cast<float*>(dq), H,
-        KV, S, causal, window, scale);
+        KV, Sq, Sk, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dkdv_kernel<HD><<<dim3((S + C::kBK - 1) / C::kBK, KV, B), kThreads, C::kBytes, stream>>>(
+    dkdv_kernel<HD><<<dim3((Sk + C::kBK - 1) / C::kBK, KV, B), kThreads, C::kBytes, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KV,
-        S, causal, window, scale);
+        Sq, Sk, causal, window, scale);
     return cudaGetLastError();
 }
 
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                      void* dv, int B, int H, int KV, int S, int hd, int causal, int window,
-                      float scale, cudaStream_t stream) {
+                      void* dv, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
+                      int window, float scale, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
+        case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
                                    causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
+        case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
                                    causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, S,
+        case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
                                      causal, window, scale, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -559,9 +570,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
           const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
-          const bf16* __restrict__ o, const bf16* __restrict__ dout,
+          const float* __restrict__ o, const bf16* __restrict__ dout,
           const float* __restrict__ lse, float* __restrict__ rows, bf16* __restrict__ dq, int H,
-          int KV, int S, int S_pad, int causal, int window, float scale) {
+          int KV, int Sq, int Sk, int S_pad, int causal, int window, float scale) {
     using T = Tile<HD>;
     using C = DqCfg<HD>;
     constexpr int kBQ = C::kBQ;
@@ -582,11 +593,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     const int q0 = (gridDim.x - 1 - lin / HB) * kBQ;
     const int bh = lin % HB;  // b * H + h
     const int kvh = (bh / H) * KV + (bh % H) / (H / KV);
-    const int q_rows = min(kBQ, S - q0);
+    const int q_rows = min(kBQ, Sq - q0);
     const int n_active = (q_rows + 63) / 64;  // warpgroups with a live row
 
     // the K/V tiles some row of this q tile can see: [t_lo, t_lo + n_visit)
-    const int n_tiles = (S + kBK - 1) / kBK;
+    const int n_tiles = (Sk + kBK - 1) / kBK;
     int t_hi = n_tiles;
     if (causal) t_hi = min(n_tiles, (q0 + q_rows - 1) / kBK + 1);
     int t_lo = 0;
@@ -639,33 +650,35 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     const int wg = warp / 4;
     if (wg >= n_active) return;
     const int wg_lo = q0 + 64 * wg;
-    const int wg_hi = min(wg_lo + 63, S - 1);
+    const int wg_hi = min(wg_lo + 63, Sq - 1);
     const int row0 = wg_lo + 16 * (warp % 4) + lane / 4;  // this thread's rows: row0, row0 + 8
     const int col = 2 * (lane % 4);
     const float scale_log2 = scale * kLog2e;
 
     // each row's LSE in log2 units and D = rowsum(dO ∘ O), the four threads of a
-    // quad splitting the columns; written, padded with zeros to S_pad rows, for
-    // the dK/dV kernel, which brings them in by bulk copies
+    // quad splitting the columns; written, padded with zeros from Sq to S_pad rows,
+    // for the dK/dV kernel, which brings them in by bulk copies of whole 64-row
+    // tiles (the last warpgroup with a live row reaches S_pad)
     float lse2[2], dd[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
         float part = 0.f;
         lse2[r] = 0.f;
-        if (qpos < S) {
-            const size_t row = static_cast<size_t>(bh) * S + qpos;
+        if (qpos < Sq) {
+            const size_t row = static_cast<size_t>(bh) * Sq + qpos;
             lse2[r] = lse[row] * kLog2e;
-            const uint4* orow = reinterpret_cast<const uint4*>(o + row * HD);
+            const float4* orow = reinterpret_cast<const float4*>(o + row * HD);
             const uint4* drow = reinterpret_cast<const uint4*>(dout + row * HD);
-            for (int c = lane % 4; c < HD / 8; c += 4) {
-                const uint4 a = __ldg(orow + c), d = __ldg(drow + c);
-                const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+            for (int c = lane % 4; c < HD / 8; c += 4) {  // 8 columns a step
+                const uint4 d = __ldg(drow + c);
+                const float4 a0 = __ldg(orow + 2 * c), a1 = __ldg(orow + 2 * c + 1);
+                const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
                 const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
-                    const float2 af = __bfloat1622float2(a2[e]), df = __bfloat1622float2(d2[e]);
-                    part = fmaf(af.x, df.x, fmaf(af.y, df.y, part));
+                    const float2 df = __bfloat1622float2(d2[e]);
+                    part = fmaf(a[2 * e], df.x, fmaf(a[2 * e + 1], df.y, part));
                 }
             }
         }
@@ -703,8 +716,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         pin(s);
 
         // P = exp(scale·S − lse), 0 where masked (masks only on tiles that cross Sk,
-        // the diagonal or the window edge), then dS = P ∘ (dP − D), in place
-        const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > wg_lo) ||
+        // the diagonal or the window edge; rows past Sq are never stored), then
+        // dS = P ∘ (dP − D), in place
+        const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > wg_lo) ||
                           (window > 0 && k0 <= wg_hi - window);
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j)
@@ -714,8 +728,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
                 for (int e = 0; e < 2; ++e) {
                     float& x = s[4 * j + 2 * r + e];
                     const float p = exp2_approx(x * scale_log2 - lse2[r]);
-                    const bool ok = !edge || live(row0 + 8 * r, k0 + 8 * j + col + e, S, causal,
-                                                  window);
+                    const bool ok = !edge || live(row0 + 8 * r, k0 + 8 * j + col + e, Sq, Sk,
+                                                  causal, window);
                     x = ok ? p : 0.f;
                 }
         wgmma_wait<0>();
@@ -735,8 +749,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
-        if (qpos >= S) continue;
-        bf16* drow = dq + (static_cast<size_t>(bh) * S + qpos) * HD + col;
+        if (qpos >= Sq) continue;
+        bf16* drow = dq + (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
@@ -750,7 +764,7 @@ struct KvArgs {
     uint32_t kv_full, full, empty;  // full and empty: stage 0's, 8 bytes a stage
     const float* rows;  // stage 0's LSE (log2 units) and D rows, generic address
     float* p;           // the Pᵀ handoff (hd 256)
-    int k0, S, causal, window, n_visit, per_head, u_lo;
+    int k0, Sq, Sk, causal, window, n_visit, per_head, u_lo;
 };
 
 enum Role { kBoth, kOnlyV, kOnlyK };
@@ -805,10 +819,10 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
         pin(s);
 
         // Pᵀ (row = key, column = q row) in place; masks only on tiles that cross
-        // S, the diagonal or the window edge
+        // Sq, Sk, the diagonal or the window edge
         const float* lse2 = a.rows + st * 2 * kBQ;
         const float* dd = lse2 + kBQ;
-        const bool edge = q0 + kBQ > a.S || wk_lo + 64 > a.S ||
+        const bool edge = q0 + kBQ > a.Sq || wk_lo + 64 > a.Sk ||
                           (a.causal && wk_lo + 63 > q0) ||
                           (a.window > 0 && wk_lo <= q0 + kBQ - 1 - a.window);
         if constexpr (R != kOnlyK) {
@@ -821,8 +835,8 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
                     for (int e = 0; e < 2; ++e) {
                         float& x = s[4 * j + 2 * r + e];
                         const float p = exp2_approx(x * scale_log2 - (e ? l.y : l.x));
-                        const bool ok = !edge || live(q0 + 8 * j + col + e, key0 + 8 * r, a.S,
-                                                      a.causal, a.window);
+                        const bool ok = !edge || live(q0 + 8 * j + col + e, key0 + 8 * r, a.Sq,
+                                                      a.Sk, a.causal, a.window);
                         x = ok ? p : 0.f;
                     }
             }
@@ -874,7 +888,7 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
-        if (key >= a.S) continue;
+        if (key >= a.Sk) continue;
         const size_t at = (row_bk + key) * HD + col;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j) {
@@ -890,13 +904,15 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
 
 // dK and dV. One CTA per (K/V tile, KV head, batch), the first (heaviest causal)
 // K/V tiles first. It walks its GQA group's q heads and, for each, the q tiles
-// that see some key of its tile, in that fixed order: each sum has one owner.
+// that see some key of its tile, in that fixed order: each sum has one owner. A
+// tile that no q row sees (causal, k0 >= Sq) walks nothing: its consumers still
+// run and store their zeroed dK and dV.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
             const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
             const float* __restrict__ rows, bf16* __restrict__ dk, bf16* __restrict__ dv,
-            int H, int KV, int S, int S_pad, int causal, int window, float scale) {
+            int H, int KV, int Sq, int Sk, int S_pad, int causal, int window, float scale) {
     using T = Tile<HD>;
     using C = KvCfg<HD>;
     constexpr int kBQ = C::kBQ;
@@ -921,13 +937,14 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
     const int bk = lin % KB;  // b * KV + kvh
     const int group = H / KV;
     const int bh0 = (bk / KV) * H + (bk % KV) * group;  // the group's first q head
-    const int k_rows = min(C::kBK, S - a.k0);
-    a.S = S;
+    const int k_rows = min(C::kBK, Sk - a.k0);
+    a.Sq = Sq;
+    a.Sk = Sk;
     a.causal = causal;
     a.window = window;
 
     // the q tiles some key of this tile is live for: [u_lo, u_lo + per_head)
-    const int n_q = (S + kBQ - 1) / kBQ;
+    const int n_q = (Sq + kBQ - 1) / kBQ;
     a.u_lo = causal ? a.k0 / kBQ : 0;
     int u_hi = n_q;
     if (window > 0) u_hi = min(n_q, (a.k0 + k_rows - 1 + window - 1) / kBQ + 1);
@@ -978,7 +995,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
     const int wg = warp / 4;
-    const size_t row_bk = static_cast<size_t>(bk) * S;
+    const size_t row_bk = static_cast<size_t>(bk) * Sk;
     if constexpr (C::kSplit) {
         if (wg == 0) dkdv_consume<HD, kOnlyV>(a, wg, dk, dv, row_bk, scale);
         else dkdv_consume<HD, kOnlyK>(a, wg, dk, dv, row_bk, scale);
@@ -998,61 +1015,65 @@ struct Plan {
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* rows, void* dq, void* dk,
-                   void* dv, int B, int H, int KV, int S, int causal, int window, float scale,
-                   const Plan& plan, cudaStream_t stream) {
+                   void* dv, int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                   float scale, const Plan& plan, cudaStream_t stream) {
     using T = Tile<HD>;
     using Q = DqCfg<HD>;
     using K = KvCfg<HD>;
-    // the dK/dV kernel bulk-copies whole ring tiles of LSE/D rows, which the dQ
-    // kernel writes (zeros past S) up to its last warpgroup's 64 rows
+    // the dK/dV kernel bulk-copies whole ring tiles of LSE/D rows (one row a
+    // query), which the dQ kernel writes (zeros past Sq) up to its last
+    // warpgroup's 64 rows
     if (plan.dq_rows != Q::kBQ || plan.dq_keys != Q::kBK || plan.kv_keys != K::kBK ||
-        plan.kv_rows != K::kBQ || plan.S_pad < S || plan.S_pad % K::kBQ != 0)
+        plan.kv_rows != K::kBQ || plan.S_pad < Sq || plan.S_pad % K::kBQ != 0)
         return cudaErrorInvalidValue;
     const int S_pad = plan.S_pad;
+    cudaError_t err = bind_device_of(q);  // the encoder needs a current context
+    if (err != cudaSuccess) return err;
     // each kernel's maps: its resident tiles and its ring's tiles have their own box rows
     CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_q, kv_do, kv_k, kv_v;
-    const struct { CUtensorMap* map; const void* ptr; int heads, box_rows; } maps[] = {
-        {&dq_q, q, B * H, Q::kBQ}, {&dq_do, dout, B * H, Q::kBQ},
-        {&dq_k, k, B * KV, Q::kBK}, {&dq_v, v, B * KV, Q::kBK},
-        {&kv_q, q, B * H, K::kBQ}, {&kv_do, dout, B * H, K::kBQ},
-        {&kv_k, k, B * KV, K::kBK}, {&kv_v, v, B * KV, K::kBK},
+    // (Q and dO have Sq rows a head, K and V Sk)
+    const struct { CUtensorMap* map; const void* ptr; int rows, heads, box_rows; } maps[] = {
+        {&dq_q, q, Sq, B * H, Q::kBQ}, {&dq_do, dout, Sq, B * H, Q::kBQ},
+        {&dq_k, k, Sk, B * KV, Q::kBK}, {&dq_v, v, Sk, B * KV, Q::kBK},
+        {&kv_q, q, Sq, B * H, K::kBQ}, {&kv_do, dout, Sq, B * H, K::kBQ},
+        {&kv_k, k, Sk, B * KV, K::kBK}, {&kv_v, v, Sk, B * KV, K::kBK},
     };
     for (const auto& m : maps) {
-        const cudaError_t err = make_map(m.map, m.ptr, HD, S, m.heads, T::kBoxCols, m.box_rows);
+        err = make_map(m.map, m.ptr, HD, m.rows, m.heads, T::kBoxCols, m.box_rows);
         if (err != cudaSuccess) return err;
     }
     // above 48 KiB of dynamic shared memory a kernel must opt in; set on every
     // call: cheap next to the kernels and free of races
-    cudaError_t err = cudaFuncSetAttribute(dq_kernel<HD>,
+    err = cudaFuncSetAttribute(dq_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(Q::kBytes));
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(K::kBytes));
     if (err != cudaSuccess) return err;
-    dq_kernel<HD><<<dim3((S + Q::kBQ - 1) / Q::kBQ, H, B), kThreads, Q::kBytes, stream>>>(
-        dq_q, dq_do, dq_k, dq_v, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-        lse, rows, static_cast<bf16*>(dq), H, KV, S, S_pad, causal, window, scale);
+    dq_kernel<HD><<<dim3((Sq + Q::kBQ - 1) / Q::kBQ, H, B), kThreads, Q::kBytes, stream>>>(
+        dq_q, dq_do, dq_k, dq_v, static_cast<const float*>(o), static_cast<const bf16*>(dout),
+        lse, rows, static_cast<bf16*>(dq), H, KV, Sq, Sk, S_pad, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dkdv_kernel<HD><<<dim3((S + K::kBK - 1) / K::kBK, KV, B), kThreads, K::kBytes, stream>>>(
-        kv_q, kv_do, kv_k, kv_v, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, S,
-        S_pad, causal, window, scale);
+    dkdv_kernel<HD><<<dim3((Sk + K::kBK - 1) / K::kBK, KV, B), kThreads, K::kBytes, stream>>>(
+        kv_q, kv_do, kv_k, kv_v, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV,
+        Sq, Sk, S_pad, causal, window, scale);
     return cudaGetLastError();
 }
 
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* rows, void* dq, void* dk,
-                      void* dv, int B, int H, int KV, int S, int hd, int causal, int window,
-                      float scale, const Plan& plan, cudaStream_t stream) {
+                      void* dv, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
+                      int window, float scale, const Plan& plan, cudaStream_t stream) {
     switch (hd) {
-        case 32: return launch<32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+        case 32: return launch<32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
                                    causal, window, scale, plan, stream);
-        case 64: return launch<64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+        case 64: return launch<64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
                                    causal, window, scale, plan, stream);
-        case 128: return launch<128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+        case 128: return launch<128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
                                      causal, window, scale, plan, stream);
-        case 256: return launch<256>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, S,
+        case 256: return launch<256>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
                                      causal, window, scale, plan, stream);
         default: return cudaErrorInvalidValue;
     }
@@ -1061,11 +1082,12 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o
 }  // namespace tc
 }  // namespace
 
-// q/o/dout/dq (B,H,S,hd), k/v/dk/dv (B,KV,S,hd), all of one dtype, contiguous and
-// 16-byte aligned; lse (B,H,S) f32 from the forward kernel; delta f32 scratch that
+// q/o/dout/dq (B,H,Sq,hd), k/v/dk/dv (B,KV,Sk,hd), all of one dtype but o, which is
+// float32 for both (for bf16 the forward's output before its rounding), contiguous
+// and 16-byte aligned; lse (B,H,Sq) f32 from the forward kernel; delta f32 scratch that
 // the first kernel fills and the second reads: B·H·2·S_pad floats (the f32
-// kernels use its first B·H·S). S_pad and the four tile sizes are the plan of
-// flash_attention.py:bwd_geometry; the bf16 kernels take S_pad >= S, a multiple
+// kernels use its first B·H·Sq). S_pad and the four tile sizes are the plan of
+// flash_attention.py:bwd_geometry; the bf16 kernels take S_pad >= Sq, a multiple
 // of their 64-row ring tile, and only their own tiles. dtype: 0 = float32 (the
 // SIMT kernels; hd 32, 64, 128), 2 = bfloat16 (the tensor-core kernels; hd 32,
 // 64, 128, 256); H a multiple of KV. Returns the cudaError_t of the launches (0 =
@@ -1075,20 +1097,21 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv, int B,
-                                          int H, int KV, int S, int hd, int dtype, int causal,
-                                          int window, int S_pad, int dq_rows, int dq_keys,
-                                          int kv_keys, int kv_rows, float scale,
+                                          int H, int KV, int Sq, int Sk, int hd, int dtype,
+                                          int causal, int window, int S_pad, int dq_rows,
+                                          int dq_keys, int kv_keys, int kv_rows, float scale,
                                           void* stream) {
-    if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
+    if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
     if (KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* l = static_cast<const float*>(lse);
     float* d = static_cast<float*>(delta);
     switch (dtype) {
         case 0: return static_cast<int>(simt::launch_hd(
-            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, S, hd, causal, window, scale, st));
+            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, hd, causal, window, scale,
+            st));
         case 2: return static_cast<int>(tc::launch_hd(
-            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, S, hd, causal, window, scale,
+            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, hd, causal, window, scale,
             tc::Plan{S_pad, dq_rows, dq_keys, kv_keys, kv_rows}, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }

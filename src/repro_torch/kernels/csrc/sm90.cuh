@@ -159,6 +159,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
 // An m64nN f32 accumulator as wgmma's bf16 register A operand of the next product
 // (its k axis the accumulator's columns): for columns 16kk..16kk+15 the four words
 // are the consecutive pairs of c[8kk .. 8kk+7].
@@ -332,6 +336,17 @@ inline EncodeTiled encode_tiled() {
                    : nullptr;
     }();
     return fn;
+}
+
+// Makes the primary context of the device that holds `ptr` current in this thread.
+// The driver's tensor-map encoder needs a current context, and a thread that has
+// made no runtime call yet may have none (autograd's device thread, when the
+// allocator serves it from its cache): the encoder then fails with
+// CUDA_ERROR_INVALID_CONTEXT. A launch that encodes maps calls this first.
+inline cudaError_t bind_device_of(const void* ptr) {
+    cudaPointerAttributes attr;
+    const cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+    return err == cudaSuccess ? cudaSetDevice(attr.device) : err;
 }
 
 // A bf16 tensor of `heads` contiguous (rows, hd) slabs as a 3-D map (hd, rows,

@@ -11,7 +11,9 @@ dispatches by dtype, and the source says how each kernel is laid out:
   to the consumers). A long prompt
   is bound by operations there, the serving prefill by bytes. P is rounded
   to bf16 for the P·V product, which adds at most about 2^-9·max|v| to an
-  output, inside the bf16 tolerance;
+  output, inside the bf16 tolerance; the training forward (``return_lse``)
+  adds a second product with the remainder P − bf16(P), so its f32 output
+  carries P to about 2^-16, as the backward's D needs;
 * float32 runs on the f32 SIMT pipes: on the tensor cores it would be TF32
   and miss the f32 tolerance.
 
@@ -19,8 +21,14 @@ The TPU kernel has no backward; the JAX train step lets XLA differentiate
 its own attention. Here ``flash_attention`` is differentiable: with grad on
 and an input that requires it, it goes through ``FlashAttention``, an
 ``autograd.Function`` whose forward runs the kernel above and also keeps
-each row's log-sum-exp, and whose backward runs ``csrc/flash_attention_bwd.cu``
-(dQ, dK, dV; Sq = Sk; head widths by dtype in ``BWD_HEAD_DIMS``). Its bf16
+each row's log-sum-exp and the output in f32 before its rounding (the
+backward's D = rowsum(dO ∘ O) needs it: from the rounded O, or from one
+whose P was rounded, its error, times the attention-weighted mean key, can
+outgrow dQ itself where keys share a large common part, as whisper's
+encoder states do), and whose backward runs
+``csrc/flash_attention_bwd.cu``
+(dQ, dK, dV; any Sq and Sk, as the encoder-decoder's cross-attention needs;
+head widths by dtype in ``BWD_HEAD_DIMS``). Its bf16
 kernels run on the tensor cores (``wgmma``, tiles brought in by TMA through
 a ring of shared-memory stages, head widths up to 256). Under
 ``no_grad``/``inference_mode`` it calls the forward kernel alone, as
@@ -59,9 +67,9 @@ tc_launches = 0  # guarded-by: _count_lock
 bwd_launches = 0  # guarded-by: _count_lock
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def check_forward_only(name: str, *tensors: torch.Tensor) -> None:
@@ -115,25 +123,24 @@ def _shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return B, H, KV, Sq, Sk, hd
 
 
-def bwd_geometry(S: int, hd: int) -> tuple:
-    """The bf16 backward's plan at head width ``hd``, which the launch passes
-    to ``csrc/flash_attention_bwd.cu`` (it refuses tiles not its own):
-    ``(dq_rows, dq_keys)``, the q rows of a dQ CTA and the keys of each K/V
-    tile it walks; ``(kv_keys, kv_rows)``, the keys of a dK/dV CTA and the q
-    rows of each (Q, dO) tile it walks; and ``S_pad``, the rows a head of the
-    LSE/D scratch, S rounded up to whole dK/dV ring tiles (that kernel
-    bulk-copies whole tiles of them)."""
+def bwd_geometry(Sq: int, hd: int) -> tuple:
+    """The bf16 backward's plan at head width ``hd`` for ``Sq`` q rows, which
+    the launch passes to ``csrc/flash_attention_bwd.cu`` (it refuses tiles
+    not its own): ``(dq_rows, dq_keys)``, the q rows of a dQ CTA and the keys
+    of each K/V tile it walks; ``(kv_keys, kv_rows)``, the keys of a dK/dV CTA
+    and the q rows of each (Q, dO) tile it walks; and ``S_pad``, the rows a
+    head of the LSE/D scratch, which holds one row a query: Sq rounded up to
+    whole dK/dV ring tiles (that kernel bulk-copies whole tiles of them)."""
     dq = (128, 32 if hd >= 256 else 128)
     dkdv = (64 if hd >= 256 else 128, 64)
-    return dq, dkdv, -(-S // dkdv[1]) * dkdv[1]
+    return dq, dkdv, -(-Sq // dkdv[1]) * dkdv[1]
 
 
 def check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise where the backward cannot run: Sq != Sk, or on the card a dtype
-    or head width the backward kernels are not instantiated for."""
-    _, _, _, Sq, Sk, hd = _shape(q, k, v)
-    if Sq != Sk:
-        raise RawArrayError(f"flash_attention backward needs Sq = Sk, got {Sq} and {Sk}")
+    """Raise where the backward cannot run: shapes that do not fit, or on the
+    card a dtype or head width the backward kernels are not instantiated
+    for."""
+    _, _, _, _, _, hd = _shape(q, k, v)
     if q.device.type != "cuda":
         return
     widths = BWD_HEAD_DIMS.get(q.dtype)
@@ -158,29 +165,40 @@ def flash_attention_fwd(
     return_lse: bool = False,
 ):
     """(B, H, Sq, hd) in q's dtype; q head h attends KV head ``h // (H // KV)``.
-    With ``return_lse`` also each row's log-sum-exp (B, H, Sq) in f32, which
-    the backward needs. Records no gradient: called with grad on a tensor
-    that requires it, it raises (``flash_attention`` is the differentiable
-    call). On CUDA the kernel runs on the current stream and is not waited
-    for."""
+    With ``return_lse`` (the training forward) also what the backward needs:
+    (out, each row's log-sum-exp (B, H, Sq) in f32, the output in f32 before
+    its rounding to q's dtype (for f32 inputs the output itself)). Records no
+    gradient: called with grad on a tensor that requires it, it raises
+    (``flash_attention`` is the differentiable call). On CUDA the kernel runs
+    on the current stream and is not waited for."""
     global launches, tc_launches
     B, H, KV, Sq, Sk, hd = _shape(q, k, v)
     check_inputs("flash_attention", q, k, v)
     check_forward_only("flash_attention_fwd", q, k, v)
     scale = float(scale) if scale is not None else hd ** -0.5
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
-                                       return_lse=return_lse)
+        got = ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                      return_lse=return_lse, out_dtype=torch.float32)
+        if not return_lse:
+            return got.to(q.dtype)
+        out32, lse = got
+        return out32.to(q.dtype), lse, out32
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = out32 = None
+    if return_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out32 = out if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
+    result = (out, lse, out32) if return_lse else out
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return result
     fn = _build.function("flash_attention.cu", "flash_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KV, Sq, Sk, hd, DTYPES[q.dtype], int(bool(causal)), int(window), scale,
             lse.data_ptr() if lse is not None else None,
+            out32.data_ptr() if out32 is not None and out32 is not out else None,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -189,16 +207,16 @@ def flash_attention_fwd(
         launches += 1
         if q.dtype == torch.bfloat16:
             tc_launches += 1
-    return (out, lse) if return_lse else out
+    return result
 
 
 def flash_attention_bwd(
-    q: torch.Tensor,  # (B, H, S, hd)
-    k: torch.Tensor,  # (B, KV, S, hd)
+    q: torch.Tensor,  # (B, H, Sq, hd)
+    k: torch.Tensor,  # (B, KV, Sk, hd)
     v: torch.Tensor,
-    out: torch.Tensor,  # the forward's output (B, H, S, hd)
+    out: torch.Tensor,  # the forward's output (B, H, Sq, hd) in f32 (``return_lse``'s third)
     dout: torch.Tensor,  # its gradient
-    lse: torch.Tensor,  # the forward's log-sum-exp (B, H, S), f32
+    lse: torch.Tensor,  # the forward's log-sum-exp (B, H, Sq), f32
     *,
     causal: bool = True,
     window: int = 0,
@@ -206,7 +224,12 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) of the attention ``flash_attention_fwd`` computes, each in
     its input's dtype; dk and dv summed over each KV head's group of q heads.
-    On CUDA two kernels run on the current stream and are not waited for."""
+    ``out`` is the output in float32 before its rounding to q's dtype, as
+    ``flash_attention_fwd(..., return_lse=True)`` returns it: the kernels
+    take D = rowsum(dO ∘ O) from it, and a rounded output would put its
+    rounding error into dq and dk, so any other dtype raises. A key that no
+    row sees gets zeros; a row that sees no key gives no gradient. On CUDA
+    two kernels run on the current stream and are not waited for."""
     global bwd_launches
     B, H, KV, Sq, Sk, hd = _shape(q, k, v)
     check_backward(q, k, v)
@@ -215,7 +238,14 @@ def flash_attention_bwd(
             f"flash_attention backward: out {tuple(out.shape)} and dout {tuple(dout.shape)} "
             f"must have q's shape {tuple(q.shape)}"
         )
-    check_inputs("flash_attention backward", q, k, v, out, dout)
+    if out.dtype != torch.float32:
+        raise RawArrayError(
+            f"flash_attention backward: out must be the forward's float32 output, not "
+            f"{out.dtype}")
+    check_inputs("flash_attention backward", q, k, v, dout)
+    if out.device != q.device:
+        raise RawArrayError(f"flash_attention backward: out on {out.device}, q on {q.device}")
+    check_inputs("flash_attention backward", out)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) or \
             lse.device != q.device or not lse.is_contiguous():
         raise RawArrayError(
@@ -226,9 +256,9 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
                                            window=window, scale=scale)
+    if q.numel() == 0 or k.numel() == 0:  # no pair to differentiate
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dq.numel() == 0:
-        return dq, dk, dv
     dq_tiles, kv_tiles, S_pad = bwd_geometry(Sq, hd)
     # the LSE and D rows the first kernel writes for the second
     delta = torch.empty((B, H, 2, S_pad), dtype=torch.float32, device=q.device)
@@ -237,7 +267,7 @@ def flash_attention_bwd(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, KV, Sq, hd, DTYPES[q.dtype], int(bool(causal)), int(window), S_pad,
+            B, H, KV, Sq, Sk, hd, DTYPES[q.dtype], int(bool(causal)), int(window), S_pad,
             *dq_tiles, *kv_tiles, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -250,13 +280,13 @@ def flash_attention_bwd(
 
 class FlashAttention(torch.autograd.Function):
     """The attention as an autograd op: the forward kernel, which also keeps
-    each row's log-sum-exp, and the backward kernel."""
+    each row's log-sum-exp and the output in f32, and the backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, scale: float | None):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale,
-                                       return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out32 = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                              scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.args = (causal, window, scale)
         return out
 

@@ -51,8 +51,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     mask a ragged tail themselves.
 
     With grad enabled and an input that requires it, the call records its
-    backward: ``csrc/flash_attention_bwd.cu`` on the card (f32 and bf16,
-    head widths 32-128, Sq = Sk)."""
+    backward: ``csrc/flash_attention_bwd.cu`` on the card (f32 at head
+    widths 32-128, bf16 at 32-256, any Sq and Sk)."""
     del block_q, block_k
     return _flash_attention(q, k, v, causal=causal, window=window)
 

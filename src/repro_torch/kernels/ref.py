@@ -37,12 +37,14 @@ def _live(Sq, Sk, causal, window, device):
     return ok
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_lse=False):
-    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
-    Materializes the (Sq, Sk) scores in f32; q head h reads KV head
-    ``h // (H // KV)``. ``causal`` keeps ``kpos <= qpos`` (both from 0),
-    ``window > 0`` also ``kpos > qpos - window``. With ``return_lse`` also
-    each row's log-sum-exp of its masked, scaled scores (B,H,Sq) in f32."""
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_lse=False,
+                        out_dtype=None):
+    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd) in ``out_dtype``
+    (default q's dtype). Materializes the (Sq, Sk) scores in f32; q head h
+    reads KV head ``h // (H // KV)``. ``causal`` keeps ``kpos <= qpos`` (both
+    from 0), ``window > 0`` also ``kpos > qpos - window``. With
+    ``return_lse`` also each row's log-sum-exp of its masked, scaled scores
+    (B,H,Sq) in f32."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     g = H // KV
@@ -51,7 +53,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_ls
     vf = v.repeat_interleave(g, dim=1)
     s = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) * scale
     ok = _live(Sq, Sk, causal, window, q.device)
-    out = _softmax_av(s, ok, vf).to(q.dtype)
+    out = _softmax_av(s, ok, vf).to(out_dtype or q.dtype)
     if return_lse:
         return out, torch.logsumexp(s.masked_fill(~ok, NEG_INF), dim=-1)
     return out
@@ -59,31 +61,39 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_ls
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, scale=None):
     """The gradient of ``flash_attention_ref`` by the FlashAttention-2
-    formulas, with ``o`` its output, ``do`` the output's gradient and ``lse``
-    its log-sum-exp (Sq = Sk)::
+    formulas, with ``o`` its output (in f32 before any rounding, for D to be
+    exact), ``do`` the output's gradient and ``lse`` its log-sum-exp; q/o/do
+    (B,H,Sq,hd), k/v (B,KV,Sk,hd), lse (B,H,Sq)::
 
         P = exp(scale·Q Kᵀ − lse) (0 where masked)    D = rowsum(dO ∘ O)
-        dV = Pᵀ dO    dS = P ∘ (dO Vᵀ − D)    dQ = scale·dS K    dK = scale·dSᵀ Q
+        dP = dO Vᵀ    dV = Pᵀ dO    dS = P ∘ (dP − D)    dQ = scale·dS K
+        dK = scale·dSᵀ Q
 
     in f32, dK and dV summed over each KV head's group of q heads; returns
-    (dq, dk, dv) in the inputs' dtypes."""
-    B, H, S, hd = q.shape
-    KV = k.shape[1]
+    (dq, dk, dv) in the inputs' dtypes. The mask is the forward's, top-left
+    aligned when Sq != Sk (``_live``), so a key that no row sees gets zero
+    dK and dV. A row that sees no key (a window that ends before the keys
+    do, past Sk) gets the mean of v from the forward (the softmax of the
+    mask value is uniform) but gives no gradient here: its P is 0. The JAX
+    oracle's ``-inf`` mask gives NaN there, so the tests choose shapes
+    without such rows, as every model's are."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     g = H // KV
     scale = scale if scale is not None else hd ** -0.5
     qf, dof = q.to(torch.float32), do.to(torch.float32)
     kf = k.to(torch.float32).repeat_interleave(g, dim=1)
     vf = v.to(torch.float32).repeat_interleave(g, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    ok = _live(S, S, causal, window, q.device)
+    ok = _live(Sq, Sk, causal, window, q.device)
     p = torch.where(ok, torch.exp(s - lse[..., None]), torch.zeros((), device=q.device))
     d = (dof * o.to(torch.float32)).sum(-1, keepdim=True)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dk = dk.reshape(B, KV, g, S, hd).sum(2)
-    dv = dv.reshape(B, KV, g, S, hd).sum(2)
+    dk = dk.reshape(B, KV, g, Sk, hd).sum(2)
+    dv = dv.reshape(B, KV, g, Sk, hd).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

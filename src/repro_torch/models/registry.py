@@ -1,6 +1,6 @@
 """Family -> model class dispatch. The port serves the dense, vlm, ssm,
-hybrid and encdec families; the moe family raises ``NotImplementedError``
-naming its ROADMAP item."""
+hybrid and encdec families and trains the dense, vlm and encdec ones; the
+moe family raises ``NotImplementedError`` naming its ROADMAP item."""
 
 from __future__ import annotations
 

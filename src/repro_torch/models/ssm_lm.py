@@ -144,8 +144,8 @@ class Mamba2LM(TransformerLM):
     def train_loss(self, batch: Dict[str, Any]):
         raise NotImplementedError(
             f"{type(self).__name__} training is not ported yet: it needs a backward kernel "
-            "for ssd_scan (ROADMAP.md, modules to port, item 15); the port trains the dense "
-            "family")
+            "for ssd_scan (ROADMAP.md, modules to port, item 15); the port trains the dense, "
+            "vlm and encdec families")
 
 
 class Zamba2LM(Mamba2LM):

@@ -341,4 +341,5 @@ def _not_ported(family: str) -> str:
         return ("TransformerLM serves the dense and vlm families; the ssm, hybrid and "
                 "encdec families are Mamba2LM, Zamba2LM and WhisperModel (build_model)")
     return (f"the {family} family is not ported yet (ROADMAP.md, modules to port, "
-            "item 10); the port serves the dense, vlm, ssm, hybrid and encdec families")
+            "item 10: MoE, MLA and MTP); the port serves the dense, vlm, ssm, hybrid and "
+            "encdec families and trains the dense, vlm and encdec ones")

@@ -1,5 +1,5 @@
-"""Whisper-style encoder-decoder (the encdec family) for serving: the torch
-twin of the JAX package's ``models/whisper.py``.
+"""Whisper-style encoder-decoder (the encdec family) for training and
+serving: the torch twin of the JAX package's ``models/whisper.py``.
 
 The audio front end (two convolutions and a GELU in real Whisper) is a stub,
 as there: ``encode`` takes its output, precomputed frame embeddings
@@ -17,7 +17,17 @@ Sk = S_audio. The JAX package computes them in query chunks of 512 and
 drops the remainder (``whisper.py:48``), so it fails at any length above
 512 that is not a multiple of 512, the config's own 1,500 frames included
 (ROADMAP.md, faults); this model computes the full attention at every
-length.
+length, in training as in serving.
+
+``train_loss`` is the JAX package's (``whisper.py:151-176``): the encoder
+and the decoder with autograd on, every attention through
+``ops.flash_attention``, whose backward is a kernel on the card for all
+three shapes (the cross-attention's Sq = S_text rows over Sk = S_audio
+keys included); each encoder and decoder layer under
+``torch.utils.checkpoint`` where ``cfg.remat`` is set (``jax.checkpoint``
+there); the whole (B, S, V) logits and the next-token cross-entropy over
+them. The parameters are built with ``requires_grad=False`` for serving; a
+trainer turns them on (``model.requires_grad_(True)``).
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode`` on the
 module's device. The cache is the JAX package's dict: self-attention
@@ -30,8 +40,7 @@ so a step syncs nothing with the host.
 
 The JAX package's ``ServeEngine`` does not serve this family (its prefill
 passes no frames; ROADMAP.md, faults), so neither does the port's: serve it
-through ``prefill`` and ``decode_step``. ``train_loss`` raises
-``NotImplementedError`` naming its ROADMAP item.
+through ``prefill`` and ``decode_step``.
 """
 
 from __future__ import annotations
@@ -41,13 +50,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
 from ..kernels import ops
 from .attention import _heads, _out_proj
-from .common import Initializer, ParamTree, layernorm, stack_init
+from .common import Initializer, ParamTree, cross_entropy_loss, layernorm, stack_init
 from .config import ModelConfig
-from .transformer import _index, token_ids
+from .transformer import _index, _unstack, token_ids
 
 
 def _init_attn(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
@@ -106,6 +116,21 @@ def _mlp(p, x: torch.Tensor) -> torch.Tensor:
 def _attend(p, xq: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool):
     o = ops.flash_attention(_q(p, xq), k, v, causal=causal)
     return _out(p, o)
+
+
+def _enc_layer(p, x: torch.Tensor) -> torch.Tensor:
+    h = _ln(p["ln1"], x)
+    x = x + _attend(p["attn"], h, *_kv(p["attn"], h), causal=False)
+    return x + _mlp(p["mlp"], _ln(p["ln2"], x))
+
+
+def _dec_layer(p, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """A decoder layer over the whole text, as training runs it."""
+    xq = _ln(p["ln1"], x)
+    h = x + _attend(p["self_attn"], xq, *_kv(p["self_attn"], xq), causal=True)
+    h = h + _attend(p["cross_attn"], _ln(p["ln_x"], h), *_kv(p["cross_attn"], enc),
+                    causal=False)
+    return h + _mlp(p["mlp"], _ln(p["ln2"], h))
 
 
 class WhisperModel(nn.Module):
@@ -188,6 +213,11 @@ class WhisperModel(nn.Module):
         encoder states (B, S_audio, d) in the compute dtype. At an S_audio
         other than ``cfg.enc_seq`` the learned positions are tiled or
         cropped, as in the JAX package."""
+        return self._encoder(frames, self._layer_views()[0], remat=False)
+
+    def _encoder(self, frames: torch.Tensor, layers: List[Any], *, remat: bool) -> torch.Tensor:
+        """``encode``'s body over the per-layer params ``layers``, recording
+        autograd where it is on; each layer checkpointed under ``remat``."""
         cdtype = self.cfg.cdtype
         x = torch.as_tensor(frames).to(device=self.device, dtype=cdtype)
         S = x.shape[1]
@@ -195,10 +225,8 @@ class WhisperModel(nn.Module):
         if S != pos.shape[0]:
             pos = pos.repeat(-(-S // pos.shape[0]), 1)[:S]
         x = x + pos.to(cdtype)[None]
-        for p in self._layer_views()[0]:
-            h = _ln(p["ln1"], x)
-            x = x + _attend(p["attn"], h, *_kv(p["attn"], h), causal=False)
-            x = x + _mlp(p["mlp"], _ln(p["ln2"], x))
+        for p in layers:
+            x = checkpoint(_enc_layer, p, x, use_reentrant=False) if remat else _enc_layer(p, x)
         return _ln(self.ln_enc, x)
 
     # ---- serving ------------------------------------------------------------
@@ -282,8 +310,26 @@ class WhisperModel(nn.Module):
         return logits[:, 0], cache
 
     # ---- train --------------------------------------------------------------
-    def train_loss(self, batch: Dict[str, Any]):
-        raise NotImplementedError(
-            "WhisperModel training is not ported yet (ROADMAP.md, modules to port, item 10): "
-            "its cross-attention needs a flash_attention backward with Sq != Sk (kernel item "
-            "K9); the port serves this family")
+    def train_loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: ``frames`` (B, S_audio, d), ``tokens`` (B, S_text). The
+        next-token loss of the decoder over the encoded frames, on the
+        module's device: labels are the tokens shifted by one, the last
+        position masked. Returns (loss, {"loss", "ce", "acc"}), all 0-d f32.
+        Layers are taken by ``unbind`` (``transformer._unstack``), so each
+        stacked leaf's gradient is stacked once."""
+        cfg = self.cfg
+        remat = cfg.remat
+        enc = self._encoder(batch["frames"], _unstack(self.enc_layers.tree(), cfg.n_enc_layers),
+                            remat=remat)
+        tokens = token_ids(batch["tokens"], self.device)
+        S = tokens.shape[1]
+        x = self._embed_tokens(tokens, torch.arange(S, device=self.device))
+        for p in _unstack(self.dec_layers.tree(), cfg.n_layers):
+            x = checkpoint(_dec_layer, p, x, enc, use_reentrant=False) if remat \
+                else _dec_layer(p, x, enc)
+        logits = self._logits(_ln(self.ln_dec, x))
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
+        mask[:, -1] = 0.0
+        loss, acc = cross_entropy_loss(logits, labels, mask)
+        return loss, {"loss": loss, "ce": loss, "acc": acc}

@@ -172,22 +172,26 @@ def _grads_close(got, want, dtype):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("B,H,KV,S,hd", [
-    (1, 2, 2, 64, 32),     # groups of 1
-    (2, 4, 2, 100, 64),    # groups of 2, a ragged S
-    (1, 8, 1, 70, 128),    # groups of 8 (all q heads on one KV head)
-    (2, 16, 8, 33, 128),   # InternLM2's heads
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd", [
+    (1, 2, 2, 64, 64, 32),     # groups of 1
+    (2, 4, 2, 100, 100, 64),   # groups of 2, a ragged S
+    (1, 8, 1, 70, 70, 128),    # groups of 8 (all q heads on one KV head)
+    (2, 16, 8, 33, 33, 128),   # InternLM2's heads
+    (1, 4, 4, 40, 100, 64),    # Sq < Sk: whisper's cross-attention, 448 rows over 1,500
+    (2, 4, 2, 60, 50, 32),     # Sq > Sk (every row still sees a key under the window)
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
-def test_flash_attention_grad_matches_jax(B, H, KV, S, hd, dtype, causal, window):
+def test_flash_attention_grad_matches_jax(B, H, KV, Sq, Sk, hd, dtype, causal, window):
     """dq, dk, dv of ``ops.flash_attention`` (on the CPU: the plain forward,
     with its log-sum-exp, and ``ref.flash_attention_bwd_ref``) against
-    ``jax.grad`` of the JAX oracle, for a random output gradient."""
-    rng = np.random.default_rng(B * 100 + H * 10 + S + hd)
+    ``jax.grad`` of the JAX oracle, for a random output gradient; Sq q rows
+    over Sk keys, the mask top-left aligned. With Sk > Sq under the causal
+    mask the keys past Sq are seen by no row: their dk and dv are zero."""
+    rng = np.random.default_rng(B * 100 + H * 10 + Sq + Sk + hd)
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
         _pair(rng, sh, dtype) for sh in
-        ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
+        ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd), (B, H, Sq, hd)))
 
     def jloss(q, k, v):
         out = jref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -198,22 +202,68 @@ def test_flash_attention_grad_matches_jax(B, H, KV, S, hd, dtype, causal, window
     out = tops.flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(out, (q, k, v), tdo)
     _grads_close(got, want, dtype)
+    if causal and Sk > Sq:
+        assert not got[1][:, :, Sq:].any() and not got[2][:, :, Sq:].any()
 
 
-@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
-    (2, 4, 2, 37, 32, True, 0),
-    (1, 8, 2, 64, 64, True, 16),
-    (2, 2, 2, 20, 32, False, 0),
-    (1, 4, 1, 33, 128, False, 8),
+def _shared_part(rng, shape, mean):
+    """Rows that share a large common vector (``mean`` times the spread of
+    their own parts), as keys and values computed from the states of a deep
+    random network do."""
+    return rng.standard_normal(shape).astype(np.float32) + mean * rng.standard_normal(
+        shape[-1]).astype(np.float32)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(64, 1500), (300, 300)])
+def test_flash_attention_grad_keeps_d_in_f32_over_shared_keys(Sq, Sk):
+    """bf16 keys and values with a large common part, the softmax spread over
+    many keys: ``ops.flash_attention``'s gradients (the forward keeps its
+    output in f32 for the backward's D = rowsum(dO ∘ O)) match ``jax.grad``
+    of the JAX oracle within the bf16 tolerance; the same backward fed the
+    bf16 output, widened back to f32, misses it on dq, by D's rounding error
+    times the mean key, which the true dq does not contain."""
+    rng = np.random.default_rng(Sq + Sk)
+    B, H, hd = 1, 4, 64
+    arrays = [rng.standard_normal((B, H, Sq, hd)).astype(np.float32),
+              _shared_part(rng, (B, H, Sk, hd), 3.0), _shared_part(rng, (B, H, Sk, hd), 3.0),
+              rng.standard_normal((B, H, Sq, hd)).astype(np.float32)]
+    (jq, jk, jv, jdo) = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+
+    def jloss(q, k, v):
+        out = jref.flash_attention_ref(q, k, v, causal=False)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    got = torch.autograd.grad(tops.flash_attention(q, k, v, causal=False), (q, k, v), tdo)
+    _grads_close(got, want, "bfloat16")
+    out, lse, _ = tfa.flash_attention_fwd(tq, tk, tv, causal=False, return_lse=True)
+    dq_rounded = tfa.flash_attention_bwd(tq, tk, tv, out.float(), tdo, lse, causal=False)[0]
+    w = np.asarray(want[0], np.float32)
+    assert np.abs(dq_rounded.float().numpy() - w).max() > GRAD_TOL["bfloat16"] * np.abs(w).max()
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (2, 4, 2, 37, 37, 32, True, 0),
+    (1, 8, 2, 64, 64, 64, True, 16),
+    (2, 2, 2, 20, 20, 32, False, 0),
+    (1, 4, 1, 33, 33, 128, False, 8),
+    (1, 4, 2, 20, 50, 32, True, 0),    # Sk > Sq, causal: keys 20.. seen by no row
+    (2, 2, 1, 45, 30, 64, True, 0),    # Sq > Sk, causal
+    (1, 4, 4, 25, 60, 32, False, 0),   # Sq < Sk, non-causal (cross-attention)
+    (1, 2, 2, 40, 70, 32, True, 8),    # Sq < Sk with a window
+    (1, 2, 1, 50, 40, 32, True, 16),   # Sq > Sk with a window; row 49 still sees key 39
+    (1, 2, 2, 1, 90, 64, False, 0),    # one row over many keys
 ])
-def test_flash_attention_bwd_ref_matches_autograd(B, H, KV, S, hd, causal, window):
+def test_flash_attention_bwd_ref_matches_autograd(B, H, KV, Sq, Sk, hd, causal, window):
     """The FlashAttention-2 formulas of ``ref.flash_attention_bwd_ref`` (the
     CPU path's backward and the kernel's plain version) against PyTorch's
     own autograd through ``ref.flash_attention_ref``, in f32."""
-    gen = torch.Generator().manual_seed(S + hd)
-    q = torch.randn(B, H, S, hd, generator=gen, requires_grad=True)
-    k, v = (torch.randn(B, KV, S, hd, generator=gen, requires_grad=True) for _ in range(2))
-    do = torch.randn(B, H, S, hd, generator=gen)
+    gen = torch.Generator().manual_seed(Sq + Sk + hd)
+    q = torch.randn(B, H, Sq, hd, generator=gen, requires_grad=True)
+    k, v = (torch.randn(B, KV, Sk, hd, generator=gen, requires_grad=True) for _ in range(2))
+    do = torch.randn(B, H, Sq, hd, generator=gen)
     out = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
     want = torch.autograd.grad(out, (q, k, v), do)
     with torch.no_grad():
@@ -228,21 +278,32 @@ def test_flash_attention_bwd_ref_matches_autograd(B, H, KV, S, hd, causal, windo
 def test_flash_attention_backward_checks_its_inputs():
     q = torch.randn(1, 2, 8, 32)
     lse = torch.zeros(1, 2, 8)
-    with pytest.raises(RawArrayError, match="Sq = Sk"):
-        tfa.flash_attention_bwd(q, torch.randn(1, 2, 9, 32), torch.randn(1, 2, 9, 32), q, q, lse)
+    with pytest.raises(RawArrayError, match="does not fit"):
+        tfa.flash_attention_bwd(q, torch.randn(1, 2, 9, 16), torch.randn(1, 2, 9, 16), q, q, lse)
     with pytest.raises(RawArrayError, match="lse must be"):
         tfa.flash_attention_bwd(q, q, q, q, q, lse.double())
     with pytest.raises(RawArrayError, match="q's shape"):
         tfa.flash_attention_bwd(q, q, q, q[:, :, :4], q, lse)
+    qb = q.bfloat16()  # the rounded output: D from it would carry its rounding
+    with pytest.raises(RawArrayError, match="float32 output"):
+        tfa.flash_attention_bwd(qb, qb, qb, qb, qb, lse)
 
 
-def test_flash_attention_under_grad_checks_the_backward_first():
-    """A case the backward cannot take (Sq != Sk) raises under grad before
-    the forward runs; without grad the same call is a forward."""
+def test_flash_attention_under_grad_checks_the_backward_first(monkeypatch):
+    """A case the backward cannot take raises under grad before the forward
+    runs; Sq != Sk is no longer such a case: under grad it records the
+    backward, without grad it is a forward."""
+    forwards = []
+    kept = tfa.flash_attention_fwd
+    monkeypatch.setattr(tfa, "flash_attention_fwd",
+                        lambda *a, **kw: forwards.append(1) or kept(*a, **kw))
     q = torch.randn(1, 2, 8, 32, requires_grad=True)
+    with pytest.raises(RawArrayError, match="does not fit"):
+        tops.flash_attention(q, torch.randn(1, 2, 9, 16), torch.randn(1, 2, 9, 16))
+    assert not forwards
     kv = torch.randn(1, 2, 9, 32)
-    with pytest.raises(RawArrayError, match="Sq = Sk"):
-        tops.flash_attention(q, kv, kv)
+    out = tops.flash_attention(q, kv, kv)
+    assert out.shape == q.shape and out.grad_fn is not None and len(forwards) == 1
     with torch.no_grad():
         assert tops.flash_attention(q, kv, kv).shape == q.shape
 
@@ -272,34 +333,36 @@ def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
     assert _build.lib_path("flash_attention_bwd.cu") != before
 
 
-def _bwd_schedule(S: int, H: int, KV: int, hd: int, *, causal: bool, window: int) -> dict:
+def _bwd_schedule(Sq: int, Sk: int, H: int, KV: int, hd: int, *, causal: bool,
+                  window: int) -> dict:
     """A numpy-side emulation of the bf16 backward kernels' walk for one
     batch entry, with the kernels' own integer arithmetic (``dq_kernel`` and
     ``dkdv_kernel`` of ``csrc/flash_attention_bwd.cu``) over the tiles of
     ``bwd_geometry``, the plan the launch passes to the kernels (which refuse
-    tiles not their own). ``"dq"``: for each dQ CTA in launch order (the
-    linear CTA index; the last q tiles first) ``(q0, h, [k0 of each K/V tile
-    visited, in order])``; ``"dkdv"``: for each dK/dV CTA in launch order
-    (the first K/V tiles first) ``(k0, kvh, [(h, q0) visited, in order])``.
-    Inside a visited pair of tiles the kernels mask to the live pairs, so
-    every live (q row, key) pair of a q head must lie in exactly one visited
-    pair of tiles of each kernel."""
-    (bq, bk), (kb, qb), _ = tfa.bwd_geometry(S, hd)
+    tiles not their own); Sq q rows over Sk keys. ``"dq"``: for each dQ CTA
+    in launch order (the linear CTA index; the last q tiles first) ``(q0, h,
+    [k0 of each K/V tile visited, in order])``; ``"dkdv"``: for each dK/dV
+    CTA in launch order (the first K/V tiles first) ``(k0, kvh, [(h, q0)
+    visited, in order])``. Inside a visited pair of tiles the kernels mask to
+    the live pairs, so every live (q row, key) pair of a q head must lie in
+    exactly one visited pair of tiles of each kernel. A dK/dV CTA whose walk
+    is empty still stores its tile's dK and dV, as zeros."""
+    (bq, bk), (kb, qb), _ = tfa.bwd_geometry(Sq, hd)
     group = H // KV
     dq = []
-    n_qt = -(-S // bq)
+    n_qt = -(-Sq // bq)
     for lin in range(n_qt * H):
         q0, h = (n_qt - 1 - lin // H) * bq, lin % H
-        q_rows = min(bq, S - q0)
-        n_tiles = -(-S // bk)
+        q_rows = min(bq, Sq - q0)
+        n_tiles = -(-Sk // bk)
         t_hi = min(n_tiles, (q0 + q_rows - 1) // bk + 1) if causal else n_tiles
         t_lo = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 else 0
         dq.append((q0, h, [t * bk for t in range(t_lo, max(t_lo, t_hi))]))
     dkdv = []
-    n_kt, n_q = -(-S // kb), -(-S // qb)
+    n_kt, n_q = -(-Sk // kb), -(-Sq // qb)
     for lin in range(n_kt * KV):
         k0, kvh = (lin // KV) * kb, lin % KV
-        k_rows = min(kb, S - k0)
+        k_rows = min(kb, Sk - k0)
         u_lo = k0 // qb if causal else 0
         u_hi = min(n_q, (k0 + k_rows - 1 + window - 1) // qb + 1) if window > 0 else n_q
         per_head = max(0, u_hi - u_lo)
@@ -308,9 +371,9 @@ def _bwd_schedule(S: int, H: int, KV: int, hd: int, *, causal: bool, window: int
     return {"dq": dq, "dkdv": dkdv}
 
 
-def _live(S: int, causal: bool, window: int) -> np.ndarray:
-    q, k = np.arange(S)[:, None], np.arange(S)[None, :]
-    ok = np.ones((S, S), bool)
+def _live(Sq: int, Sk: int, causal: bool, window: int) -> np.ndarray:
+    q, k = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
     if causal:
         ok &= k <= q
     if window > 0:
@@ -318,35 +381,45 @@ def _live(S: int, causal: bool, window: int) -> np.ndarray:
     return ok
 
 
-@pytest.mark.parametrize("S,H,KV,hd,causal,window", [
-    (300, 4, 4, 128, True, 0),     # groups of 1, a ragged S
-    (300, 8, 4, 64, True, 64),     # groups of 2, a window inside a tile
-    (200, 8, 1, 32, True, 0),      # groups of 8
-    (1100, 4, 2, 256, True, 1024),  # gemma3's width and window, across many tiles
-    (256, 16, 8, 256, True, 0),    # gemma3's heads, global
-    (192, 4, 2, 128, True, 0),     # a multiple of the 64-row tiles, not of 128
-    (130, 2, 2, 128, False, 0),    # non-causal
-    (1, 2, 1, 64, True, 0),        # one row
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd,causal,window", [
+    (300, 300, 4, 4, 128, True, 0),     # groups of 1, a ragged S
+    (300, 300, 8, 4, 64, True, 64),     # groups of 2, a window inside a tile
+    (200, 200, 8, 1, 32, True, 0),      # groups of 8
+    (1100, 1100, 4, 2, 256, True, 1024),  # gemma3's width and window, across many tiles
+    (256, 256, 16, 8, 256, True, 0),    # gemma3's heads, global
+    (192, 192, 4, 2, 128, True, 0),     # a multiple of the 64-row tiles, not of 128
+    (130, 130, 2, 2, 128, False, 0),    # non-causal
+    (1, 1, 2, 1, 64, True, 0),          # one row
+    (448, 1500, 4, 4, 64, False, 0),    # whisper's cross-attention: 448 rows over 1,500
+    (1500, 1500, 2, 2, 64, False, 0),   # whisper's encoder: ragged on both sides
+    (1, 1500, 2, 2, 64, False, 0),      # one row over 1,500 keys
+    (200, 520, 4, 2, 128, True, 0),     # causal Sk > Sq: key tiles past Sq seen by none
+    (200, 520, 4, 2, 256, True, 0),     # the same with hd 256's 64-key tiles
+    (330, 130, 4, 2, 64, True, 0),      # causal Sq > Sk
+    (300, 700, 4, 2, 128, True, 100),   # Sq < Sk with a window
+    (420, 300, 2, 1, 64, True, 128),    # Sq > Sk with a window (row 419 sees key 299)
 ])
-def test_bwd_schedule_visits_every_live_pair_once(S, H, KV, hd, causal, window):
+def test_bwd_schedule_visits_every_live_pair_once(Sq, Sk, H, KV, hd, causal, window):
     """The bf16 backward's walk, emulated (``_bwd_schedule``): each kernel's
     CTAs cover each (q tile, q head) or (K/V tile, KV head) once, the
     heaviest causal tiles first; every live (q row, key) pair of every q head
     lies in exactly one visited pair of tiles of each kernel, and no pair of
     tiles is visited twice; a dK/dV CTA walks its group's q heads in order,
-    and each head's q tiles in order. The LSE/D scratch's rows a head
-    (``S_pad``) hold every ring tile the dK/dV kernel copies, and the dQ
-    kernel's CTAs, whose warpgroups of 64 rows with a live row write them,
-    reach the last one."""
-    sched = _bwd_schedule(S, H, KV, hd, causal=causal, window=window)
-    (bq, bk), (kb, qb), S_pad = tfa.bwd_geometry(S, hd)
-    live = _live(S, causal, window)
+    and each head's q tiles in order. A dK/dV CTA that walks nothing owns
+    keys no row sees, and stores zeros for them (causal with Sk > Sq: exactly
+    the tiles past Sq). The LSE/D scratch's rows a head (``S_pad``, one a
+    query) hold every ring tile the dK/dV kernel copies, and the dQ kernel's
+    CTAs, whose warpgroups of 64 rows with a live row write them, reach the
+    last one."""
+    sched = _bwd_schedule(Sq, Sk, H, KV, hd, causal=causal, window=window)
+    (bq, bk), (kb, qb), S_pad = tfa.bwd_geometry(Sq, hd)
+    live = _live(Sq, Sk, causal, window)
     group = H // KV
 
     ctas = [(q0, h) for q0, h, _ in sched["dq"]]
-    assert sorted(ctas) == [(q0, h) for q0 in range(0, S, bq) for h in range(H)]
+    assert sorted(ctas) == [(q0, h) for q0 in range(0, Sq, bq) for h in range(H)]
     assert [q0 for q0, _ in ctas] == sorted((q0 for q0, _ in ctas), reverse=True)
-    cover = np.zeros((H, S, S), np.int32)
+    cover = np.zeros((H, Sq, Sk), np.int32)
     for q0, h, keys in sched["dq"]:
         assert keys == sorted(keys)
         for k0 in keys:
@@ -354,18 +427,26 @@ def test_bwd_schedule_visits_every_live_pair_once(S, H, KV, hd, causal, window):
     assert (cover[:, live] == 1).all() and cover.max() <= 1
 
     ctas = [(k0, kvh) for k0, kvh, _ in sched["dkdv"]]
-    assert sorted(ctas) == [(k0, kvh) for k0 in range(0, S, kb) for kvh in range(KV)]
+    assert sorted(ctas) == [(k0, kvh) for k0 in range(0, Sk, kb) for kvh in range(KV)]
     assert [k0 for k0, _ in ctas] == sorted(k0 for k0, _ in ctas)
     cover[:] = 0
     for k0, kvh, walk in sched["dkdv"]:
         assert walk == sorted(walk)
+        if not walk:  # its stores are zeros: right only if no row sees its keys
+            assert not live[:, k0:k0 + kb].any()
+            continue
         assert {h for h, _ in walk} == set(range(kvh * group, (kvh + 1) * group))
         for h, q0 in walk:
             cover[h, q0:q0 + qb, k0:k0 + kb] += 1
             assert q0 + qb <= S_pad
     assert (cover[:, live] == 1).all() and cover.max() <= 1
-    assert S_pad % qb == 0 and S_pad >= S
-    assert max(q0 + -(-min(bq, S - q0) // 64) * 64 for q0, _, _ in sched["dq"]) >= S_pad
+    zeroed = sorted({k0 for k0, _, walk in sched["dkdv"] if not walk})
+    if causal and window == 0:
+        assert zeroed == [k0 for k0 in range(0, Sk, kb) if k0 >= Sq]
+    if causal and Sk > Sq + kb:
+        assert zeroed  # the case the kernel must store zeros for
+    assert S_pad % qb == 0 and S_pad >= Sq
+    assert max(q0 + -(-min(bq, Sq - q0) // 64) * 64 for q0, _, _ in sched["dq"]) >= S_pad
 
 
 def test_attention_ops_check_their_inputs():

@@ -3,8 +3,9 @@ its plain PyTorch version (the attention's backward too), the device feed
 on the card against the host decode (a mesh feed's global DTensors over
 a one-rank NCCL group too), a sharded cold start on the card, a URL cold
 start and a URL feed on the card against the local ones, a dense train
-step, a reduced Zamba2's serving path and a reduced llava's prefill with
-patches on the card against the CPU's, and dense, Whisper, Mamba2 and
+step and a reduced whisper's train step (its cross-attention's backward at
+Sq != Sk), a reduced Zamba2's serving path and a reduced llava's prefill
+with patches on the card against the CPU's, and dense, Whisper, Mamba2 and
 Zamba2 decode steps that must not sync with the host. Each skips without a
 card. This file imports nothing of JAX, so it runs on a machine that has a
 card and no JAX:
@@ -339,7 +340,7 @@ def test_flash_attention_backward_kernel_matches_plain_version(card, B, H, KV, S
     rng = np.random.default_rng(S + hd + window)
     q, do = (_normal(rng, (B, H, S, hd), dtype, card) for _ in range(2))
     k, v = (_normal(rng, (B, KV, S, hd), dtype, card) for _ in range(2))
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    _, lse, out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
     _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                           return_lse=True)
     torch.cuda.synchronize()
@@ -357,6 +358,71 @@ def test_flash_attention_backward_kernel_matches_plain_version(card, B, H, KV, S
                                    msg=name)
 
 
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (2, 4, 2, 64, 200, 64, False, 0),     # small, non-causal
+    (1, 8, 8, 130, 1500, 64, False, 0),   # whisper's cross-attention, ragged on both sides
+    (1, 4, 2, 100, 300, 128, True, 0),    # causal Sk > Sq: keys 100.. seen by no row
+    (1, 4, 2, 300, 100, 128, True, 0),    # causal Sq > Sk
+    (1, 4, 4, 1, 300, 64, False, 0),      # one row over many keys
+    (1, 4, 2, 200, 330, 64, True, 64),    # a window
+    (2, 4, 4, 24, 64, 32, False, 0),      # the reduced whisper's cross-attention, hd 32
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_at_sq_ne_sk(card, B, H, KV, Sq, Sk, hd, causal,
+                                                     window, dtype):
+    """Sq q rows over Sk keys: dq, dk, dv of the kernels against
+    ``ref.flash_attention_bwd_ref``, two calls bit-equal, and exact zeros in
+    dk and dv for the keys no row sees (their CTAs walk nothing and store
+    zeros over ``torch.empty_like``'s memory)."""
+    rng = np.random.default_rng(Sq + Sk + hd)
+    q, do = (_normal(rng, (B, H, Sq, hd), dtype, card) for _ in range(2))
+    k, v = (_normal(rng, (B, KV, Sk, hd), dtype, card) for _ in range(2))
+    _, lse, out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, a), name
+        tol = BWD_TOL[dtype] * float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=BWD_TOL[dtype], atol=tol,
+                                   msg=name)
+    if causal and Sk > Sq:
+        assert not got[1][:, :, Sq:].any() and not got[2][:, :, Sq:].any()
+
+
+@pytest.mark.parametrize("Sq,Sk,hd", [(64, 1500, 64), (448, 1500, 64), (300, 300, 128)])
+def test_flash_attention_backward_reads_d_from_the_f32_output(card, Sq, Sk, hd):
+    """bf16 keys and values with a large common part (as whisper's encoder
+    states have) and a softmax spread over many keys: the forward kernel's
+    f32 output rounds to its bf16 output exactly, and ``ops.flash_attention``'s
+    gradients (D from the f32 output) match PyTorch's autograd through the
+    plain version in f32 within the bf16 tolerance."""
+    rng = np.random.default_rng(Sq + Sk)
+    B, H = 1, 4
+
+    def shared(shape):  # rows sharing a common vector 3x their own spread
+        a = rng.standard_normal(shape) + 3.0 * rng.standard_normal(shape[-1])
+        return torch.from_numpy(a.astype(np.float32)).to(card, torch.bfloat16)
+
+    q0, do = (_normal(rng, (B, H, Sq, hd), torch.bfloat16, card) for _ in range(2))
+    k0, v0 = shared((B, H, Sk, hd)), shared((B, H, Sk, hd))
+    out, _, out32 = fa.flash_attention_fwd(q0, k0, v0, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(torch.bfloat16), out)
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False), (q, k, v), do)
+    q, k, v = (t.float().requires_grad_() for t in (q0, k0, v0))
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, causal=False), (q, k, v),
+                               do.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tol = BWD_TOL[torch.bfloat16] * float(w.abs().max())
+        torch.testing.assert_close(g.float(), w, rtol=BWD_TOL[torch.bfloat16], atol=tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_kernel_with_one_key(card, dtype):
     """S = 1: the softmax over one key has no gradient, so dq = dk = 0 in
@@ -367,7 +433,7 @@ def test_flash_attention_backward_kernel_with_one_key(card, dtype):
     rng = np.random.default_rng(1)
     q, do = (_normal(rng, (1, 4, 1, 64), dtype, card) for _ in range(2))
     k, v = (_normal(rng, (1, 2, 1, 64), dtype, card) for _ in range(2))
-    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    _, lse, out = fa.flash_attention_fwd(q, k, v, return_lse=True)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, do, lse)
     torch.cuda.synchronize()
     want_dv = ref.flash_attention_bwd_ref(q, k, v, out, do, lse)[2]
@@ -383,7 +449,7 @@ def test_flash_attention_backward_raises_where_not_instantiated(card):
     """bf16 at head width 256 runs; a dtype or width the backward kernels do
     not take raises, with no fallback to the plain version."""
     q = torch.randn(1, 2, 64, 256, device=card, dtype=torch.bfloat16)
-    out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    _, lse, out = fa.flash_attention_fwd(q, q, q, return_lse=True)
     before = fa.bwd_launches
     grads = fa.flash_attention_bwd(q, q, q, out, q, lse)
     torch.cuda.synchronize()
@@ -409,7 +475,7 @@ def test_flash_attention_backward_refuses_a_plan_not_its_own(card, monkeypatch, 
     with any one number off raises and launches nothing, so the CPU
     schedule test cannot check a stale copy of the kernels' tiles."""
     q = torch.randn(1, 2, 130, hd, device=card, dtype=torch.bfloat16)
-    out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    _, lse, out = fa.flash_attention_fwd(q, q, q, return_lse=True)
     plan = fa.bwd_geometry
 
     def off(S, width):
@@ -494,6 +560,57 @@ def test_dense_train_step_on_card_matches_cpu(card):
     for name, p in cpu.items():
         tol = 1e-3 * float(p.grad.abs().max())
         torch.testing.assert_close(dev[name].grad.cpu(), p.grad, rtol=1e-3, atol=tol, msg=name)
+
+
+def test_whisper_train_step_on_card_matches_cpu(card):
+    """A reduced whisper's loss and gradients on the card (2 encoder and 2
+    decoder layers: 6 flash forward launches and 6 backward calls, the two
+    cross-attentions' 24 rows over 64 frames among them) against the same
+    model on the CPU (the plain versions), in f32."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import load_params
+
+    cfg = get_config("whisper_medium").reduced()
+    models = [build_model(cfg, device=d, seed=0) for d in ("cpu", card)]
+    _temper_whisper(models[0])
+    load_params(models[1], models[0].param_tree())
+    for m in models:
+        m.requires_grad_(True)
+    rng = np.random.default_rng(5)
+    batch = {"frames": torch.from_numpy((rng.standard_normal((2, cfg.enc_seq, cfg.d_model))
+                                         * 0.1).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (2, 24)).astype(np.int32))}
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    losses = []
+    before = (fa.launches, fa.bwd_launches)
+    for m in models:
+        loss, _ = m.train_loss(batch)
+        loss.backward()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + n_attn, before[1] + n_attn)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    cpu, dev = (flatten(m.param_tree(), "param") for m in models)
+    for name, p in cpu.items():
+        tol = 1e-3 * float(p.grad.abs().max())
+        torch.testing.assert_close(dev[name].grad.cpu(), p.grad, rtol=1e-3, atol=tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+def _temper_whisper(model):
+    """Every attention's projections scaled to their contraction width, as
+    ``chip_smoke.py:_temper_attention`` and ``tests/test_torch_whisper.py``
+    do: at the init scales the scores' softmax is all but an argmax, and two
+    devices' f32 roundings then move gradients past any tolerance."""
+    cfg = model.cfg
+    d, H = cfg.d_model, cfg.n_heads
+    with torch.no_grad():
+        for a in (model.enc_layers.attn, model.dec_layers.self_attn,
+                  model.dec_layers.cross_attn):
+            for name, factor in (("wq", H / d), ("wk", H / d), ("wv", H / d), ("wo", 1 / H)):
+                a[name].mul_(factor ** 0.5)
 
 
 @pytest.mark.parametrize("B,KV,g,S,hd,pos,window", [

@@ -20,6 +20,18 @@ shows it, and the 600-frame comparison runs the reference with its
 ``_attn`` patched to one chunk of Sq rows, the exact full attention. The
 JAX ``ServeEngine`` cannot serve this family (its prefill passes no frames),
 and the port's engine says so.
+
+Training: ``train_loss`` and every leaf's gradient against
+``jax.value_and_grad`` of the reference's ``train_loss`` in f32, with remat
+on and off, at 64 frames and at 1,024 (lengths the reference takes: one
+chunk, or whole chunks of 512), ``LOSS_TOL`` 1e-5 and ``GRAD_TOL`` 1e-3 of
+each leaf's largest gradient (``tests/test_torch_vlm.py``); every attention
+of the step through the differentiable ``ops.flash_attention``, the
+cross-attention with Sq = S_text rows over Sk = S_audio keys; ``train()``
+fed by a ``DeviceLoader`` over a dataset whose ``frames`` are stored as u8
+codes, resumed from its checkpoint within the resume gate
+(``tests/test_system.py:49-70``); and its checkpoint restored by the JAX
+package bit for bit.
 """
 
 import numpy as np
@@ -33,25 +45,33 @@ import repro.checkpoint as jck
 import repro.models.whisper as jwhisper
 from repro.checkpoint.store import _leaf_name
 from repro.configs import get_config as jax_config
+from repro.distributed import optimizer as jopt
 from repro.models import build_model as jax_build
 from repro.serving import ServeEngine as JaxEngine
 from repro_torch.checkpoint import load_checkpoint, restore_pipelined, save_checkpoint
 from repro_torch.checkpoint.store import flatten
 from repro_torch.configs import get_config
+from repro_torch.data import DataLoader, DatasetBuilder, DeviceLoader, RaDataset
+from repro_torch.distributed.optimizer import AdamWConfig
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.convert import load_params, params_from_jax
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.serving import ServeEngine
 from repro_torch.serving.__main__ import main as serve_main
+from repro_torch.train import TrainLoopConfig, train
 
 TOL = 1e-4  # of each tensor's scale: rtol 1e-4, atol 1e-4 * max(1, max |want|)
 BF16_TOL = 2e-2  # bf16 activations: the attention kernels' bf16 tolerance (test_kernels.py:19)
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-3  # of each leaf's largest |gradient|
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_system.py:49-70
 ARCH = "whisper_medium"
 ATTN = {"enc_layers": ("attn",), "dec_layers": ("self_attn", "cross_attn")}
 
 
 def _np(x):
-    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+    return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
 def _close(got, want, err_msg="", tol=TOL):
@@ -284,10 +304,128 @@ def test_restored_model_serves_the_same_logits(tmp_path):
     assert torch.equal(model.prefill(frames, tokens)[0], src.prefill(frames, tokens)[0])
 
 
-def test_train_loss_raises_naming_its_item():
-    port = build_model(get_config(ARCH).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10.*K9"):
-        port.train_loss({"frames": None, "tokens": None})
+@pytest.mark.parametrize("S_audio", [64, 1024])
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_loss_and_grads_match_jax(remat, S_audio):
+    """The loss over 40 text tokens behind 64 frames (the reduced enc_seq)
+    or 1,024 (two of the reference's 512-row chunks, the positions tiled),
+    its metrics, and every leaf's gradient, the stacked layers' and the
+    learned positions' included."""
+    jmodel, params, port = _pair(remat=remat)
+    port.requires_grad_(True)
+    cfg = port.cfg
+    frames = _frames(cfg, 2, S_audio)
+    toks = _tokens(cfg, 2, 40)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.train_loss(p, {"frames": jnp.asarray(frames),
+                                        "tokens": jnp.asarray(toks)}),
+        has_aux=True))(params)
+    loss, met = port.train_loss({"frames": torch.from_numpy(frames),
+                                 "tokens": torch.from_numpy(toks)})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=LOSS_TOL)
+    assert set(met) == set(jmet) == {"loss", "ce", "acc"}
+    for key in met:
+        np.testing.assert_allclose(float(met[key].detach()), float(jmet[key]), rtol=LOSS_TOL,
+                                   atol=1e-7)
+    want = {name: np.asarray(g) for name, g in flatten(jax.device_get(jg), "param").items()}
+    got = {name: p.grad for name, p in flatten(port.param_tree(), "param").items()}
+    assert set(got) == set(want)
+    for name, g in want.items():
+        assert got[name] is not None, name
+        scale = float(np.abs(g).max())
+        np.testing.assert_allclose(_np(got[name]), g, rtol=GRAD_TOL, atol=GRAD_TOL * scale,
+                                   err_msg=name)
+
+
+def test_train_loss_differentiates_every_attention_through_the_op(monkeypatch):
+    """Each attention of a train step goes through ``ops.flash_attention``
+    with inputs that require grad (so on the card through the forward and
+    backward kernels): the encoder's over the frames, the decoder's causal
+    self-attention, and its cross-attention of S_text rows over S_audio
+    keys; and every attention projection gets a gradient."""
+    port = build_model(get_config(ARCH).reduced(), device="cpu", seed=3)
+    port.requires_grad_(True)
+    cfg = port.cfg
+    calls = []
+    kept = ops.flash_attention
+
+    def record(q, k, v, *, causal=True, **kw):
+        calls.append((q.shape[2], k.shape[2], causal, q.requires_grad and k.requires_grad))
+        return kept(q, k, v, causal=causal, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", record)
+    S_audio, S_text = cfg.enc_seq, 24
+    loss, _ = port.train_loss({"frames": torch.from_numpy(_frames(cfg, 2, S_audio)),
+                               "tokens": torch.from_numpy(_tokens(cfg, 2, S_text))})
+    loss.backward()
+    enc = [(S_audio, S_audio, False, True)] * cfg.n_enc_layers
+    dec = [(S_text, S_text, True, True), (S_text, S_audio, False, True)] * cfg.n_layers
+    assert calls == enc + dec
+    for stack, kinds in ATTN.items():
+        for kind in kinds:
+            for name in ("wq", "wk", "wv", "wo"):
+                grad = getattr(getattr(port, stack), kind)[name].grad
+                assert grad is not None and bool(grad.flatten(1).abs().sum(1).all()), \
+                    (stack, kind, name)
+
+
+@pytest.fixture(scope="module")
+def u8_frames_dataset(tmp_path_factory):
+    """16 rows of (64 frames, 24 tokens) for the reduced model, the frames
+    stored as u8 codes over [-0.5, 0.5] (the paper's archival format)."""
+    cfg = get_config(ARCH).reduced()
+    root = str(tmp_path_factory.mktemp("whisper_u8") / "data")
+    builder = DatasetBuilder(root, {"frames": ((cfg.enc_seq, cfg.d_model), "float32"),
+                                    "tokens": ((24,), "int32")},
+                             shard_rows=8, quantize={"frames": ("u8", -0.5, 0.5)})
+    builder.append(frames=_frames(cfg, 16, cfg.enc_seq, seed=5),
+                   tokens=_tokens(cfg, 16, 24, seed=6))
+    builder.finish()
+    return root
+
+
+def _train_run(root, ckpt_dir, steps, resume):
+    """``train()`` of a reduced whisper (weights from seed 2) on batches of 2
+    that a ``DeviceLoader`` on the CPU decodes from the u8 codes."""
+    model = build_model(get_config(ARCH).reduced(), device="cpu", seed=2)
+    feed = DeviceLoader(DataLoader(RaDataset(root), 2, seed=0), device="cpu")
+    return train(model, feed, TrainLoopConfig(
+        steps=steps, ckpt_every=4, ckpt_dir=ckpt_dir, log_every=1000,
+        adamw=AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=50)), resume=resume)
+
+
+def test_train_resumes_from_its_checkpoint_through_u8_frames(u8_frames_dataset, tmp_path,
+                                                             capsys):
+    """6 steps straight against 4 steps, then a resume at step 4 for the
+    last 2: equal losses and parameters within the resume gate."""
+    straight = _train_run(u8_frames_dataset, str(tmp_path / "a"), 6, resume=False)
+    _train_run(u8_frames_dataset, str(tmp_path / "b"), 4, resume=False)
+    resumed = _train_run(u8_frames_dataset, str(tmp_path / "b"), 6, resume=True)
+    assert "[train] resumed from step 4" in capsys.readouterr().out
+    assert np.isfinite(straight["losses"]).all() and len(straight["losses"]) == 6
+    assert resumed["steps"] == 6 and len(resumed["losses"]) == 2
+    np.testing.assert_allclose(resumed["losses"], straight["losses"][4:], **RESUME_TOL)
+    a, b = flatten(straight["params"], "param"), flatten(resumed["params"], "param")
+    for name in a:
+        np.testing.assert_allclose(_np(b[name]), _np(a[name]), **RESUME_TOL, err_msg=name)
+
+
+def test_trained_checkpoint_restores_in_the_jax_package(u8_frames_dataset, tmp_path):
+    """The checkpoint ``train()`` wrote at its end (parameters and AdamW
+    state) restores in the JAX package bit for bit."""
+    out = _train_run(u8_frames_dataset, str(tmp_path / "ck"), 3, resume=False)
+    path = str(tmp_path / "ck" / "step_00000003")
+    like = jax.eval_shape(lambda: jax_build(jax_config(ARCH).reduced()).init(
+        jax.random.PRNGKey(0)))
+    jparams, jstate, _ = jck.load_checkpoint(path, like, jopt.init_state(
+        like, jopt.AdamWConfig()))
+    want = {**flatten(out["params"], "param"), **flatten(out["opt_state"], "opt")}
+    got = {**flatten(jax.device_get(jparams), "param"),
+           **flatten(jax.device_get(jstate), "opt")}
+    assert set(got) == set(want)
+    for name, t in want.items():
+        assert np.array_equal(np.asarray(got[name]), t.detach().numpy()), name
 
 
 def test_reference_engine_cannot_serve_encdec():

@@ -243,7 +243,34 @@ Phases (any failure exits non-zero and prints no result):
    counts 22 × 4 × 2 forward and 22 × 4 backward, a dequant launch a batch,
    peak memory, a profiled step. The text tokens of phases 16 and 17 come
    from ``data.synth.markov_tokens``, phase 9's token generator (Zipf
-   starts, fixed successors).
+   starts, fixed successors);
+18. serving: kimi-k2-1t-a32b at its full widths (d_model 7,168, 64 heads
+   over 8 KV heads of head width 112, 384 routed experts of 2,048 and one
+   shared, top-8 by a sigmoid router, 8 dispatch chunks, vocab 163,840;
+   bf16) and 2 of 61 layers (the dense first layer and one MoE layer: 19.9 B
+   parameters, 39.9 GB), random weights from seed 0 built on the card with
+   the attention tempered as in phase 5; 8 prompts of 512 tokens with 64 new
+   tokens through ``ServeEngine`` (2 flash launches on the tensor cores at
+   (112, 112) and 2 × 64 decode launches), warm again; the first prefill's
+   and the first step's logits within ``LOGITS_TOL`` of plain attention's
+   (held under the plain run's routes where a routing near-tie breaks the
+   other way, and then said so), the share of (token, k) routes that differ
+   between the two runs, greedy-token agreement, prefill_s, decode tokens/s
+   and peak device memory;
+19. serving: deepseek-v3-671b at its full widths (MLA with q_lora 1,536,
+   kv_lora 512, rope 64, 128 heads; 256 routed experts and one shared) and 4
+   of 61 layers (the 3 dense prefix layers and one MoE layer, plus the MTP
+   leaves, carried and not served: 15.8 B parameters, 31.6 GB), tempered
+   (MLA's ``wq_b``, ``wkv_b`` and ``wo``), saved as a raw RawArray checkpoint
+   (deleted after the restore) and cold-started onto a meta-device model by
+   ``restore_pipelined`` (every leaf bit-equal; cold-start s and GB/s), then
+   served as phase 18 (4 flash launches at (192, 128) and 4 × 64 absorbed
+   decode launches at (576, 512), V read from the latent rows).
+   Phase 3b holds both kernels at these widths (kimi's prefill q
+   (8,64,576,112) and decode, group 8; the MLA prefill q/k (8,128,576,192), v
+   (8,128,576,128), and the MLA decode, 128 heads over (8,1,576,576) rows,
+   scale 192^-1/2) against their plain versions, with edges (ragged tiles,
+   Sk > Sq, windows, pos 0 and inside the first tile, f32).
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -613,19 +640,35 @@ def phase_attention(torch) -> tuple:
         ("whisper_encoder", 8, 16, 16, 1500, 1500, 64, "bfloat16", False, 0, True),
         ("whisper_decoder", 8, 16, 16, 128, 128, 64, "bfloat16", True, 0, True),
         ("whisper_cross", 8, 16, 16, 128, 1500, 64, "bfloat16", False, 0, True),
+        # kimi-k2-1t (phase 18): 64 heads over 8 KV heads of 112, the engine's
+        # prefill of 8 prompts padded to 512 + 64 rows; deepseek-v3-671b's MLA
+        # prefill (phase 19), expanded: 128 heads, q·k 128 + 64 wide, v 128
+        ("kimi_prefill", 8, 64, 8, 576, 576, 112, "bfloat16", True, 0, True),
+        ("deepseek_mla_prefill", 8, 128, 128, 576, 576, 192, "bfloat16", True, 0, True, 128),
+        ("edge_hd112_tail_tile", 2, 16, 2, 130, 130, 112, "bfloat16", True, 0, False),
+        ("edge_hd112_sk_gt_sq", 2, 8, 1, 96, 160, 112, "bfloat16", True, 0, False),
+        ("edge_hd112_window", 1, 8, 8, 300, 300, 112, "bfloat16", True, 64, False),
+        ("edge_hd112_f32", 2, 8, 1, 200, 200, 112, "float32", True, 0, False),
+        ("edge_mla_tail_tile", 2, 16, 16, 130, 130, 192, "bfloat16", True, 0, False, 128),
+        ("edge_mla_sk_gt_sq", 2, 8, 8, 96, 161, 192, "bfloat16", True, 0, False, 128),
+        ("edge_mla_non_causal", 1, 4, 4, 200, 200, 192, "bfloat16", False, 0, False, 128),
+        ("edge_mla_f32", 2, 4, 4, 130, 130, 192, "float32", True, 0, False, 128),
     ]
     flash_rows = []
-    for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in flash_cases:
-        q, k, v = randn((B, H, Sq, hd), dt), randn((B, KV, Sk, hd), dt), randn((B, KV, Sk, hd), dt)
+    for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed, *dv in flash_cases:
+        dv = dv[0] if dv else hd  # v's width, where it is not q·k's
+        q, k, v = randn((B, H, Sq, hd), dt), randn((B, KV, Sk, hd), dt), randn((B, KV, Sk, dv), dt)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         row = {"case": label, "shape": {"q": [B, H, Sq, hd], "kv": [B, KV, Sk, hd]},
                "dtype": dt, "causal": causal, "window": window}
+        if dv != hd:
+            row["shape"]["v"] = [B, KV, Sk, dv]
         if timed:
             esize = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
-            flops = 4 * hd * B * H * _live_pairs(Sq, Sk, causal, window)
+            nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * esize
+            flops = 2 * (hd + dv) * B * H * _live_pairs(Sq, Sk, causal, window)
             if window:  # the same function in one library call: a boolean mask
                 qp, kp = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)
                 keep = (kp <= qp) & (kp > qp - window)
@@ -678,26 +721,46 @@ def phase_attention(torch) -> tuple:
         # states (group 1, hd 64)
         ("whisper_self_decode", 8, 16, 1, 128, 64, 126, "bfloat16", 0, False, True),
         ("whisper_cross_decode", 8, 16, 1, 1500, 64, 1499, "bfloat16", 0, False, True),
+        # kimi-k2-1t (phase 18): the engine's last step, group 8 of head width 112;
+        # deepseek-v3-671b (phase 19): the absorbed MLA decode, 128 heads over one
+        # cache head of 576-wide rows (latent ++ k_rope), V the rows' first 512
+        # columns, scale 192^-1/2
+        ("kimi_decode", 8, 8, 8, 576, 112, 575, "bfloat16", 0, False, True),
+        ("deepseek_mla_decode", 8, 1, 128, 576, 576, 575, "bfloat16", 0, False, True, 512),
+        ("edge_hd112_pos0", 8, 8, 8, 576, 112, 0, "bfloat16", 0, True, False),
+        ("edge_hd112_window", 2, 8, 8, 576, 112, 400, "bfloat16", 100, True, False),
+        ("edge_hd112_f32", 2, 8, 8, 300, 112, 299, "float32", 0, True, False),
+        ("edge_mla_pos0", 8, 1, 128, 576, 576, 0, "bfloat16", 0, True, False, 512),
+        ("edge_mla_pos_in_first_tile", 8, 1, 128, 576, 576, 17, "bfloat16", 0, True, False, 512),
+        ("edge_mla_ragged", 2, 1, 16, 100, 576, 99, "bfloat16", 0, False, False, 512),
     ]
     decode_rows = []
-    for label, B, KV, g, S, hd, pos, dt, window, garbage, timed in decode_cases:
+    for label, B, KV, g, S, hd, pos, dt, window, garbage, timed, *dv in decode_cases:
+        # MLA (dv given): V is the first dv columns of K's rows, at scale 192^-1/2
+        dv, scale = (dv[0], 192 ** -0.5) if dv else (hd, None)
         q = randn((B, KV * g, hd), dt)
-        k, v = randn((B, KV, S, hd), dt), randn((B, KV, S, hd), dt)
+        k = randn((B, KV, S, hd), dt)
+        v = k[..., :dv] if dv != hd else randn((B, KV, S, hd), dt)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
-        out = ops.decode_attention(q, k, v, p, window=window)
+        out = ops.decode_attention(q, k, v, p, window=window, scale=scale)
         torch.cuda.synchronize()
-        plain = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p,
-                                         window=window).reshape(B, KV * g, hd)
+        plain = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window,
+                                         scale=scale).reshape(B, KV * g, dv)
         cluster, keys = decode_attention.geometry(
-            B, KV, g, S, torch.cuda.get_device_properties(dev).multi_processor_count)
+            B, KV, g, S, torch.cuda.get_device_properties(dev).multi_processor_count, hd)
         row = {"case": label, "shape": {"q": [B, KV * g, hd], "kv": [B, KV, S, hd]},
                "dtype": dt, "pos": pos, "window": window, "cluster": cluster,
                "keys_per_cta": keys}
+        if dv != hd:
+            row["shape"]["v"] = f"k[..., :{dv}]"
+            row["scale"] = scale
         if garbage:  # rows past pos are never read: NaN there changes nothing
-            k2, v2 = k.clone(), v.clone()
+            k2 = k.clone()
+            v2 = k2[..., :dv] if dv != hd else v.clone()
             k2[:, :, pos + 1:] = float("nan")
-            v2[:, :, pos + 1:] = 1e30
-            again = ops.decode_attention(q, k2, v2, p, window=window)
+            if dv == hd:
+                v2[:, :, pos + 1:] = 1e30
+            again = ops.decode_attention(q, k2, v2, p, window=window, scale=scale)
             torch.cuda.synchronize()
             row["garbage_past_pos_equal"] = bool(torch.equal(again, out))
             if not row["garbage_past_pos_equal"]:
@@ -706,17 +769,22 @@ def phase_attention(torch) -> tuple:
             lo = max(0, pos - window + 1) if window else 0
             live = pos - lo + 1
             esize = q.element_size()
-            nbytes = (2 * q.numel() + 2 * B * KV * live * hd) * esize
-            flops = 4 * hd * B * KV * g * live
+            # q and the output once, each live K row once and each live V row once
+            # (MLA: V lies in K's rows, read once with them)
+            kv_row = hd + (dv if dv == hd else 0)
+            nbytes = (q.numel() + out.numel() + B * KV * live * kv_row) * esize
+            flops = 2 * (hd + dv) * B * KV * g * live
             kpos = torch.arange(S, device=dev)
             mask = (kpos <= p) & (kpos > p - window) if window else kpos <= p
             mask = mask.view(1, 1, 1, S)
             q4 = q.view(B, KV * g, 1, hd)
             row.update(_timings(
                 torch,
-                lambda: ops.decode_attention(q, k, v, p, window=window),
-                lambda: ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window),
-                lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True),
+                lambda: ops.decode_attention(q, k, v, p, window=window, scale=scale),
+                lambda: ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window,
+                                                 scale=scale),
+                lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True,
+                                                       scale=scale),
                 flush, nbytes, flops, events=1,
             ))
         _check_close(torch, "decode_attention", row, out, plain)
@@ -1059,7 +1127,13 @@ def _temper_attention(torch, model) -> None:
     a 1e-7 difference at layer 0 grows about 20x a layer, so no two attention
     implementations agree on its logits, f32 or bf16. Scaled by
     ``1/sqrt(d_model)`` (``1/sqrt(H*hd)`` for ``wo``) instead, scores have a
-    std near 1 and the comparison below is meaningful."""
+    std near 1 and the comparison below is meaningful.
+
+    The moe family: both stacks (``dense_layers``, ``moe_layers``). MLA's
+    ``wq_b`` (q_lora, H, 192) and ``wkv_b`` (kv_lora, H, 256) are divided by
+    the head count too, where their contraction is the rank (1,536, 512),
+    and ``wo`` (H, 128, d) by 128 where it contracts all H·128; ``wq_a`` and
+    ``wkv_a`` (d, rank) are at their fan-in already."""
     cfg = model.cfg
     if cfg.family == "hybrid":
         attns, d = [model.shared.attn], 2 * cfg.d_model
@@ -1067,9 +1141,18 @@ def _temper_attention(torch, model) -> None:
         attns = [model.enc_layers.attn, model.dec_layers.self_attn, model.dec_layers.cross_attn]
         d = cfg.d_model
     else:
-        attns, d = [model.dense_layers.attn], cfg.d_model
+        attns = [getattr(model, stack).attn for stack in ("dense_layers", "moe_layers")
+                 if hasattr(model, stack)]
+        d = cfg.d_model
     H, KV = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
     with torch.no_grad():
+        if cfg.attn_type == "mla":
+            m = cfg.mla
+            for a in attns:
+                a.wq_b.mul_((H / m.q_lora_rank) ** 0.5)
+                a.wkv_b.mul_((H / m.kv_lora_rank) ** 0.5)
+                a.wo.mul_((1 / H) ** 0.5)
+            return
         for a in attns:
             a.wq.mul_((H / d) ** 0.5)
             a.wk.mul_((KV / d) ** 0.5)
@@ -1098,14 +1181,16 @@ def _plain_attention():
 
     kept = ops.flash_attention, ops.decode_attention
 
-    def flash(q, k, v, *, causal=True, window=0, **_):
+    # the ops' own signatures: an argument the plain versions would drop raises
+    def flash(q, k, v, *, causal=True, window=0, block_q=128, block_k=128):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
-    def decode(q, k, v, pos, *, window=0, **_):
+    def decode(q, k, v, pos, *, window=0, block_s=512, scale=None):
         B, H, hd = q.shape
         KV = k.shape[1]
-        out = ref.decode_attention_ref(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window)
-        return out.reshape(B, H, hd)
+        out = ref.decode_attention_ref(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window,
+                                       scale=scale)
+        return out.reshape(B, H, out.shape[-1])
 
     ops.flash_attention, ops.decode_attention = flash, decode
     try:
@@ -3354,6 +3439,198 @@ def phase_llava_training(torch) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phases 18-19
+#: the moe family's serving cuts (of 61 layers): the dense prefix kept whole
+#: where it fits, one MoE layer each (PERF.md §4 has the byte arithmetic)
+MOE_LAYERS = {"kimi_k2_1t": 2, "deepseek_v3_671b": 4}
+
+
+@contextlib.contextmanager
+def _routes(record=None, replay=None):
+    """Each MoE routing call's (expert ids, gates), in call order: appended
+    to ``record``, or, with ``replay``, taken from an earlier run's record
+    (the call's own aux loss kept), for this script's comparison only."""
+    from repro_torch.models import moe
+
+    kept = moe.route
+    given = iter(replay) if replay is not None else None
+
+    def route(p, x2d, cfg):
+        idx, gates, aux = kept(p, x2d, cfg)
+        if given is not None:
+            idx, gates = next(given)
+        if record is not None:
+            record.append((idx, gates))
+        return idx, gates, aux
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = kept
+
+
+def _route_diff(torch, got: list, want: list) -> dict:
+    """(token, k) routes that differ between two runs' records: each token's
+    experts compared as sets (sorted ids), so only a changed choice counts."""
+    if len(got) != len(want):
+        raise SystemExit(f"chip_smoke: {len(got)} routing calls against {len(want)}")
+    differ = total = tokens = 0
+    for (a, _), (b, _) in zip(got, want):
+        ne = torch.sort(a, -1).values != torch.sort(b, -1).values
+        differ += int(ne.sum())
+        tokens += int(ne.any(-1).sum())
+        total += ne.numel()
+    return {"routes": total, "routes_differ": differ, "share": differ / total,
+            "tokens_with_a_changed_route": tokens}
+
+
+def _moe_logits_gates(torch, engine, model, prompts, capacity: int, out: dict):
+    """First-prefill and first-step logits against plain attention's, and
+    the routes that differ between the two runs. Where the free-routed
+    comparison misses ``LOGITS_TOL``, it is made again with the kernel run
+    held to the plain run's routes (expert ids and gates): a near-tie in the
+    top-k that the two roundings break differently swaps a whole expert's
+    output, which is routing, not attention."""
+    tokens = torch.from_numpy(prompts.astype("int64")).to(model.device)
+    plain_routes, routes = [], []
+    with _plain_attention():
+        with _routes(record=plain_routes):
+            plain_prefill = model.prefill(tokens)[0].float()
+            plain_first = engine._prefill_with_capacity(prompts, capacity)[0].float()
+        plain_tokens = engine.generate(prompts, max_new=capacity - prompts.shape[1])
+    with _routes(record=routes):
+        prefill = model.prefill(tokens)[0].float()
+        first = engine._prefill_with_capacity(prompts, capacity)[0].float()
+    out["routes_vs_plain_attention"] = _route_diff(torch, routes, plain_routes)
+    gates = {}
+    for key, got, plain, what in (("first_prefill_logits", prefill, plain_prefill, "prefill"),
+                                  ("first_step_logits", first, plain_first, "first step")):
+        try:
+            _first_logits_gate(torch, gates, key, got, plain, f"{out['arch']} {what} logits")
+            gates[key]["routes"] = "free"
+        except SystemExit:
+            log(f"[moe serving] {what} logits miss the gate with free routes: {gates[key]}; "
+                "again under the plain run's routes")
+            with _routes(replay=plain_routes):
+                again = (model.prefill(tokens)[0].float(),
+                         engine._prefill_with_capacity(prompts, capacity)[0].float())
+            free = gates[key]
+            _first_logits_gate(torch, gates, key, again[0 if key.endswith("prefill_logits") else 1],
+                               plain, f"{out['arch']} {what} logits under the plain routes")
+            gates[key].update(routes="held to the plain run's", free_routes=free)
+    out.update(gates)
+    return plain_tokens
+
+
+def _moe_serving(torch, arch: str, cold_start: bool, card: str) -> dict:
+    """One moe config at full width, its depth cut to ``MOE_LAYERS``, bf16,
+    random weights from seed 0 built on the card and tempered; with
+    ``cold_start`` saved as a raw checkpoint and restored onto a meta-device
+    model by ``restore_pipelined`` (bit-equal) before it serves. Then 8
+    prompts of 512 tokens with 64 new tokens each through the engine. The
+    line it prints names the card and its power limit (``card``, as
+    ``nvidia-smi`` gives them) beside the rates."""
+    import numpy as np
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, dequant_u8, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    dev = torch.device("cuda", 0)
+    full = get_config(arch)
+    cfg = full.with_(n_layers=MOE_LAYERS[arch])
+    m = cfg.moe
+    B, S, max_new, L = 8, 512, 64, cfg.n_layers
+    out: dict = {"arch": cfg.name, "layers": L, "of_layers": full.n_layers,
+                 "dense_layers": m.first_dense, "moe_layers": L - m.first_dense,
+                 "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                 "attn_type": cfg.attn_type, "experts": m.n_experts, "top_k": m.top_k,
+                 "shared_experts": m.n_shared, "d_ff_expert": m.d_ff_expert,
+                 "dispatch_chunks": m.dispatch_chunks, "vocab": cfg.vocab,
+                 "dtype": cfg.param_dtype, "batch": B, "prompt": S, "max_new": max_new,
+                 "card": card}
+    if cfg.attn_type == "mla":
+        out["mla"] = {"q_lora": cfg.mla.q_lora_rank, "kv_lora": cfg.mla.kv_lora_rank,
+                      "rope": cfg.mla.qk_rope_head_dim, "nope": cfg.mla.qk_nope_head_dim,
+                      "v": cfg.mla.v_head_dim, "mtp_carried": cfg.mtp}
+    else:
+        out["head_dim"] = cfg.head_dim
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["init_peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    _temper_attention(torch, model)
+    out["params"] = sum(t.numel() for t in model.parameters())
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in model.parameters())
+
+    if cold_start:
+        saved = flatten(model.param_tree(), "param")
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{arch}_") as tmp:
+            t0 = time.perf_counter()
+            raw = save_checkpoint(os.path.join(tmp, "raw"), 1, model.param_tree())
+            out["save_raw_s"] = time.perf_counter() - t0
+            out["largest_leaf_bytes"] = max(t.numel() * t.element_size() for t in saved.values())
+            engine = ServeEngine(build_model(cfg, device="meta"), checkpoint=raw, device=dev)
+            for name, t in flatten(engine.model.param_tree(), "param").items():
+                if t.device != dev or not torch.equal(t, saved[name]):
+                    raise SystemExit(f"chip_smoke: restored leaf {name} is not the saved one")
+            out["raw_cold_start"] = _cold(engine.cold_start)
+        del saved, model
+        model = engine.model
+        torch.cuda.empty_cache()
+    else:
+        engine = ServeEngine(model)
+    if engine.device != dev:
+        raise SystemExit(f"chip_smoke: ServeEngine runs on {engine.device}, not the card")
+
+    kernels = (dequant_u8, flash_attention, decode_attention, ssd_scan)
+    prompts = np.random.default_rng(SEED + 7).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts(kernels)
+    tokens = engine.generate(prompts, max_new=max_new)
+    launches = _counts(kernels)
+    out["launches"] = launches
+    out["flash_attention_launches"] = launches["flash_attention"]
+    out["flash_attention_tc_launches"] = launches["flash_attention_tc"]
+    out["decode_attention_launches"] = launches["decode_attention"]
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out.update(engine.throughput())
+    if tokens.shape != (B, max_new) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: generate gave {tokens.shape} tokens out of range")
+    want = {"dequant_u8": 0, "flash_attention": L, "decode_attention": L * max_new,
+            "ssd_scan": 0, "flash_attention_tc": L}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: {arch} generate launched {launches}, wanted {want}")
+    engine.stats = {key: 0.0 for key in engine.stats}
+    engine.generate(prompts, max_new=max_new)
+    out["warm"] = engine.throughput()
+    plain_tokens = _moe_logits_gates(torch, engine, model, prompts, S + max_new, out)
+    out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
+    out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
+    del engine, model
+    torch.cuda.empty_cache()
+    log(f"[moe serving] {json.dumps(out)}")
+    return out
+
+
+def phase_kimi_serving(torch, card: str) -> dict:
+    """kimi-k2-1t-a32b at full widths, 2 of 61 layers: GQA at head width 112."""
+    return _moe_serving(torch, "kimi_k2_1t", cold_start=False, card=card)
+
+
+def phase_deepseek_serving(torch, card: str) -> dict:
+    """deepseek-v3-671b at full widths, 4 of 61 layers: MLA, cold-started from
+    a raw checkpoint the port saves."""
+    return _moe_serving(torch, "deepseek_v3_671b", cold_start=True, card=card)
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -3415,6 +3692,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     whisper = run(phase_whisper_serving, torch)
     w_train = run(phase_whisper_training, torch)
     l_train = run(phase_llava_training, torch)
+    kimi = run(phase_kimi_serving, torch, card)
+    deepseek = run(phase_deepseek_serving, torch, card)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -3454,7 +3733,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     }]
     def by_phase(key):
         return {serve["arch"]: serve[key], gemma["arch"]: gemma[key],
-                f"{rem['arch']} from the URL": rem["serve_url"][key], llava["arch"]: llava[key]}
+                f"{rem['arch']} from the URL": rem["serve_url"][key], llava["arch"]: llava[key],
+                f"{kimi['arch']} ({kimi['layers']} layers)": kimi[key],
+                f"{deepseek['arch']} ({deepseek['layers']} layers)": deepseek[key]}
 
     llava_prefills = {f"{llava['arch']} prefill {r['batch']} x ({r['patches']} + {r['tokens']})":
                       r["launches"] for r in llava["prefill"]}

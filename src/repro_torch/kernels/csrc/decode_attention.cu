@@ -28,10 +28,11 @@
 //     contiguous, so a tile is one byte range of K and one of V; the last tile's row
 //     count comes from pos and the window, so no row past pos (or before the window)
 //     is ever copied or read;
-//   * eight consumer warps take 8 keys of each tile (4 for f32 at hd 256). A "team" of
-//     hd/8 lanes owns a key (a whole warp at hd 256): 16-byte shared-memory reads of
-//     K, the f32 dot products with the G query rows (held in registers) reduced by
-//     shuffles inside the team. Softmax goes per tile, not per key: one max per tile
+//   * eight consumer warps take 8 keys of each tile (4 where a row is 1 KB or more). A
+//     "team" of lanes owns a key (hd/8 lanes, a whole warp at hd 256 and at MLA's 576;
+//     16 at 112, two idle; Split below): 16-byte shared-memory reads of K, the f32 dot
+//     products with the G query rows (held in registers) reduced by shuffles inside
+//     the team. Softmax goes per tile, not per key: one max per tile
 //     and head across the warp, one exp2 for the rescale, one exp2 per score, with
 //     scale * log2(e) folded into the scores; P·V accumulates in f32 registers. A warp releases the stage on its empty barrier;
 //   * the splits fold through distributed shared memory, pushed rather than pulled:
@@ -45,7 +46,14 @@
 //     every CTA of the cluster is running. A warp that saw no live key has l = 0 and
 //     is skipped;
 //   * pos is read from a device int32, never from the host, and the launch
-//     allocates nothing, so a decode step issues no host sync.
+//     allocates nothing, so a decode step issues no host sync;
+//   * widths come in (q·k, v) pairs. DeepSeek-V3's absorbed MLA decode (576, 512)
+//     attends all 128 query heads over one cache head whose rows are latent (512)
+//     ++ k_rope (64) and takes V as each row's latent: the ring holds K's rows only
+//     and V is read from them, so the cache crosses from device memory once a head
+//     chunk. A lane there holds 24 query columns a head, so a CTA serves 2 heads and
+//     the 64 head chunks of a sequence each stream its cache (from L2 after the
+//     first; ROADMAP.md lists merging them as open).
 // Measured on an H100 (PERF.md): the cold cache streams at about 2.5 TB/s here, and
 // at the serving shape the pos read, the first tile's round trip and the fold add
 // some 5 µs to the 7.6 µs of streaming.
@@ -148,44 +156,83 @@ __device__ __forceinline__ void live_range(int pos, int S, int window, int* lo, 
     *hi = pos < S - 1 ? pos : S - 1;
 }
 
-// Shared memory: K ring | V ring | what the cluster's warps send this CTA: their
-// (m, l) for every head [4·kMaxCluster][G] each, and their acc for this CTA's share of
-// the G·hd outputs [4·cluster][share] | barriers
-template <typename T, int HD, int G>
+// How the lanes of a warp split one cache row (q·k width DK, v width DV): a team of
+// kLanes lanes (a power of two) owns a key, lane tl takes the 8-column chunks tl,
+// tl + kLanes, ... of the row (kNK of K, kNV of V), and a lane whose chunk lies past
+// the width holds zeros there. Up to hd 256 that is one chunk of K and of V a lane
+// (hd/8 lanes a key, as the widths are powers of two); at 112 a team is 16 lanes of
+// which 14 hold data; at MLA's (576, 512) a whole warp takes a key, 3 chunks of K a
+// lane (the third on lanes 0-7 only) and 2 of V.
+template <int DK, int DV>
+struct Split {
+    static constexpr int kChunksK = DK / 8;
+    static constexpr int kChunksV = DV / 8;
+    static constexpr int kLanes = kChunksK > 16 ? 32 : kChunksK > 8 ? 16 : kChunksK > 4 ? 8 : 4;
+    static constexpr int kNK = (kChunksK + kLanes - 1) / kLanes;
+    static constexpr int kNV = (kChunksV + kLanes - 1) / kLanes;
+    // V is the first DV columns of K's rows (MLA's latent): read from K's tile
+    static constexpr bool kVinK = DV != DK;
+};
+
+// Shared memory: K ring | V ring (none where V is in K's rows) | what the cluster's
+// warps send this CTA: their (m, l) for every head [4·kMaxCluster][G] each, and their
+// acc for this CTA's share of the G·DV outputs [4·cluster][share] | barriers
+template <typename T, int DK, int DV, int G>
 struct Layout {
-    // K/V rows per ring stage (8 a consumer warp); 32 where a row of T is 1 KB (f32 at
-    // hd 256), so that a ring of two stages and the receive area fit in shared memory
-    static constexpr int kTile = HD * sizeof(T) >= 1024 ? 32 : 64;
-    static constexpr int kStageBytes = kTile * HD * static_cast<int>(sizeof(T));
+    // K/V rows per ring stage (8 a consumer warp); 32 where a row of K is 1 KB or more
+    // (f32 at hd 256, bf16 at 576), so that a ring of two stages and the receive area
+    // fit in shared memory
+    static constexpr int kTile = DK * sizeof(T) >= 1024 ? 32 : 64;
+    static constexpr int kKBytes = kTile * DK * static_cast<int>(sizeof(T));
+    static constexpr int kVBytes = Split<DK, DV>::kVinK ? 0 : kTile * DV * static_cast<int>(sizeof(T));
+    static constexpr int kRingBytes = kKBytes + kVBytes;  // one stage
     static constexpr int kSlots = kWarps * kMaxCluster;
-    static constexpr int kRecvFloats = 2 * kSlots * G + kWarps * (G * HD + kMaxCluster);
-    static __host__ __device__ int recv_off(int stages) { return 2 * stages * kStageBytes; }
+    static constexpr int kRecvFloats = 2 * kSlots * G + kWarps * (G * DV + kMaxCluster);
+    static __host__ __device__ int recv_off(int stages) { return stages * kRingBytes; }
     static __host__ __device__ int bar_off(int stages) { return recv_off(stages) + 4 * kRecvFloats; }
     static __host__ __device__ int bytes(int stages) { return bar_off(stages) + 16 * kMaxStages; }
 };
 
 // CTAs an SM should be able to hold (the geometry plans for one; at hd 256 a ring of
 // two stages takes most of an SM's shared memory)
-template <int HD, int G>
-constexpr int min_blocks() { return G >= 4 || HD >= 256 ? 1 : 2; }
+template <int DK, int G>
+constexpr int min_blocks() { return G >= 4 || DK >= 256 ? 1 : 2; }
 
-template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kThreads, min_blocks<HD, G>())
+// the lane's kN chunks of a row of width D (chunk c: columns 8·(tl + c·kLanes) on),
+// zeros past the width
+template <int kN, int kLanes, int D, typename T>
+__device__ __forceinline__ void load_row(const T* row, int tl, float* v) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+        const int chunk = tl + c * kLanes;
+        if (chunk < D / 8) {
+            load8(row + chunk * 8, v + 8 * c);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[8 * c + e] = 0.f;
+        }
+    }
+}
+
+template <typename T, int DK, int DV, int G>
+__global__ void __launch_bounds__(kThreads, min_blocks<DK, G>())
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos_ptr,
                         T* __restrict__ out, int KV, int g, int S, int chunk, int stages,
                         int window, float scale_log2) {
-    using Lay = Layout<T, HD, G>;
+    using Lay = Layout<T, DK, DV, G>;
+    using W = Split<DK, DV>;
     constexpr int kTile = Lay::kTile;
-    constexpr int kLanes = HD / 8;           // lanes of a team: one key at a time
+    constexpr int kLanes = W::kLanes;        // lanes of a team: one key at a time
     constexpr int kTeams = 32 / kLanes;      // keys a warp reads at once
     constexpr int kKeys = kTile / kWarps;    // keys of a tile per warp
     constexpr int kPasses = kKeys / kTeams;
+    constexpr int kNK = W::kNK, kNV = W::kNV;
     static_assert(kPasses >= 1 && kKeys % kTeams == 0, "tile split");
 
     extern __shared__ __align__(128) unsigned char smem[];
     T* sK = reinterpret_cast<T*>(smem);
-    T* sV = reinterpret_cast<T*>(smem + stages * Lay::kStageBytes);
+    T* sV = reinterpret_cast<T*>(smem + stages * Lay::kKBytes);
     float* r_m = reinterpret_cast<float*>(smem + Lay::recv_off(stages));  // [slot][G]
     float* r_l = r_m + Lay::kSlots * G;                                    // [slot][G]
     float* r_acc = r_l + Lay::kSlots * G;                                  // [slot][share]
@@ -196,7 +243,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
     const int csize = static_cast<int>(cluster.num_blocks());
-    const int share = (G * HD + csize - 1) / csize;  // outputs each CTA folds
+    const int share = (G * DV + csize - 1) / csize;  // outputs each CTA folds
     // every CTA of the cluster has started before any writes another's shared memory:
     // arrive now, wait just before the first remote write
     cluster_arrive_relaxed();
@@ -223,49 +270,54 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    float m[G], l[G], acc[G][8];
+    float m[G], l[G], acc[G][8 * kNV];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
         m[gi] = kNeg;
         l[gi] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[gi][e] = 0.f;
+        for (int e = 0; e < 8 * kNV; ++e) acc[gi][e] = 0.f;
     }
 
     if (warp == kWarps) {
         // producer: one thread issues every copy; the warp then joins the folds
         if (lane == 0) {
-            const T* kb = k + bk * S * HD;
-            const T* vb = v + bk * S * HD;
+            const T* kb = k + bk * S * DK;
+            const T* vb = v + bk * S * DV;
             for (int i = 0; i < n_tiles; ++i) {
                 const int st = i % stages;
                 if (i >= stages) bar_wait(empty(st), (i / stages - 1) & 1);
                 const int t0 = s0 + i * kTile;
-                const int bytes = min(kTile, s1 - t0) * HD * static_cast<int>(sizeof(T));
-                bar_expect_tx(full(st), 2 * bytes);
-                bulk_load(smem_addr(sK + st * kTile * HD), kb + static_cast<size_t>(t0) * HD,
-                          bytes, full(st));
-                bulk_load(smem_addr(sV + st * kTile * HD), vb + static_cast<size_t>(t0) * HD,
-                          bytes, full(st));
+                const int rows = min(kTile, s1 - t0);
+                const int kbytes = rows * DK * static_cast<int>(sizeof(T));
+                const int vbytes = W::kVinK ? 0 : rows * DV * static_cast<int>(sizeof(T));
+                bar_expect_tx(full(st), kbytes + vbytes);
+                bulk_load(smem_addr(sK + st * kTile * DK), kb + static_cast<size_t>(t0) * DK,
+                          kbytes, full(st));
+                if (!W::kVinK)
+                    bulk_load(smem_addr(sV + st * kTile * DV), vb + static_cast<size_t>(t0) * DV,
+                              vbytes, full(st));
             }
         }
         __syncwarp();
     } else {
         const int team = lane / kLanes;
-        const int tl = lane % kLanes;  // this lane's 8 columns: tl*8 .. tl*8+7
-        float qr[G][8];
+        const int tl = lane % kLanes;  // this lane's chunks: tl, tl + kLanes, ...
+        float qr[G][8 * kNK];
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
-            load8(q + (bk * g + head0 + gi) * HD + tl * 8, qr[gi]);
+            load_row<kNK, kLanes, DK>(q + (bk * g + head0 + gi) * DK, tl, qr[gi]);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) qr[gi][e] *= scale_log2;
+            for (int e = 0; e < 8 * kNK; ++e) qr[gi][e] *= scale_log2;
         }
         for (int i = 0; i < n_tiles; ++i) {
             const int st = i % stages;
             const int rows = min(kTile, s1 - (s0 + i * kTile));
             bar_wait(full(st), (i / stages) & 1);
-            const T* kt = sK + st * kTile * HD + tl * 8;
-            const T* vt = sV + st * kTile * HD + tl * 8;
+            const T* kt = sK + st * kTile * DK;
+            // V's rows: its own ring, or K's rows (stride DK, the first DV columns)
+            const T* vt = W::kVinK ? kt : sV + st * kTile * DV;
+            constexpr int kVStride = W::kVinK ? DK : DV;
 
             // scores (log2 units) of this warp's keys; a team's lanes agree on them
             float sc[kPasses][G];
@@ -275,13 +327,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int u = 0; u < kPasses; ++u) {
                 const int key = warp * kKeys + u * kTeams + team;  // row of the tile
-                float kr[8];
-                load8(kt + key * HD, kr);
+                float kr[8 * kNK];
+                load_row<kNK, kLanes, DK>(kt + key * DK, tl, kr);
 #pragma unroll
                 for (int gi = 0; gi < G; ++gi) {
                     float s = 0.f;
 #pragma unroll
-                    for (int e = 0; e < 8; ++e) s = fmaf(qr[gi][e], kr[e], s);
+                    for (int e = 0; e < 8 * kNK; ++e) s = fmaf(qr[gi][e], kr[e], s);
 #pragma unroll
                     for (int off = kLanes / 2; off > 0; off >>= 1)
                         s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -299,20 +351,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 m[gi] = m_new;
                 l[gi] *= alpha;
 #pragma unroll
-                for (int e = 0; e < 8; ++e) acc[gi][e] *= alpha;
+                for (int e = 0; e < 8 * kNV; ++e) acc[gi][e] *= alpha;
             }
 #pragma unroll
             for (int u = 0; u < kPasses; ++u) {
                 const int key = warp * kKeys + u * kTeams + team;
                 if (key >= rows) continue;  // never touch a stale row: it may hold anything
-                float vr[8];
-                load8(vt + key * HD, vr);
+                float vr[8 * kNV];
+                load_row<kNV, kLanes, DV>(vt + key * kVStride, tl, vr);
 #pragma unroll
                 for (int gi = 0; gi < G; ++gi) {
                     const float p = exp2_approx(sc[u][gi] - m[gi]);
                     l[gi] += p;
 #pragma unroll
-                    for (int e = 0; e < 8; ++e) acc[gi][e] = fmaf(p, vr[e], acc[gi][e]);
+                    for (int e = 0; e < 8 * kNV; ++e) acc[gi][e] = fmaf(p, vr[e], acc[gi][e]);
                 }
             }
             __syncwarp();
@@ -325,7 +377,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int off = kLanes; off < 32; off <<= 1) {
                 l[gi] += __shfl_xor_sync(0xffffffffu, l[gi], off);
 #pragma unroll
-                for (int e = 0; e < 8; ++e)
+                for (int e = 0; e < 8 * kNV; ++e)
                     acc[gi][e] += __shfl_xor_sync(0xffffffffu, acc[gi][e], off);
             }
         }
@@ -348,19 +400,25 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (lane < kLanes) {
 #pragma unroll
             for (int gi = 0; gi < G; ++gi) {
-                const int idx = gi * HD + lane * 8;
-                if (share % 8 == 0) {  // the lane's 8 outputs go to one CTA: two 16-byte stores
-                    const int dst = idx / share;
-                    float4* d = reinterpret_cast<float4*>(
-                        cluster.map_shared_rank(r_acc, dst) + slot * share + idx - dst * share);
-                    d[0] = make_float4(acc[gi][0], acc[gi][1], acc[gi][2], acc[gi][3]);
-                    d[1] = make_float4(acc[gi][4], acc[gi][5], acc[gi][6], acc[gi][7]);
-                } else {
 #pragma unroll
-                    for (int e = 0; e < 8; ++e) {
-                        const int dst = (idx + e) / share;
-                        cluster.map_shared_rank(r_acc, dst)[slot * share + idx + e - dst * share] =
-                            acc[gi][e];
+                for (int c = 0; c < kNV; ++c) {
+                    const int col = (lane + c * kLanes) * 8;
+                    if (col >= DV) continue;  // a lane past the width holds no output
+                    const float* a = &acc[gi][8 * c];
+                    const int idx = gi * DV + col;
+                    if (share % 8 == 0) {  // the lane's 8 outputs go to one CTA: two 16-byte stores
+                        const int dst = idx / share;
+                        float4* d = reinterpret_cast<float4*>(
+                            cluster.map_shared_rank(r_acc, dst) + slot * share + idx - dst * share);
+                        d[0] = make_float4(a[0], a[1], a[2], a[3]);
+                        d[1] = make_float4(a[4], a[5], a[6], a[7]);
+                    } else {
+#pragma unroll
+                        for (int e = 0; e < 8; ++e) {
+                            const int dst = (idx + e) / share;
+                            cluster.map_shared_rank(r_acc, dst)[slot * share + idx + e - dst * share] =
+                                a[e];
+                        }
                     }
                 }
             }
@@ -372,9 +430,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // fold this CTA's share over the cluster's warps, slots in order: deterministic.
     // No remote access follows, so a CTA may exit as soon as it is done.
     const int slots = csize * kWarps;
-    for (int j = threadIdx.x; j < share && rank * share + j < G * HD; j += kThreads) {
+    for (int j = threadIdx.x; j < share && rank * share + j < G * DV; j += kThreads) {
         const int idx = rank * share + j;
-        const int gi = idx / HD;
+        const int gi = idx / DV;
         float M = kNeg;
 #pragma unroll 8
         for (int q = 0; q < slots; ++q)
@@ -388,7 +446,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 A = fmaf(r_acc[q * share + j], wt, A);
             }
         }
-        store1(out + (bk * g + head0) * HD + idx, A / fmaxf(Lsum, 1e-30f));
+        store1(out + (bk * g + head0) * DV + idx, A / fmaxf(Lsum, 1e-30f));
     }
 }
 
@@ -406,19 +464,19 @@ int sm_count() {
     return counts[dev];
 }
 
-template <typename T, int HD, int G>
+template <typename T, int DK, int DV, int G>
 cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos, void* out,
                      int B, int KV, int g, int S, int window, float scale, int cluster,
                      int chunk, cudaStream_t stream) {
-    using Lay = Layout<T, HD, G>;
+    using Lay = Layout<T, DK, DV, G>;
     // the deepest ring that lets this launch's CTAs share the SMs in one wave
     const int ctas = cluster * KV * (g / G) * B;
     const int per_sm = (ctas + sm_count() - 1) / sm_count();
     const int room = 220 * 1024 / max(per_sm, 1) - Lay::bytes(0) - 1024;
     const int stages = max(1, min((chunk + Lay::kTile - 1) / Lay::kTile,
-                                  max(2, min(kMaxStages, room / (2 * Lay::kStageBytes)))));
+                                  max(2, min(kMaxStages, room / Lay::kRingBytes))));
     const int bytes = Lay::bytes(stages);
-    auto kernel = decode_attention_kernel<T, HD, G>;
+    auto kernel = decode_attention_kernel<T, DK, DV, G>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            bytes);
     if (err != cudaSuccess) return err;
@@ -441,44 +499,56 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos
     return cudaGetLastError();
 }
 
-template <typename T, int HD>
+// query heads a CTA serves: decode_attention.py's heads_per_block (at most 2 above a
+// q·k width of 256, where a lane holds 24 query columns a head)
+template <typename T, int DK, int DV>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* pos, void* out,
                       int B, int KV, int g, int S, int window, float scale, int cluster,
                       int chunk, cudaStream_t stream) {
-    if (g % 8 == 0)
-        return launch_g<T, HD, 8>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-    if (g % 4 == 0)
-        return launch_g<T, HD, 4>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+    if constexpr (DK <= 256) {
+        if (g % 8 == 0)
+            return launch_g<T, DK, DV, 8>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+        if (g % 4 == 0)
+            return launch_g<T, DK, DV, 4>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+    }
     if (g % 2 == 0)
-        return launch_g<T, HD, 2>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-    return launch_g<T, HD, 1>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+        return launch_g<T, DK, DV, 2>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+    return launch_g<T, DK, DV, 1>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
 }
 
+// the (q·k, v) width pairs of decode_attention.py's HEAD_DIMS: float32 takes the
+// first five, bfloat16 also MLA's (576, 512)
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-                   int B, int KV, int g, int S, int hd, int window, float scale, int cluster,
-                   int chunk, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch_hd<T, 32>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-        case 64: return launch_hd<T, 64>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-        case 128: return launch_hd<T, 128>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-        case 256: return launch_hd<T, 256>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-        default: return cudaErrorInvalidValue;
+                   int B, int KV, int g, int S, int dk, int dv, int window, float scale,
+                   int cluster, int chunk, cudaStream_t stream) {
+#define PAIR(DK, DV)                                                                       \
+    if (dk == DK && dv == DV)                                                             \
+        return launch_hd<T, DK, DV>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, \
+                                    chunk, stream)
+    PAIR(32, 32); PAIR(64, 64); PAIR(112, 112); PAIR(128, 128); PAIR(256, 256);
+    if constexpr (sizeof(T) == 2) {
+        PAIR(576, 512);
     }
+#undef PAIR
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B,KV,g,hd), k/v (B,KV,S,hd), out (B,KV,g,hd), all contiguous and 16-byte
-// aligned; pos one int32 on the device. The S keys are split over `cluster` CTAs
-// (1, 2, 4 or 8) of one thread block cluster, CTA r taking keys [r*chunk,
-// (r+1)*chunk); cluster*chunk >= S. dtype: 0 = float32, 2 = bfloat16; hd in
-// {32, 64, 128, 256}. One kernel launch. Returns its cudaError_t (0 = cudaSuccess);
-// cudaErrorInvalidValue for an unsupported dtype, hd or geometry.
+// q (B,KV,g,dk), k (B,KV,S,dk), out (B,KV,g,dv), all contiguous and 16-byte aligned;
+// v (B,KV,S,dv) likewise, or at (dk, dv) = (576, 512) the pointer of k, whose rows'
+// first dv columns are V (no V of its own is read); pos one int32 on the device. The
+// S keys are split over `cluster` CTAs (1, 2, 4 or 8) of one thread block cluster,
+// CTA r taking keys [r*chunk, (r+1)*chunk); cluster*chunk >= S. dtype: 0 = float32,
+// 2 = bfloat16; (dk, dv) in {(32, 32), (64, 64), (112, 112), (128, 128), (256, 256)},
+// and (576, 512) for bfloat16. One kernel launch. Returns its cudaError_t (0 =
+// cudaSuccess); cudaErrorInvalidValue for an unsupported dtype, width pair or
+// geometry.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, int B, int KV, int g,
-                                       int S, int hd, int dtype, int window, float scale,
-                                       int cluster, int chunk, void* stream) {
+                                       int S, int dk, int dv, int dtype, int window,
+                                       float scale, int cluster, int chunk, void* stream) {
     if (B <= 0 || KV <= 0 || g <= 0) return cudaSuccess;
     if (S <= 0 || chunk <= 0 || cluster < 1 || cluster > kMaxCluster ||
         (cluster & (cluster - 1)) != 0 || static_cast<long long>(chunk) * cluster < S)
@@ -487,9 +557,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
     const int* p = static_cast<const int*>(pos);
     switch (dtype) {
         case 0: return static_cast<int>(
-            launch<float>(q, k, v, p, out, B, KV, g, S, hd, window, scale, cluster, chunk, st));
+            launch<float>(q, k, v, p, out, B, KV, g, S, dk, dv, window, scale, cluster, chunk, st));
         case 2: return static_cast<int>(
-            launch<__nv_bfloat16>(q, k, v, p, out, B, KV, g, S, hd, window, scale, cluster, chunk, st));
+            launch<__nv_bfloat16>(q, k, v, p, out, B, KV, g, S, dk, dv, window, scale, cluster,
+                                  chunk, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

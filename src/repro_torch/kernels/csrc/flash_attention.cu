@@ -6,8 +6,16 @@
 // kernel's: scores and softmax in f32, masks with -1e30 (not -inf), causal means
 // kpos <= qpos with both counted from 0, window > 0 adds kpos > qpos - window, q
 // head h reads KV head h / (H / KV), and the output is acc / max(l, 1e-30) rounded
-// once to q's type. Sq and Sk may be any length and may differ; hd is 32, 64, 128
-// or 256. flash_attention_launch dispatches by dtype to one of two kernels. Both
+// once to q's type. Sq and Sk may be any length and may differ. Head widths come in
+// (q·k, v) pairs: (32, 32), (64, 64), (128, 128) and (256, 256) for the dense
+// models, (112, 112) for Kimi-K2 (64 heads over 8 KV heads of 7168 / 64), and
+// (192, 128) for DeepSeek-V3's MLA prefill, whose q and k are the 128-wide no-RoPE
+// part and the 64-wide RoPE part concatenated and whose v is 128 wide. The SIMT
+// kernel takes each width as it is (multiples of 16). The tensor-core kernel holds a
+// width in whole 64-column boxes: 112 is loaded through a tensor map 112 wide as two
+// boxes, TMA zero-fills columns 112-127, S = Q·Kᵀ runs the 7 k16 steps that hold
+// data, P·V runs at 128 and the zero columns are not stored.
+// flash_attention_launch dispatches by dtype to one of two kernels. Both
 // can also write each row's log-sum-exp, m + ln l in f32, through an optional
 // pointer: the training forward asks for it, since the backward
 // (flash_attention_bwd.cu) rebuilds P from it; serving passes null. The bf16
@@ -135,27 +143,28 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int
     }
 }
 
-template <int HD>
+// DK: the q·k width, DV: v's and the output's (equal but for MLA's 192/128)
+template <int DK, int DV>
 struct Smem {
-    static constexpr int kRows = HD >= 256 ? 4 : 8;  // q rows per thread
+    static constexpr int kRows = DV >= 256 ? 4 : 8;  // q rows per thread
     static constexpr int kBQ = 8 * kRows;            // q rows per block
-    static constexpr int kLdQ = HD + 4;
-    static constexpr int kLdK = HD + 4;
-    static constexpr int kLdV = HD;
+    static constexpr int kLdQ = DK + 4;
+    static constexpr int kLdK = DK + 4;
+    static constexpr int kLdV = DV;
     static constexpr int kLdP = kBK + 4;
     static constexpr int kFloats = kBQ * kLdQ + kBK * kLdK + kBK * kLdV + kBQ * kLdP;
     static constexpr size_t kBytes = sizeof(float) * kFloats;
 };
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        int H, int KV, int Sq, int Sk, int causal, int window, float scale) {
-    using L = Smem<HD>;
+    using L = Smem<DK, DV>;
     constexpr int kRows = L::kRows;
     constexpr int kBQ = L::kBQ;
-    constexpr int kOut = HD / 16;  // output columns per thread
+    constexpr int kOut = DV / 16;  // output columns per thread
     extern __shared__ float4 smem4[];
     float* Qs = reinterpret_cast<float*>(smem4);
     float* Ks = Qs + kBQ * L::kLdQ;
@@ -170,14 +179,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int ty = tid / 16;
     const int tx = tid % 16;
 
-    const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * HD;
-    const T* kb = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-    const T* vb = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-    T* ob = o + (static_cast<size_t>(b) * H + h) * Sq * HD;
+    const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * DK;
+    const T* kb = k + (static_cast<size_t>(b) * KV + kvh) * Sk * DK;
+    const T* vb = v + (static_cast<size_t>(b) * KV + kvh) * Sk * DV;
+    T* ob = o + (static_cast<size_t>(b) * H + h) * Sq * DV;
 
     const int q_valid = min(kBQ, Sq - q0);
-    stage<T, HD, kBQ, L::kLdQ>(Qs, qb + static_cast<size_t>(q0) * HD, q_valid);
-
+    stage<T, DK, kBQ, L::kLdQ>(Qs, qb + static_cast<size_t>(q0) * DK, q_valid);
     // K/V tiles this q tile can see: [t_lo, t_hi)
     const int qmin = q0;
     const int qmax = q0 + q_valid - 1;
@@ -203,8 +211,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int k0 = t * kBK;
         __syncthreads();  // previous tile's P and V reads are done
         const int k_valid = min(kBK, Sk - k0);
-        stage<T, HD, kBK, L::kLdK>(Ks, kb + static_cast<size_t>(k0) * HD, k_valid);
-        stage<T, HD, kBK, L::kLdV>(Vs, vb + static_cast<size_t>(k0) * HD, k_valid);
+        stage<T, DK, kBK, L::kLdK>(Ks, kb + static_cast<size_t>(k0) * DK, k_valid);
+        stage<T, DV, kBK, L::kLdV>(Vs, vb + static_cast<size_t>(k0) * DV, k_valid);
         __syncthreads();
 
         // scores s[i][j] of row ty*8+i against key column tx + 16*j
@@ -214,7 +222,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-        for (int d = 0; d < HD; d += 4) {
+        for (int d = 0; d < DK; d += 4) {
             float4 kv4[kCols];
 #pragma unroll
             for (int j = 0; j < kCols; ++j)
@@ -297,42 +305,43 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int j = 0; j < kOut; ++j)
-            store1(ob + static_cast<size_t>(q0 + r) * HD + tx + 16 * j, acc[i][j] * inv);
+            store1(ob + static_cast<size_t>(q0 + r) * DV + tx + 16 * j, acc[i][j] * inv);
         // m and l are the same in the 16 lanes of the row
         if (lse != nullptr && tx == 0)
             lse[(static_cast<size_t>(b) * H + h) * Sq + q0 + r] = m[i] + logf(l[i]);
     }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int KV, int Sq, int Sk, int causal, int window, float scale,
                    cudaStream_t stream) {
-    constexpr size_t bytes = Smem<HD>::kBytes;
+    constexpr size_t bytes = Smem<DK, DV>::kBytes;
     // above 48 KiB of dynamic shared memory a kernel must opt in, once per process;
     // every call sets it again: the call is cheap next to the kernel and has no race
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DK, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + Smem<HD>::kBQ - 1) / Smem<HD>::kBQ, H, B);
-    flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+    const dim3 grid((Sq + Smem<DK, DV>::kBQ - 1) / Smem<DK, DV>::kBQ, H, B);
+    flash_attention_kernel<T, DK, DV><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
     return cudaGetLastError();
 }
 
+// the (q·k, v) width pairs of flash_attention.py's HEAD_DIMS
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+                      int H, int KV, int Sq, int Sk, int dk, int dv, int causal, int window,
                       float scale, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 256: return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        default: return cudaErrorInvalidValue;
-    }
+#define PAIR(DK, DV)                                                                     \
+    if (dk == DK && dv == DV)                                                           \
+        return launch<T, DK, DV>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, scale, \
+                                 stream)
+    PAIR(32, 32); PAIR(64, 64); PAIR(112, 112); PAIR(128, 128); PAIR(192, 128); PAIR(256, 256);
+#undef PAIR
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace simt
@@ -349,21 +358,31 @@ constexpr float kMask = -1e30f;          // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout for head width HD, each tile as TMA writes it (sm90.cuh,
-// Tile): Q | K[kStages] | V[kStages] | mbarriers. K/V tiles are 128 rows, 64 at
-// hd 256 (a 128-row ring would not fit in shared memory).
-template <int HD>
+// A width as the tiles hold it: whole 64-column boxes from 64 on (112 -> 128: TMA
+// zero-fills the columns past the tensor's own, so they add nothing to Q·Kᵀ and
+// give output columns that are not stored).
+__host__ __device__ constexpr int padded(int d) { return d < 64 ? d : (d + 63) / 64 * 64; }
+
+// Shared-memory layout for q·k width DK and v width DV, each tile as TMA writes it
+// (sm90.cuh, Tile, at the padded widths KP and VP): Q | K[kStages] | V[kStages] |
+// mbarriers. K/V tiles are 128 rows, 64 at v width 256 (a 128-row ring would not
+// fit in shared memory). At (192, 128), MLA's prefill: Q 48 KB + 2 × (K 48 KB + V
+// 32 KB) = 208 KB; registers as at hd 128 (O is 128 wide).
+template <int DK, int DV>
 struct Cfg {
-    static constexpr int kBK = HD >= 256 ? 64 : 128;  // k/v rows per tile
+    static constexpr int KP = padded(DK);
+    static constexpr int VP = padded(DV);
+    static constexpr int kBK = VP >= 256 ? 64 : 128;  // k/v rows per tile
     // the consumers and the producer: one warp, or at hd 256 a warpgroup whose
     // registers go to the consumers (kConsumerRegs a thread; 0: no setmaxnreg)
-    static constexpr int kThreads = kConsumers * 128 + (HD >= 256 ? 128 : 32);
-    static constexpr int kConsumerRegs = HD >= 256 ? 240 : 0;
-    static constexpr int kQBytes = Tile<HD>::bytes(kBQ);
-    static constexpr int kKVBytes = Tile<HD>::bytes(kBK);
+    static constexpr int kThreads = kConsumers * 128 + (VP >= 256 ? 128 : 32);
+    static constexpr int kConsumerRegs = VP >= 256 ? 240 : 0;
+    static constexpr int kQBytes = Tile<KP>::bytes(kBQ);
+    static constexpr int kKBytes = Tile<KP>::bytes(kBK);
+    static constexpr int kVBytes = Tile<VP>::bytes(kBK);
     static constexpr int kOffK = kQBytes;
-    static constexpr int kOffV = kOffK + kStages * kKVBytes;
-    static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+    static constexpr int kOffV = kOffK + kStages * kKBytes;
+    static constexpr int kOffBar = kOffV + kStages * kVBytes;
     static constexpr int kBars = 1 + 3 * kStages;  // q_full, k_full[], v_full[], empty[]
     static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
 };
@@ -371,16 +390,18 @@ struct Cfg {
 // kF32Out: the training instance, which also writes O in f32 through o32 (see
 // above); serving instantiates the kernel without it, so the second product and
 // its registers cost serving nothing.
-template <int HD, bool kF32Out>
-__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
+template <int DK, int DV, bool kF32Out>
+__global__ void __launch_bounds__(Cfg<DK, DV>::kThreads, 1)
 flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                    float* __restrict__ lse, float* __restrict__ o32, int H, int KV, int Sq,
                    int Sk, int causal,
                    int window, float scale_log2) {
-    using C = Cfg<HD>;
-    using T = Tile<HD>;
+    using C = Cfg<DK, DV>;
+    using TK = Tile<C::KP>;
+    using TV = Tile<C::VP>;
+    constexpr int KP = C::KP, VP = C::VP;
     constexpr int kBK = C::kBK;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms need 1024
@@ -428,24 +449,25 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (C::kConsumerRegs > 0)
             asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
         if (warp != kConsumers * 4 || lane != 0 || n_visit == 0) return;
+        // every box counts its full bytes, zero-filled rows and columns included
         bar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-        for (int x = 0; x < T::kBoxes; ++x)
-            tma_load(sQ + x * T::box(kBQ), &tm_q, q_full, x * T::kBoxCols, q0, bh);
+        for (int x = 0; x < TK::kBoxes; ++x)
+            tma_load(sQ + x * TK::box(kBQ), &tm_q, q_full, x * TK::kBoxCols, q0, bh);
         for (int i = 0; i < n_visit; ++i) {
             const int s = i % kStages;
             if (i >= kStages) bar_wait(empty(s), (i / kStages - 1) & 1);
             const int k0 = (t_lo + i) * kBK;
-            bar_expect_tx(k_full(s), C::kKVBytes);
+            bar_expect_tx(k_full(s), C::kKBytes);
 #pragma unroll
-            for (int x = 0; x < T::kBoxes; ++x)
-                tma_load(sK + s * C::kKVBytes + x * T::box(kBK), &tm_k, k_full(s),
-                         x * T::kBoxCols, k0, kvh);
-            bar_expect_tx(v_full(s), C::kKVBytes);
+            for (int x = 0; x < TK::kBoxes; ++x)
+                tma_load(sK + s * C::kKBytes + x * TK::box(kBK), &tm_k, k_full(s),
+                         x * TK::kBoxCols, k0, kvh);
+            bar_expect_tx(v_full(s), C::kVBytes);
 #pragma unroll
-            for (int x = 0; x < T::kBoxes; ++x)
-                tma_load(sV + s * C::kKVBytes + x * T::box(kBK), &tm_v, v_full(s),
-                         x * T::kBoxCols, k0, kvh);
+            for (int x = 0; x < TV::kBoxes; ++x)
+                tma_load(sV + s * C::kVBytes + x * TV::box(kBK), &tm_v, v_full(s),
+                         x * TV::kBoxCols, k0, kvh);
         }
         return;
     }
@@ -462,11 +484,11 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
 
     // accumulator layout of wgmma m64nN: register 4j + 2r + e holds row row0 + 8r,
     // column 8j + col + e
-    float acc[HD / 2];
+    float acc[VP / 2];
     float s[kBK / 2];
     uint32_t p[kBK / 4];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < VP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
     float m[2] = {kMask, kMask};  // running max, in log2 units
@@ -478,14 +500,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         const int parity = (i / kStages) & 1;
         const int k0 = (t_lo + i) * kBK;
 
-        // S = Q Kᵀ: hd/16 steps of k16, both operands K-major
+        // S = Q Kᵀ: DK/16 steps of k16 (the zero columns of a padded width are
+        // skipped), both operands K-major
         bar_wait(k_full(st), parity);
         pin(s);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < HD / 16; ++ks)
-            mma_ss<kBK>(s, desc_k<HD>(sQ, kBQ, 64 * wg, ks),
-                        desc_k<HD>(sK + st * C::kKVBytes, kBK, 0, ks), ks > 0);
+        for (int ks = 0; ks < DK / 16; ++ks)
+            mma_ss<kBK>(s, desc_k<KP>(sQ, kBQ, 64 * wg, ks),
+                        desc_k<KP>(sK + st * C::kKBytes, kBK, 0, ks), ks > 0);
         wgmma_commit();
         wgmma_wait_all();
         pin(s);
@@ -536,7 +559,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
                 }
             l[r] = l[r] * alpha + sum;
 #pragma unroll
-            for (int j = 0; j < HD / 8; ++j) {
+            for (int j = 0; j < VP / 8; ++j) {
                 acc[4 * j + 2 * r] *= alpha;
                 acc[4 * j + 2 * r + 1] *= alpha;
             }
@@ -563,15 +586,15 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         pin(p);
         if constexpr (kF32Out) pin(p_lo);
         wgmma_fence();
-        const uint32_t tV = sV + st * C::kKVBytes;
+        const uint32_t tV = sV + st * C::kVBytes;
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-            mma_pv<HD>(acc, &p[4 * kk], desc_mn<HD>(tV, kBK, kk), desc_mn<HD>(tV, kBK, kk, 2));
+            mma_pv<VP>(acc, &p[4 * kk], desc_mn<VP>(tV, kBK, kk), desc_mn<VP>(tV, kBK, kk, 2));
         if constexpr (kF32Out) {
 #pragma unroll
             for (int kk = 0; kk < kBK / 16; ++kk)
-                mma_pv<HD>(acc, &p_lo[4 * kk], desc_mn<HD>(tV, kBK, kk),
-                           desc_mn<HD>(tV, kBK, kk, 2));
+                mma_pv<VP>(acc, &p_lo[4 * kk], desc_mn<VP>(tV, kBK, kk),
+                           desc_mn<VP>(tV, kBK, kk, 2));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -582,7 +605,8 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // epilogue: O / max(l, 1e-30), rounded once to bf16 (and, where o32 is given, in
-    // f32 as well); rows past Sq are not stored
+    // f32 as well); rows past Sq, and the columns of a padded width past DV, are not
+    // stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         float lr = l[r];
@@ -595,9 +619,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
         if (lse != nullptr && lane % 4 == 0)
             lse[static_cast<size_t>(bh) * Sq + qpos] = (m[r] + log2f(lr)) * kLn2;
         const float denom = fmaxf(lr, 1e-30f);
-        const size_t at = (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
+        const size_t at = (static_cast<size_t>(bh) * Sq + qpos) * DV + col;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
             const float x0 = acc[4 * j + 2 * r] / denom, x1 = acc[4 * j + 2 * r + 1] / denom;
             *reinterpret_cast<__nv_bfloat162*>(o + at + 8 * j) = __floats2bfloat162_rn(x0, x1);
             if constexpr (kF32Out)
@@ -606,27 +630,33 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    float* o32, int B, int H, int KV, int Sq, int Sk, int causal, int window,
                    float scale, cudaStream_t stream) {
-    using C = Cfg<HD>;
+    using C = Cfg<DK, DV>;
+    // the training instance (o32) exists at the widths the backward takes
+    // (flash_attention.py: BWD_HEAD_DIMS); the moe family's are serving-only
+    constexpr bool kTrains = DK == DV && DK != 112;
+    if (!kTrains && o32 != nullptr) return cudaErrorInvalidValue;
     // with Sk = 0 no K/V tile is visited; the maps must still encode, so they
     // describe q, and no load is issued through them
     const bool any_k = Sk > 0;
     CUtensorMap mq, mk, mv;
-    constexpr int kBoxCols = Tile<HD>::kBoxCols;
     cudaError_t err = bind_device_of(q);  // the encoder needs a current context
-    if (err == cudaSuccess) err = make_map(&mq, q, HD, Sq, B * H, kBoxCols, kBQ);
+    // the maps are the tensors' own widths; a box that runs past one is zero-filled
     if (err == cudaSuccess)
-        err = make_map(&mk, any_k ? k : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       kBoxCols, C::kBK);
+        err = make_map(&mq, q, DK, Sq, B * H, Tile<C::KP>::kBoxCols, kBQ);
     if (err == cudaSuccess)
-        err = make_map(&mv, any_k ? v : q, HD, any_k ? Sk : Sq, any_k ? B * KV : B * H,
-                       kBoxCols, C::kBK);
+        err = make_map(&mk, any_k ? k : q, DK, any_k ? Sk : Sq, any_k ? B * KV : B * H,
+                       Tile<C::KP>::kBoxCols, C::kBK);
+    if (err == cudaSuccess)
+        err = any_k ? make_map(&mv, v, DV, Sk, B * KV, Tile<C::VP>::kBoxCols, C::kBK)
+                    : make_map(&mv, q, DK, Sq, B * H, Tile<C::KP>::kBoxCols, C::kBK);
     if (err != cudaSuccess) return err;
-    const auto kernel = o32 != nullptr ? flash_attention_tc<HD, true>
-                                       : flash_attention_tc<HD, false>;
+    auto kernel = flash_attention_tc<DK, DV, false>;
+    if constexpr (kTrains)
+        if (o32 != nullptr) kernel = flash_attention_tc<DK, DV, true>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(C::kBytes));
     if (err != cudaSuccess) return err;
@@ -637,33 +667,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     return cudaGetLastError();
 }
 
+// the (q·k, v) width pairs of flash_attention.py's HEAD_DIMS
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
-                      float* o32, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                      int window, float scale, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch<32>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        case 256: return launch<256>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, stream);
-        default: return cudaErrorInvalidValue;
-    }
+                      float* o32, int B, int H, int KV, int Sq, int Sk, int dk, int dv,
+                      int causal, int window, float scale, cudaStream_t stream) {
+#define PAIR(DK, DV)                                                                        \
+    if (dk == DK && dv == DV)                                                              \
+        return launch<DK, DV>(q, k, v, o, lse, o32, B, H, KV, Sq, Sk, causal, window, scale, \
+                              stream)
+    PAIR(32, 32); PAIR(64, 64); PAIR(112, 112); PAIR(128, 128); PAIR(192, 128); PAIR(256, 256);
+#undef PAIR
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
 }  // namespace
 
-// q (B,H,Sq,hd), k/v (B,KV,Sk,hd), o (B,H,Sq,hd), all contiguous and 16-byte aligned.
-// lse: null, or (B,H,Sq) float32 that receives each row's log-sum-exp of its scaled,
-// masked scores (natural log), which the backward (flash_attention_bwd.cu) reads.
-// o32: null, or for bfloat16 a (B,H,Sq,hd) float32 that receives the output before
-// its rounding to bf16, whose D the backward reads; float32 takes null (o is it).
-// dtype: 0 = float32 (the SIMT kernel), 2 = bfloat16 (the tensor-core kernel).
-// hd in {32, 64, 128, 256}; H a multiple of KV. Returns the cudaError_t of the launch
-// (0 = cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, or a
-// tensor map the driver refuses; cudaErrorNotSupported if the driver has no
-// cuTensorMapEncodeTiled.
+// q (B,H,Sq,dk), k (B,KV,Sk,dk), v (B,KV,Sk,dv), o (B,H,Sq,dv), all contiguous and
+// 16-byte aligned. lse: null, or (B,H,Sq) float32 that receives each row's
+// log-sum-exp of its scaled, masked scores (natural log), which the backward
+// (flash_attention_bwd.cu) reads. o32: null, or for bfloat16 at dk == dv (not 112) a
+// (B,H,Sq,dv) float32 that receives the output before its rounding to bf16, whose D
+// the backward reads; float32 takes null (o is it). dtype: 0 = float32 (the SIMT
+// kernel), 2 = bfloat16 (the tensor-core kernel). (dk, dv) in {(32, 32), (64, 64),
+// (112, 112), (128, 128), (192, 128), (256, 256)}; H a multiple of KV. Returns the
+// cudaError_t of the launch (0 = cudaSuccess); cudaErrorInvalidValue for an
+// unsupported dtype or width pair, or a tensor map the driver refuses;
+// cudaErrorNotSupported if the driver has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int H, int KV, int Sq, int Sk, int hd,
+                                      int B, int H, int KV, int Sq, int Sk, int dk, int dv,
                                       int dtype, int causal, int window, float scale,
                                       void* lse, void* o32, void* stream) {
     if (B <= 0 || H <= 0 || Sq <= 0) return cudaSuccess;
@@ -672,11 +704,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case 0: return static_cast<int>(
-            simt::launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, hd,
-                                   causal, window, scale, st));
+            simt::launch_hd<float>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk, dk,
+                                   dv, causal, window, scale, st));
         case 2: return static_cast<int>(
             tc::launch_hd(q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32), B, H,
-                          KV, Sq, Sk, hd, causal, window, scale, st));
+                          KV, Sq, Sk, dk, dv, causal, window, scale, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -31,6 +31,9 @@ struct Tile {
     static constexpr int kRowBytes = HD * 2 < 128 ? HD * 2 : 128;  // a row of one box
     static constexpr int kBoxCols = kRowBytes / 2;
     static constexpr int kBoxes = HD / kBoxCols;
+    // a ragged last box would never be loaded: a tile holds a width padded to whole
+    // boxes (112 as 128: flash_attention.cu, padded), and TMA zero-fills the rest
+    static_assert(HD % kBoxCols == 0, "a tile's width is a whole number of boxes");
     static constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
     static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
     __host__ __device__ static constexpr int box(int rows) { return rows * kRowBytes; }  // one box

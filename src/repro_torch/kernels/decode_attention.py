@@ -21,6 +21,12 @@ Dispatch goes by the tensor's device: a CPU tensor takes the plain version
 (``ref.decode_attention_ref``); a CUDA tensor launches the kernel, or the
 call raises. ``launches`` counts kernel launches and nothing else.
 Forward-only, as the TPU kernel: it raises under grad.
+
+Head widths come in (q·k, v) pairs (``HEAD_DIMS``). DeepSeek-V3's absorbed
+MLA decode attends one latent cache row a token, latent ++ k_rope (576
+wide), from all of its query heads, and takes V as the row's first 512
+columns: the wrapper takes ``v = k[..., :512]`` and the kernel reads V from
+K's tile in shared memory, so the cache crosses from device memory once.
 """
 
 from __future__ import annotations
@@ -33,12 +39,23 @@ import torch
 
 from ..core.spec import RawArrayError
 from . import _build, ref
-from .flash_attention import DTYPES, check_forward_only, check_inputs
+from .flash_attention import DTYPES, check_forward_only, check_inputs, check_widths
+
+#: (q·k width, v width) pairs the kernel is instantiated for, by dtype. The dense
+#: widths and Kimi-K2's 112 read K and V from two caches; (576, 512) is
+#: DeepSeek-V3's absorbed MLA decode, which reads V as the first 512 columns of
+#: K's rows (latent ++ k_rope): the caller passes ``v = k[..., :512]``
+HEAD_DIMS = {
+    torch.float32: ((32, 32), (64, 64), (112, 112), (128, 128), (256, 256)),
+    torch.bfloat16: ((32, 32), (64, 64), (112, 112), (128, 128), (256, 256), (576, 512)),
+}
+#: the pairs whose V is K's leading columns, read from K's rows in shared memory
+SHARED_ROWS = ((576, 512),)
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 #: cluster sizes the kernel launches with (portable: no opt-in needed)
@@ -55,13 +72,14 @@ def _sm_count(index: int) -> int:
     return int(torch.cuda.get_device_properties(index).multi_processor_count)
 
 
-def heads_per_block(g: int) -> int:
+def heads_per_block(g: int, dk: int = 128) -> int:
     """Query heads one block serves: the largest of 8, 4, 2, 1 dividing g
-    (the kernel is instantiated for those)."""
-    return next(c for c in (8, 4, 2, 1) if g % c == 0)
+    (the kernel is instantiated for those); at most 2 at a q·k width above
+    256 (MLA's 576), where a lane holds 24 query columns a head."""
+    return next(c for c in ((8, 4, 2, 1) if dk <= 256 else (2, 1)) if g % c == 0)
 
 
-def geometry(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
+def geometry(B: int, KV: int, g: int, S: int, sms: int, dk: int = 128) -> tuple:
     """``(cluster, chunk)``: the CTAs that split S for one (b, kv head, head
     chunk), a cluster of 1, 2, 4 or 8, and the keys each takes (CTA r: keys
     ``[r*chunk, (r+1)*chunk)``). A CTA streams its keys through a deep ring
@@ -70,7 +88,7 @@ def geometry(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
     _CLUSTER_SMS_LOST`` for clusters of 4 or 8; no split when B·KV·(g/G)
     already fills the SMs), at least ``_MIN_KEYS`` keys a CTA, and no CTA
     without a key. Fixed by the shapes, not by pos."""
-    clusters = B * KV * (g // heads_per_block(g))
+    clusters = B * KV * (g // heads_per_block(g, dk))
     cluster = max(c for c in CLUSTER_SIZES
                   if c == 1 or (clusters * c <= (sms if c <= 2 else sms - _CLUSTER_SMS_LOST)
                                 and c * _MIN_KEYS <= S))
@@ -82,33 +100,42 @@ def geometry(B: int, KV: int, g: int, S: int, sms: int) -> tuple:
 
 
 def decode_attention_fwd(
-    q: torch.Tensor,  # (B, KV, g, hd)
-    k: torch.Tensor,  # (B, KV, S, hd)
-    v: torch.Tensor,
+    q: torch.Tensor,  # (B, KV, g, dk)
+    k: torch.Tensor,  # (B, KV, S, dk)
+    v: torch.Tensor,  # (B, KV, S, dv), or k[..., :dv] (MLA: V is K's leading columns)
     pos,              # int, or 0-d / (1,) int32 tensor: rows <= pos are live
     *,
     window: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """(B, KV, g, hd) in q's dtype. On CUDA the kernel runs on the current
-    stream and is not waited for."""
+    """(B, KV, g, dv) in q's dtype; the scale defaults to dk^-1/2. On CUDA the
+    kernel runs on the current stream and is not waited for."""
     global launches
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise RawArrayError(
-            f"decode_attention takes q (B,KV,g,hd) and k, v (B,KV,S,hd); got "
+            f"decode_attention takes q (B,KV,g,dk), k (B,KV,S,dk) and v (B,KV,S,dv); got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    B, KV, g, hd = (int(d) for d in q.shape)
-    S = int(k.shape[2])
-    if tuple(k.shape[:2]) != (B, KV) or int(k.shape[3]) != hd:
+    B, KV, g, dk = (int(d) for d in q.shape)
+    S, dv = int(k.shape[2]), int(v.shape[3])
+    if tuple(k.shape[:2]) != (B, KV) or int(k.shape[3]) != dk:
         raise RawArrayError(
-            f"decode_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}"
+            f"decode_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}"
         )
-    check_inputs("decode_attention", q, k, v)
+    # v is k's leading columns: a view of k's rows, read from them on the card
+    shared = (dv < dk and v.data_ptr() == k.data_ptr() and v.stride() == k.stride())
+    check_inputs("decode_attention", q, k, *(() if shared else (v,)))
     check_forward_only("decode_attention", q, k, v)
-    scale = float(scale) if scale is not None else hd ** -0.5
+    scale = float(scale) if scale is not None else dk ** -0.5
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, window=window, scale=scale)
+    check_widths("decode_attention", q.dtype, dk, dv, HEAD_DIMS)
+    if ((dk, dv) in SHARED_ROWS) != shared:
+        raise RawArrayError(
+            f"decode_attention kernel reads V from K's rows at (q·k, v) widths {SHARED_ROWS} "
+            f"and only there: pass v = k[..., :dv] at those, a cache of its own elsewhere; "
+            f"got {(dk, dv)} with v {'in' if shared else 'beside'} k"
+        )
     if isinstance(pos, torch.Tensor):
         if pos.dtype != torch.int32 or pos.numel() != 1 or pos.device != q.device:
             raise RawArrayError(
@@ -118,17 +145,17 @@ def decode_attention_fwd(
         pos = pos.contiguous()
     else:
         pos = torch.full((1,), int(pos), dtype=torch.int32, device=q.device)
-    out = torch.empty_like(q)
+    out = torch.empty((B, KV, g, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if S == 0:
         return out.zero_()
-    cluster, chunk = geometry(B, KV, g, S, _sm_count(q.device.index or 0))
+    cluster, chunk = geometry(B, KV, g, S, _sm_count(q.device.index or 0), dk)
     fn = _build.function("decode_attention.cu", "decode_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, KV, g, S, hd, DTYPES[q.dtype], int(window), scale, cluster, chunk,
+            B, KV, g, S, dk, dv, DTYPES[q.dtype], int(window), scale, cluster, chunk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

@@ -54,19 +54,23 @@ from . import _build, ref
 
 #: tensor dtype -> the kernels' ``dtype`` argument
 DTYPES = {torch.float32: 0, torch.bfloat16: 2}
-#: head widths the CUDA kernels are instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
-#: head widths the backward kernels are instantiated for, by dtype: bf16 on the
-#: tensor cores takes every forward width, f32 on the SIMT pipes (no model
-#: trains there above 128) the first three
-BWD_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: HEAD_DIMS}
+#: (q·k width, v width) pairs the forward kernels are instantiated for, by
+#: dtype: the dense widths, Kimi-K2's 112, and DeepSeek-V3's MLA prefill, whose
+#: q and k are 128 + 64 wide and v 128
+HEAD_DIMS = {dt: ((32, 32), (64, 64), (112, 112), (128, 128), (192, 128), (256, 256))
+             for dt in DTYPES}
+#: head widths (q, k and v alike) the backward kernels are instantiated for, by
+#: dtype: bf16 on the tensor cores takes 32-256, f32 on the SIMT pipes (no model
+#: trains there above 128) the first three. The forward's 112 and (192, 128)
+#: wait for the moe family's training (ROADMAP.md, item 10's training half)
+BWD_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (32, 64, 128, 256)}
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
 tc_launches = 0  # guarded-by: _count_lock
 bwd_launches = 0  # guarded-by: _count_lock
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p]
@@ -84,8 +88,8 @@ def check_forward_only(name: str, *tensors: torch.Tensor) -> None:
 
 def check_inputs(name: str, *tensors: torch.Tensor) -> None:
     """The checks both attention kernels share: one dtype and device, dense
-    tensors; on the card also a kernel dtype, a supported head width and
-    16-byte aligned storage."""
+    tensors; on the card also a kernel dtype and 16-byte aligned storage
+    (``check_widths`` checks the head widths)."""
     first = tensors[0]
     for t in tensors:
         if t.dtype != first.dtype:
@@ -100,27 +104,33 @@ def check_inputs(name: str, *tensors: torch.Tensor) -> None:
         raise RawArrayError(f"{name} runs on cpu or cuda tensors, not {first.device}")
     if first.dtype not in DTYPES:
         raise RawArrayError(f"{name} kernel takes float32 or bfloat16, not {first.dtype}")
-    hd = int(first.shape[-1])
-    if hd not in HEAD_DIMS:
-        raise RawArrayError(f"{name} kernel supports head_dim in {HEAD_DIMS}, not {hd}")
     for t in tensors:
         if t.data_ptr() % 16:
             raise RawArrayError(f"{name} kernel needs 16-byte aligned tensors")
 
 
+def check_widths(name: str, dtype: torch.dtype, dk: int, dv: int, table: dict) -> None:
+    """Raise unless the kernel is instantiated for q·k width ``dk`` and v
+    width ``dv`` in ``dtype`` (``table``: dtype -> (dk, dv) pairs)."""
+    pairs = table[dtype]
+    if (dk, dv) not in pairs:
+        raise RawArrayError(f"{name} kernel takes (q·k, v) head widths {pairs} for {dtype}, "
+                            f"not {(dk, dv)}")
+
+
 def _shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise RawArrayError(
-            f"flash_attention takes q (B,H,Sq,hd) and k, v (B,KV,Sk,hd); got "
+            f"flash_attention takes q (B,H,Sq,dk), k (B,KV,Sk,dk) and v (B,KV,Sk,dv); got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    B, H, Sq, hd = (int(d) for d in q.shape)
-    KV, Sk = int(k.shape[1]), int(k.shape[2])
-    if int(k.shape[0]) != B or int(k.shape[3]) != hd or KV == 0 or H % KV:
+    B, H, Sq, dk = (int(d) for d in q.shape)
+    KV, Sk, dv = int(k.shape[1]), int(k.shape[2]), int(v.shape[3])
+    if int(k.shape[0]) != B or int(k.shape[3]) != dk or KV == 0 or H % KV:
         raise RawArrayError(
-            f"flash_attention: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}"
+            f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}"
         )
-    return B, H, KV, Sq, Sk, hd
+    return B, H, KV, Sq, Sk, dk, dv
 
 
 def bwd_geometry(Sq: int, hd: int) -> tuple:
@@ -138,44 +148,49 @@ def bwd_geometry(Sq: int, hd: int) -> tuple:
 
 def check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise where the backward cannot run: shapes that do not fit, or on the
-    card a dtype or head width the backward kernels are not instantiated
+    card a dtype or head widths the backward kernels are not instantiated
     for."""
-    _, _, _, _, _, hd = _shape(q, k, v)
+    _, _, _, _, _, dk, dv = _shape(q, k, v)
     if q.device.type != "cuda":
         return
     widths = BWD_HEAD_DIMS.get(q.dtype)
     if widths is None:
         raise RawArrayError(
             f"flash_attention backward kernel takes float32 or bfloat16, not {q.dtype}")
-    if hd not in widths:
+    if dk != dv or dk not in widths:
         raise RawArrayError(
             f"flash_attention backward kernel supports head_dim in {widths} for {q.dtype}, "
-            f"not {hd}"
+            f"not (q·k, v) widths {(dk, dv)}; the moe family's widths, 112 and (192, 128), "
+            "are not ported yet (ROADMAP.md, modules to port, item 10's training half)"
         )
 
 
 def flash_attention_fwd(
-    q: torch.Tensor,  # (B, H, Sq, hd)
-    k: torch.Tensor,  # (B, KV, Sk, hd)
-    v: torch.Tensor,
+    q: torch.Tensor,  # (B, H, Sq, dk)
+    k: torch.Tensor,  # (B, KV, Sk, dk)
+    v: torch.Tensor,  # (B, KV, Sk, dv)
     *,
     causal: bool = True,
     window: int = 0,
     scale: float | None = None,
     return_lse: bool = False,
 ):
-    """(B, H, Sq, hd) in q's dtype; q head h attends KV head ``h // (H // KV)``.
-    With ``return_lse`` (the training forward) also what the backward needs:
+    """(B, H, Sq, dv) in q's dtype; q head h attends KV head ``h // (H // KV)``;
+    the scale defaults to dk^-1/2. With ``return_lse`` (the training forward) also what the backward needs:
     (out, each row's log-sum-exp (B, H, Sq) in f32, the output in f32 before
     its rounding to q's dtype (for f32 inputs the output itself)). Records no
     gradient: called with grad on a tensor that requires it, it raises
     (``flash_attention`` is the differentiable call). On CUDA the kernel runs
     on the current stream and is not waited for."""
     global launches, tc_launches
-    B, H, KV, Sq, Sk, hd = _shape(q, k, v)
+    B, H, KV, Sq, Sk, dk, dv = _shape(q, k, v)
     check_inputs("flash_attention", q, k, v)
     check_forward_only("flash_attention_fwd", q, k, v)
-    scale = float(scale) if scale is not None else hd ** -0.5
+    scale = float(scale) if scale is not None else dk ** -0.5
+    if q.device.type == "cuda":
+        check_widths("flash_attention", q.dtype, dk, dv, HEAD_DIMS)
+        if return_lse:  # the training forward is instantiated where the backward is
+            check_backward(q, k, v)
     if q.device.type == "cpu":
         got = ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                                       return_lse=return_lse, out_dtype=torch.float32)
@@ -183,12 +198,12 @@ def flash_attention_fwd(
             return got.to(q.dtype)
         out32, lse = got
         return out32.to(q.dtype), lse, out32
-    out = torch.empty_like(q)
+    out = torch.empty((B, H, Sq, dv), dtype=q.dtype, device=q.device)
     lse = out32 = None
     if return_lse:
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         out32 = out if q.dtype == torch.float32 else torch.empty(
-            q.shape, dtype=torch.float32, device=q.device)
+            out.shape, dtype=torch.float32, device=q.device)
     result = (out, lse, out32) if return_lse else out
     if out.numel() == 0:
         return result
@@ -196,7 +211,7 @@ def flash_attention_fwd(
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KV, Sq, Sk, hd, DTYPES[q.dtype], int(bool(causal)), int(window), scale,
+            B, H, KV, Sq, Sk, dk, dv, DTYPES[q.dtype], int(bool(causal)), int(window), scale,
             lse.data_ptr() if lse is not None else None,
             out32.data_ptr() if out32 is not None and out32 is not out else None,
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -213,8 +228,8 @@ def flash_attention_fwd(
 def flash_attention_bwd(
     q: torch.Tensor,  # (B, H, Sq, hd)
     k: torch.Tensor,  # (B, KV, Sk, hd)
-    v: torch.Tensor,
-    out: torch.Tensor,  # the forward's output (B, H, Sq, hd) in f32 (``return_lse``'s third)
+    v: torch.Tensor,  # (B, KV, Sk, dv): dv == hd on the card
+    out: torch.Tensor,  # the forward's output (B, H, Sq, dv) in f32 (``return_lse``'s third)
     dout: torch.Tensor,  # its gradient
     lse: torch.Tensor,  # the forward's log-sum-exp (B, H, Sq), f32
     *,
@@ -231,12 +246,12 @@ def flash_attention_bwd(
     row sees gets zeros; a row that sees no key gives no gradient. On CUDA
     two kernels run on the current stream and are not waited for."""
     global bwd_launches
-    B, H, KV, Sq, Sk, hd = _shape(q, k, v)
+    B, H, KV, Sq, Sk, hd, dv = _shape(q, k, v)
     check_backward(q, k, v)
-    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+    if tuple(out.shape) != (B, H, Sq, dv) or tuple(dout.shape) != (B, H, Sq, dv):
         raise RawArrayError(
             f"flash_attention backward: out {tuple(out.shape)} and dout {tuple(dout.shape)} "
-            f"must have q's shape {tuple(q.shape)}"
+            f"must have q's shape with v's width, {(B, H, Sq, dv)}"
         )
     if out.dtype != torch.float32:
         raise RawArrayError(

@@ -42,13 +42,14 @@ def dequant_rows(x, scale, bias, *, out_dtype=torch.float32, block_rows: Optiona
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_k: int = 128):
-    """q (B,H,Sq,hd), k/v (B,KV,Sk,hd) -> (B,H,Sq,hd). GQA via KV broadcast.
+    """q (B,H,Sq,dk), k (B,KV,Sk,dk), v (B,KV,Sk,dv) -> (B,H,Sq,dv). GQA via
+    KV broadcast; the scale is dk^-1/2.
 
     ``block_q``/``block_k`` sized the TPU grid; here they are accepted for
     parity and not used: the CUDA kernels' tiles are their own (bf16 on the
     tensor cores: 128 q rows, 128 k rows, 64 at head width 256; f32 on the
     SIMT pipes: 64 q rows, 32 at head width 256, and 32 k rows), and they
-    mask a ragged tail themselves.
+    mask a ragged tail themselves. Width pairs: ``flash_attention.HEAD_DIMS``.
 
     With grad enabled and an input that requires it, the call records its
     backward: ``csrc/flash_attention_bwd.cu`` on the card (f32 at head
@@ -57,20 +58,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _flash_attention(q, k, v, causal=causal, window=window)
 
 
-def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512):
-    """q (B,H,hd) with H = KV*group, k/v (B,KV,S,hd) -> (B,H,hd).
+def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512,
+                     scale: Optional[float] = None):
+    """q (B,H,dk) with H = KV*group, k (B,KV,S,dk), v (B,KV,S,dv) -> (B,H,dv).
 
     ``pos`` (rows ``<= pos`` live) may be an int or a one-element int32
     tensor; on the card, pass it on the card so the step needs no host
-    sync. ``block_s`` is accepted for parity and not used: on the card a
-    call is one kernel launch whose S splits (a thread block cluster of 1 to
-    8 CTAs, ``decode_attention.geometry``) are sized to the card and stream
-    K/V through 64-row tiles of their own."""
+    sync. ``scale`` defaults to dk^-1/2 (MLA's absorbed decode passes
+    (nope + rope)^-1/2, its expanded heads' width, with ``v = k[..., :r]``,
+    the latent columns of the cache rows). ``block_s`` is accepted for
+    parity and not used: on the card a call is one kernel launch whose S
+    splits (a thread block cluster of 1 to 8 CTAs,
+    ``decode_attention.geometry``) are sized to the card and stream K/V
+    through tiles of their own."""
     del block_s
-    B, H, hd = q.shape
+    B, H, dk = q.shape
     KV = k.shape[1]
-    out = decode_attention_fwd(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window)
-    return out.reshape(B, H, hd)
+    out = decode_attention_fwd(q.reshape(B, KV, H // KV, dk), k, v, pos, window=window,
+                               scale=scale)
+    return out.reshape(B, H, out.shape[-1])
 
 
 def ssd_scan(x, dtA, Bm, Cm, *, chunk: int = 128, return_state: bool = False):

@@ -13,7 +13,17 @@ Decode writes the new K/V row into the cache at ``pos`` in place
 (``index_copy_``; the JAX package returns an updated copy), and ``pos`` is
 a device tensor throughout, so a decode step issues no host sync.
 
-MLA (``models/attention.py:222-327`` of the JAX package) is not ported yet.
+MLA (DeepSeek-V3; ``models/attention.py:222-327`` of the JAX package):
+``mla_prefill`` runs the expanded form, q and k 128 + 64 wide (the no-RoPE
+part and the RoPE part, k's RoPE part shared by all heads) and v 128 wide,
+through ``ops.flash_attention`` at (192, 128); ``mla_decode`` the absorbed
+form, in the latent space: q_lat = q_nope·W^kv_b's k part, concatenated with
+q_rope (576 wide), attends the cache rows latent ++ k_rope with
+``ops.decode_attention``, V being each row's latent (the first 512 columns),
+at scale 192^-1/2; then W^kv_b's v part and ``wo``. RoPE rotates only the
+64-wide parts, so its table is at ``qk_rope_head_dim``. The cache holds one
+(B, S, kv_lora + rope) tensor a layer whose columns are the reference's
+``latent`` and ``k_rope``.
 """
 
 from __future__ import annotations
@@ -112,3 +122,70 @@ def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     H, hd = q.shape[1], q.shape[3]
     o = ops.decode_attention(q.view(B, H, hd), k_cache, v_cache, pos, window=window)
     return _out_proj(o.view(B, H, 1, hd), p["wo"])
+
+
+# ----------------------------------------------------------------- MLA
+def init_mla(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ini.fanin((d, m.q_lora_rank)),
+        "q_norm": ini.zeros((m.q_lora_rank,)),
+        "wq_b": ini.fanin((m.q_lora_rank, H, qk)),
+        "wkv_a": ini.fanin((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ini.zeros((m.kv_lora_rank,)),
+        "wkv_b": ini.fanin((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": ini.fanin((H, m.v_head_dim, d)),
+    }
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions, freqs):
+    """q_nope (B,H,S,nope), q_rope (B,H,S,rope), latent (B,S,r), k_rope
+    (B,1,S,rope); ``freqs`` at the RoPE width."""
+    m = cfg.mla
+    q = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
+    q_nope, q_rope = _heads(q, p["wq_b"]).split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, positions, freqs)
+    latent, k_rope = (x @ p["wkv_a"].to(x.dtype)).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    latent = rmsnorm(latent, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, None], positions, freqs)
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+                freqs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal MLA over the whole sequence of ``x`` (B,S,d), the expanded
+    form. Returns the output (B,S,d) and the layer's cache columns: latent
+    (B,S,r) and k_rope (B,S,rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions, freqs)
+    k_nope, v = _heads(latent, p["wkv_b"]).split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_head_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    o = ops.flash_attention(q, k, v.contiguous(), causal=True)  # scale (nope + rope)^-1/2
+    return _out_proj(o, p["wo"]), latent, k_rope[:, 0]
+
+
+def mla_decode(p, x: torch.Tensor, kv_cache: torch.Tensor, pos: torch.Tensor,
+               cfg: ModelConfig, *, freqs: torch.Tensor) -> torch.Tensor:
+    """One absorbed-MLA decode step for ``x`` (B,1,d) at ``pos`` (a 0-d int32
+    device tensor). Writes this step's latent ++ k_rope into row ``pos`` of
+    ``kv_cache`` (B,S,r+rope) in place and returns the output (B,1,d)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, r, nope = cfg.n_heads, m.kv_lora_rank, m.qk_nope_head_dim
+    at = pos.reshape(1).long()
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, at, freqs)
+    kv_cache.index_copy_(1, at, torch.cat([latent, k_rope[:, 0]], -1).to(kv_cache.dtype))
+    wkv_b = p["wkv_b"].to(x.dtype)  # (r, H, nope + v)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], wkv_b[:, :, :nope])
+    q = torch.cat([q_lat, q_rope[:, :, 0]], -1).contiguous()  # (B, H, r + rope)
+    rows = kv_cache[:, None]  # one cache head (B, 1, S, r + rope); V is its latent
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ctx = ops.decode_attention(q, rows, rows[..., :r], pos, scale=scale)  # (B, H, r)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wkv_b[:, :, nope:])
+    return out.reshape(B, 1, -1) @ p["wo"].reshape(H * m.v_head_dim, -1).to(x.dtype)

@@ -40,6 +40,13 @@ class ParamTree(nn.Module):
         return out
 
 
+#: elements of the largest leaf drawn in one f32 call; above it (the MoE expert
+#: leaves at full width: 384 × 7168 × 2048) a leaf is drawn a slice at a time,
+#: so that its f32 draw never exists whole beside it. Smaller leaves keep the one
+#: draw, so their values are unchanged.
+_ONE_DRAW = 1 << 31
+
+
 class Initializer:
     """Random parameters from an explicit ``torch.Generator``, at the JAX
     package's scales (``Initializer.normal``/``fanin``/``value``): drawn in f32 on
@@ -55,8 +62,15 @@ class Initializer:
     def normal(self, shape, scale: float = 0.02) -> torch.Tensor:
         if self.gen is None:
             return torch.empty(shape, dtype=self.dtype, device=self.device)
-        x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-        return (x * scale).to(self.dtype)
+        if math.prod(shape) <= _ONE_DRAW:
+            x = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+            return (x * scale).to(self.dtype)
+        # one draw a slice of the leading axis: no f32 copy of the whole leaf
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for part in out:
+            part.copy_(torch.randn(part.shape, generator=self.gen, dtype=torch.float32,
+                                   device=self.device) * scale)
+        return out
 
     def fanin(self, shape) -> torch.Tensor:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
@@ -77,16 +91,23 @@ class Initializer:
 
 def stack_init(n: int, init_fn: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
     """Initialize ``n`` layers and stack each leaf on a leading axis, as the
-    JAX package stacks its layers for ``lax.scan``."""
-    layers = [init_fn() for _ in range(n)]
+    JAX package stacks its layers for ``lax.scan``. Each layer is copied into
+    the stack as soon as it is made, so no more than one layer exists beside
+    the stack; a stack of one layer is that layer (a view, no copy)."""
+    def walk(fn, tree, *more):
+        if isinstance(tree, dict):
+            return {k: walk(fn, v, *(m[k] for m in more)) for k, v in tree.items()}
+        return fn(tree, *more)
 
-    def stack(trees):
-        first = trees[0]
-        if isinstance(first, dict):
-            return {k: stack([t[k] for t in trees]) for k in first}
-        return torch.stack(trees)
-
-    return stack(layers)
+    first = init_fn()
+    if n == 1:
+        return walk(lambda t: t.unsqueeze(0), first)
+    out = walk(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    walk(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        walk(lambda o, t: o[i].copy_(t), out, init_fn())
+    return out
 
 
 # --------------------------------------------------------------------- norms

@@ -1,0 +1,129 @@
+"""Mixture-of-Experts FFN (DeepSeek-V3 / Kimi-K2): the torch twin of the JAX
+package's ``models/moe.py``, the same algorithm step for step.
+
+Routing: router logits in the activations' dtype, then f32; sigmoid (or
+softmax) scores, top-k, the selected gates renormalized, plus the
+Switch-style auxiliary load-balancing loss, returned as the reference
+returns it (serving ignores it).
+
+Dispatch: capacity-bounded scatter dispatch. Each (token, k) route gets its
+position in its expert's queue from a stable sort of the flat expert ids,
+tokens past ``C = ceil(T·K/E · capacity_factor)`` are dropped, the kept
+tokens are gathered into an (E, C, d) buffer (empty slots read a zero
+row), the experts run as dense batched products (``torch.bmm``: the
+reference's ``einsum``s, which XLA computes, not a Pallas kernel), and the
+results come back weighted by ``gate · keep``, plus the shared expert.
+With ``dispatch_chunks`` > 1 (and T a multiple of it) the tokens go
+through in that many chunks, each with its own capacity, in a Python loop
+where the reference runs ``lax.scan``; the aux loss is the chunks' mean.
+
+Every expert is computed for every chunk, also one that no token of the
+chunk chose: the reference's dense dispatch, kept for its exact drops and
+outputs (ROADMAP.md lists skipping empty experts as open). The reference's
+expert-parallel branch (``_moe_ep``, ``distributed/moe_ep.py``) is not
+ported (ROADMAP.md, modules to port, item 11).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from .common import Initializer, activation
+from .config import ModelConfig
+
+
+def init_moe(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
+    m = cfg.moe
+    d, ffe, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    p = {
+        "router": ini.normal((d, E), scale=0.006),
+        "w_gate": ini.fanin((E, d, ffe)),
+        "w_up": ini.fanin((E, d, ffe)),
+        "w_down": ini.fanin((E, ffe, d)),
+    }
+    if m.n_shared:
+        ffs = ffe * m.n_shared
+        p["shared_gate"] = ini.fanin((d, ffs))
+        p["shared_up"] = ini.fanin((d, ffs))
+        p["shared_down"] = ini.fanin((ffs, d))
+    return p
+
+
+def route(p, x2d: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(top-k expert ids (T, K), gates (T, K) in x's dtype, aux loss 0-d f32)."""
+    m = cfg.moe
+    logits = (x2d @ p["router"].to(x2d.dtype)).to(torch.float32)
+    if m.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(scores, m.top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    # Switch aux loss: mean prob per expert * mean assignment per expert
+    probs = scores / torch.clamp_min(scores.sum(-1, keepdim=True), 1e-9)
+    assign = torch.zeros_like(probs).scatter_add_(1, idx, torch.ones_like(gates))
+    aux = torch.mean(probs.mean(0) * assign.mean(0)) * (m.n_experts ** 2)
+    return idx, gates.to(x2d.dtype), aux * m.aux_loss_coef
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, d) -> ((B, S, d), aux loss)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    x2d = x.reshape(T, d)
+    nc = m.dispatch_chunks if (m.dispatch_chunks > 1 and T % m.dispatch_chunks == 0) else 1
+    if nc > 1:
+        ys, auxes = zip(*(_moe_tokens(p, xc, cfg) for xc in x2d.view(nc, T // nc, d)))
+        return torch.cat(ys).view(B, S, d), torch.stack(auxes).mean()
+    y, aux = _moe_tokens(p, x2d, cfg)
+    return y.view(B, S, d), aux
+
+
+def _moe_tokens(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of T tokens (T, d) through the routed and shared experts."""
+    m = cfg.moe
+    T, d = x2d.shape
+    E, K = m.n_experts, m.top_k
+    C = max(1, int(math.ceil(T * K / E * m.capacity_factor)))
+    dev = x2d.device
+
+    idx, gates, aux = route(p, x2d, cfg)  # (T, K)
+
+    # position of each (token, k) in its expert's queue, by a stable sort
+    flat_e = idx.reshape(-1)  # (T*K,), token-major
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    pos_sorted = torch.arange(T * K, device=dev) - seg_start[sorted_e]
+    pos_in_e = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
+    keep = pos_in_e < C
+    slot = torch.where(keep, flat_e * C + pos_in_e, E * C)  # a dropped route: the extra slot
+
+    # slot -> token (T: the zero row); only the extra slot is written twice, and dropped
+    flat_tok = torch.arange(T * K, device=dev) // K
+    tok_for_slot = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+    tok_for_slot = tok_for_slot.index_put_((slot,), flat_tok)[:-1]
+    x2d_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
+    buf = x2d_pad[tok_for_slot].view(E, C, d)
+
+    # every expert over its C slots, as dense batched products
+    act = activation(cfg.mlp_act)
+    g = torch.bmm(buf, p["w_gate"].to(x2d.dtype))
+    u = torch.bmm(buf, p["w_up"].to(x2d.dtype))
+    y_buf = torch.bmm(act(g) * u, p["w_down"].to(x2d.dtype)).view(E * C, d)
+    y_buf = torch.cat([y_buf, x2d.new_zeros((1, d))])
+
+    # back to the tokens, weighted by gate and keep
+    yk = y_buf[slot] * (gates.reshape(-1, 1) * keep[:, None].to(x2d.dtype))
+    y = yk.view(T, K, d).sum(1)
+
+    if m.n_shared:
+        sg = x2d @ p["shared_gate"].to(x2d.dtype)
+        su = x2d @ p["shared_up"].to(x2d.dtype)
+        y = y + (act(sg) * su) @ p["shared_down"].to(x2d.dtype)
+    return y, aux

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family: the torch twin of the JAX
-package's ``models/transformer.py`` for training and serving.
+"""Decoder-only transformer LM, dense, vlm and moe families: the torch twin
+of the JAX package's ``models/transformer.py`` for training and serving.
 
 The parameters keep the JAX package's stacked layout: one ``ParamTree``
 ``dense_layers`` whose every leaf has the layer count as its leading axis
@@ -15,6 +15,15 @@ tensors and ``pos``, a 0-d int32 tensor on the device; ``decode_step``
 writes into the cache in place and returns it with ``pos + 1``, and syncs
 nothing with the host.
 
+The moe family (DeepSeek-V3, Kimi-K2) has two stacks, as the reference:
+``dense_layers`` (the ``first_dense`` prefix) and ``moe_layers``, whose FFN
+is ``models/moe.py``; the cache has a group for each. DeepSeek-V3 attends
+by MLA (``models/attention.py``): its cache group holds ``kv`` (L, B, S,
+kv_lora + rope) a stack, with ``latent`` and ``k_rope`` its column views
+under the reference's names. Its MTP parameters (``mtp``: ``proj``, one
+dense ``layer``, ``ln``) are part of the parameters, so checkpoints cross
+with the reference's; serving does not use them.
+
 ``train_loss`` is the JAX package's next-token loss. Its layers run with
 autograd on: the attention through ``ops.flash_attention`` (forward and
 backward kernels on the card), each layer under ``torch.utils.checkpoint``
@@ -28,8 +37,9 @@ The vlm family (llava-next) is this model with ``mm_proj`` (d, d): its
 ``prefill`` and ``train_loss`` take the stub vision front end's patch
 embeddings (B, P, d), project them, prepend them to the tokens and run the
 layers over ``P + S`` positions; the loss scores the text positions only.
-``decode_step`` and the engine are text-only, as the JAX package's are. MoE
-and MTP raise ``NotImplementedError`` naming their ROADMAP item.
+``decode_step`` and the engine are text-only, as the JAX package's are.
+``train_loss`` raises ``NotImplementedError`` for the moe family (MoE, MLA
+and MTP training are ROADMAP item 10's training half).
 """
 
 from __future__ import annotations
@@ -41,7 +51,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
-from .attention import gqa_attention, gqa_decode, gqa_prefill, init_gqa
+from .attention import (
+    gqa_attention,
+    gqa_decode,
+    gqa_prefill,
+    init_gqa,
+    init_mla,
+    mla_decode,
+    mla_prefill,
+)
 from .common import (
     Initializer,
     ParamTree,
@@ -54,17 +72,18 @@ from .common import (
 )
 from .config import ModelConfig
 from .ffn import init_mlp, mlp
+from .moe import init_moe, moe_ffn
 
 
-def _init_layer(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
+def _init_layer(ini: Initializer, cfg: ModelConfig, *, use_moe: bool = False) -> Dict[str, Any]:
     norm_init, _ = make_norm(cfg.norm)
     d = cfg.d_model
     p: Dict[str, Any] = {"ln_attn": norm_init(ini, d), "ln_mlp": norm_init(ini, d)}
     if cfg.sandwich_norm:
         p["ln_attn_post"] = norm_init(ini, d)
         p["ln_mlp_post"] = norm_init(ini, d)
-    p["attn"] = init_gqa(ini, cfg)
-    p["ffn"] = init_mlp(ini, cfg)
+    p["attn"] = init_mla(ini, cfg) if cfg.attn_type == "mla" else init_gqa(ini, cfg)
+    p["ffn"] = init_moe(ini, cfg) if use_moe else init_mlp(ini, cfg)
     return p
 
 
@@ -97,7 +116,7 @@ def token_ids(tokens: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder-only LM with the JAX package's parameters.
+    """Decoder-only LM (dense, vlm, moe) with the JAX package's parameters.
 
     ``device`` defaults to the current CUDA device and raises without one
     (pass ``device="cpu"`` to run on the CPU, or ``"meta"`` for a shape-only
@@ -106,18 +125,14 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         super().__init__()
-        if cfg.family not in ("dense", "vlm"):
-            raise NotImplementedError(_not_ported(cfg.family))
-        if cfg.moe and cfg.moe.n_experts:
-            raise NotImplementedError(_not_ported("moe"))
-        if cfg.attn_type != "gqa":
-            raise NotImplementedError(f"{cfg.attn_type} attention is not ported yet "
-                                      "(ROADMAP.md, modules to port, item 10)")
-        if cfg.mtp:
-            raise NotImplementedError("multi-token prediction (mtp) is not ported yet "
-                                      "(ROADMAP.md, modules to port, item 10)")
+        if cfg.family not in ("dense", "vlm", "moe"):
+            raise NotImplementedError(
+                "TransformerLM serves the dense, vlm and moe families; the ssm, hybrid and "
+                "encdec families are Mamba2LM, Zamba2LM and WhisperModel (build_model)")
         self.cfg = cfg
-        self.n_dense = cfg.n_layers
+        m = cfg.moe
+        self.n_dense = m.first_dense if m and m.n_experts else cfg.n_layers
+        self.n_moe = cfg.n_layers - self.n_dense
         device = resolve_device(device)
         ini = Initializer(device, cfg.pdtype, seed)
         norm_init, _ = make_norm(cfg.norm)
@@ -131,12 +146,22 @@ class TransformerLM(nn.Module):
                 ini.normal((cfg.d_model, cfg.vocab), scale=1.0 / cfg.d_model ** 0.5),
                 requires_grad=False,
             )
-        self.dense_layers = ParamTree(stack_init(self.n_dense, lambda: _init_layer(ini, cfg)))
+        if self.n_dense:
+            self.dense_layers = ParamTree(stack_init(self.n_dense, lambda: _init_layer(ini, cfg)))
+        if self.n_moe:
+            self.moe_layers = ParamTree(
+                stack_init(self.n_moe, lambda: _init_layer(ini, cfg, use_moe=True)))
         if cfg.n_patches:  # projects the (stub) vision encoder's patch embeddings
             self.mm_proj = nn.Parameter(ini.fanin((cfg.d_model, cfg.d_model)),
                                         requires_grad=False)
+        if cfg.mtp:  # DeepSeek-V3's multi-token prediction head: carried, not served
+            self.mtp = ParamTree({
+                "proj": ini.fanin((2 * cfg.d_model, cfg.d_model)),
+                "layer": _init_layer(ini, cfg),
+                "ln": norm_init(ini, cfg.d_model),
+            })
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
-        self._layers: Optional[List[Dict[str, Any]]] = None  # per-layer views, made lazily
+        self._layers: Optional[List[tuple]] = None  # per-layer views, made lazily
 
     # ---- parameters ---------------------------------------------------------
     @property
@@ -148,9 +173,12 @@ class TransformerLM(nn.Module):
         tree: Dict[str, Any] = {"embed": self.embed, "ln_f": self.ln_f.tree()}
         if not self.cfg.tie_embeddings:
             tree["lm_head"] = self.lm_head
-        tree["dense_layers"] = self.dense_layers.tree()
+        for group, _, _ in self._stacks():
+            tree[f"{group}_layers"] = getattr(self, f"{group}_layers").tree()
         if self.cfg.n_patches:
             tree["mm_proj"] = self.mm_proj
+        if self.cfg.mtp:
+            tree["mtp"] = self.mtp.tree()
         return tree
 
     # ---- helpers ------------------------------------------------------------
@@ -167,23 +195,40 @@ class TransformerLM(nn.Module):
             flags.append((is_global, theta_g if is_global else cfg.rope_theta))
         return flags
 
+    def _stacks(self) -> List[Tuple[str, int, bool]]:
+        """(cache group, layers, MoE FFN) of each stack, in layer order; the
+        group's parameters are ``<group>_layers``."""
+        stacks = [("dense", self.n_dense, False), ("moe", self.n_moe, True)]
+        return [s for s in stacks if s[1]]
+
     def params_changed(self) -> None:
         """Drop the per-layer views after the parameters were replaced."""
         self._layers = None
 
     def _windows(self) -> List[Tuple[int, float]]:
-        """(window, rope base) per layer; the window only on local layers."""
+        """(window, rope base) per layer of the dense stack; the window only on
+        local layers."""
         return [(0 if is_global else self.cfg.sliding_window, theta)
                 for is_global, theta in self._layer_flags(self.n_dense)]
 
-    def _layer_args(self) -> List[Tuple[Dict[str, Any], int, torch.Tensor]]:
-        """(params, window, rope freqs) per layer; the window only on local
-        layers."""
+    def _rope_dim(self) -> int:
+        """The width RoPE rotates: MLA's RoPE part, else the head width."""
+        return self.cfg.mla.qk_rope_head_dim if self.cfg.attn_type == "mla" else self.cfg.head_dim
+
+    def _layer_args(self) -> List[Tuple[Dict[str, Any], int, torch.Tensor, str, int, bool]]:
+        """(params, window, rope freqs, cache group, index in the group, MoE
+        FFN) per layer, in order; the window only on local layers."""
         if self._layers is None:
-            stacked = self.dense_layers.tree()
-            self._layers = [_index(stacked, i) for i in range(self.n_dense)]
-        return [(p, window, self._rope(self.cfg.head_dim, theta))
-                for p, (window, theta) in zip(self._layers, self._windows())]
+            self._layers = []
+            offset = 0
+            for group, n, use_moe in self._stacks():
+                stacked = getattr(self, f"{group}_layers").tree()
+                for i, (is_global, theta) in enumerate(self._layer_flags(n, offset)):
+                    window = 0 if is_global else self.cfg.sliding_window
+                    self._layers.append((_index(stacked, i), window, theta, group, i, use_moe))
+                offset += n
+        return [(p, window, self._rope(self._rope_dim(), theta), group, i, use_moe)
+                for p, window, theta, group, i, use_moe in self._layers]
 
     def _rope(self, head_dim: int, theta: float) -> torch.Tensor:
         """RoPE frequencies for serving, made once per device."""
@@ -210,14 +255,15 @@ class TransformerLM(nn.Module):
         head = self.embed.t() if cfg.tie_embeddings else self.lm_head
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
 
-    def _block(self, p, x, attn) -> torch.Tensor:
+    def _block(self, p, x, attn, use_moe: bool = False) -> torch.Tensor:
         """One layer around its attention ``attn(h) -> a``."""
         _, norm = make_norm(self.cfg.norm)
         a = attn(norm(p["ln_attn"], x))
         if self.cfg.sandwich_norm:
             a = norm(p["ln_attn_post"], a)
         x = x + a
-        f = mlp(p["ffn"], norm(p["ln_mlp"], x), self.cfg)
+        h = norm(p["ln_mlp"], x)
+        f = moe_ffn(p["ffn"], h, self.cfg)[0] if use_moe else mlp(p["ffn"], h, self.cfg)
         if self.cfg.sandwich_norm:
             f = norm(p["ln_mlp_post"], f)
         return x + f
@@ -266,7 +312,14 @@ class TransformerLM(nn.Module):
         """batch: ``tokens`` (B,S) [+ ``patch_embeds`` (B,P,d), vlm]. The
         next-token LM loss over the text positions, on the module's device:
         labels are the tokens shifted by one, the last position masked.
-        Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32."""
+        Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32. The moe
+        family raises: its training is not ported yet."""
+        if self.n_moe or self.cfg.mtp or self.cfg.attn_type == "mla":
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family ({self.cfg.name}) is not ported yet "
+                "(ROADMAP.md, modules to port, item 10: MoE, MLA and MTP, its training half: "
+                "the MoE and MTP train_loss and the attention backward at head widths 112 "
+                "and (192, 128)); the port serves it")
         tokens = token_ids(batch["tokens"], self.device)
         x = self._embed_inputs(tokens, batch.get("patch_embeds"))
         positions = torch.arange(x.shape[1], device=self.device)
@@ -291,15 +344,21 @@ class TransformerLM(nn.Module):
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
         cache = self.empty_cache(B, S)
-        for i, (p, window, freqs) in enumerate(self._layer_args()):
-            def attn(h, p=p, i=i, window=window, freqs=freqs):
+        for p, window, freqs, group, i, use_moe in self._layer_args():
+            def attn(h, p=p, c=cache[group], i=i, window=window, freqs=freqs):
+                if cfg.attn_type == "mla":
+                    a, latent, k_rope = mla_prefill(p["attn"], h, cfg, positions=positions,
+                                                    freqs=freqs)
+                    c["latent"][i].copy_(latent)
+                    c["k_rope"][i].copy_(k_rope)
+                    return a
                 a, k, v = gqa_prefill(p["attn"], h, cfg, positions=positions,
                                       window=window, freqs=freqs)
-                cache["dense"]["k"][i].copy_(k)
-                cache["dense"]["v"][i].copy_(v)
+                c["k"][i].copy_(k)
+                c["v"][i].copy_(v)
                 return a
 
-            x = self._block(p, x, attn)
+            x = self._block(p, x, attn, use_moe)
         _, norm = make_norm(cfg.norm)
         logits = self._logits(norm(self.ln_f, x[:, -1:, :]))
         cache["pos"].fill_(S)
@@ -307,17 +366,27 @@ class TransformerLM(nn.Module):
 
     @torch.inference_mode()
     def empty_cache(self, batch: int, seq: int, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-        """A zeroed KV cache of capacity ``seq`` on the module's device."""
+        """A zeroed KV cache of capacity ``seq`` on the module's device: a group
+        a stack (``dense``, ``moe``), as the reference's. GQA: ``k``, ``v``
+        (L, B, KV, S, hd). MLA: ``kv`` (L, B, S, kv_lora + rope), whose rows
+        are latent ++ k_rope, and the views ``latent`` and ``k_rope`` of its
+        columns."""
         cfg = self.cfg
         dtype = dtype or cfg.cdtype
-        shape = (self.n_dense, batch, cfg.n_kv_heads, seq, cfg.head_dim)
-        return {
-            "dense": {
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device),
-            },
-            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
-        }
+
+        def group(n):
+            if cfg.attn_type == "mla":
+                r = cfg.mla.kv_lora_rank
+                kv = torch.zeros((n, batch, seq, r + cfg.mla.qk_rope_head_dim), dtype=dtype,
+                                 device=self.device)
+                return {"kv": kv, "latent": kv[..., :r], "k_rope": kv[..., r:]}
+            shape = (n, batch, cfg.n_kv_heads, seq, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+        cache: Dict[str, Any] = {name: group(n) for name, n, _ in self._stacks()}
+        cache["pos"] = torch.zeros((), dtype=torch.int32, device=self.device)
+        return cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -326,20 +395,16 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         pos = cache["pos"]
         x = self._embed_inputs(tokens)
-        for i, (p, window, freqs) in enumerate(self._layer_args()):
-            k_cache, v_cache = cache["dense"]["k"][i], cache["dense"]["v"][i]
-            x = self._block(p, x, lambda h, p=p, kc=k_cache, vc=v_cache, w=window, f=freqs:
-                            gqa_decode(p["attn"], h, kc, vc, pos, cfg, window=w, freqs=f))
+        for p, window, freqs, group, i, use_moe in self._layer_args():
+            c = cache[group]
+            if cfg.attn_type == "mla":
+                def attn(h, p=p, rows=c["kv"][i], f=freqs):
+                    return mla_decode(p["attn"], h, rows, pos, cfg, freqs=f)
+            else:
+                def attn(h, p=p, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
+                    return gqa_decode(p["attn"], h, kc, vc, pos, cfg, window=w, freqs=f)
+            x = self._block(p, x, attn, use_moe)
         _, norm = make_norm(cfg.norm)
         logits = self._logits(norm(self.ln_f, x))
         cache["pos"] = pos + 1
         return logits[:, 0], cache
-
-
-def _not_ported(family: str) -> str:
-    if family in ("ssm", "hybrid", "encdec"):
-        return ("TransformerLM serves the dense and vlm families; the ssm, hybrid and "
-                "encdec families are Mamba2LM, Zamba2LM and WhisperModel (build_model)")
-    return (f"the {family} family is not ported yet (ROADMAP.md, modules to port, "
-            "item 10: MoE, MLA and MTP); the port serves the dense, vlm, ssm, hybrid and "
-            "encdec families and trains the dense, vlm and encdec ones")

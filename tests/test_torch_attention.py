@@ -107,13 +107,26 @@ def _dispatched_head_dims(source: str) -> list:
             for body in re.findall(r"switch \(hd\) \{(.*?)\n\s*\}", text, re.S)]
 
 
+def _dispatched_pairs(source: str) -> list:
+    """The ``PAIR(dk, dv)`` lines of each (q·k, v) width dispatch in a CUDA
+    source."""
+    text = (Path(_build.CSRC) / source).read_text()
+    return [tuple((int(a), int(b)) for a, b in re.findall(r"PAIR\((\d+), (\d+)\)", body))
+            for body in re.findall(r"#define PAIR(.*?)#undef PAIR", text, re.S)]
+
+
 def test_cuda_dispatch_instantiates_every_head_dim():
-    """Each kernel's head-width dispatch instantiates exactly ``HEAD_DIMS``,
-    which ``check_inputs`` lets through: the f32 and bf16 prefill kernels
-    and the decode kernel."""
-    assert _dispatched_head_dims("flash_attention.cu") == [tfa.HEAD_DIMS] * 2
-    assert _dispatched_head_dims("decode_attention.cu") == [tfa.HEAD_DIMS]
-    assert get_config("gemma3_12b").head_dim in tfa.HEAD_DIMS  # 256
+    """Each kernel's width dispatch instantiates exactly the (q·k, v) pairs
+    of its wrapper's ``HEAD_DIMS``, which ``check_widths`` lets through: the
+    f32 and bf16 prefill kernels, and the decode kernel (bf16 alone also at
+    MLA's (576, 512))."""
+    assert _dispatched_pairs("flash_attention.cu") == [
+        tfa.HEAD_DIMS[torch.float32], tfa.HEAD_DIMS[torch.bfloat16]]
+    assert _dispatched_pairs("decode_attention.cu") == [tda.HEAD_DIMS[torch.bfloat16]]
+    assert tda.HEAD_DIMS[torch.float32] == tda.HEAD_DIMS[torch.bfloat16][:-1]
+    assert tda.HEAD_DIMS[torch.bfloat16][-1] in tda.SHARED_ROWS
+    hd = get_config("gemma3_12b").head_dim  # 256
+    assert (hd, hd) in tfa.HEAD_DIMS[torch.bfloat16] and (hd, hd) in tda.HEAD_DIMS[torch.bfloat16]
 
 
 def test_decode_attention_masks_beyond_pos():

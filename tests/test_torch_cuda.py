@@ -6,7 +6,9 @@ start and a URL feed on the card against the local ones, a dense train
 step and a reduced whisper's train step (its cross-attention's backward at
 Sq != Sk), a reduced Zamba2's serving path and a reduced llava's prefill
 with patches on the card against the CPU's, and dense, Whisper, Mamba2 and
-Zamba2 decode steps that must not sync with the host. Each skips without a
+Zamba2 decode steps that must not sync with the host; the attention kernels
+at the moe family's widths (112, MLA's (192, 128) and (576, 512)) and moe
+decode steps on the card. Each skips without a
 card. This file imports nothing of JAX, so it runs on a machine that has a
 card and no JAX:
 
@@ -687,6 +689,157 @@ def test_decode_attention_cluster_kernel_matches_plain_version(card, B, KV, g, S
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.reshape(B, KV * g, hd).float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# the moe family's widths: Kimi-K2's 112, DeepSeek-V3's MLA prefill (192, 128)
+@pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128)])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", [
+    (8, 8, 1, 576, 576, True, 0),     # kimi's group of 8 / MLA's engine prefill, one KV head
+    (2, 4, 4, 130, 130, True, 0),     # a ragged tail tile
+    (1, 4, 2, 96, 160, True, 0),      # Sk > Sq, S not a multiple of the tile
+    (2, 4, 2, 200, 200, False, 0),    # non-causal
+    (1, 2, 2, 300, 300, True, 40),    # a window
+    (1, 2, 2, 1, 1, True, 0),         # one row
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_moe_widths_matches_plain_version(card, dk, dv, B, H, KV,
+                                                                    Sq, Sk, causal, window,
+                                                                    dtype):
+    """Both kernels at (112, 112) (the tensor cores' tiles are 128 wide, TMA
+    zero-fills the last 16 columns) and (192, 128) (Q and K tiles of three
+    boxes, V of two): within the forward's tolerance of the plain version,
+    and two calls bit-equal."""
+    rng = np.random.default_rng(dk + Sq)
+    q = _normal(rng, (B, H, Sq, dk), dtype, card)
+    k = _normal(rng, (B, KV, Sk, dk), dtype, card)
+    v = _normal(rng, (B, KV, Sk, dv), dtype, card)
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2 and tuple(got.shape) == (B, H, Sq, dv)
+    assert torch.equal(got, again)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128)])
+def test_flash_attention_backward_refuses_the_moe_widths(card, dk, dv):
+    """The moe family's widths are serving-only: under grad, and for the
+    training forward, the call raises naming the item that owes them."""
+    q = torch.randn(1, 2, 64, dk, device=card, dtype=torch.bfloat16, requires_grad=True)
+    v = torch.randn(1, 2, 64, dv, device=card, dtype=torch.bfloat16)
+    with pytest.raises(RawArrayError, match="item 10's training half"):
+        ops.flash_attention(q, q, v)
+    with pytest.raises(RawArrayError, match="item 10's training half"):
+        fa.flash_attention_fwd(q.detach(), q.detach(), v, return_lse=True)
+
+
+@pytest.mark.parametrize("B,KV,g,S,pos,window", [
+    (8, 8, 8, 576, 575, 0),     # kimi's decode: 64 heads over 8 KV heads
+    (2, 8, 8, 576, 0, 0),       # pos 0
+    (1, 2, 4, 300, 170, 64),    # a window
+    (4, 1, 2, 100, 99, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_head_width_112(card, B, KV, g, S, pos, window, dtype):
+    """A team of 16 lanes a key, 14 of them with data: within tolerance,
+    rows past pos dead, two calls bit-equal."""
+    rng = np.random.default_rng(S + pos)
+    q = _normal(rng, (B, KV * g, 112), dtype, card)
+    k, v = (_normal(rng, (B, KV, S, 112), dtype, card) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    want = ref.decode_attention_ref(q.reshape(B, KV, g, 112), k, v, p, window=window)
+    k[:, :, pos + 1:] = float("nan")
+    v[:, :, pos + 1:] = float("nan")
+    before = da.launches
+    got = ops.decode_attention(q, k, v, p, window=window)
+    again = ops.decode_attention(q, k, v, p, window=window)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2 and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.reshape(B, KV * g, 112).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,S,pos", [
+    (8, 128, 576, 575),   # deepseek-v3's last engine step: 128 heads over one latent head
+    (8, 128, 576, 0),     # pos 0
+    (2, 128, 576, 17),    # pos inside the first tile
+    (2, 16, 100, 99),     # a ragged last tile
+    (1, 2, 40, 31),       # g 2: one CTA of 2 heads
+])
+def test_mla_decode_reads_v_from_the_key_rows(card, B, H, S, pos):
+    """MLA's absorbed decode at (576, 512), bf16: V is the first 512 columns
+    of each 576-wide cache row, passed as a view of K and read from K's
+    tile; within tolerance of the plain version at MLA's scale, rows past
+    pos dead, two calls bit-equal. A V of its own at this pair raises, as
+    does a view of K at a pair that reads two caches."""
+    rng = np.random.default_rng(S + pos + H)
+    scale = 192 ** -0.5
+    q = _normal(rng, (B, H, 576), torch.bfloat16, card)
+    rows = _normal(rng, (B, 1, S, 576), torch.bfloat16, card)
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    want = ref.decode_attention_ref(q[:, None], rows, rows[..., :512], p, scale=scale)[:, 0]
+    rows[:, :, pos + 1:] = float("nan")
+    before = da.launches
+    got = ops.decode_attention(q, rows, rows[..., :512], p, scale=scale)
+    again = ops.decode_attention(q, rows, rows[..., :512], p, scale=scale)
+    torch.cuda.synchronize()
+    assert da.launches == before + 2 and tuple(got.shape) == (B, H, 512)
+    assert torch.equal(got, again) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    with pytest.raises(RawArrayError, match="reads V from K's rows"):
+        ops.decode_attention(q, rows, rows[..., :512].contiguous(), p, scale=scale)
+    k128 = _normal(rng, (B, 1, S, 128), torch.bfloat16, card)
+    with pytest.raises(RawArrayError, match="head widths"):
+        ops.decode_attention(q[..., :128].contiguous(), k128, k128[..., :64], p)
+    assert da.launches == before + 2
+
+
+def _moe_on_card(arch):
+    """A reduced moe config at its kernels' widths on the card, bf16:
+    Kimi-K2 with head width 112, DeepSeek-V3 with its MLA widths."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced().with_(param_dtype="bfloat16", compute_dtype="bfloat16")
+    if cfg.attn_type == "mla":
+        return cfg.with_(mla=dataclasses.replace(
+            cfg.mla, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    return cfg.with_(head_dim=112)
+
+
+@pytest.mark.parametrize("arch", ["kimi_k2_1t", "deepseek_v3_671b"])
+def test_moe_decode_step_on_card_launches_the_kernels_without_a_sync(card, arch):
+    """A moe model at its attention widths serves on the card: the prefill
+    launches the flash kernel once a layer, each decode step the decode
+    kernel once a layer, and a decode step (MoE dispatch included) does not
+    sync with the host."""
+    from repro_torch.models import build_model
+
+    cfg = _moe_on_card(arch)
+    model = build_model(cfg, device=card, seed=0)
+    tokens = torch.randint(1, cfg.vocab, (2, 12), device=card)
+    with torch.inference_mode():
+        before = fa.launches, da.launches
+        _, cache = model.prefill(tokens)
+        cache["pos"] = torch.full((), 8, dtype=torch.int32, device=card)
+        logits, cache = model.decode_step(cache, tokens[:, 8:9])
+        torch.cuda.synchronize()
+        assert (fa.launches, da.launches) == (before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+        step = logits.argmax(-1, keepdim=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                logits, cache = model.decode_step(cache, step)
+                step = logits.argmax(-1, keepdim=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(cache["pos"]) == 12 and torch.isfinite(logits.float()).all()
 
 
 def test_decode_attention_is_one_kernel_per_call(card):

@@ -1,0 +1,316 @@
+"""The port's moe family (DeepSeek-V3 on MLA, Kimi-K2 on GQA) against the
+JAX package.
+
+Reduced configs in f32 (``ModelConfig.reduced()``: 4 experts, top-2, a
+shared expert; DeepSeek-V3's MLA at q_lora 64, kv_lora 32, rope 16, with 3
+layers here so that its moe stack holds 2 after the dense prefix of 1). The
+JAX params, their attention tempered (``_temper``), are carried into the
+port (``convert.params_from_jax``), inputs come from numpy seeds, and every
+tensor is held within ``TOL`` of its
+scale, as ``tests/test_torch_serving.py``. Held to the JAX package: the
+router (expert ids exactly), ``moe_ffn``'s output and aux loss over one and
+two dispatch chunks and at a capacity low enough that routes drop; MLA's
+expanded prefill and its cache, and its absorbed decode at several
+positions; the models' prefill and decode logits and caches; the engines'
+greedy tokens; the full configs' leaf names and shapes; checkpoints both
+ways, bit for bit. The plain attention versions are held to the JAX
+oracles at MLA's widths, (192, 128) for the prefill and (576, 512) over
+shared rows for the decode.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import repro.checkpoint as jck
+from repro.checkpoint.store import _leaf_name
+from repro.configs import get_config as jax_config
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro.models import build_model as jax_build
+from repro.models import moe as jmoe
+from repro.models.common import Initializer as JaxInitializer
+from repro.serving import ServeEngine as JaxEngine
+from repro_torch.checkpoint import load_checkpoint, restore_pipelined, save_checkpoint
+from repro_torch.checkpoint.store import flatten
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import build_model
+from repro_torch.models import moe as tmoe
+from repro_torch.models.common import rope_freqs
+from repro_torch.models.convert import load_params, params_from_jax
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.serving import ServeEngine
+
+TOL = 1e-4  # of each tensor's scale: rtol 1e-4, atol 1e-4 * max(1, max |want|)
+ATTN_TOL = 2e-5  # f32, tests/test_kernels.py:19
+MOE = ["deepseek_v3_671b", "kimi_k2_1t"]
+# the reduced configs as tested: deepseek-v3 with 3 layers (1 dense + 2 moe)
+CHANGES = {"deepseek_v3_671b": {"n_layers": 3}, "kimi_k2_1t": {}}
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, err_msg=""):
+    got, want = _np(got), _np(want)
+    atol = TOL * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=atol, err_msg=err_msg)
+
+
+def _leaves(model):
+    return {name: (tuple(t.shape), str(t.dtype).rsplit(".", 1)[-1])
+            for name, t in flatten(model.param_tree(), "param").items()}
+
+
+def _jax_leaves(tree):
+    return {_leaf_name(path, "param"): (tuple(x.shape), str(x.dtype))
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _configs(arch, **changes):
+    changes = {**CHANGES[arch], **changes}
+    return jax_config(arch).reduced().with_(**changes), get_config(arch).reduced().with_(**changes)
+
+
+def _temper(params, cfg):
+    """The JAX params with every served layer's attention projections scaled
+    to their contraction width, as ``chip_smoke.py:_temper_attention`` scales
+    the card's models (``tests/test_torch_zamba.py:_temper``). ``fanin``
+    divides by ``shape[-2]``: the head count for GQA's ``wq``/``wk``/``wv``
+    and MLA's ``wq_b``/``wkv_b`` (whose contraction is the rank), the head
+    width for ``wo`` (whose contraction is all heads). At those scales the
+    reduced Kimi-K2's scores have a std near 40, its softmax is all but an
+    argmax, and one f32 rounding can move a logit past ``TOL`` in either
+    package (the init differs by process: it folds in a salted hash)."""
+    H = cfg.n_heads
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        factors = {"wq_b": H / m.q_lora_rank, "wkv_b": H / m.kv_lora_rank, "wo": 1 / H}
+    else:
+        KV, d = cfg.n_kv_heads, cfg.d_model
+        factors = {"wq": H / d, "wk": KV / d, "wv": KV / d, "wo": 1 / H}
+    out = dict(params)
+    for stack in ("dense_layers", "moe_layers"):
+        attn = {k: v * factors[k] ** 0.5 if k in factors else v
+                for k, v in params[stack]["attn"].items()}
+        out[stack] = {**params[stack], "attn": attn}
+    return out
+
+
+def _pair(arch, seed=0, **changes):
+    jcfg, tcfg = _configs(arch, **changes)
+    jmodel = jax_build(jcfg)
+    params = _temper(jmodel.init(jax.random.PRNGKey(seed)), jcfg)
+    port = build_model(tcfg, device="cpu")
+    assert isinstance(port, TransformerLM)
+    assert _leaves(port) == _jax_leaves(params)
+    load_params(port, params_from_jax(jax.device_get(params)))
+    return jmodel, params, port
+
+
+def _module_params(init, cfg, seed):
+    """A JAX module's params from its own init, and the port's copy."""
+    p = init(JaxInitializer(jax.random.PRNGKey(seed), jnp.float32), cfg)
+    return p, params_from_jax(jax.device_get(p))
+
+
+def _x(cfg, B, S, seed):
+    return np.random.default_rng(seed).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("router", ["sigmoid", "softmax"])
+def test_route_and_moe_ffn_match_jax(chunks, capacity_factor, router):
+    jcfg, tcfg = _configs("deepseek_v3_671b")
+    m = dataclasses.replace(jcfg.moe, dispatch_chunks=chunks, capacity_factor=capacity_factor,
+                            router=router)
+    jcfg, tcfg = jcfg.with_(moe=m), tcfg.with_(moe=m)
+    jp, tp = _module_params(jmoe.init_moe, jcfg, seed=11)
+    B, S = 2, 24
+    x = _x(jcfg, B, S, seed=12)
+    jidx, jgates, jaux = jmoe.route(jp, jnp.asarray(x.reshape(B * S, -1)), jcfg)
+    tidx, tgates, taux = tmoe.route(tp, torch.from_numpy(x.reshape(B * S, -1)), tcfg)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    _close(tgates, jgates)
+    _close(taux, jaux)
+
+    jy, jaux = jmoe.moe_ffn(jp, jnp.asarray(x), jcfg)
+    ty, taux = tmoe.moe_ffn(tp, torch.from_numpy(x), tcfg)
+    _close(ty, jy)
+    _close(taux, jaux)
+    # at the low capacity some expert's queue overflows in some chunk: routes drop
+    T = B * S // chunks
+    C = max(1, math.ceil(T * m.top_k / m.n_experts * capacity_factor))
+    counts = [np.bincount(c.ravel(), minlength=m.n_experts)
+              for c in np.asarray(jidx).reshape(chunks, T, m.top_k)]
+    if capacity_factor < 1.0:
+        assert max(c.max() for c in counts) > C
+
+
+def test_mla_prefill_and_decode_match_jax():
+    jcfg, tcfg = _configs("deepseek_v3_671b")
+    ml = jcfg.mla
+    jp, tp = _module_params(jattn.init_mla, jcfg, seed=21)
+    B, S, cap = 2, 40, 48
+    x = _x(jcfg, B, cap, seed=22)
+    freqs = rope_freqs(ml.qk_rope_head_dim, jcfg.rope_theta)
+    jout, jcache = jattn.mla_attention(jp, jnp.asarray(x[:, :S]), jcfg,
+                                       positions=jnp.arange(S), with_cache=True, chunk=16)
+    tout, latent, k_rope = tattn.mla_prefill(tp, torch.from_numpy(x[:, :S]), tcfg,
+                                             positions=torch.arange(S), freqs=freqs)
+    _close(tout, jout)
+    _close(latent, jcache["latent"])
+    _close(k_rope, jcache["k_rope"])
+
+    # decode the positions S.. from a cache of capacity ``cap``
+    r, rope = ml.kv_lora_rank, ml.qk_rope_head_dim
+    jc = {"latent": jnp.zeros((B, cap, r)).at[:, :S].set(jcache["latent"]),
+          "k_rope": jnp.zeros((B, cap, rope)).at[:, :S].set(jcache["k_rope"])}
+    rows = torch.zeros(B, cap, r + rope)
+    rows[:, :S] = torch.cat([latent, k_rope], -1)
+    for pos in (S, S + 1, cap - 1):
+        jo, jc = jattn.mla_decode(jp, jnp.asarray(x[:, pos:pos + 1]), jc, jnp.int32(pos), jcfg)
+        to = tattn.mla_decode(tp, torch.from_numpy(x[:, pos:pos + 1]), rows,
+                              torch.tensor(pos, dtype=torch.int32), tcfg, freqs=freqs)
+        _close(to, jo, err_msg=f"pos {pos}")
+        _close(rows[..., :r], jc["latent"], err_msg=f"pos {pos}")
+        _close(rows[..., r:], jc["k_rope"], err_msg=f"pos {pos}")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_prefill_and_decode_match_the_jax_model(arch):
+    jmodel, params, port = _pair(arch)
+    cfg = port.cfg
+    assert (port.n_dense, port.n_moe) == (1, cfg.n_layers - 1)
+    B, S, extra = 2, 80, 3
+    tokens = np.random.default_rng(7).integers(1, cfg.vocab, (B, S + extra)).astype(np.int32)
+    padded = tokens.copy()
+    padded[:, S:] = 0
+
+    jlogits, jcache = jax.jit(jmodel.prefill)(params, {"tokens": jnp.asarray(padded)})
+    tlogits, tcache = port.prefill(torch.from_numpy(padded).long())
+    _close(tlogits, jlogits)
+    names = ("latent", "k_rope") if cfg.attn_type == "mla" else ("k", "v")
+    for group in ("dense", "moe"):
+        for name in names:
+            _close(tcache[group][name], jcache[group][name], err_msg=f"{group}.{name}")
+    assert int(tcache["pos"]) == int(jcache["pos"]) == S + extra
+
+    jcache["pos"] = jnp.asarray(S, jnp.int32)
+    tcache["pos"] = torch.tensor(S, dtype=torch.int32)
+    step = jax.jit(jmodel.decode_step)
+    for t in range(S, S + extra):
+        jl, jcache = step(params, jcache, jnp.asarray(tokens[:, t:t + 1]))
+        tl, tcache = port.decode_step(tcache, torch.from_numpy(tokens[:, t:t + 1]).long())
+        _close(tl, jl, err_msg=f"step {t}")
+    for group in ("dense", "moe"):
+        for name in names:
+            _close(tcache[group][name], jcache[group][name], err_msg=f"{group}.{name}")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_engine_matches_the_jax_engine(tmp_path, arch):
+    """The engines pad the prompts with token 0 to the capacity; those rows
+    compete for expert capacity after the real ones, alike in both."""
+    jmodel, params, _ = _pair(arch, seed=3)
+    path = jck.save_checkpoint(str(tmp_path), 1, params)
+    prompts = np.random.default_rng(4).integers(1, jmodel.cfg.vocab, (2, 20)).astype(np.int32)
+    want = JaxEngine(jmodel, checkpoint=path).generate(prompts, max_new=8)
+    engine = ServeEngine(build_model(_configs(arch)[1], device="meta"), checkpoint=path,
+                         device="cpu")
+    np.testing.assert_array_equal(engine.generate(prompts, max_new=8), want)
+
+
+@pytest.mark.parametrize("arch,params", [
+    ("deepseek_v3_671b", 671_712_655_360),   # 61 layers and the MTP head
+    ("kimi_k2_1t", 1_027_291_575_296),
+])
+def test_full_configs_have_the_jax_leaf_names_and_shapes(arch, params):
+    jmodel = jax_build(jax_config(arch))
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0)))
+    port = build_model(get_config(arch), device="meta")
+    leaves = _leaves(port)
+    assert leaves == _jax_leaves(shapes)
+    assert any(name.startswith("param__mtp__") for name in leaves) == (arch == "deepseek_v3_671b")
+    assert sum(t.numel() for t in port.parameters()) == params
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoints_cross_both_ways_bit_equal(tmp_path, arch, dtype):
+    """A JAX-saved moe checkpoint restores through the port's readers onto a
+    meta-device model, and a port-saved one through the JAX package, bit
+    for bit (bf16 leaves by their 16-bit patterns)."""
+    jmodel, params, port = _pair(arch, param_dtype=dtype, compute_dtype=dtype)
+    jpath = jck.save_checkpoint(str(tmp_path / "jax"), 1, params)
+    meta = build_model(port.cfg, device="meta")
+    have = flatten(port.param_tree(), "param")
+    for got in (load_checkpoint(jpath, meta.param_tree())[0],
+                restore_pipelined(jpath, meta.param_tree(), device="cpu")[0]):
+        got = flatten(got, "param")
+        assert set(got) == set(have) and "param__moe_layers__ffn__w_gate" in got
+        for name, t in got.items():
+            assert torch.equal(t, have[name]), name
+    tpath = save_checkpoint(str(tmp_path / "port"), 2, port.param_tree())
+    back, _, _ = jck.load_checkpoint(tpath, params)
+    want = flatten(jax.device_get(params), "param")
+    width = np.int16 if dtype == "bfloat16" else np.int32
+    for name, a in flatten(jax.device_get(back), "param").items():
+        assert a.dtype == want[name].dtype, name
+        np.testing.assert_array_equal(np.asarray(a).view(width),
+                                      np.asarray(want[name]).view(width), err_msg=name)
+
+
+def test_training_is_refused_naming_its_item():
+    port = build_model(_configs("deepseek_v3_671b")[1], device="meta")
+    with pytest.raises(NotImplementedError, match="item 10: MoE, MLA and MTP, its training half"):
+        port.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal", [
+    (2, 4, 4, 70, 70, True),     # MLA's prefill: group 1, a ragged tile
+    (1, 8, 8, 128, 128, True),
+    (2, 4, 4, 33, 90, False),
+])
+def test_plain_flash_attention_at_mla_widths_matches_the_jax_oracle(B, H, KV, Sq, Sk, causal):
+    rng = np.random.default_rng(31)
+    q, k = (rng.standard_normal((B, n, s, 192)).astype(np.float32)
+            for n, s in ((H, Sq), (KV, Sk)))
+    v = rng.standard_normal((B, KV, Sk, 128)).astype(np.float32)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    got = tops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    assert tuple(got.shape) == (B, H, Sq, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("B,H,S,pos", [(2, 16, 64, 0), (2, 16, 64, 30), (1, 8, 100, 99)])
+def test_plain_decode_attention_over_shared_rows_matches_the_jax_oracle(B, H, S, pos):
+    """MLA's absorbed decode: all heads over one cache head whose rows are 576
+    wide, V their first 512 columns (a view), at scale 192^-1/2."""
+    rng = np.random.default_rng(32)
+    q = rng.standard_normal((B, H, 576)).astype(np.float32)
+    rows = rng.standard_normal((B, 1, S, 576)).astype(np.float32)
+    scale = 192 ** -0.5
+    want = jref.decode_attention_ref(jnp.asarray(q)[:, None], jnp.asarray(rows),
+                                     jnp.asarray(rows[..., :512]), pos, scale=scale)
+    t_rows = torch.from_numpy(rows)
+    got = tops.decode_attention(torch.from_numpy(q), t_rows, t_rows[..., :512], pos, scale=scale)
+    assert tuple(got.shape) == (B, H, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0], rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+    plain = tref.decode_attention_ref(torch.from_numpy(q)[:, None], t_rows, t_rows[..., :512],
+                                      pos, scale=scale)
+    assert torch.equal(plain[:, 0], got)

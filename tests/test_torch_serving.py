@@ -32,7 +32,7 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.checkpoint.store import flatten
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.spec import RawArrayError
-from repro_torch.kernels import flash_attention
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import build_model
 from repro_torch.models.convert import load_params, params_from_jax
 from repro_torch.serving import ServeEngine
@@ -139,8 +139,31 @@ def test_served_dense_configs_fit_the_attention_kernels():
         except NotImplementedError:
             continue
         served.append(arch)
-        assert cfg.head_dim in flash_attention.HEAD_DIMS, (arch, cfg.head_dim)
+        pair = (cfg.head_dim, cfg.head_dim)
+        assert pair in flash_attention.HEAD_DIMS[cfg.cdtype], (arch, cfg.head_dim)
+        assert pair in decode_attention.HEAD_DIMS[cfg.cdtype], (arch, cfg.head_dim)
     assert set(DENSE) <= set(served)
+
+
+def test_served_moe_configs_fit_the_attention_kernels():
+    """The moe family's attention widths are instantiated in its dtype:
+    Kimi-K2's 112 in both kernels; DeepSeek-V3's MLA prefill (q·k = nope +
+    rope, v) in the flash kernel and its absorbed decode (latent + rope over
+    the latent, read from the same rows) in the decode kernel."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.family != "moe":
+            continue
+        build_model(cfg.reduced(), device="meta")  # the family builds
+        if cfg.attn_type == "mla":
+            m = cfg.mla
+            prefill = (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+            decode = (m.kv_lora_rank + m.qk_rope_head_dim, m.kv_lora_rank)
+            assert decode in decode_attention.SHARED_ROWS, arch
+        else:
+            prefill = decode = (cfg.head_dim, cfg.head_dim)
+        assert prefill in flash_attention.HEAD_DIMS[cfg.cdtype], (arch, prefill)
+        assert decode in decode_attention.HEAD_DIMS[cfg.cdtype], (arch, decode)
 
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_5_14b", "gemma3_12b"])
@@ -209,9 +232,10 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     ("mamba2_780m", "item 15"),
 ])
 def test_other_families_are_not_ported_yet(arch, item):
-    """The moe family does not build; mamba2 (ssm) builds and serves, and
-    its training raises (whisper, the encdec family, and llava, the vlm
-    family, train: tests/test_torch_whisper.py, tests/test_torch_vlm.py)."""
+    """The moe family builds and serves (tests/test_torch_moe.py) and its
+    training raises; mamba2 (ssm) builds and serves, and its training raises
+    (whisper, the encdec family, and llava, the vlm family, train:
+    tests/test_torch_whisper.py, tests/test_torch_vlm.py)."""
     with pytest.raises(NotImplementedError, match=item):
         build_model(get_config(arch).reduced(), device="meta").train_loss({})
 

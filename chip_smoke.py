@@ -77,7 +77,12 @@ Phases (any failure exits non-zero and prints no result):
    local layers' window 1024 and its global layers), whisper-medium's (hd
    64, group 1: the encoder (8,16,1500,64) non-causal, the cross-attention's
    448 rows over 1,500 keys, the decoder (8,16,448,64) causal), llava's
-   (q (2,32,4096,128), k/v (2,8,4096,128), window 4096) and edges (a ragged
+   (q (2,32,4096,128), k/v (2,8,4096,128), window 4096), kimi-k2-1t's (q
+   (2,64,4096,112), k/v (2,8,4096,112)) and deepseek-v3's expanded MLA (q/k
+   (2,128,4096,192), v (2,128,4096,128), group 1), whose plain versions run a
+   group of heads a call where one call's (Sq, Sk) scores would pass 4.3 GB
+   (the row says how many), and edges (at (112, 112) and (192, 128): ragged,
+   Sq != Sk both ways, non-causal; a ragged
    S, window 1024, hd 32, hd 256, 64-row tiles, groups of 1, 2, 4 and 8;
    Sq != Sk causal both ways, one row over 1,500 keys, with a window, in
    f32; bf16 non-causal at hd 32, 128 and 256; llava's window where it
@@ -270,7 +275,36 @@ Phases (any failure exits non-zero and prints no result):
    (8,64,576,112) and decode, group 8; the MLA prefill q/k (8,128,576,192), v
    (8,128,576,128), and the MLA decode, 128 heads over (8,1,576,576) rows,
    scale 192^-1/2) against their plain versions, with edges (ragged tiles,
-   Sk > Sq, windows, pos 0 and inside the first tile, f32).
+   Sk > Sq, windows, pos 0 and inside the first tile, f32), and the flash
+   kernel at phases 20-21's training shapes (q (2,64,4096,112); q/k
+   (2,128,4096,192), v 128; the plain version by head groups);
+20. training: kimi-k2-1t-a32b at its full widths and phase 18's 2 layers,
+   with 64 of its 384 routed experts (everything else, the experts' shapes,
+   top-8, the router, the shared expert, capacity factor 1.25 and 8
+   dispatch chunks, as published: one MoE layer's 384 experts alone would
+   need 102 GB of training states), bf16, remat, random weights from seed 0
+   tempered, a RawArray token dataset of 16 × 4,096 tokens (the reference's
+   train_4k row) at batch 2 through ``DeviceLoader``: the first step's loss
+   and gradient norm against plain attention's (1% and 2%; the plain
+   attention, its f64 control and the plain backward a group of heads a
+   call), every layer's wq/wk/wv/wo gradient within ``ATTN_GRAD_TOL`` of the
+   same forward with the plain backward, the planted faults caught; two
+   first steps with every gradient leaf bit-equal; then 4 steps of
+   ``make_step`` with AdamW at the config's int8 moments (no checkpoint),
+   the losses finite and lower after the first update (the one exact f32
+   AdamW step of the reference's int8 mode: later ones move an entry whose
+   gradient vanished by ~lr·m/eps, ROADMAP.md §3 fault 10; whether the loss
+   falls over the 4 steps, the grad norms, the moments' stale entries and the
+   largest parameter entries after each step are printed), launch counts
+   2 × 4 × 2 forward (all on the
+   tensor cores) and 2 × 4 backward, by width pair; step s, tokens/s, peak
+   memory beside its prediction, the share of routes dropped, a profiled
+   step, the card's name and power limit;
+21. training: deepseek-v3-671b as phase 20, at phase 19's 4 layers (3 dense,
+   1 MoE) with 64 of 256 routed experts, MLA expanded at (192, 128), and the
+   MTP loss (its one dense layer, not under remat): its MLA's
+   wq_a/wq_b/wkv_a/wkv_b/wo gradients gated, the MTP layer's too; launch
+   counts (4 × 2 + 1) × 4 forward and 5 × 4 backward.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -645,6 +679,9 @@ def phase_attention(torch) -> tuple:
         # prefill (phase 19), expanded: 128 heads, q·k 128 + 64 wide, v 128
         ("kimi_prefill", 8, 64, 8, 576, 576, 112, "bfloat16", True, 0, True),
         ("deepseek_mla_prefill", 8, 128, 128, 576, 576, 192, "bfloat16", True, 0, True, 128),
+        # their training forwards (phases 20-21): 2 sequences of 4,096 tokens
+        ("kimi_train", 2, 64, 8, 4096, 4096, 112, "bfloat16", True, 0, True),
+        ("deepseek_mla_train", 2, 128, 128, 4096, 4096, 192, "bfloat16", True, 0, True, 128),
         ("edge_hd112_tail_tile", 2, 16, 2, 130, 130, 112, "bfloat16", True, 0, False),
         ("edge_hd112_sk_gt_sq", 2, 8, 1, 96, 160, 112, "bfloat16", True, 0, False),
         ("edge_hd112_window", 1, 8, 8, 300, 300, 112, "bfloat16", True, 64, False),
@@ -660,11 +697,21 @@ def phase_attention(torch) -> tuple:
         q, k, v = randn((B, H, Sq, hd), dt), randn((B, KV, Sk, hd), dt), randn((B, KV, Sk, dv), dt)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        heads = _plain_heads(B, H, KV, Sq, Sk)  # by head groups past PLAIN_BYTES of scores
+
+        def plain_fn():
+            def fn(q, k, v):
+                return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+            return fn(q, k, v) if heads is None else _by_heads(torch, fn, heads, q, k, v)
+
+        plain = plain_fn()
         row = {"case": label, "shape": {"q": [B, H, Sq, hd], "kv": [B, KV, Sk, hd]},
                "dtype": dt, "causal": causal, "window": window}
         if dv != hd:
             row["shape"]["v"] = [B, KV, Sk, dv]
+        if heads is not None:
+            row["plain_heads_per_call"] = heads
         if timed:
             esize = q.element_size()
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * esize
@@ -680,8 +727,7 @@ def phase_attention(torch) -> tuple:
             row.update(_timings(
                 torch,
                 lambda: ops.flash_attention(q, k, v, causal=causal, window=window),
-                lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window),
-                library, flush, nbytes, flops,
+                plain_fn, library, flush, nbytes, flops,
                 peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS,
             ))
             row["peak_flops"] = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
@@ -868,6 +914,74 @@ def phase_ssd(torch) -> list:
 
 
 # --------------------------------------------------------------- phase 3d
+#: the most bytes one (Sq, Sk) f32 score tensor of a plain attention call may
+#: take in phase 3d (llava's, 4.3 GB, is whole); past it the plain versions run
+#: a group of KV heads (with their q heads) at a time. The first-step gates,
+#: beside a model and its gradients, take a quarter of it
+PLAIN_BYTES = 2 ** 32
+
+
+def _plain_heads(B: int, H: int, KV: int, Sq: int, Sk: int, budget: int = PLAIN_BYTES):
+    """q heads a plain attention call takes at once (whole KV groups), or
+    None where the whole call's scores fit ``budget`` bytes."""
+    g = H // KV
+    if B * H * Sq * Sk * 4 <= budget:
+        return None
+    return max(g, budget // (B * Sq * Sk * 4) // g * g)
+
+
+def _by_heads(torch, fn, heads, q, k, v):
+    """``fn(q, k, v)`` a group of ``heads`` q heads (and their KV heads) at a
+    time, each output concatenated over its head axis. Under grad each group
+    runs under ``torch.utils.checkpoint``, so only its inputs stay for the
+    backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    outs = []
+    for h0 in range(0, q.shape[1], heads):
+        args = _head_slices(q, k, (v,), h0, heads)
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+        outs.append(checkpoint(fn, *args, use_reentrant=False) if grad else fn(*args))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+def _plain_fwd(torch, q, k, v, causal, window, heads):
+    """``ref.flash_attention_ref``'s output and LSE, ``heads`` q heads a call."""
+    from repro_torch.kernels import ref
+
+    def fn(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+
+    return fn(q, k, v) if heads is None else _by_heads(torch, fn, heads, q, k, v)
+
+
+def _plain_bwd(torch, q, k, v, out, do, lse, causal, window, heads, scale=None):
+    """``ref.flash_attention_bwd_ref``, ``heads`` q heads a call: dq by q
+    heads, dk and dv by KV heads (each KV head's group is whole in a call)."""
+    from repro_torch.kernels import ref
+
+    def fn(q, k, v, out, do, lse):
+        return ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window,
+                                           scale=scale)
+
+    if heads is None:
+        return fn(q, k, v, out, do, lse)
+    with torch.no_grad():
+        dq, dk, dv = zip(*(fn(*_head_slices(q, k, (v, out, do, lse), h0, heads))
+                           for h0 in range(0, q.shape[1], heads)))
+    return torch.cat(dq, dim=1), torch.cat(dk, dim=1), torch.cat(dv, dim=1)
+
+
+def _head_slices(q, k, rest, h0, heads):
+    """q heads [h0, h0 + heads) and their KV heads: (q, k, v, *rest by q heads)."""
+    g = q.shape[1] // k.shape[1]
+    kv = slice(h0 // g, (h0 + heads) // g)
+    v, *by_q = rest
+    return (q[:, h0:h0 + heads], k[:, kv], v[:, kv], *(t[:, h0:h0 + heads] for t in by_q))
+
+
 def phase_attention_bwd(torch) -> list:
     """The backward of ``flash_attention`` against its plain version on the
     card, at the training shapes (timed) and at edge shapes; Sq q rows over
@@ -898,6 +1012,10 @@ def phase_attention_bwd(torch) -> list:
         ("whisper_decoder_train", 8, 16, 16, 448, 448, 64, "bfloat16", True, 0, True),
         # llava-next-mistral-7b's (phase 17): 1,152 patches + 2,944 tokens, window 4,096
         ("llava_train", 2, 32, 8, 4096, 4096, 128, "bfloat16", True, 4096, True),
+        # the moe family's (phases 20-21), a (q·k, v) pair: kimi-k2-1t's GQA, 64 heads
+        # over 8 of width 112; deepseek-v3's expanded MLA, 128 heads at (192, 128)
+        ("kimi_k2_train", 2, 64, 8, 4096, 4096, (112, 112), "bfloat16", True, 0, True),
+        ("deepseek_mla_train", 2, 128, 128, 4096, 4096, (192, 128), "bfloat16", True, 0, True),
         ("edge_ragged", 2, 16, 8, 300, 300, 128, "bfloat16", True, 0, False),
         ("edge_64_row_tiles", 2, 16, 8, 192, 192, 128, "bfloat16", True, 0, False),
         ("edge_hd256_ragged", 2, 16, 8, 300, 300, 256, "bfloat16", True, 0, False),
@@ -929,24 +1047,36 @@ def phase_attention_bwd(torch) -> list:
         ("edge_bf16_noncausal_hd256", 1, 8, 4, 300, 300, 256, "bfloat16", False, 0, False),
         # llava's window where it bites: 4,352 positions, keys 4,096 back drop out
         ("llava_window_bites", 1, 32, 8, 4352, 4352, 128, "bfloat16", True, 4096, False),
+        # the moe pairs' edges: ragged Sq, Sq != Sk both ways (Sk > Sq causal: keys no
+        # row sees, exact zeros), non-causal; 112 in a group of 8, the MLA's group of 1
+        ("edge_112_ragged", 2, 16, 2, 300, 300, (112, 112), "bfloat16", True, 0, False),
+        ("edge_112_sk_gt_sq_causal", 1, 8, 1, 130, 400, (112, 112), "bfloat16", True, 0, False),
+        ("edge_112_sq_gt_sk_causal", 1, 8, 1, 400, 130, (112, 112), "bfloat16", True, 0, False),
+        ("edge_112_noncausal", 1, 8, 2, 333, 500, (112, 112), "bfloat16", False, 0, False),
+        ("edge_mla_ragged", 2, 16, 16, 300, 300, (192, 128), "bfloat16", True, 0, False),
+        ("edge_mla_sk_gt_sq_causal", 1, 8, 8, 130, 400, (192, 128), "bfloat16", True, 0, False),
+        ("edge_mla_sq_gt_sk_causal", 1, 8, 8, 400, 130, (192, 128), "bfloat16", True, 0, False),
+        ("edge_mla_noncausal", 1, 8, 8, 333, 500, (192, 128), "bfloat16", False, 0, False),
     ]
     rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed in cases:
-        q, do = randn((B, H, Sq, hd), dt), randn((B, H, Sq, hd), dt)
-        k, v = randn((B, KV, Sk, hd), dt), randn((B, KV, Sk, hd), dt)
+        dk, dv = hd if isinstance(hd, tuple) else (hd, hd)
+        q, do = randn((B, H, Sq, dk), dt), randn((B, H, Sq, dv), dt)
+        k, v = randn((B, KV, Sk, dk), dt), randn((B, KV, Sk, dv), dt)
         # the forward's output in f32, as the training forward keeps it for D
         out, lse, out32 = flash_attention.flash_attention_fwd(
             q, k, v, causal=causal, window=window, return_lse=True)
-        plain_out, plain_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                                       return_lse=True)
+        # the plain versions a head group at a time where a call's (Sq, Sk) scores
+        # would pass PLAIN_BYTES (the MLA's would be 17 GB a tensor)
+        heads = _plain_heads(B, H, KV, Sq, Sk)
+        plain_out, plain_lse = _plain_fwd(torch, q, k, v, causal, window, heads)
 
         def kernel():
             return flash_attention.flash_attention_bwd(q, k, v, out32, do, lse, causal=causal,
                                                        window=window)
 
         def plain_fn():
-            return ref.flash_attention_bwd_ref(q, k, v, out32, do, lse, causal=causal,
-                                               window=window)
+            return _plain_bwd(torch, q, k, v, out32, do, lse, causal, window, heads)
 
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
@@ -954,7 +1084,8 @@ def phase_attention_bwd(torch) -> list:
         tol = BWD_TOL[dt]
         rel = {n: float((g.float() - w.float()).abs().max() / w.float().abs().max())
                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        row = {"case": label, "shape": {"q": [B, H, Sq, hd], "kv": [B, KV, Sk, hd]},
+        row = {"case": label, "shape": {"q": [B, H, Sq, dk], "k": [B, KV, Sk, dk],
+                                        "v": [B, KV, Sk, dv]},
                "dtype": dt, "causal": causal, "window": window,
                "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                   for g, w in zip(got, want)),
@@ -967,13 +1098,17 @@ def phase_attention_bwd(torch) -> list:
                                                 rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt]))}
         if causal and Sk > Sq:  # keys past Sq: no row sees them, dk and dv exactly 0
             row["unseen_keys_zero"] = not (got[1][:, :, Sq:].any() or got[2][:, :, Sq:].any())
+        if heads is not None:
+            row["plain_heads_per_call"] = heads
         if timed:
             esize = q.element_size()
             # q, k, v, O, dO and the LSE read once, O at q's dtype as the function's
             # output (this kernel's f32 read of it is its own choice, not the
             # function's need); dq, dk, dv written once
-            nbytes = (4 * q.numel() + 4 * k.numel()) * esize + lse.numel() * 4
-            flops = int(2.5 * 4 * hd * B * H * _live_pairs(Sq, Sk, causal, window))
+            nbytes = 2 * (q.numel() + do.numel() + k.numel() + v.numel()) * esize \
+                + lse.numel() * 4
+            # 2.5 × the masked forward's 2·B·H·live·(dk + dv), at the true widths
+            flops = int(2.5 * 2 * (dk + dv) * B * H * _live_pairs(Sq, Sk, causal, window))
             g = H // KV
             qs = q.detach().clone().requires_grad_()
             ks = k.repeat_interleave(g, dim=1).requires_grad_()
@@ -985,6 +1120,12 @@ def phase_attention_bwd(torch) -> list:
             else:  # is_causal aligns top-left, as the kernel's mask does
                 o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
             library = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do, retain_graph=True)
+            try:  # SDPA is a yardstick only: where no backend takes the shape, none
+                library()
+            except RuntimeError as err:  # includes torch.OutOfMemoryError
+                row["library_refused"] = str(err)[:300]
+                library = None
+                torch.cuda.empty_cache()
             row.update(_timings(torch, kernel, plain_fn, library, flush, nbytes, flops,
                                 peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS))
             row["peak_flops"] = BF16_FLOPS if dt == "bfloat16" else F32_FLOPS
@@ -1129,7 +1270,8 @@ def _temper_attention(torch, model) -> None:
     ``1/sqrt(d_model)`` (``1/sqrt(H*hd)`` for ``wo``) instead, scores have a
     std near 1 and the comparison below is meaningful.
 
-    The moe family: both stacks (``dense_layers``, ``moe_layers``). MLA's
+    The moe family: both stacks (``dense_layers``, ``moe_layers``) and
+    DeepSeek-V3's MTP layer. MLA's
     ``wq_b`` (q_lora, H, 192) and ``wkv_b`` (kv_lora, H, 256) are divided by
     the head count too, where their contraction is the rank (1,536, 512),
     and ``wo`` (H, 128, d) by 128 where it contracts all H·128; ``wq_a`` and
@@ -1143,6 +1285,8 @@ def _temper_attention(torch, model) -> None:
     else:
         attns = [getattr(model, stack).attn for stack in ("dense_layers", "moe_layers")
                  if hasattr(model, stack)]
+        if cfg.mtp:  # DeepSeek-V3's MTP layer: trained (phase 21), not served
+            attns.append(model.mtp.layer.attn)
         d = cfg.d_model
     H, KV = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads
     with torch.no_grad():
@@ -1174,16 +1318,22 @@ def _score_std(torch, model, tokens) -> float:
 
 
 @contextlib.contextmanager
-def _plain_attention():
+def _plain_attention(heads=None):
     """The serving path with both attention ops swapped for their plain
-    versions, for this script's comparison only."""
+    versions, for this script's comparison only; with ``heads``, the flash
+    op's plain version ``heads`` q heads at a time (``_by_heads``)."""
+    import torch
+
     from repro_torch.kernels import ops, ref
 
     kept = ops.flash_attention, ops.decode_attention
 
     # the ops' own signatures: an argument the plain versions would drop raises
     def flash(q, k, v, *, causal=True, window=0, block_q=128, block_k=128):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        def fn(q, k, v):
+            return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+        return fn(q, k, v) if heads is None else _by_heads(torch, fn, heads, q, k, v)
 
     def decode(q, k, v, pos, *, window=0, block_s=512, scale=None):
         B, H, hd = q.shape
@@ -1732,6 +1882,8 @@ INTERNLM2_TRAIN_STEPS = 6
 INTERNLM2_PARAMS = 1_889_110_016
 #: the attention projections whose gradients phase 9 holds to plain attention's
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
+#: MLA's (phase 21): every projection the attention's q, k and v gradients reach
+MLA_LEAVES = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
 #: the largest ||kernel grad − plain grad|| / ||plain grad|| of one layer's
 #: attention projection in phase 9's and phase 10's first steps. On an H100
 #: (700 W) InternLM2's sound step reads 0.0346 (wk; bf16 rounding carried
@@ -1815,28 +1967,40 @@ def _profiled_step(torch, model, adamw, batch) -> dict:
 
 
 def _attention_trees(params) -> dict:
-    """The stacked attention subtrees of a params tree, by a prefix for their
-    leaves' names: the dense and vlm families' one (no prefix), whisper's
-    three (the encoder's, the decoder's self- and cross-attention)."""
-    if "dense_layers" in params:
-        return {"": params["dense_layers"]["attn"]}
-    return {"enc.attn.": params["enc_layers"]["attn"],
-            "dec.self_attn.": params["dec_layers"]["self_attn"],
-            "dec.cross_attn.": params["dec_layers"]["cross_attn"]}
+    """The attention subtrees of a params tree, by a prefix for their leaves'
+    names, each with whether it is stacked over layers: the dense and vlm
+    families' one (no prefix); the moe family's two stacks and DeepSeek-V3's
+    MTP layer (one layer, not stacked); whisper's three (the encoder's, the
+    decoder's self- and cross-attention)."""
+    if "enc_layers" in params:
+        return {"enc.attn.": (params["enc_layers"]["attn"], True),
+                "dec.self_attn.": (params["dec_layers"]["self_attn"], True),
+                "dec.cross_attn.": (params["dec_layers"]["cross_attn"], True)}
+    if "moe_layers" not in params:
+        return {"": (params["dense_layers"]["attn"], True)}
+    trees = {f"{group}.": (params[f"{group}_layers"]["attn"], True)
+             for group in ("dense", "moe") if f"{group}_layers" in params}
+    if "mtp" in params:
+        trees["mtp."] = (params["mtp"]["layer"]["attn"], False)
+    return trees
 
 
 def _first_step(torch, model, batch) -> tuple:
     """Loss, global gradient norm and a copy of the attention projections'
-    gradients (``ATTN_LEAVES`` of each attention subtree, stacked over the
-    layers) of one forward and backward; the model's gradients are freed."""
+    gradients (``ATTN_LEAVES`` of each attention subtree, MLA's
+    ``MLA_LEAVES``, stacked over the layers; an unstacked one as a stack of
+    one) of one forward and backward; the model's gradients are freed."""
     from repro_torch.distributed import optimizer as optim
 
     loss, _ = model.train_loss(batch)
     loss.backward()
     params = model.param_tree()
     norm = float(optim.global_norm(optim.tree_map(lambda p: p.grad, params)))
-    grads = {prefix + n: attn[n].grad.clone()
-             for prefix, attn in _attention_trees(params).items() for n in ATTN_LEAVES}
+    grads = {}
+    for prefix, (attn, stacked) in _attention_trees(params).items():
+        for n in MLA_LEAVES if "wkv_b" in attn else ATTN_LEAVES:
+            g = attn[n].grad.clone()
+            grads[prefix + n] = g if stacked else g[None]
     for p in optim.leaves(params):
         p.grad = None
     return float(loss.detach()), norm, grads
@@ -1878,17 +2042,19 @@ def _planted_backward_fault(which: str):
 
 
 @contextlib.contextmanager
-def _plain_backward():
+def _plain_backward(heads=None):
     """The attention's backward kernel swapped for its plain version (f32, D
-    from the forward's f32 output), the forward kernel kept."""
+    from the forward's f32 output; with ``heads``, that many q heads a call),
+    the forward kernel kept."""
+    import torch
+
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
 
     kept = fa.flash_attention_bwd
 
     def plain(q, k, v, out, dout, lse, *, causal=True, window=0, scale=None):
-        return ref.flash_attention_bwd_ref(q, k, v, out.float(), dout, lse, causal=causal,
-                                           window=window, scale=scale)
+        return _plain_bwd(torch, q, k, v, out.float(), dout, lse, causal, window, heads,
+                          scale=scale)
 
     fa.flash_attention_bwd = plain
     try:
@@ -1898,22 +2064,26 @@ def _plain_backward():
 
 
 @contextlib.contextmanager
-def _f64_attention(torch):
+def _f64_attention(torch, heads=None):
     """The attention op computed in float64 (rounded once to the inputs'
     dtype) and differentiated by autograd: a plain attention of another
-    precision, for the control of ``_first_step_gates``."""
+    precision, for the control of ``_first_step_gates``; with ``heads``,
+    that many q heads at a time (``_by_heads``)."""
     from repro_torch.kernels import ops, ref
 
     kept = ops.flash_attention
 
     def flash(q, k, v, *, causal=True, window=0, **_):
-        g = q.shape[1] // k.shape[1]
-        kd = k.double().repeat_interleave(g, dim=1)
-        vd = v.double().repeat_interleave(g, dim=1)
-        s = torch.matmul(q.double(), kd.transpose(-1, -2)) * q.shape[-1] ** -0.5
-        ok = ref._live(q.shape[2], k.shape[2], causal, window, q.device)
-        p = s.masked_fill(~ok, float("-inf")).softmax(dim=-1)
-        return torch.matmul(p, vd).to(q.dtype)
+        def fn(q, k, v):
+            g = q.shape[1] // k.shape[1]
+            kd = k.double().repeat_interleave(g, dim=1)
+            vd = v.double().repeat_interleave(g, dim=1)
+            s = torch.matmul(q.double(), kd.transpose(-1, -2)) * q.shape[-1] ** -0.5
+            ok = ref._live(q.shape[2], k.shape[2], causal, window, q.device)
+            p = s.masked_fill(~ok, float("-inf")).softmax(dim=-1)
+            return torch.matmul(p, vd).to(q.dtype)
+
+        return fn(q, k, v) if heads is None else _by_heads(torch, fn, heads, q, k, v)
 
     ops.flash_attention = flash
     try:
@@ -1923,7 +2093,7 @@ def _f64_attention(torch):
 
 
 def _first_step_gates(torch, model, batch, name: str, out: dict,
-                      reference: str = "plain attention") -> dict:
+                      reference: str = "plain attention", heads=None) -> dict:
     """The first train step of ``model`` on ``batch`` against the same step
     with plain attention: the loss within 1%, the global gradient norm within
     2%, each layer's wq/wk/wv/wo gradient (of each attention kind) within
@@ -1938,12 +2108,14 @@ def _first_step_gates(torch, model, batch, name: str, out: dict,
     plain attention in f64, the spread that 1-ulp differences in the
     forward's bf16 outputs reach in this model's gradients. whisper and llava
     take it: there that spread reaches or passes the tolerance with no kernel
-    in the path (PERF.md, PR 23)."""
+    in the path (PERF.md §6). With ``heads`` every plain attention runs
+    that many q heads a call (the moe family's scores would be 8.6 and 17 GB
+    a tensor whole)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss_k, norm_k, grads_k = _first_step(torch, model, batch)
     out["first_step_s_kernels"] = time.perf_counter() - t0
-    with _plain_attention():
+    with _plain_attention(heads):
         loss_p, norm_p, grads_p = _first_step(torch, model, batch)
     attn_err = _attention_grad_err(torch, grads_k, grads_p)
     first = {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
@@ -1955,12 +2127,12 @@ def _first_step_gates(torch, model, batch, name: str, out: dict,
         first["attention_grads_vs_plain_attention"] = attn_err
         first["attention_grad_err_vs_plain_attention"] = max(
             e["err"] for e in attn_err.values())
-        with _f64_attention(torch):
+        with _f64_attention(torch, heads):
             _, _, grads_64 = _first_step(torch, model, batch)
         floor = _attention_grad_err(torch, grads_64, grads_p)
         first["control_f32_vs_f64_plain_attention"] = max(e["err"] for e in floor.values())
         del grads_64
-        with _plain_backward():
+        with _plain_backward(heads):
             _, _, grads_p = _first_step(torch, model, batch)
         attn_err = _attention_grad_err(torch, grads_k, grads_p)
     first.update({"attention_grads": attn_err,
@@ -3631,6 +3803,297 @@ def phase_deepseek_serving(torch, card: str) -> dict:
     return _moe_serving(torch, "deepseek_v3_671b", cold_start=True, card=card)
 
 
+# ----------------------------------------------------------- phases 20-21
+#: the moe family's training cut: the serving depth (MOE_LAYERS) with 64 of the
+#: routed experts (384 and 256 published), everything else at full width. One
+#: MoE layer's experts alone need 102 GB (kimi) and 68 GB (deepseek) of states
+#: at ~6.06 B a parameter (bf16 parameters and gradients, int8 moments and
+#: their f32 block scales): PERF.md §4
+MOE_TRAIN_EXPERTS = 64
+MOE_TRAIN_STEPS = 4
+#: AdamW's rate (AdamWConfig's default), warmed up over 2 steps
+MOE_TRAIN_LR = 3e-4
+#: the reference's train_4k row (src/repro/launch/shapes.py:33) at batch 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4096
+#: the peak device memory PERF.md §6 predicted for each phase, printed beside the reading
+MOE_TRAIN_PEAK_PREDICTED_GB = {"kimi_k2_1t": 58, "deepseek_v3_671b": 68}
+#: the first-step gates' plain attention takes q heads a call within this many
+#: bytes of scores, beside the model and its gradients
+GATE_PLAIN_BYTES = 2 ** 30
+
+
+@contextlib.contextmanager
+def _expert_loads(loads: list):
+    """Each MoE routing call's tokens and per-expert route counts (on the
+    card), appended to ``loads``, for the share of routes dropped."""
+    import torch
+
+    from repro_torch.models import moe
+
+    kept = moe.route
+
+    def route(p, x2d, cfg):
+        idx, gates, aux = kept(p, x2d, cfg)
+        loads.append((x2d.shape[0], torch.bincount(idx.detach().flatten(),
+                                                   minlength=cfg.moe.n_experts)))
+        return idx, gates, aux
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = kept
+
+
+def _dropped_share(loads: list, cfg) -> dict:
+    """Routes past their expert's capacity C = ceil(T·K/E · capacity factor)
+    over the recorded calls (under remat a layer's routing runs again in the
+    backward, on the same inputs: the share is the forward's)."""
+    import math
+
+    m = cfg.moe
+    routes = dropped = 0
+    for T, counts in loads:
+        C = max(1, int(math.ceil(T * m.top_k / m.n_experts * m.capacity_factor)))
+        dropped += int((counts - C).clamp_min(0).sum())
+        routes += T * m.top_k
+    return {"routing_calls": len(loads), "routes": routes, "dropped": dropped,
+            "share": dropped / routes if routes else None}
+
+
+@contextlib.contextmanager
+def _attention_launches_by_width(kinds: dict):
+    """The flash forward and backward launches (their wrappers' own counts)
+    by (q·k, v) width pair."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kept_fwd, kept_bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def add(key, n):
+        kinds[key] = kinds.get(key, 0) + n
+
+    def fwd(q, k, v, **kw):
+        before = fa.launches
+        got = kept_fwd(q, k, v, **kw)
+        add(f"forward {q.shape[-1]}x{v.shape[-1]}", fa.launches - before)
+        return got
+
+    def bwd(q, k, v, *args, **kw):
+        before = fa.bwd_launches
+        got = kept_bwd(q, k, v, *args, **kw)
+        add(f"backward {q.shape[-1]}x{v.shape[-1]}", fa.bwd_launches - before)
+        return got
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = kept_fwd, kept_bwd
+
+
+def _stale_moments(torch, state) -> int:
+    """Entries of the int8 moments whose first moment survived quantization
+    and whose second did not (m != 0, v = 0): where the next gradient is
+    exactly zero (an embedding row, an expert that the batch does not
+    reach), the reference's update moves them by ~lr·m/eps (ROADMAP.md §3,
+    fault 10). Counted a slice of 2^28 entries at a time."""
+    n = 0
+
+    def walk(m, v):
+        nonlocal n
+        if isinstance(m, dict) and "q" in m and isinstance(m["q"], torch.Tensor):
+            mq, vq = m["q"].flatten(), v["q"].flatten()
+            for lo in range(0, mq.numel(), 1 << 28):
+                n += int(((mq[lo:lo + (1 << 28)] != 0) & (vq[lo:lo + (1 << 28)] == 0)).sum())
+        elif isinstance(m, dict):
+            for k in m:
+                walk(m[k], v[k])
+
+    walk(state["m"], state["v"])
+    return n
+
+
+def _largest_entries(torch, params, k: int = 3) -> dict:
+    """The ``k`` parameter leaves with the largest max |entry|, and those."""
+    from repro_torch.checkpoint.store import flatten
+
+    top = sorted(((float(t.detach().abs().max()), n) for n, t in flatten(params, "param").items()),
+                 reverse=True)[:k]
+    return {n: v for v, n in top}
+
+
+def _first_steps_bit_equal(torch, model, batch) -> dict:
+    """Two first steps (forward and backward) of ``model`` on ``batch``:
+    every gradient leaf bit-equal (the first step's kept on the host), and
+    the losses equal. The model's gradients are freed."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.distributed import optimizer as optim
+
+    runs = []
+    for i in range(2):
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+        grads = flatten(model.param_tree(), "param")
+        if i == 0:
+            kept = {n: p.grad.to("cpu") for n, p in grads.items()}
+            differ = []
+        else:
+            differ = [n for n, p in grads.items()
+                      if not torch.equal(p.grad, kept[n].to(p.grad.device))]
+        runs.append(float(loss.detach()))
+        for p in optim.leaves(model.param_tree()):
+            p.grad = None
+    del kept
+    return {"leaves": len(grads), "losses": runs, "differing_leaves": differ,
+            "bit_equal": not differ and runs[0] == runs[1]}
+
+
+def _moe_training(torch, arch: str, card: str) -> dict:
+    """One moe config at full width, cut to its serving depth
+    (``MOE_LAYERS``) and ``MOE_TRAIN_EXPERTS`` routed experts, bf16, random
+    weights from seed 0 built on the card and tempered; 2 × 4,096 tokens
+    (``data.synth.markov_tokens``) a batch from a RawArray token dataset
+    through ``DeviceLoader``. The first step's gates against the same
+    forward with the plain backward (``_first_step_gates``), two first steps
+    bit-equal, then ``MOE_TRAIN_STEPS`` steps of the train loop's
+    ``make_step`` with AdamW at the config's int8 moments (no checkpoint),
+    and a profiled step. The line it prints names the card and its power
+    limit (``card``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset, make_token_dataset
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step
+
+    dev = torch.device("cuda", 0)
+    full = get_config(arch)
+    cfg = full.with_(n_layers=MOE_LAYERS[arch],
+                     moe=dataclasses.replace(full.moe, n_experts=MOE_TRAIN_EXPERTS))
+    m = cfg.moe
+    B, S, steps, L = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS, cfg.n_layers
+    out: dict = {"arch": cfg.name, "layers": L, "of_layers": full.n_layers,
+                 "dense_layers": m.first_dense, "moe_layers": L - m.first_dense,
+                 "experts": m.n_experts, "of_experts": full.moe.n_experts, "top_k": m.top_k,
+                 "shared_experts": m.n_shared, "d_ff_expert": m.d_ff_expert,
+                 "capacity_factor": m.capacity_factor, "dispatch_chunks": m.dispatch_chunks,
+                 "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                 "attn_type": cfg.attn_type, "mtp": cfg.mtp, "vocab": cfg.vocab,
+                 "dtype": cfg.param_dtype, "moments": cfg.opt_moment_dtype, "remat": cfg.remat,
+                 "batch": B, "seq": S, "steps": steps, "card": card,
+                 "peak_predicted_gb": MOE_TRAIN_PEAK_PREDICTED_GB[arch]}
+    if cfg.attn_type == "mla":
+        ml = cfg.mla
+        out["widths"] = [ml.qk_nope_head_dim + ml.qk_rope_head_dim, ml.v_head_dim]
+    else:
+        out["widths"] = [cfg.head_dim, cfg.head_dim]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    _temper_attention(torch, model)
+    model.requires_grad_(True)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    adamw = AdamWConfig(lr=MOE_TRAIN_LR, warmup_steps=2, moment_dtype=cfg.opt_moment_dtype)
+    n_attn = L + int(cfg.mtp)  # attention calls a forward: the layers and the MTP layer
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{arch}_train_") as tmp:
+        root = os.path.join(tmp, "tokens")
+        make_token_dataset(root, n_docs=16, seq_len=S, vocab=cfg.vocab, seed=8, shard_rows=16)
+        host = DataLoader(RaDataset(root), B, seed=SEED)
+        batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+        host.stop()
+        heads = _plain_heads(B, cfg.n_heads, cfg.n_heads if cfg.attn_type == "mla"
+                             else cfg.n_kv_heads, S, S, GATE_PLAIN_BYTES)
+        out["first_step"] = _first_step_gates(torch, model, batch, arch, out,
+                                              reference="plain backward", heads=heads)
+        out["first_step"]["plain_heads_per_call"] = heads
+        torch.cuda.empty_cache()
+        out["repeat"] = _first_steps_bit_equal(torch, model, batch)
+        log(f"[{arch} training] two first steps {json.dumps(out['repeat'])}")
+        if not out["repeat"]["bit_equal"]:
+            raise SystemExit(f"chip_smoke: {arch}'s two first steps differ: {out['repeat']}")
+        torch.cuda.empty_cache()
+
+        params = model.param_tree()
+        state = optim.init_state(params, adamw)
+        step_fn = make_step(model, adamw)
+        feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
+                            device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_flash_counts()
+        loads, widths = [], {}
+        losses, step_s, metrics_seen, after = [], [], [], []
+        try:
+            with _expert_loads(loads), _attention_launches_by_width(widths):
+                for _ in range(steps):
+                    feed_batch = next(feed)
+                    feed_batch.pop("_state", None)
+                    t0 = time.perf_counter()
+                    params, state, metrics = step_fn(params, state, feed_batch)
+                    losses.append(float(metrics["loss"]))
+                    step_s.append(time.perf_counter() - t0)
+                    metrics_seen.append({k: float(metrics[k]) for k in
+                                         ("ce", "aux", "acc", "mtp", "grad_norm", "lr")
+                                         if k in metrics})
+                    # outside the timed step: the int8 moments' stale entries and the
+                    # parameters' largest entries, which show what the next step moves
+                    after.append({"stale_moment_entries": _stale_moments(torch, state),
+                                  "largest_entries": _largest_entries(torch, params)})
+        finally:
+            feed.stop()
+        torch.cuda.synchronize()
+    launches = {**_flash_counts(), "flash_attention_tc": flash_attention.tc_launches}
+    step = statistics.median(step_s[1:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    row = {"steps": steps, "losses": losses, "metrics": metrics_seen, "after_step": after,
+           "step_s": step_s, "first_update_lowers_the_loss": losses[1] < losses[0],
+           "loss_falls_over_the_steps": losses[-1] < losses[0],
+           "median_step_s": step, "tokens_per_s": B * S / step,
+           "peak_device_bytes": peak, "peak_device_gb": peak / 1e9,
+           "routes_dropped": _dropped_share(loads, cfg), "launches": launches,
+           "launches_by_width": widths,
+           "want_launches": {"forward": (L * (2 if cfg.remat else 1) + int(cfg.mtp)) * steps,
+                             "backward": n_attn * steps}}
+    out["train"] = row
+    log(f"[{arch} training] steps {json.dumps(row)}")
+    # the first update is exact f32 AdamW in both packages (the moments are
+    # quantized after it); from the second on, the reference's int8 moments move
+    # an entry whose gradient vanished by ~lr·m/eps (fault 10), so over 4 steps
+    # the loss is read, not gated
+    if not all(np.isfinite(losses)) or not row["first_update_lowers_the_loss"]:
+        raise SystemExit(f"chip_smoke: {arch} training: losses {losses}")
+    if {k: launches[k] for k in ("forward", "backward")} != row["want_launches"] or \
+            launches["flash_attention_tc"] != launches["forward"]:
+        raise SystemExit(f"chip_smoke: {arch} training launched {launches}, wanted "
+                         f"{row['want_launches']}, every forward on the tensor cores")
+    del state, params
+    torch.cuda.empty_cache()
+    out["profiled_step"] = _profiled_step(torch, model, adamw, batch)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[{arch} training] {json.dumps(out)}")
+    return out
+
+
+def phase_kimi_training(torch, card: str) -> dict:
+    """kimi-k2-1t-a32b trained at full widths, 2 of 61 layers and 64 of 384
+    routed experts: GQA at head width 112."""
+    return _moe_training(torch, "kimi_k2_1t", card)
+
+
+def phase_deepseek_training(torch, card: str) -> dict:
+    """deepseek-v3-671b trained at full widths, 4 of 61 layers (and the MTP
+    layer) and 64 of 256 routed experts: MLA at (192, 128)."""
+    return _moe_training(torch, "deepseek_v3_671b", card)
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -3694,6 +4157,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     l_train = run(phase_llava_training, torch)
     kimi = run(phase_kimi_serving, torch, card)
     deepseek = run(phase_deepseek_serving, torch, card)
+    k_train = run(phase_kimi_training, torch, card)
+    d_train = run(phase_deepseek_training, torch, card)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -3753,6 +4218,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
             l_train["train"]["launches"][kind]
         for how in ("flags", "env"):
             runs[f"{small['arch']} mesh train ({how})"] = mesh["training"][how]["launches"][kind]
+        for t in (k_train, d_train):
+            runs[f"{t['arch']} train ({t['layers']} layers, {t['experts']} experts)"] = \
+                t["train"]["launches"][kind]
         return runs
 
     zamba_prefill = f"{zamba['arch']} prefill"

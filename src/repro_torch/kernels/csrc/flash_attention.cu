@@ -358,11 +358,6 @@ constexpr float kMask = -1e30f;          // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A width as the tiles hold it: whole 64-column boxes from 64 on (112 -> 128: TMA
-// zero-fills the columns past the tensor's own, so they add nothing to Q·Kᵀ and
-// give output columns that are not stored).
-__host__ __device__ constexpr int padded(int d) { return d < 64 ? d : (d + 63) / 64 * 64; }
-
 // Shared-memory layout for q·k width DK and v width DV, each tile as TMA writes it
 // (sm90.cuh, Tile, at the padded widths KP and VP): Q | K[kStages] | V[kStages] |
 // mbarriers. K/V tiles are 128 rows, 64 at v width 256 (a 128-row ring would not
@@ -635,10 +630,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    float* o32, int B, int H, int KV, int Sq, int Sk, int causal, int window,
                    float scale, cudaStream_t stream) {
     using C = Cfg<DK, DV>;
-    // the training instance (o32) exists at the widths the backward takes
-    // (flash_attention.py: BWD_HEAD_DIMS); the moe family's are serving-only
-    constexpr bool kTrains = DK == DV && DK != 112;
-    if (!kTrains && o32 != nullptr) return cudaErrorInvalidValue;
     // with Sk = 0 no K/V tile is visited; the maps must still encode, so they
     // describe q, and no load is issued through them
     const bool any_k = Sk > 0;
@@ -654,9 +645,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
         err = any_k ? make_map(&mv, v, DV, Sk, B * KV, Tile<C::VP>::kBoxCols, C::kBK)
                     : make_map(&mv, q, DK, Sq, B * H, Tile<C::KP>::kBoxCols, C::kBK);
     if (err != cudaSuccess) return err;
+    // the training instance (o32) at every pair: the backward takes them all in bf16
+    // (flash_attention.py: BWD_HEAD_DIMS)
     auto kernel = flash_attention_tc<DK, DV, false>;
-    if constexpr (kTrains)
-        if (o32 != nullptr) kernel = flash_attention_tc<DK, DV, true>;
+    if (o32 != nullptr) kernel = flash_attention_tc<DK, DV, true>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(C::kBytes));
     if (err != cudaSuccess) return err;
@@ -686,7 +678,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, floa
 // q (B,H,Sq,dk), k (B,KV,Sk,dk), v (B,KV,Sk,dv), o (B,H,Sq,dv), all contiguous and
 // 16-byte aligned. lse: null, or (B,H,Sq) float32 that receives each row's
 // log-sum-exp of its scaled, masked scores (natural log), which the backward
-// (flash_attention_bwd.cu) reads. o32: null, or for bfloat16 at dk == dv (not 112) a
+// (flash_attention_bwd.cu) reads. o32: null, or for bfloat16 a
 // (B,H,Sq,dv) float32 that receives the output before its rounding to bf16, whose D
 // the backward reads; float32 takes null (o is it). dtype: 0 = float32 (the SIMT
 // kernel), 2 = bfloat16 (the tensor-core kernel). (dk, dv) in {(32, 32), (64, 64),

@@ -40,7 +40,13 @@
 // cannot come closer than 1.4× that bound. flash_attention_bwd_launch dispatches by dtype to
 // one of two pairs of kernels.
 //
-// bfloat16: tc::, on the tensor cores, FlashAttention-3's shape of kernel:
+// bfloat16: tc::, on the tensor cores, FlashAttention-3's shape of kernel, for (q·k, v)
+// width pairs (DK, DV): hd 32-256, Kimi-K2's (112, 112) and DeepSeek-V3's MLA (192,
+// 128). Q, K, dQ and dK tiles are padded(DK) wide, V, dO and dV tiles padded(DV)
+// (sm90.cuh: whole 64-column boxes, so 112 is held as 128 over a 112-wide tensor
+// map, TMA zero-filling the rest); S = Q Kᵀ, dQ and dK run over DK, dP = dO Vᵀ and
+// dV over DV. Every direct access to device memory (D's rowsum over O and dO, the
+// dQ, dK and dV stores) uses the true width as row stride and column bound:
 //   * 384 threads a CTA: two consumer warpgroups and a producer warpgroup that
 //     gives its registers up (setmaxnreg: 24 a thread) so that each consumer
 //     thread can hold 240;
@@ -48,8 +54,8 @@
 //     visited tile into a 2-stage ring, an mbarrier per stage for "full" (TMA
 //     transaction bytes) and one for "empty" (an arrival per consumer warpgroup
 //     once its last product on the stage has retired), so the next tile's load
-//     overlaps this tile's products. Tensor maps are the forward's, 3-D (hd, rows,
-//     B·heads), Sq rows for Q and dO and Sk for K and V: rows past the end are
+//     overlaps this tile's products. Tensor maps are the forward's, 3-D (width,
+//     rows, B·heads), Sq rows for Q and dO and Sk for K and V: rows past the end are
 //     zero-filled inside their own head (sm90.cuh);
 //   * operations: every product is wgmma m64nNk16, bf16 in, f32 accumulators in
 //     registers. Q·Kᵀ-shaped products (S, dP; Sᵀ = K Qᵀ, dPᵀ = V dOᵀ) read both
@@ -60,7 +66,8 @@
 //     copy of a Q or dO tile in shared memory serves both readings: the swizzle
 //     atoms are the same, only the descriptor's offsets differ;
 //   * dq_kernel: Q and dO of 128 rows resident, 64 a warpgroup; K/V tiles of 128
-//     keys (32 at hd 256, where Q and dO take 128 KB); S and dP are issued
+//     keys (64 at (192, 128), where a ring of 128 would need 240 KB; 32 at hd 256,
+//     where Q and dO take 128 KB); S and dP are issued
 //     together and dP runs while P is formed. D is summed by each quad from O
 //     and dO in device memory, O in f32 as the forward kernel wrote it before
 //     rounding (flash_attention.cu: from the bf16 O, D's error times the mean key
@@ -69,20 +76,21 @@
 //   * dkdv_kernel: K and V of 128 keys resident, 64 a warpgroup owning their dK
 //     and dV; Q and dO tiles of 64 rows and their LSE and D rows (two bulk copies
 //     from the scratch) through the ring. Each product is its own wgmma group:
-//     dPᵀ runs while Pᵀ is formed, dV += Pᵀ dO while dSᵀ is. At hd 256 dK + dV of 64 keys would be
-//     256 f32 a thread, past the 255 a thread may have, so the CTA takes 64 keys,
+//     dPᵀ runs while Pᵀ is formed, dV += Pᵀ dO while dSᵀ is. At hd 256 dK + dV of 64
+//     keys would be 256 f32 a thread, past the 255 a thread may have, and at (192,
+//     128) dK, dV, Sᵀ and dPᵀ 224 of a consumer's 240, so there the CTA takes 64 keys,
 //     warpgroup 0 computes Pᵀ and owns dV, warpgroup 1 computes dPᵀ and owns dK,
 //     and Pᵀ passes from 0 to 1 through 16 KB of shared memory under two named
 //     barriers, as FlashAttention-3 does at hd 256;
 //   * masks are built only on tiles that cross Sq or Sk, the diagonal or the window
 //     edge; P rounds to bf16 as the forward's P·V product rounds it, dS once
 //     (about 2^-9 relative), inside the bf16 tolerance of 2e-2.
-//   Shared memory at hd 128: 192 KB (dQ) and 129 KB (dK/dV); at hd 256 192 KB
-//   and 209 KB of the 227 KB a CTA may have. One CTA an SM. A third ring stage
+//   Shared memory at hd 128 (and 112): 192 KB (dQ) and 129 KB (dK/dV); at (192, 128)
+//   160 KB and 137 KB; at hd 256 192 KB and 209 KB of the 227 KB a CTA may have. One CTA an SM. A third ring stage
 //   measured no faster; issuing the next tile's S behind this tile's dQ product
 //   measured slower (it holds each stage longer).
 //
-// float32: simt::, on the f32 SIMT pipes (67 TFLOP/s; on the tensor cores f32 would
+// float32: simt::, at dk == dv in 32, 64 and 128, on the f32 SIMT pipes (67 TFLOP/s; on the tensor cores f32 would
 // be TF32 and miss the f32 tolerance). Its design:
 //   * 128 threads as 8 row groups (ty) × 16 lanes (tx). For the scores a thread
 //     owns 4 q rows × (kBK / 16) keys (tx + 16 j); for dK/dV it owns kBK / 8 key
@@ -458,19 +466,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     return cudaGetLastError();
 }
 
+// the (q·k, v) width pairs of flash_attention.py's BWD_HEAD_DIMS for float32
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                      void* dv, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                      int window, float scale, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
-                                   causal, window, scale, stream);
-        case 64: return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
-                                   causal, window, scale, stream);
-        case 128: return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,
-                                     causal, window, scale, stream);
-        default: return cudaErrorInvalidValue;
-    }
+                      void* dv, int B, int H, int KV, int Sq, int Sk, int dk_, int dv_,
+                      int causal, int window, float scale, cudaStream_t stream) {
+#define PAIR(DK, DV)                                                                       \
+    if (dk_ == DK && dv_ == DV)                                                           \
+        return launch<DK>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, KV, Sq, Sk,    \
+                          causal, window, scale, stream)
+    PAIR(32, 32); PAIR(64, 64); PAIR(128, 128);
+#undef PAIR
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace simt
@@ -488,46 +495,57 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPFull = 1, kPEmpty = 2;  // named barriers of the Pᵀ handoff (hd 256)
 
 // dQ kernel: Q and dO of 128 q rows resident (64 a consumer warpgroup), K/V
-// tiles of kBK keys through the ring. Shared memory: Q | dO | K[kStages] |
-// V[kStages] | mbarriers. K/V tiles are 128 keys (192 KB at hd 128), so S and dP
-// run as m64n128: at the tensor cores' peak its operands ask shared memory for
-// 96 bytes a clock, m64n64's for all 128 an SM has. At hd 256 Q and dO alone take
-// 128 KB, so the K/V tiles are 32 keys (2 × 2 × 16 KB).
-template <int HD>
+// tiles of kBK keys through the ring. Q and K tiles are KP = padded(DK) wide, dO
+// and V tiles VP = padded(DV). Shared memory: Q | dO | K[kStages] | V[kStages] |
+// mbarriers. K/V tiles are 128 keys (192 KB at hd 128), so S and dP run as m64n128:
+// at the tensor cores' peak its operands ask shared memory for 96 bytes a clock,
+// m64n64's for all 128 an SM has. Where a 2-stage ring of 128 keys does not fit
+// beside Q and dO the tiles are smaller: 64 keys at (192, 128) (Q 48 KB + dO 32 KB +
+// 2 × (K 24 KB + V 16 KB) = 160 KB; 128 keys would take 240 KB), 32 at hd 256 (Q and
+// dO alone take 128 KB: 2 × 2 × 16 KB).
+template <int DK, int DV>
 struct DqCfg {
-    using T = Tile<HD>;
+    static constexpr int KP = padded(DK), VP = padded(DV);
     static constexpr int kBQ = 128;
-    static constexpr int kBK = HD >= 256 ? 32 : 128;
-    static constexpr int kQBytes = T::bytes(kBQ);
-    static constexpr int kKVBytes = T::bytes(kBK);
+    static constexpr int kBK = KP >= 256 ? 32 : KP + VP > 256 ? 64 : 128;
+    static constexpr int kQBytes = Tile<KP>::bytes(kBQ);
+    static constexpr int kOBytes = Tile<VP>::bytes(kBQ);
+    static constexpr int kKBytes = Tile<KP>::bytes(kBK);
+    static constexpr int kVBytes = Tile<VP>::bytes(kBK);
     static constexpr int kOffO = kQBytes;
-    static constexpr int kOffK = 2 * kQBytes;
-    static constexpr int kOffV = kOffK + kStages * kKVBytes;
-    static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+    static constexpr int kOffK = kQBytes + kOBytes;
+    static constexpr int kOffV = kOffK + kStages * kKBytes;
+    static constexpr int kOffBar = kOffV + kStages * kVBytes;
     static constexpr int kBars = 1 + 3 * kStages;  // q_full, k_full[], v_full[], empty[]
     static constexpr size_t kBytes = kOffBar + 8 * kBars + 1024;  // + room to align to 1024
 };
 
 // dK/dV kernel: K and V of kBK keys resident, the (Q, dO) tiles of 64 q rows and
-// their LSE and D rows through the ring. Up to hd 128 each consumer warpgroup owns
-// 64 keys and both their dK and dV (kBK = 128); at hd 256 dK + dV of 64 keys would
-// be 256 f32 a thread, so both warpgroups take the same 64 keys, warpgroup 0 dV and
-// warpgroup 1 dK, and Pᵀ passes from 0 to 1 through shared memory (kSplit).
-// Shared memory: K | V | Q[kStages] | dO[kStages] | rows[kStages] | Pᵀ | mbarriers.
-template <int HD>
+// their LSE and D rows through the ring; K and Q tiles KP wide, V and dO tiles VP.
+// Where dK + dV + Sᵀ + dPᵀ of 64 keys fit a thread's registers (KP + VP <= 256:
+// hd 32-128, 112) each consumer warpgroup owns 64 keys and both their dK and dV
+// (kBK = 128). Past that (at hd 256 dK + dV alone would be 256 f32 a thread; at
+// (192, 128) the four come to 224 of the 240 a consumer has) both warpgroups take
+// the same 64 keys, warpgroup 0 computes Pᵀ and owns dV, warpgroup 1 computes dPᵀ
+// and owns dK, and Pᵀ passes from 0 to 1 through shared memory (kSplit).
+// Shared memory: K | V | Q[kStages] | dO[kStages] | rows[kStages] | Pᵀ | mbarriers:
+// 129 KB at hd 128, 137 KB at (192, 128), 209 KB at hd 256.
+template <int DK, int DV>
 struct KvCfg {
-    using T = Tile<HD>;
-    static constexpr bool kSplit = HD >= 256;
+    static constexpr int KP = padded(DK), VP = padded(DV);
+    static constexpr bool kSplit = KP + VP > 256;
     static constexpr int kBK = kSplit ? 64 : 128;
     static constexpr int kBQ = 64;
-    static constexpr int kKVBytes = T::bytes(kBK);
-    static constexpr int kQBytes = T::bytes(kBQ);
+    static constexpr int kKBytes = Tile<KP>::bytes(kBK);
+    static constexpr int kVBytes = Tile<VP>::bytes(kBK);
+    static constexpr int kQBytes = Tile<KP>::bytes(kBQ);
+    static constexpr int kOBytes = Tile<VP>::bytes(kBQ);
     static constexpr int kRowsBytes = 2 * kBQ * 4;  // a stage's LSE (log2 units) and D
     static constexpr int kPBytes = kSplit ? 64 * kBQ * 4 : 0;
-    static constexpr int kOffV = kKVBytes;
-    static constexpr int kOffQ = 2 * kKVBytes;
+    static constexpr int kOffV = kKBytes;
+    static constexpr int kOffQ = kKBytes + kVBytes;
     static constexpr int kOffO = kOffQ + kStages * kQBytes;
-    static constexpr int kOffRows = kOffO + kStages * kQBytes;
+    static constexpr int kOffRows = kOffO + kStages * kOBytes;
     static constexpr int kOffP = kOffRows + kStages * kRowsBytes;
     static constexpr int kOffBar = kOffP + kPBytes;
     static constexpr int kBars = 1 + 2 * kStages;  // kv_full, full[], empty[]
@@ -537,44 +555,48 @@ struct KvCfg {
 // Accumulator layout of wgmma m64nN: register 4j + 2r + e holds row r0 + 8r,
 // column 8j + c + e, where r0 = 16 (warp % 4) + lane / 4 and c = 2 (lane % 4).
 
-// d (64 x N) = A · Bᵀ over HD columns: A rows [r0, r0 + 64) of a tile of a_rows
-// rows, B an N-row tile, both K-major. Issued as one wgmma group, not waited for.
-template <int HD, int N>
+// d (64 x N) = A · Bᵀ over the first D columns: A rows [r0, r0 + 64) of a tile of
+// a_rows rows, B an N-row tile, both K-major and padded(D) wide (the D/16 k16 steps
+// with data; a padded width's zero columns are skipped). Issued as one wgmma group,
+// not waited for.
+template <int D, int N>
 __device__ __forceinline__ void product_nt(float (&d)[N / 2], uint32_t a, int a_rows, int r0,
                                            uint32_t b) {
+    constexpr int W = padded(D);
     pin(d);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
-        mma_ss<N>(d, desc_k<HD>(a, a_rows, r0, ks), desc_k<HD>(b, N, 0, ks), ks > 0);
+    for (int ks = 0; ks < D / 16; ++ks)
+        mma_ss<N>(d, desc_k<W>(a, a_rows, r0, ks), desc_k<W>(b, N, 0, ks), ks > 0);
     wgmma_commit();
 }
 
-// acc (64 x HD) += A · B: A (64 x K) bf16 in registers, B a K-row tile read
+// acc (64 x W) += A · B: A (64 x K) bf16 in registers, B a K-row tile W wide read
 // MN-major (its rows are the contraction). Issued as one wgmma group, not waited for.
-template <int HD, int K>
-__device__ __forceinline__ void product_nn(float (&acc)[HD / 2], uint32_t (&a)[K / 4],
+template <int W, int K>
+__device__ __forceinline__ void product_nn(float (&acc)[W / 2], uint32_t (&a)[K / 4],
                                            uint32_t b) {
     pin(acc);
     pin(a);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk)
-        mma_pv<HD>(acc, &a[4 * kk], desc_mn<HD>(b, K, kk), desc_mn<HD>(b, K, kk, 2));
+        mma_pv<W>(acc, &a[4 * kk], desc_mn<W>(b, K, kk), desc_mn<W>(b, K, kk, 2));
     wgmma_commit();
 }
 
 // dQ (and the LSE/D rows for the dK/dV kernel). One CTA per (q tile of 128 rows,
 // q head, batch), the last (heaviest causal) q tiles first.
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
           const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
           const float* __restrict__ o, const bf16* __restrict__ dout,
           const float* __restrict__ lse, float* __restrict__ rows, bf16* __restrict__ dq, int H,
           int KV, int Sq, int Sk, int S_pad, int causal, int window, float scale) {
-    using T = Tile<HD>;
-    using C = DqCfg<HD>;
+    using C = DqCfg<DK, DV>;
+    using TK = Tile<C::KP>;
+    using TV = Tile<C::VP>;
     constexpr int kBQ = C::kBQ;
     constexpr int kBK = C::kBK;
     extern __shared__ uint8_t smem_raw[];
@@ -618,29 +640,31 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     if (warp >= 8) {
-        // producer: one thread issues every load
+        // producer: one thread issues every load; every box counts its full bytes,
+        // the zero-filled columns of a padded width included
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
         if (warp != 8 || lane != 0 || n_visit == 0) return;
-        bar_expect_tx(q_full, 2 * C::kQBytes);
+        bar_expect_tx(q_full, C::kQBytes + C::kOBytes);
 #pragma unroll
-        for (int x = 0; x < T::kBoxes; ++x) {
-            tma_load(sQ + x * T::box(kBQ), &tm_q, q_full, x * T::kBoxCols, q0, bh);
-            tma_load(sO + x * T::box(kBQ), &tm_do, q_full, x * T::kBoxCols, q0, bh);
-        }
+        for (int x = 0; x < TK::kBoxes; ++x)
+            tma_load(sQ + x * TK::box(kBQ), &tm_q, q_full, x * TK::kBoxCols, q0, bh);
+#pragma unroll
+        for (int x = 0; x < TV::kBoxes; ++x)
+            tma_load(sO + x * TV::box(kBQ), &tm_do, q_full, x * TV::kBoxCols, q0, bh);
         for (int i = 0; i < n_visit; ++i) {
             const int s = i % kStages;
             if (i >= kStages) bar_wait(empty(s), (i / kStages - 1) & 1);
             const int k0 = (t_lo + i) * kBK;
-            bar_expect_tx(k_full(s), C::kKVBytes);
+            bar_expect_tx(k_full(s), C::kKBytes);
 #pragma unroll
-            for (int x = 0; x < T::kBoxes; ++x)
-                tma_load(sK + s * C::kKVBytes + x * T::box(kBK), &tm_k, k_full(s),
-                         x * T::kBoxCols, k0, kvh);
-            bar_expect_tx(v_full(s), C::kKVBytes);
+            for (int x = 0; x < TK::kBoxes; ++x)
+                tma_load(sK + s * C::kKBytes + x * TK::box(kBK), &tm_k, k_full(s),
+                         x * TK::kBoxCols, k0, kvh);
+            bar_expect_tx(v_full(s), C::kVBytes);
 #pragma unroll
-            for (int x = 0; x < T::kBoxes; ++x)
-                tma_load(sV + s * C::kKVBytes + x * T::box(kBK), &tm_v, v_full(s),
-                         x * T::kBoxCols, k0, kvh);
+            for (int x = 0; x < TV::kBoxes; ++x)
+                tma_load(sV + s * C::kVBytes + x * TV::box(kBK), &tm_v, v_full(s),
+                         x * TV::kBoxCols, k0, kvh);
         }
         return;
     }
@@ -655,10 +679,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     const int col = 2 * (lane % 4);
     const float scale_log2 = scale * kLog2e;
 
-    // each row's LSE in log2 units and D = rowsum(dO ∘ O), the four threads of a
-    // quad splitting the columns; written, padded with zeros from Sq to S_pad rows,
-    // for the dK/dV kernel, which brings them in by bulk copies of whole 64-row
-    // tiles (the last warpgroup with a live row reaches S_pad)
+    // each row's LSE in log2 units and D = rowsum(dO ∘ O) over the DV columns (O and
+    // dO rows DV apart), the four threads of a quad splitting the columns; written,
+    // padded with zeros from Sq to S_pad rows, for the dK/dV kernel, which brings
+    // them in by bulk copies of whole 64-row tiles (the last warpgroup with a live
+    // row reaches S_pad)
     float lse2[2], dd[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -668,9 +693,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         if (qpos < Sq) {
             const size_t row = static_cast<size_t>(bh) * Sq + qpos;
             lse2[r] = lse[row] * kLog2e;
-            const float4* orow = reinterpret_cast<const float4*>(o + row * HD);
-            const uint4* drow = reinterpret_cast<const uint4*>(dout + row * HD);
-            for (int c = lane % 4; c < HD / 8; c += 4) {  // 8 columns a step
+            const float4* orow = reinterpret_cast<const float4*>(o + row * DV);
+            const uint4* drow = reinterpret_cast<const uint4*>(dout + row * DV);
+            for (int c = lane % 4; c < DV / 8; c += 4) {  // 8 columns a step
                 const uint4 d = __ldg(drow + c);
                 const float4 a0 = __ldg(orow + 2 * c), a1 = __ldg(orow + 2 * c + 1);
                 const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -691,11 +716,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         }
     }
 
-    float acc[HD / 2];
+    float acc[C::KP / 2];
     float s[kBK / 2], dp[kBK / 2];
     uint32_t ds[kBK / 4];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::KP / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kBK / 2; ++i) s[i] = dp[i] = 0.f;
 
@@ -704,14 +729,14 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         const int st = i % kStages;
         const int parity = (i / kStages) & 1;
         const int k0 = (t_lo + i) * kBK;
-        const uint32_t tK = sK + st * C::kKVBytes;
+        const uint32_t tK = sK + st * C::kKBytes;
 
-        // S = Q Kᵀ, then dP = dO Vᵀ (both operands K-major), which runs while P
-        // is formed from S
+        // S = Q Kᵀ over DK, then dP = dO Vᵀ over DV (both operands K-major), which
+        // runs while P is formed from S
         bar_wait(k_full(st), parity);
-        product_nt<HD, kBK>(s, sQ, kBQ, 64 * wg, tK);
+        product_nt<DK, kBK>(s, sQ, kBQ, 64 * wg, tK);
         bar_wait(v_full(st), parity);
-        product_nt<HD, kBK>(dp, sO, kBQ, 64 * wg, sV + st * C::kKVBytes);
+        product_nt<DV, kBK>(dp, sO, kBQ, 64 * wg, sV + st * C::kVBytes);
         wgmma_wait<1>();
         pin(s);
 
@@ -739,20 +764,21 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
         to_a<kBK>(ds, dp);
 
         // dQ += dS K: K read MN-major (its keys are the contraction)
-        product_nn<HD, kBK>(acc, ds, tK);
+        product_nn<C::KP, kBK>(acc, ds, tK);
         wgmma_wait<0>();
         pin(acc);
         pin(ds);
         if (threadIdx.x % 128 == 0) bar_arrive(empty(st));  // this warpgroup is done with the stage
     }
 
+    // the DK columns, rows DK apart (a padded width's last columns are not stored)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
         if (qpos >= Sq) continue;
-        bf16* drow = dq + (static_cast<size_t>(bh) * Sq + qpos) * HD + col;
+        bf16* drow = dq + (static_cast<size_t>(bh) * Sq + qpos) * DK + col;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < DK / 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
                 __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
@@ -763,18 +789,19 @@ struct KvArgs {
     uint32_t sK, sV, sQ, sO;  // K and V; the stage-0 Q and dO tiles
     uint32_t kv_full, full, empty;  // full and empty: stage 0's, 8 bytes a stage
     const float* rows;  // stage 0's LSE (log2 units) and D rows, generic address
-    float* p;           // the Pᵀ handoff (hd 256)
+    float* p;           // the Pᵀ handoff (KvCfg::kSplit)
     int k0, Sq, Sk, causal, window, n_visit, per_head, u_lo;
 };
 
 enum Role { kBoth, kOnlyV, kOnlyK };
 
 // A consumer warpgroup of the dK/dV kernel over the CTA's walk: kBoth owns its 64
-// keys' dV and dK; at hd 256 kOnlyV owns dV and hands Pᵀ to kOnlyK, which owns dK.
-template <int HD, int R>
+// keys' dV and dK; where they do not fit (KvCfg::kSplit) kOnlyV owns dV and hands
+// Pᵀ to kOnlyK, which owns dK.
+template <int DK, int DV, int R>
 __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __restrict__ dk,
                                              bf16* __restrict__ dv, size_t row_bk, float scale) {
-    using C = KvCfg<HD>;
+    using C = KvCfg<DK, DV>;
     constexpr int kBQ = C::kBQ;
     constexpr bool kV = R != kOnlyK;
     constexpr bool kK = R != kOnlyV;
@@ -787,7 +814,7 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
     const float scale_log2 = scale * kLog2e;
 
     // a role's unused arrays keep one element (and so no registers to speak of)
-    constexpr int kAccV = kV ? HD / 2 : 1, kAccK = kK ? HD / 2 : 1;
+    constexpr int kAccV = kV ? C::VP / 2 : 1, kAccK = kK ? C::KP / 2 : 1;
     float acc_v[kAccV], acc_k[kAccK];
     float s[kBQ / 2];            // Sᵀ, then Pᵀ
     float dp[kK ? kBQ / 2 : 1];  // dPᵀ, then dSᵀ
@@ -806,14 +833,14 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
         const int st = i % kStages;
         const int q0 = (a.u_lo + i % a.per_head) * kBQ;
         const uint32_t tQ = a.sQ + st * C::kQBytes;
-        const uint32_t tO = a.sO + st * C::kQBytes;
+        const uint32_t tO = a.sO + st * C::kOBytes;
         bar_wait(a.full + 8 * st, (i / kStages) & 1);
 
-        // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (this warpgroup's 64 keys × the tile's 64 q
-        // rows): A the resident K or V, B the ring's Q or dO, both K-major. With
-        // both, dPᵀ runs while Pᵀ is formed.
-        if constexpr (R != kOnlyK) product_nt<HD, kBQ>(s, a.sK, C::kBK, kr, tQ);
-        if constexpr (R != kOnlyV) product_nt<HD, kBQ>(dp, a.sV, C::kBK, kr, tO);
+        // Sᵀ = K Qᵀ over DK and dPᵀ = V dOᵀ over DV (this warpgroup's 64 keys × the
+        // tile's 64 q rows): A the resident K or V, B the ring's Q or dO, both
+        // K-major. With both, dPᵀ runs while Pᵀ is formed.
+        if constexpr (R != kOnlyK) product_nt<DK, kBQ>(s, a.sK, C::kBK, kr, tQ);
+        if constexpr (R != kOnlyV) product_nt<DV, kBQ>(dp, a.sV, C::kBK, kr, tO);
         if constexpr (R == kBoth) wgmma_wait<1>();
         else wgmma_wait<0>();
         pin(s);
@@ -859,7 +886,7 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
         // dSᵀ = Pᵀ ∘ (dPᵀ − D) is formed
         if constexpr (kV) {
             to_a<kBQ>(pa, s);
-            product_nn<HD, kBQ>(acc_v, pa, tO);
+            product_nn<C::VP, kBQ>(acc_v, pa, tO);
         }
         if constexpr (kK) {
             if constexpr (kV) wgmma_wait<1>();  // dPᵀ; dV may still run
@@ -875,7 +902,7 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
                 }
             }
             to_a<kBQ>(sa, dp);
-            product_nn<HD, kBQ>(acc_k, sa, tQ);
+            product_nn<C::KP, kBQ>(acc_k, sa, tQ);
         }
         wgmma_wait<0>();
         pin(acc_v);
@@ -885,18 +912,24 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
         if (t == 0) bar_arrive(a.empty + 8 * st);  // this warpgroup is done with the stage
     }
 
+    // dV's DV columns (rows DV apart) and dK's DK columns (rows DK apart); a padded
+    // width's last columns are not stored
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= a.Sk) continue;
-        const size_t at = (row_bk + key) * HD + col;
+        if constexpr (kV) {
+            bf16* vrow = dv + (row_bk + key) * DV + col;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-            if constexpr (kV)
-                *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            for (int j = 0; j < DV / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
                     __floats2bfloat162_rn(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
-            if constexpr (kK)
-                *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) = __floats2bfloat162_rn(
+        }
+        if constexpr (kK) {
+            bf16* krow = dk + (row_bk + key) * DK + col;
+#pragma unroll
+            for (int j = 0; j < DK / 8; ++j)
+                *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
                     acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
         }
     }
@@ -907,14 +940,15 @@ __device__ __forceinline__ void dkdv_consume(const KvArgs& a, int wg, bf16* __re
 // that see some key of its tile, in that fixed order: each sum has one owner. A
 // tile that no q row sees (causal, k0 >= Sq) walks nothing: its consumers still
 // run and store their zeroed dK and dV.
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
             const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
             const float* __restrict__ rows, bf16* __restrict__ dk, bf16* __restrict__ dv,
             int H, int KV, int Sq, int Sk, int S_pad, int causal, int window, float scale) {
-    using T = Tile<HD>;
-    using C = KvCfg<HD>;
+    using C = KvCfg<DK, DV>;
+    using TK = Tile<C::KP>;
+    using TV = Tile<C::VP>;
     constexpr int kBQ = C::kBQ;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -966,26 +1000,28 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
         // producer: one thread issues every load
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
         if (warp != 8 || threadIdx.x % 32 != 0 || a.n_visit == 0) return;
-        bar_expect_tx(a.kv_full, 2 * C::kKVBytes);
+        bar_expect_tx(a.kv_full, C::kKBytes + C::kVBytes);
 #pragma unroll
-        for (int x = 0; x < T::kBoxes; ++x) {
-            tma_load(a.sK + x * T::box(C::kBK), &tm_k, a.kv_full, x * T::kBoxCols, a.k0, bk);
-            tma_load(a.sV + x * T::box(C::kBK), &tm_v, a.kv_full, x * T::kBoxCols, a.k0, bk);
-        }
+        for (int x = 0; x < TK::kBoxes; ++x)
+            tma_load(a.sK + x * TK::box(C::kBK), &tm_k, a.kv_full, x * TK::kBoxCols, a.k0, bk);
+#pragma unroll
+        for (int x = 0; x < TV::kBoxes; ++x)
+            tma_load(a.sV + x * TV::box(C::kBK), &tm_v, a.kv_full, x * TV::kBoxCols, a.k0, bk);
         for (int i = 0; i < a.n_visit; ++i) {
             const int s = i % kStages;
             if (i >= kStages) bar_wait(a.empty + 8 * s, (i / kStages - 1) & 1);
             const int bh = bh0 + i / a.per_head;
             const int q0 = (a.u_lo + i % a.per_head) * kBQ;
             const uint32_t full = a.full + 8 * s;
-            bar_expect_tx(full, 2 * C::kQBytes + C::kRowsBytes);
+            bar_expect_tx(full, C::kQBytes + C::kOBytes + C::kRowsBytes);
 #pragma unroll
-            for (int x = 0; x < T::kBoxes; ++x) {
-                tma_load(a.sQ + s * C::kQBytes + x * T::box(kBQ), &tm_q, full, x * T::kBoxCols,
-                         q0, bh);
-                tma_load(a.sO + s * C::kQBytes + x * T::box(kBQ), &tm_do, full,
-                         x * T::kBoxCols, q0, bh);
-            }
+            for (int x = 0; x < TK::kBoxes; ++x)
+                tma_load(a.sQ + s * C::kQBytes + x * TK::box(kBQ), &tm_q, full,
+                         x * TK::kBoxCols, q0, bh);
+#pragma unroll
+            for (int x = 0; x < TV::kBoxes; ++x)
+                tma_load(a.sO + s * C::kOBytes + x * TV::box(kBQ), &tm_do, full,
+                         x * TV::kBoxCols, q0, bh);
             const float* r = rows + static_cast<size_t>(2 * bh) * S_pad + q0;
             bulk_load(sRows + s * C::kRowsBytes, r, kBQ * 4, full);
             bulk_load(sRows + s * C::kRowsBytes + kBQ * 4, r + S_pad, kBQ * 4, full);
@@ -997,10 +1033,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
     const int wg = warp / 4;
     const size_t row_bk = static_cast<size_t>(bk) * Sk;
     if constexpr (C::kSplit) {
-        if (wg == 0) dkdv_consume<HD, kOnlyV>(a, wg, dk, dv, row_bk, scale);
-        else dkdv_consume<HD, kOnlyK>(a, wg, dk, dv, row_bk, scale);
+        if (wg == 0) dkdv_consume<DK, DV, kOnlyV>(a, wg, dk, dv, row_bk, scale);
+        else dkdv_consume<DK, DV, kOnlyK>(a, wg, dk, dv, row_bk, scale);
     } else {
-        dkdv_consume<HD, kBoth>(a, wg, dk, dv, row_bk, scale);
+        dkdv_consume<DK, DV, kBoth>(a, wg, dk, dv, row_bk, scale);
     }
 }
 
@@ -1012,14 +1048,13 @@ struct Plan {
     int kv_keys, kv_rows;  // KvCfg: keys a CTA, q rows a ring tile
 };
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* rows, void* dq, void* dk,
                    void* dv, int B, int H, int KV, int Sq, int Sk, int causal, int window,
                    float scale, const Plan& plan, cudaStream_t stream) {
-    using T = Tile<HD>;
-    using Q = DqCfg<HD>;
-    using K = KvCfg<HD>;
+    using Q = DqCfg<DK, DV>;
+    using K = KvCfg<DK, DV>;
     // the dK/dV kernel bulk-copies whole ring tiles of LSE/D rows (one row a
     // query), which the dQ kernel writes (zeros past Sq) up to its last
     // warpgroup's 64 rows
@@ -1029,78 +1064,81 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     const int S_pad = plan.S_pad;
     cudaError_t err = bind_device_of(q);  // the encoder needs a current context
     if (err != cudaSuccess) return err;
-    // each kernel's maps: its resident tiles and its ring's tiles have their own box rows
     CUtensorMap dq_q, dq_do, dq_k, dq_v, kv_q, kv_do, kv_k, kv_v;
-    // (Q and dO have Sq rows a head, K and V Sk)
-    const struct { CUtensorMap* map; const void* ptr; int rows, heads, box_rows; } maps[] = {
-        {&dq_q, q, Sq, B * H, Q::kBQ}, {&dq_do, dout, Sq, B * H, Q::kBQ},
-        {&dq_k, k, Sk, B * KV, Q::kBK}, {&dq_v, v, Sk, B * KV, Q::kBK},
-        {&kv_q, q, Sq, B * H, K::kBQ}, {&kv_do, dout, Sq, B * H, K::kBQ},
-        {&kv_k, k, Sk, B * KV, K::kBK}, {&kv_v, v, Sk, B * KV, K::kBK},
+    // each kernel's maps: its resident tiles and its ring's tiles have their own box
+    // rows; Q and dO have Sq rows a head, K and V Sk; Q and K are DK wide, V and dO
+    // DV, each map the tensor's own width (a box past it is zero-filled)
+    const int kbox = Tile<Q::KP>::kBoxCols, vbox = Tile<Q::VP>::kBoxCols;
+    const struct {
+        CUtensorMap* map; const void* ptr; int width, rows, heads, box_cols, box_rows;
+    } maps[] = {
+        {&dq_q, q, DK, Sq, B * H, kbox, Q::kBQ}, {&dq_do, dout, DV, Sq, B * H, vbox, Q::kBQ},
+        {&dq_k, k, DK, Sk, B * KV, kbox, Q::kBK}, {&dq_v, v, DV, Sk, B * KV, vbox, Q::kBK},
+        {&kv_q, q, DK, Sq, B * H, kbox, K::kBQ}, {&kv_do, dout, DV, Sq, B * H, vbox, K::kBQ},
+        {&kv_k, k, DK, Sk, B * KV, kbox, K::kBK}, {&kv_v, v, DV, Sk, B * KV, vbox, K::kBK},
     };
     for (const auto& m : maps) {
-        err = make_map(m.map, m.ptr, HD, m.rows, m.heads, T::kBoxCols, m.box_rows);
+        err = make_map(m.map, m.ptr, m.width, m.rows, m.heads, m.box_cols, m.box_rows);
         if (err != cudaSuccess) return err;
     }
     // above 48 KiB of dynamic shared memory a kernel must opt in; set on every
     // call: cheap next to the kernels and free of races
-    err = cudaFuncSetAttribute(dq_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(Q::kBytes));
+    err = cudaFuncSetAttribute(dq_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Q::kBytes));
     if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        err = cudaFuncSetAttribute(dkdv_kernel<DK, DV>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    static_cast<int>(K::kBytes));
     if (err != cudaSuccess) return err;
-    dq_kernel<HD><<<dim3((Sq + Q::kBQ - 1) / Q::kBQ, H, B), kThreads, Q::kBytes, stream>>>(
+    dq_kernel<DK, DV><<<dim3((Sq + Q::kBQ - 1) / Q::kBQ, H, B), kThreads, Q::kBytes, stream>>>(
         dq_q, dq_do, dq_k, dq_v, static_cast<const float*>(o), static_cast<const bf16*>(dout),
         lse, rows, static_cast<bf16*>(dq), H, KV, Sq, Sk, S_pad, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dkdv_kernel<HD><<<dim3((Sk + K::kBK - 1) / K::kBK, KV, B), kThreads, K::kBytes, stream>>>(
+    dkdv_kernel<DK, DV><<<dim3((Sk + K::kBK - 1) / K::kBK, KV, B), kThreads, K::kBytes,
+                          stream>>>(
         kv_q, kv_do, kv_k, kv_v, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV,
         Sq, Sk, S_pad, causal, window, scale);
     return cudaGetLastError();
 }
 
+// the (q·k, v) width pairs of flash_attention.py's BWD_HEAD_DIMS for bfloat16
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* rows, void* dq, void* dk,
-                      void* dv, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                      int window, float scale, const Plan& plan, cudaStream_t stream) {
-    switch (hd) {
-        case 32: return launch<32>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
-                                   causal, window, scale, plan, stream);
-        case 64: return launch<64>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
-                                   causal, window, scale, plan, stream);
-        case 128: return launch<128>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
-                                     causal, window, scale, plan, stream);
-        case 256: return launch<256>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,
-                                     causal, window, scale, plan, stream);
-        default: return cudaErrorInvalidValue;
-    }
+                      void* dv, int B, int H, int KV, int Sq, int Sk, int dk_, int dv_,
+                      int causal, int window, float scale, const Plan& plan,
+                      cudaStream_t stream) {
+#define PAIR(DK, DV)                                                                         \
+    if (dk_ == DK && dv_ == DV)                                                             \
+        return launch<DK, DV>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, H, KV, Sq, Sk,   \
+                              causal, window, scale, plan, stream)
+    PAIR(32, 32); PAIR(64, 64); PAIR(112, 112); PAIR(128, 128); PAIR(192, 128); PAIR(256, 256);
+#undef PAIR
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
 }  // namespace
 
-// q/o/dout/dq (B,H,Sq,hd), k/v/dk/dv (B,KV,Sk,hd), all of one dtype but o, which is
-// float32 for both (for bf16 the forward's output before its rounding), contiguous
-// and 16-byte aligned; lse (B,H,Sq) f32 from the forward kernel; delta f32 scratch that
-// the first kernel fills and the second reads: B·H·2·S_pad floats (the f32
-// kernels use its first B·H·Sq). S_pad and the four tile sizes are the plan of
-// flash_attention.py:bwd_geometry; the bf16 kernels take S_pad >= Sq, a multiple
-// of their 64-row ring tile, and only their own tiles. dtype: 0 = float32 (the
-// SIMT kernels; hd 32, 64, 128), 2 = bfloat16 (the tensor-core kernels; hd 32,
-// 64, 128, 256); H a multiple of KV. Returns the cudaError_t of the launches (0 =
-// cudaSuccess); cudaErrorInvalidValue for an unsupported dtype or hd, a plan not
-// the kernels' own, or a tensor map the driver refuses; cudaErrorNotSupported if
-// the driver has no cuTensorMapEncodeTiled.
+// q/dq (B,H,Sq,dk), k/dk (B,KV,Sk,dk), v/dv (B,KV,Sk,dv), o/dout (B,H,Sq,dv), all of
+// one dtype but o, which is float32 for both (for bf16 the forward's output before its
+// rounding), contiguous and 16-byte aligned; lse (B,H,Sq) f32 from the forward kernel;
+// delta f32 scratch that the first kernel fills and the second reads: B·H·2·S_pad
+// floats (the f32 kernels use its first B·H·Sq). S_pad and the four tile sizes are the
+// plan of flash_attention.py:bwd_geometry; the bf16 kernels take S_pad >= Sq, a
+// multiple of their 64-row ring tile, and only their own tiles. dtype: 0 = float32
+// (the SIMT kernels; (dk, dv) (32, 32), (64, 64), (128, 128)), 2 = bfloat16 (the
+// tensor-core kernels; also (112, 112), (192, 128) and (256, 256)); H a multiple of
+// KV. Returns the cudaError_t of the launches (0 = cudaSuccess); cudaErrorInvalidValue
+// for an unsupported dtype or width pair, a plan not the kernels' own, or a tensor map
+// the driver refuses; cudaErrorNotSupported if the driver has no cuTensorMapEncodeTiled.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv, int B,
-                                          int H, int KV, int Sq, int Sk, int hd, int dtype,
-                                          int causal, int window, int S_pad, int dq_rows,
-                                          int dq_keys, int kv_keys, int kv_rows, float scale,
-                                          void* stream) {
+                                          int H, int KV, int Sq, int Sk, int dk_w, int dv_w,
+                                          int dtype, int causal, int window, int S_pad,
+                                          int dq_rows, int dq_keys, int kv_keys, int kv_rows,
+                                          float scale, void* stream) {
     if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
     if (KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1108,11 +1146,11 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     float* d = static_cast<float*>(delta);
     switch (dtype) {
         case 0: return static_cast<int>(simt::launch_hd(
-            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, hd, causal, window, scale,
-            st));
+            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, dk_w, dv_w, causal, window,
+            scale, st));
         case 2: return static_cast<int>(tc::launch_hd(
-            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, hd, causal, window, scale,
-            tc::Plan{S_pad, dq_rows, dq_keys, kv_keys, kv_rows}, st));
+            q, k, v, o, dout, l, d, dq, dk, dv, B, H, KV, Sq, Sk, dk_w, dv_w, causal, window,
+            scale, tc::Plan{S_pad, dq_rows, dq_keys, kv_keys, kv_rows}, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

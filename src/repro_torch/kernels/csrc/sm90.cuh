@@ -25,6 +25,11 @@
 namespace {
 namespace sm90 {
 
+// A width as the tiles hold it: whole 64-column boxes from 64 on (112 -> 128: TMA
+// zero-fills the columns past the tensor's own, so they add nothing to a product
+// over them and give output columns that are not stored).
+__host__ __device__ constexpr int padded(int d) { return d < 64 ? d : (d + 63) / 64 * 64; }
+
 // Geometry of a swizzled bf16 tile with HD columns.
 template <int HD>
 struct Tile {
@@ -301,13 +306,18 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t* a, ui
 
 // O (64 x HD) += P (64 x 16 keys, registers) · V (16 keys x HD, shared memory).
 // At hd 256 two N = 128 products: columns 0-127 (registers 0-63, V's boxes 0-1,
-// descriptor v) and 128-255 (registers 64-127, boxes 2-3, descriptor v_hi).
+// descriptor v) and 128-255 (registers 64-127, boxes 2-3, descriptor v_hi); at 192
+// (MLA's q·k width, in the backward's dQ and dK) an N = 128 and an N = 64 product,
+// the second over box 2 (registers 64-95).
 template <int HD>
 __device__ __forceinline__ void mma_pv(float (&o)[HD / 2], const uint32_t* p, uint64_t v,
                                        uint64_t v_hi) {
     if constexpr (HD == 256) {
         mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[0]), p, v);
         mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[64]), p, v_hi);
+    } else if constexpr (HD == 192) {
+        mma_rs_n128(*reinterpret_cast<float (*)[64]>(&o[0]), p, v);
+        mma_rs_n64(*reinterpret_cast<float (*)[32]>(&o[64]), p, v_hi);
     } else if constexpr (HD == 128) {
         mma_rs_n128(o, p, v);
     } else if constexpr (HD == 64) {

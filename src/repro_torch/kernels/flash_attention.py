@@ -28,9 +28,9 @@ outgrow dQ itself where keys share a large common part, as whisper's
 encoder states do), and whose backward runs
 ``csrc/flash_attention_bwd.cu``
 (dQ, dK, dV; any Sq and Sk, as the encoder-decoder's cross-attention needs;
-head widths by dtype in ``BWD_HEAD_DIMS``). Its bf16
+(q·k, v) width pairs by dtype in ``BWD_HEAD_DIMS``). Its bf16
 kernels run on the tensor cores (``wgmma``, tiles brought in by TMA through
-a ring of shared-memory stages, head widths up to 256). Under
+a ring of shared-memory stages) at every pair the forward takes. Under
 ``no_grad``/``inference_mode`` it calls the forward kernel alone, as
 serving does.
 
@@ -59,11 +59,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 #: q and k are 128 + 64 wide and v 128
 HEAD_DIMS = {dt: ((32, 32), (64, 64), (112, 112), (128, 128), (192, 128), (256, 256))
              for dt in DTYPES}
-#: head widths (q, k and v alike) the backward kernels are instantiated for, by
-#: dtype: bf16 on the tensor cores takes 32-256, f32 on the SIMT pipes (no model
-#: trains there above 128) the first three. The forward's 112 and (192, 128)
-#: wait for the moe family's training (ROADMAP.md, item 10's training half)
-BWD_HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (32, 64, 128, 256)}
+#: (q·k width, v width) pairs the backward kernels (and the training forward) are
+#: instantiated for, by dtype: bf16 on the tensor cores takes every forward pair,
+#: f32 on the SIMT pipes the dense widths up to 128 (no model trains in f32 above)
+BWD_HEAD_DIMS = {torch.float32: ((32, 32), (64, 64), (128, 128)),
+                 torch.bfloat16: HEAD_DIMS[torch.bfloat16]}
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
@@ -73,7 +73,7 @@ bwd_launches = 0  # guarded-by: _count_lock
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def check_forward_only(name: str, *tensors: torch.Tensor) -> None:
@@ -133,16 +133,28 @@ def _shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return B, H, KV, Sq, Sk, dk, dv
 
 
-def bwd_geometry(Sq: int, hd: int) -> tuple:
-    """The bf16 backward's plan at head width ``hd`` for ``Sq`` q rows, which
-    the launch passes to ``csrc/flash_attention_bwd.cu`` (it refuses tiles
-    not its own): ``(dq_rows, dq_keys)``, the q rows of a dQ CTA and the keys
-    of each K/V tile it walks; ``(kv_keys, kv_rows)``, the keys of a dK/dV CTA
-    and the q rows of each (Q, dO) tile it walks; and ``S_pad``, the rows a
-    head of the LSE/D scratch, which holds one row a query: Sq rounded up to
-    whole dK/dV ring tiles (that kernel bulk-copies whole tiles of them)."""
-    dq = (128, 32 if hd >= 256 else 128)
-    dkdv = (64 if hd >= 256 else 128, 64)
+def _padded(d: int) -> int:
+    """A width as the tensor-core tiles hold it: whole 64-column boxes from
+    64 on (``csrc/sm90.cuh:padded``; 112 is held as 128)."""
+    return d if d < 64 else -(-d // 64) * 64
+
+
+def bwd_geometry(Sq: int, dk: int, dv: int) -> tuple:
+    """The bf16 backward's plan at (q·k, v) widths ``(dk, dv)`` for ``Sq``
+    q rows, which the launch passes to ``csrc/flash_attention_bwd.cu`` (it
+    refuses tiles not its own): ``(dq_rows, dq_keys)``, the q rows of a dQ
+    CTA and the keys of each K/V tile it walks (fewer where a 2-stage ring of
+    128 would not fit beside Q and dO: 64 at (192, 128), 32 at 256);
+    ``(kv_keys, kv_rows)``, the keys of a dK/dV CTA (64 where dK and dV of 128
+    keys would not fit two warpgroups' registers: padded widths past 256
+    together) and the q rows of each (Q, dO) tile it walks; and ``S_pad``, the
+    rows a head of the LSE/D scratch, which holds one row a query: Sq rounded
+    up to whole dK/dV ring tiles (that kernel bulk-copies whole tiles of
+    them)."""
+    kp, vp = _padded(dk), _padded(dv)
+    split = kp + vp > 256
+    dq = (128, 32 if kp >= 256 else 64 if split else 128)
+    dkdv = (64 if split else 128, 64)
     return dq, dkdv, -(-Sq // dkdv[1]) * dkdv[1]
 
 
@@ -151,18 +163,24 @@ def check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     card a dtype or head widths the backward kernels are not instantiated
     for."""
     _, _, _, _, _, dk, dv = _shape(q, k, v)
-    if q.device.type != "cuda":
-        return
-    widths = BWD_HEAD_DIMS.get(q.dtype)
-    if widths is None:
+    if q.device.type == "cuda":
+        check_backward_widths(q.dtype, dk, dv)
+
+
+def check_backward_widths(dtype: torch.dtype, dk: int, dv: int) -> None:
+    """Raise unless the backward kernels are instantiated for ``dtype`` at
+    (q·k, v) widths ``(dk, dv)`` (``BWD_HEAD_DIMS``)."""
+    pairs = BWD_HEAD_DIMS.get(dtype)
+    if pairs is None:
         raise RawArrayError(
-            f"flash_attention backward kernel takes float32 or bfloat16, not {q.dtype}")
-    if dk != dv or dk not in widths:
+            f"flash_attention backward kernel takes float32 or bfloat16, not {dtype}")
+    if (dk, dv) not in pairs:
+        why = ""
+        if (dk, dv) in BWD_HEAD_DIMS[torch.bfloat16]:
+            why = "; no model trains there in float32 (the bfloat16 kernels take it)"
         raise RawArrayError(
-            f"flash_attention backward kernel supports head_dim in {widths} for {q.dtype}, "
-            f"not (q·k, v) widths {(dk, dv)}; the moe family's widths, 112 and (192, 128), "
-            "are not ported yet (ROADMAP.md, modules to port, item 10's training half)"
-        )
+            f"flash_attention backward kernel takes (q·k, v) head widths {pairs} for "
+            f"{dtype}, not {(dk, dv)}{why}")
 
 
 def flash_attention_fwd(
@@ -226,9 +244,9 @@ def flash_attention_fwd(
 
 
 def flash_attention_bwd(
-    q: torch.Tensor,  # (B, H, Sq, hd)
-    k: torch.Tensor,  # (B, KV, Sk, hd)
-    v: torch.Tensor,  # (B, KV, Sk, dv): dv == hd on the card
+    q: torch.Tensor,  # (B, H, Sq, dk)
+    k: torch.Tensor,  # (B, KV, Sk, dk)
+    v: torch.Tensor,  # (B, KV, Sk, dv)
     out: torch.Tensor,  # the forward's output (B, H, Sq, dv) in f32 (``return_lse``'s third)
     dout: torch.Tensor,  # its gradient
     lse: torch.Tensor,  # the forward's log-sum-exp (B, H, Sq), f32
@@ -246,12 +264,12 @@ def flash_attention_bwd(
     row sees gets zeros; a row that sees no key gives no gradient. On CUDA
     two kernels run on the current stream and are not waited for."""
     global bwd_launches
-    B, H, KV, Sq, Sk, hd, dv = _shape(q, k, v)
+    B, H, KV, Sq, Sk, hd, dv_w = _shape(q, k, v)
     check_backward(q, k, v)
-    if tuple(out.shape) != (B, H, Sq, dv) or tuple(dout.shape) != (B, H, Sq, dv):
+    if tuple(out.shape) != (B, H, Sq, dv_w) or tuple(dout.shape) != (B, H, Sq, dv_w):
         raise RawArrayError(
             f"flash_attention backward: out {tuple(out.shape)} and dout {tuple(dout.shape)} "
-            f"must have q's shape with v's width, {(B, H, Sq, dv)}"
+            f"must have q's shape with v's width, {(B, H, Sq, dv_w)}"
         )
     if out.dtype != torch.float32:
         raise RawArrayError(
@@ -274,7 +292,7 @@ def flash_attention_bwd(
     if q.numel() == 0 or k.numel() == 0:  # no pair to differentiate
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_tiles, kv_tiles, S_pad = bwd_geometry(Sq, hd)
+    dq_tiles, kv_tiles, S_pad = bwd_geometry(Sq, hd, dv_w)
     # the LSE and D rows the first kernel writes for the second
     delta = torch.empty((B, H, 2, S_pad), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd.cu", "flash_attention_bwd_launch", _BWD_ARGTYPES)
@@ -282,7 +300,7 @@ def flash_attention_bwd(
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, KV, Sq, Sk, hd, DTYPES[q.dtype], int(bool(causal)), int(window), S_pad,
+            B, H, KV, Sq, Sk, hd, dv_w, DTYPES[q.dtype], int(bool(causal)), int(window), S_pad,
             *dq_tiles, *kv_tiles, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -62,8 +62,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, return_ls
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, scale=None):
     """The gradient of ``flash_attention_ref`` by the FlashAttention-2
     formulas, with ``o`` its output (in f32 before any rounding, for D to be
-    exact), ``do`` the output's gradient and ``lse`` its log-sum-exp; q/o/do
-    (B,H,Sq,hd), k/v (B,KV,Sk,hd), lse (B,H,Sq)::
+    exact), ``do`` the output's gradient and ``lse`` its log-sum-exp; q
+    (B,H,Sq,dk), k (B,KV,Sk,dk), v (B,KV,Sk,dv), o/do (B,H,Sq,dv), lse
+    (B,H,Sq)::
 
         P = exp(scale·Q Kᵀ − lse) (0 where masked)    D = rowsum(dO ∘ O)
         dP = dO Vᵀ    dV = Pᵀ dO    dS = P ∘ (dP − D)    dQ = scale·dS K
@@ -93,7 +94,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, scale
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dk = dk.reshape(B, KV, g, Sk, hd).sum(2)
-    dv = dv.reshape(B, KV, g, Sk, hd).sum(2)
+    dv = dv.reshape(B, KV, g, Sk, v.shape[-1]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

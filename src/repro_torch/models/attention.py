@@ -14,9 +14,11 @@ Decode writes the new K/V row into the cache at ``pos`` in place
 a device tensor throughout, so a decode step issues no host sync.
 
 MLA (DeepSeek-V3; ``models/attention.py:222-327`` of the JAX package):
-``mla_prefill`` runs the expanded form, q and k 128 + 64 wide (the no-RoPE
+``mla_prefill`` (and ``mla_attention``, its training twin without the
+cache, under autograd) runs the expanded form, q and k 128 + 64 wide (the no-RoPE
 part and the RoPE part, k's RoPE part shared by all heads) and v 128 wide,
-through ``ops.flash_attention`` at (192, 128); ``mla_decode`` the absorbed
+through ``ops.flash_attention`` at (192, 128) (k's RoPE part is expanded
+over the heads, so its gradient sums over them); ``mla_decode`` the absorbed
 form, in the latent space: q_lat = q_nope·W^kv_b's k part, concatenated with
 q_rope (576 wide), attends the cache rows latent ++ k_rope with
 ``ops.decode_attention``, V being each row's latent (the first 512 columns),
@@ -168,6 +170,15 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor
     q = torch.cat([q_nope, q_rope], -1)
     o = ops.flash_attention(q, k, v.contiguous(), causal=True)  # scale (nope + rope)^-1/2
     return _out_proj(o, p["wo"]), latent, k_rope[:, 0]
+
+
+def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
+                  freqs: torch.Tensor) -> torch.Tensor:
+    """Training MLA over the whole sequence of ``x`` (B,S,d), the twin of
+    the JAX package's ``mla_attention``: the expanded form of
+    ``mla_prefill``, causal, without the cache. Differentiable; returns
+    (B,S,d)."""
+    return mla_prefill(p, x, cfg, positions=positions, freqs=freqs)[0]
 
 
 def mla_decode(p, x: torch.Tensor, kv_cache: torch.Tensor, pos: torch.Tensor,

@@ -17,6 +17,18 @@ With ``dispatch_chunks`` > 1 (and T a multiple of it) the tokens go
 through in that many chunks, each with its own capacity, in a Python loop
 where the reference runs ``lax.scan``; the aux loss is the chunks' mean.
 
+Under autograd the gradients are the reference's: through top-k's values
+into the router, through the renormalization of the selected gates (a
+dropped route's gate included), through the aux loss's ``probs`` (not its
+assignment counts), and none through the slot a dropped route reads. The
+two index ops between tokens and slots (tokens into the (E, C, d) buffer,
+the experts' rows back to the routes) are ``_Gather``: a gather whose
+gradient is a gather too, each row summed over a fixed list in a fixed
+order, so two backward passes give bit-equal gradients (the index ops'
+own backward may accumulate into repeated rows in an unfixed order on the
+card). The slot map is one-to-one for kept routes, which makes both
+gradients gathers.
+
 Every expert is computed for every chunk, also one that no token of the
 chunk chose: the reference's dense dispatch, kept for its exact drops and
 outputs (ROADMAP.md lists skipping empty experts as open). The reference's
@@ -50,6 +62,26 @@ def init_moe(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
         p["shared_up"] = ini.fanin((d, ffs))
         p["shared_down"] = ini.fanin((ffs, d))
     return p
+
+
+class _Gather(torch.autograd.Function):
+    """``cat([src, 0])[index]``: rows of ``src`` (N, d), ``index`` N for a
+    zero row. Its gradient is a gather as well: row n of ``src``'s gradient
+    is the sum over j of row ``back[n, j]`` of the output's gradient, where
+    ``back`` (N, J) lists the output rows that read row n (one past the
+    output's last row where a row has fewer than J), summed in that order."""
+
+    @staticmethod
+    def forward(ctx, src, index, back):
+        ctx.save_for_backward(back)
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))])[index]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (back,) = ctx.saved_tensors
+        pad = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        return pad[back].sum(1), None, None
 
 
 def route(p, x2d: torch.Tensor, cfg: ModelConfig
@@ -104,22 +136,25 @@ def _moe_tokens(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, t
     keep = pos_in_e < C
     slot = torch.where(keep, flat_e * C + pos_in_e, E * C)  # a dropped route: the extra slot
 
-    # slot -> token (T: the zero row); only the extra slot is written twice, and dropped
-    flat_tok = torch.arange(T * K, device=dev) // K
+    # slot -> token (T: the zero row) and slot -> route (T*K: none); only the extra
+    # slot is written more than once, and dropped. A token's gradient sums its K
+    # routes' slots (the extra one reads zeros), a slot's is its route's.
+    routes = torch.arange(T * K, device=dev)
     tok_for_slot = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
-    tok_for_slot = tok_for_slot.index_put_((slot,), flat_tok)[:-1]
-    x2d_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
-    buf = x2d_pad[tok_for_slot].view(E, C, d)
+    tok_for_slot = tok_for_slot.index_put_((slot,), routes // K)[:-1]
+    route_for_slot = torch.full((E * C + 1,), T * K, dtype=torch.int64, device=dev)
+    route_for_slot = route_for_slot.index_put_((slot,), routes)[:-1]
+    buf = _Gather.apply(x2d, tok_for_slot, slot.view(T, K)).view(E, C, d)
 
     # every expert over its C slots, as dense batched products
     act = activation(cfg.mlp_act)
     g = torch.bmm(buf, p["w_gate"].to(x2d.dtype))
     u = torch.bmm(buf, p["w_up"].to(x2d.dtype))
     y_buf = torch.bmm(act(g) * u, p["w_down"].to(x2d.dtype)).view(E * C, d)
-    y_buf = torch.cat([y_buf, x2d.new_zeros((1, d))])
 
-    # back to the tokens, weighted by gate and keep
-    yk = y_buf[slot] * (gates.reshape(-1, 1) * keep[:, None].to(x2d.dtype))
+    # back to the tokens (a dropped route reads the zero row), weighted by gate and keep
+    yk = _Gather.apply(y_buf, slot, route_for_slot[:, None])
+    yk = yk * (gates.reshape(-1, 1) * keep[:, None].to(x2d.dtype))
     y = yk.view(T, K, d).sum(1)
 
     if m.n_shared:

@@ -1,6 +1,7 @@
-"""Family -> model class dispatch. The port serves the dense, vlm, ssm,
-hybrid and encdec families and trains the dense, vlm and encdec ones; the
-moe family raises ``NotImplementedError`` naming its ROADMAP item."""
+"""Family -> model class dispatch. The port serves the dense, vlm, moe,
+ssm, hybrid and encdec families and trains the dense, vlm, moe and encdec
+ones; the ssm and hybrid families' training raises ``NotImplementedError``
+naming its ROADMAP item."""
 
 from __future__ import annotations
 

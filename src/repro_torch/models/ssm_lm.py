@@ -145,7 +145,7 @@ class Mamba2LM(TransformerLM):
         raise NotImplementedError(
             f"{type(self).__name__} training is not ported yet: it needs a backward kernel "
             "for ssd_scan (ROADMAP.md, modules to port, item 15); the port trains the dense, "
-            "vlm and encdec families")
+            "vlm, moe and encdec families")
 
 
 class Zamba2LM(Mamba2LM):

@@ -22,14 +22,18 @@ by MLA (``models/attention.py``): its cache group holds ``kv`` (L, B, S,
 kv_lora + rope) a stack, with ``latent`` and ``k_rope`` its column views
 under the reference's names. Its MTP parameters (``mtp``: ``proj``, one
 dense ``layer``, ``ln``) are part of the parameters, so checkpoints cross
-with the reference's; serving does not use them.
+with the reference's; training uses them (``_mtp_loss``), serving does not.
 
 ``train_loss`` is the JAX package's next-token loss. Its layers run with
-autograd on: the attention through ``ops.flash_attention`` (forward and
-backward kernels on the card), each layer under ``torch.utils.checkpoint``
-where ``cfg.remat`` is set (``jax.checkpoint`` there), and the loss over
-256-token pieces of the sequence, each checkpointed, so the full (B,S,V)
-logits never exist at once. The parameters are built with
+autograd on, both stacks in order: the attention through
+``ops.flash_attention`` (forward and backward kernels on the card; MLA in
+its expanded form at (192, 128)), each layer under
+``torch.utils.checkpoint`` where ``cfg.remat`` is set (``jax.checkpoint``
+there), and the loss over 256-token pieces of the sequence, each
+checkpointed, so the full (B,S,V) logits never exist at once. The moe
+family adds the MoE aux loss (each stack's sum over its layers of each
+layer's mean over its dispatch chunks) and, for DeepSeek-V3, the depth-1
+MTP loss weighted by ``cfg.mtp_weight``. The parameters are built with
 ``requires_grad=False`` for serving; a trainer turns them on
 (``model.requires_grad_(True)``).
 
@@ -38,8 +42,6 @@ The vlm family (llava-next) is this model with ``mm_proj`` (d, d): its
 embeddings (B, P, d), project them, prepend them to the tokens and run the
 layers over ``P + S`` positions; the loss scores the text positions only.
 ``decode_step`` and the engine are text-only, as the JAX package's are.
-``train_loss`` raises ``NotImplementedError`` for the moe family (MoE, MLA
-and MTP training are ROADMAP item 10's training half).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from .attention import (
     gqa_prefill,
     init_gqa,
     init_mla,
+    mla_attention,
     mla_decode,
     mla_prefill,
 )
@@ -154,7 +157,7 @@ class TransformerLM(nn.Module):
         if cfg.n_patches:  # projects the (stub) vision encoder's patch embeddings
             self.mm_proj = nn.Parameter(ini.fanin((cfg.d_model, cfg.d_model)),
                                         requires_grad=False)
-        if cfg.mtp:  # DeepSeek-V3's multi-token prediction head: carried, not served
+        if cfg.mtp:  # DeepSeek-V3's multi-token prediction head: trained, not served
             self.mtp = ParamTree({
                 "proj": ini.fanin((2 * cfg.d_model, cfg.d_model)),
                 "layer": _init_layer(ini, cfg),
@@ -205,12 +208,6 @@ class TransformerLM(nn.Module):
         """Drop the per-layer views after the parameters were replaced."""
         self._layers = None
 
-    def _windows(self) -> List[Tuple[int, float]]:
-        """(window, rope base) per layer of the dense stack; the window only on
-        local layers."""
-        return [(0 if is_global else self.cfg.sliding_window, theta)
-                for is_global, theta in self._layer_flags(self.n_dense)]
-
     def _rope_dim(self) -> int:
         """The width RoPE rotates: MLA's RoPE part, else the head width."""
         return self.cfg.mla.qk_rope_head_dim if self.cfg.attn_type == "mla" else self.cfg.head_dim
@@ -255,37 +252,62 @@ class TransformerLM(nn.Module):
         head = self.embed.t() if cfg.tie_embeddings else self.lm_head
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
 
-    def _block(self, p, x, attn, use_moe: bool = False) -> torch.Tensor:
-        """One layer around its attention ``attn(h) -> a``."""
+    def _block(self, p, x, attn, use_moe: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One layer around its attention ``attn(h) -> a``: (x, the MoE aux
+        loss, 0-d f32, 0 for a dense FFN)."""
         _, norm = make_norm(self.cfg.norm)
         a = attn(norm(p["ln_attn"], x))
         if self.cfg.sandwich_norm:
             a = norm(p["ln_attn_post"], a)
         x = x + a
         h = norm(p["ln_mlp"], x)
-        f = moe_ffn(p["ffn"], h, self.cfg)[0] if use_moe else mlp(p["ffn"], h, self.cfg)
+        if use_moe:
+            f, aux = moe_ffn(p["ffn"], h, self.cfg)
+        else:
+            f = mlp(p["ffn"], h, self.cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.sandwich_norm:
             f = norm(p["ln_mlp_post"], f)
-        return x + f
+        return x + f, aux
 
     # ---- train --------------------------------------------------------------
+    def _train_attention(self, p, h: torch.Tensor, positions: torch.Tensor, window: int,
+                         freqs: torch.Tensor) -> torch.Tensor:
+        """A layer's training attention: MLA's expanded form, or GQA with the
+        layer's window."""
+        if self.cfg.attn_type == "mla":
+            return mla_attention(p, h, self.cfg, positions=positions, freqs=freqs)
+        return gqa_attention(p, h, self.cfg, positions=positions, window=window, freqs=freqs)
+
     def _backbone(self, x: torch.Tensor,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The layers and the final norm with autograd on: (h, aux loss).
-        Per-layer views and RoPE tables are made anew each call (the serving
-        caches may hold inference tensors)."""
+        """Both stacks' layers in order and the final norm, with autograd on:
+        (h, aux loss), the aux summed over each stack's layers and then over
+        the stacks, as the reference's ``_scan_stack`` and ``_backbone``.
+        Per-layer views and RoPE tables (at ``_rope_dim``) are made anew each
+        call (the serving caches may hold inference tensors)."""
         cfg = self.cfg
-        layers = _unstack(self.dense_layers.tree(), self.n_dense)
-        freqs = {theta: rope_freqs(cfg.head_dim, theta, device=self.device)
-                 for _, theta in self._windows()}
-        for p, (window, theta) in zip(layers, self._windows()):
-            def layer(x, p=p, window=window, f=freqs[theta]):
-                return self._block(p, x, lambda h: gqa_attention(
-                    p["attn"], h, cfg, positions=positions, window=window, freqs=f))
+        freqs: Dict[float, torch.Tensor] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        offset = 0
+        for group, n, use_moe in self._stacks():
+            layers = _unstack(getattr(self, f"{group}_layers").tree(), n)
+            stack_aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            for p, (is_global, theta) in zip(layers, self._layer_flags(n, offset)):
+                if theta not in freqs:
+                    freqs[theta] = rope_freqs(self._rope_dim(), theta, device=self.device)
 
-            x = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
+                def layer(x, p=p, window=0 if is_global else cfg.sliding_window,
+                          f=freqs[theta], use_moe=use_moe):
+                    return self._block(p, x, lambda h: self._train_attention(
+                        p["attn"], h, positions, window, f), use_moe)
+
+                x, a = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
+                stack_aux = stack_aux + a
+            aux = aux + stack_aux
+            offset += n
         _, norm = make_norm(cfg.norm)
-        return norm(self.ln_f, x), torch.zeros((), dtype=torch.float32, device=self.device)
+        return norm(self.ln_f, x), aux
 
     def _chunked_ce(self, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                     chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -311,15 +333,10 @@ class TransformerLM(nn.Module):
     def train_loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: ``tokens`` (B,S) [+ ``patch_embeds`` (B,P,d), vlm]. The
         next-token LM loss over the text positions, on the module's device:
-        labels are the tokens shifted by one, the last position masked.
-        Returns (loss, {"ce", "aux", "acc", "loss"}), all 0-d f32. The moe
-        family raises: its training is not ported yet."""
-        if self.n_moe or self.cfg.mtp or self.cfg.attn_type == "mla":
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family ({self.cfg.name}) is not ported yet "
-                "(ROADMAP.md, modules to port, item 10: MoE, MLA and MTP, its training half: "
-                "the MoE and MTP train_loss and the attention backward at head widths 112 "
-                "and (192, 128)); the port serves it")
+        labels are the tokens shifted by one, the last position masked, plus
+        the MoE aux loss and, with ``cfg.mtp``, ``cfg.mtp_weight`` times the
+        MTP loss. Returns (loss, {"ce", "aux", "acc", ["mtp",] "loss"}), all
+        0-d f32."""
         tokens = token_ids(batch["tokens"], self.device)
         x = self._embed_inputs(tokens, batch.get("patch_embeds"))
         positions = torch.arange(x.shape[1], device=self.device)
@@ -329,8 +346,35 @@ class TransformerLM(nn.Module):
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -1] = 0.0
         loss, acc = self._chunked_ce(h, labels, mask)
+        metrics = {"ce": loss, "aux": aux, "acc": acc}
         total = loss + aux
-        return total, {"ce": loss, "aux": aux, "acc": acc, "loss": total}
+        if self.cfg.mtp:
+            metrics["mtp"] = self._mtp_loss(h, tokens)
+            total = total + self.cfg.mtp_weight * metrics["mtp"]
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3's depth-1 MTP loss, the reference's ``_mtp_loss``:
+        from ``h`` (B,S,d), the text positions after ``ln_f``, normed by
+        ``mtp.ln`` and concatenated with the embedding of token t+1, projected
+        by ``mtp.proj`` (2d, d), one dense layer (global, RoPE at
+        ``cfg.rope_theta``, not under remat) predicts token t+2; the last two
+        positions are masked."""
+        cfg = self.cfg
+        _, norm = make_norm(cfg.norm)
+        p = self.mtp.tree()
+        next_tok = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        emb_next = embed_lookup(self.embed, next_tok, cfg.embed_scale, cfg.cdtype)
+        h_in = torch.cat([norm(p["ln"], h), emb_next], dim=-1) @ p["proj"].to(h.dtype)
+        positions = torch.arange(h_in.shape[1], device=self.device)
+        freqs = rope_freqs(self._rope_dim(), cfg.rope_theta, device=self.device)
+        h_out, _ = self._block(p["layer"], h_in, lambda a: self._train_attention(
+            p["layer"]["attn"], a, positions, 0, freqs))
+        labels = torch.cat([tokens[:, 2:], tokens[:, -2:]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
+        mask[:, -2:] = 0.0
+        return self._chunked_ce(h_out, labels, mask)[0]
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
@@ -358,7 +402,7 @@ class TransformerLM(nn.Module):
                 c["v"][i].copy_(v)
                 return a
 
-            x = self._block(p, x, attn, use_moe)
+            x = self._block(p, x, attn, use_moe)[0]
         _, norm = make_norm(cfg.norm)
         logits = self._logits(norm(self.ln_f, x[:, -1:, :]))
         cache["pos"].fill_(S)
@@ -403,7 +447,7 @@ class TransformerLM(nn.Module):
             else:
                 def attn(h, p=p, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
                     return gqa_decode(p["attn"], h, kc, vc, pos, cfg, window=w, freqs=f)
-            x = self._block(p, x, attn, use_moe)
+            x = self._block(p, x, attn, use_moe)[0]
         _, norm = make_norm(cfg.norm)
         logits = self._logits(norm(self.ln_f, x))
         cache["pos"] = pos + 1

@@ -100,13 +100,6 @@ def test_decode_attention_matches_jax(B, KV, g, S, hd, pos, window, dtype):
     _close(port_ref, jax_ref, dtype)
 
 
-def _dispatched_head_dims(source: str) -> list:
-    """The ``case N:`` labels of each ``switch (hd)`` in a CUDA source."""
-    text = (Path(_build.CSRC) / source).read_text()
-    return [tuple(int(c) for c in re.findall(r"case (\d+):", body))
-            for body in re.findall(r"switch \(hd\) \{(.*?)\n\s*\}", text, re.S)]
-
-
 def _dispatched_pairs(source: str) -> list:
     """The ``PAIR(dk, dv)`` lines of each (q·k, v) width dispatch in a CUDA
     source."""
@@ -219,6 +212,38 @@ def test_flash_attention_grad_matches_jax(B, H, KV, Sq, Sk, hd, dtype, causal, w
         assert not got[1][:, :, Sq:].any() and not got[2][:, :, Sq:].any()
 
 
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,dk,dv,causal", [
+    (2, 8, 2, 70, 70, 112, 112, True),    # Kimi-K2's width, groups of 4, a ragged tile
+    (1, 4, 4, 40, 100, 112, 112, False),  # Sq < Sk
+    (2, 4, 4, 70, 70, 192, 128, True),    # the MLA's expanded attention, group 1
+    (1, 4, 4, 90, 33, 192, 128, True),    # Sq > Sk
+    (1, 2, 2, 50, 120, 192, 128, False),  # Sq < Sk, non-causal
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grad_matches_jax_at_moe_widths(B, H, KV, Sq, Sk, dk, dv, causal,
+                                                        dtype):
+    """dq, dk, dv of ``ops.flash_attention`` at the moe family's (q·k, v)
+    pairs (the plain forward with its log-sum-exp and
+    ``ref.flash_attention_bwd_ref``, which takes dv != dk) against
+    ``jax.grad`` of the JAX oracle, whose output is v's width."""
+    rng = np.random.default_rng(B * 100 + H * 10 + Sq + Sk + dk)
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng, sh, dtype) for sh in
+        ((B, H, Sq, dk), (B, KV, Sk, dk), (B, KV, Sk, dv), (B, H, Sq, dv)))
+
+    def jloss(q, k, v):
+        out = jref.flash_attention_ref(q, k, v, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out = tops.flash_attention(q, k, v, causal=causal)
+    assert tuple(out.shape) == (B, H, Sq, dv)
+    got = torch.autograd.grad(out, (q, k, v), tdo)
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in (tq, tk, tv)]
+    _grads_close(got, want, dtype)
+
+
 def _shared_part(rng, shape, mean):
     """Rows that share a large common vector (``mean`` times the spread of
     their own parts), as keys and values computed from the states of a deep
@@ -322,14 +347,35 @@ def test_flash_attention_under_grad_checks_the_backward_first(monkeypatch):
 
 
 def test_backward_dispatch_instantiates_its_head_dims():
-    """The backward kernels' head-width dispatch instantiates exactly
+    """The backward kernels' (q·k, v) width dispatch instantiates exactly
     ``BWD_HEAD_DIMS`` of its dtype: the f32 SIMT pair, then the bf16
-    tensor-core pair, which takes gemma3's 256 (the wrapper raises for any
-    other width)."""
-    assert _dispatched_head_dims("flash_attention_bwd.cu") == [
+    tensor-core pair, which takes every pair the forward takes (gemma3's
+    256, Kimi-K2's 112, DeepSeek-V3's MLA (192, 128)); the wrapper raises
+    for any other pair."""
+    assert _dispatched_pairs("flash_attention_bwd.cu") == [
         tfa.BWD_HEAD_DIMS[torch.float32], tfa.BWD_HEAD_DIMS[torch.bfloat16]]
-    assert get_config("gemma3_12b").head_dim in tfa.BWD_HEAD_DIMS[torch.bfloat16]
+    assert tfa.BWD_HEAD_DIMS[torch.bfloat16] == tfa.HEAD_DIMS[torch.bfloat16]
+    hd = get_config("gemma3_12b").head_dim
+    kimi, mla = get_config("kimi_k2_1t"), get_config("deepseek_v3_671b").mla
+    for pair in ((hd, hd), (kimi.head_dim, kimi.head_dim),
+                 (mla.qk_nope_head_dim + mla.qk_rope_head_dim, mla.v_head_dim)):
+        assert pair in tfa.BWD_HEAD_DIMS[torch.bfloat16], pair
     assert "flash_attention_bwd.cu" in _build.SOURCES
+
+
+@pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128), (256, 256)])
+def test_backward_refuses_float32_where_no_model_trains(dk, dv):
+    """The f32 backward stops at the dense widths up to 128: at the bf16
+    kernels' other pairs the check says that no model trains there in f32;
+    at a pair no kernel takes it names the pairs it does take."""
+    with pytest.raises(RawArrayError, match="no model trains there in float32"):
+        tfa.check_backward_widths(torch.float32, dk, dv)
+    tfa.check_backward_widths(torch.bfloat16, dk, dv)
+    with pytest.raises(RawArrayError, match=r"head widths \(\(32, 32\)") as err:
+        tfa.check_backward_widths(torch.bfloat16, 48, 48)
+    assert "no model trains" not in str(err.value) and "item 10" not in str(err.value)
+    with pytest.raises(RawArrayError, match="float32 or bfloat16"):
+        tfa.check_backward_widths(torch.float16, 64, 64)
 
 
 def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
@@ -346,7 +392,7 @@ def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
     assert _build.lib_path("flash_attention_bwd.cu") != before
 
 
-def _bwd_schedule(Sq: int, Sk: int, H: int, KV: int, hd: int, *, causal: bool,
+def _bwd_schedule(Sq: int, Sk: int, H: int, KV: int, dk: int, dv: int, *, causal: bool,
                   window: int) -> dict:
     """A numpy-side emulation of the bf16 backward kernels' walk for one
     batch entry, with the kernels' own integer arithmetic (``dq_kernel`` and
@@ -360,7 +406,7 @@ def _bwd_schedule(Sq: int, Sk: int, H: int, KV: int, hd: int, *, causal: bool,
     the live pairs, so every live (q row, key) pair of a q head must lie in
     exactly one visited pair of tiles of each kernel. A dK/dV CTA whose walk
     is empty still stores its tile's dK and dV, as zeros."""
-    (bq, bk), (kb, qb), _ = tfa.bwd_geometry(Sq, hd)
+    (bq, bk), (kb, qb), _ = tfa.bwd_geometry(Sq, dk, dv)
     group = H // KV
     dq = []
     n_qt = -(-Sq // bq)
@@ -411,6 +457,15 @@ def _live(Sq: int, Sk: int, causal: bool, window: int) -> np.ndarray:
     (330, 130, 4, 2, 64, True, 0),      # causal Sq > Sk
     (300, 700, 4, 2, 128, True, 100),   # Sq < Sk with a window
     (420, 300, 2, 1, 64, True, 128),    # Sq > Sk with a window (row 419 sees key 299)
+    # the moe family's (q·k, v) pairs: Kimi-K2's 112 (hd 128's tiles) and the MLA's
+    # (192, 128) (64-key tiles in both kernels)
+    (2048, 2048, 8, 1, (112, 112), True, 0),    # kimi's group of 8, across many tiles
+    (300, 300, 8, 1, (112, 112), True, 0),      # ragged
+    (130, 400, 8, 4, (112, 112), True, 0),      # causal Sk > Sq: key tiles seen by none
+    (2048, 2048, 4, 4, (192, 128), True, 0),    # the MLA's group of 1, across many tiles
+    (300, 300, 4, 4, (192, 128), True, 0),      # ragged
+    (70, 300, 4, 4, (192, 128), True, 0),       # causal Sk > Sq
+    (330, 130, 4, 4, (192, 128), True, 0),      # causal Sq > Sk
 ])
 def test_bwd_schedule_visits_every_live_pair_once(Sq, Sk, H, KV, hd, causal, window):
     """The bf16 backward's walk, emulated (``_bwd_schedule``): each kernel's
@@ -423,9 +478,10 @@ def test_bwd_schedule_visits_every_live_pair_once(Sq, Sk, H, KV, hd, causal, win
     the tiles past Sq). The LSE/D scratch's rows a head (``S_pad``, one a
     query) hold every ring tile the dK/dV kernel copies, and the dQ kernel's
     CTAs, whose warpgroups of 64 rows with a live row write them, reach the
-    last one."""
-    sched = _bwd_schedule(Sq, Sk, H, KV, hd, causal=causal, window=window)
-    (bq, bk), (kb, qb), S_pad = tfa.bwd_geometry(Sq, hd)
+    last one. ``hd`` is a width for q, k and v, or a (q·k, v) pair."""
+    dk, dv = hd if isinstance(hd, tuple) else (hd, hd)
+    sched = _bwd_schedule(Sq, Sk, H, KV, dk, dv, causal=causal, window=window)
+    (bq, bk), (kb, qb), S_pad = tfa.bwd_geometry(Sq, dk, dv)
     live = _live(Sq, Sk, causal, window)
     group = H // KV
 

@@ -7,8 +7,9 @@ step and a reduced whisper's train step (its cross-attention's backward at
 Sq != Sk), a reduced Zamba2's serving path and a reduced llava's prefill
 with patches on the card against the CPU's, and dense, Whisper, Mamba2 and
 Zamba2 decode steps that must not sync with the host; the attention kernels
-at the moe family's widths (112, MLA's (192, 128) and (576, 512)) and moe
-decode steps on the card. Each skips without a
+at the moe family's widths (112, MLA's (192, 128) and (576, 512)), their
+backward at 112 and (192, 128), moe decode steps and a moe train step on
+the card. Each skips without a
 card. This file imports nothing of JAX, so it runs on a machine that has a
 card and no JAX:
 
@@ -458,10 +459,10 @@ def test_flash_attention_backward_raises_where_not_instantiated(card):
     assert fa.bwd_launches == before + 1
     assert all(g.shape == q.shape and torch.isfinite(g.float()).all() for g in grads)
     q32 = q.float()
-    with pytest.raises(RawArrayError, match="head_dim"):
+    with pytest.raises(RawArrayError, match="head widths"):
         fa.flash_attention_bwd(q32, q32, q32, q32, q32, lse)
     q48 = torch.randn(1, 2, 64, 48, device=card, dtype=torch.bfloat16)
-    with pytest.raises(RawArrayError, match="head_dim"):
+    with pytest.raises(RawArrayError, match="head widths"):
         fa.flash_attention_bwd(q48, q48, q48, q48, q48, lse)
     q16 = torch.randn(1, 2, 64, 64, device=card, dtype=torch.float16)
     with pytest.raises(RawArrayError, match="float32 or bfloat16"):
@@ -469,19 +470,22 @@ def test_flash_attention_backward_raises_where_not_instantiated(card):
     assert fa.bwd_launches == before + 1
 
 
-@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("hd", [128, 256, (112, 112), (192, 128)])
 @pytest.mark.parametrize("field", range(5))
 def test_flash_attention_backward_refuses_a_plan_not_its_own(card, monkeypatch, hd, field):
     """The bf16 kernels launch only with the tiles ``bwd_geometry`` plans
     being their own, and an LSE/D stride of whole 64-row ring tiles: a plan
     with any one number off raises and launches nothing, so the CPU
-    schedule test cannot check a stale copy of the kernels' tiles."""
-    q = torch.randn(1, 2, 130, hd, device=card, dtype=torch.bfloat16)
-    _, lse, out = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    schedule test cannot check a stale copy of the kernels' tiles. ``hd``
+    is a width for q, k and v, or a (q·k, v) pair."""
+    dk, dv = hd if isinstance(hd, tuple) else (hd, hd)
+    q = torch.randn(1, 2, 130, dk, device=card, dtype=torch.bfloat16)
+    v = torch.randn(1, 2, 130, dv, device=card, dtype=torch.bfloat16)
+    o, lse, out = fa.flash_attention_fwd(q, q, v, return_lse=True)
     plan = fa.bwd_geometry
 
-    def off(S, width):
-        dq_tiles, kv_tiles, S_pad = plan(S, width)
+    def off(S, dk, dv):
+        dq_tiles, kv_tiles, S_pad = plan(S, dk, dv)
         flat = [*dq_tiles, *kv_tiles, S_pad]
         flat[field] += 32 if field < 4 else -64  # a tile resized; S_pad short of S
         return tuple(flat[:2]), tuple(flat[2:4]), flat[4]
@@ -489,7 +493,7 @@ def test_flash_attention_backward_refuses_a_plan_not_its_own(card, monkeypatch, 
     monkeypatch.setattr(fa, "bwd_geometry", off)
     before = fa.bwd_launches
     with pytest.raises(RawArrayError, match="launch failed"):
-        fa.flash_attention_bwd(q, q, q, out, q, lse)
+        fa.flash_attention_bwd(q, q, v, out, o, lse)
     assert fa.bwd_launches == before
 
 
@@ -505,7 +509,7 @@ def test_flash_attention_under_grad_raises_before_the_forward(card):
     assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
     assert q.grad is not None and torch.isfinite(q.grad.float()).all()
     q32 = q.detach().float().requires_grad_()
-    with pytest.raises(RawArrayError, match="head_dim"):
+    with pytest.raises(RawArrayError, match="head widths"):
         ops.flash_attention(q32, q32, q32)
     assert fa.launches == before[0] + 1
     with torch.no_grad():
@@ -725,14 +729,93 @@ def test_flash_attention_kernel_at_moe_widths_matches_plain_version(card, dk, dv
 
 @pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128)])
 def test_flash_attention_backward_refuses_the_moe_widths(card, dk, dv):
-    """The moe family's widths are serving-only: under grad, and for the
-    training forward, the call raises naming the item that owes them."""
-    q = torch.randn(1, 2, 64, dk, device=card, dtype=torch.bfloat16, requires_grad=True)
-    v = torch.randn(1, 2, 64, dv, device=card, dtype=torch.bfloat16)
-    with pytest.raises(RawArrayError, match="item 10's training half"):
+    """The moe family's widths train in bf16 only: in f32, under grad and
+    for the training forward, the call raises before any launch, saying
+    that no model trains there in f32; in bf16 both run."""
+    q = torch.randn(1, 2, 64, dk, device=card, requires_grad=True)
+    v = torch.randn(1, 2, 64, dv, device=card)
+    before = fa.launches, fa.bwd_launches
+    with pytest.raises(RawArrayError, match="no model trains there in float32"):
         ops.flash_attention(q, q, v)
-    with pytest.raises(RawArrayError, match="item 10's training half"):
+    with pytest.raises(RawArrayError, match="no model trains there in float32"):
         fa.flash_attention_fwd(q.detach(), q.detach(), v, return_lse=True)
+    assert (fa.launches, fa.bwd_launches) == before
+    qb = q.detach().bfloat16().requires_grad_()
+    ops.flash_attention(qb, qb, v.bfloat16()).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert qb.grad.shape == qb.shape and torch.isfinite(qb.grad.float()).all()
+
+
+# (B, H, KV, Sq, Sk, causal, window): the moe family's training attention at its
+# (q·k, v) pairs, the edges of their tiles (hd 128's at 112, 64-key tiles at (192, 128))
+_MOE_BWD_SHAPES = [
+    (1, 16, 2, 1024, 1024, True, 0),   # kimi's group of 8 over many tiles
+    (2, 4, 4, 300, 300, True, 0),      # group 1 (the MLA's), a ragged tail
+    (1, 4, 2, 130, 400, True, 0),      # causal Sk > Sq: keys 130.. seen by none, zeros
+    (1, 4, 2, 400, 130, True, 0),      # causal Sq > Sk
+    (1, 4, 4, 200, 333, False, 0),     # non-causal Sq != Sk, ragged both sides
+    (1, 4, 2, 520, 520, True, 128),    # a window
+    (1, 2, 2, 65, 65, True, 0),        # one row past a 64-row tile
+]
+
+
+@pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128)])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", _MOE_BWD_SHAPES)
+def test_flash_attention_backward_kernel_at_moe_widths(card, dk, dv, B, H, KV, Sq, Sk, causal,
+                                                       window):
+    """bf16 dq, dk, dv at (112, 112) (tiles 128 wide over 112-wide maps, the
+    stores at a 112 stride) and (192, 128) (dQ's K/V tiles of 64 keys; the
+    dK/dV kernel's warpgroups split dV and dK): within 2e-2 of each
+    gradient's largest entry of the plain backward, two calls bit-equal,
+    exact zeros for keys no row sees; the training forward's f32 output
+    rounds to its bf16 one and its LSE matches the plain one."""
+    rng = np.random.default_rng(dk + Sq + Sk + window)
+    q, do = _normal(rng, (B, H, Sq, dk), torch.bfloat16, card), \
+        _normal(rng, (B, H, Sq, dv), torch.bfloat16, card)
+    k = _normal(rng, (B, KV, Sk, dk), torch.bfloat16, card)
+    v = _normal(rng, (B, KV, Sk, dv), torch.bfloat16, card)
+    o, lse, out = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (B, H, Sq, dv)
+    assert torch.equal(out.to(torch.bfloat16), o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window)
+    tol = BWD_TOL[torch.bfloat16]
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                   atol=tol * float(w.float().abs().max()), msg=name)
+    if causal and Sk > Sq:
+        assert not got[1][:, :, Sq:].any() and not got[2][:, :, Sq:].any()
+
+
+@pytest.mark.parametrize("dk,dv", [(112, 112), (192, 128)])
+def test_training_forward_at_moe_widths_matches_plain_version(card, dk, dv):
+    """The training instance of the forward at the moe pairs: its bf16 output
+    within the forward's tolerance of the plain version and equal to the
+    rounding of its f32 output, which is within 2^-8 of the plain f32 output
+    (P carried to about 2^-16 by the second product), two calls bit-equal."""
+    rng = np.random.default_rng(dk)
+    B, H, KV, S = 2, 8, 2, 700
+    q = _normal(rng, (B, H, S, dk), torch.bfloat16, card)
+    k = _normal(rng, (B, KV, S, dk), torch.bfloat16, card)
+    v = _normal(rng, (B, KV, S, dv), torch.bfloat16, card)
+    o, lse, out = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    o2, lse2, out2 = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    want32 = ref.flash_attention_ref(q, k, v, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(out, out2)
+    assert torch.equal(out.to(torch.bfloat16), o)
+    torch.testing.assert_close(o.float(), want32, rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    torch.testing.assert_close(out, want32, rtol=2 ** -8, atol=2 ** -8)
 
 
 @pytest.mark.parametrize("B,KV,g,S,pos,window", [
@@ -840,6 +923,43 @@ def test_moe_decode_step_on_card_launches_the_kernels_without_a_sync(card, arch)
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert int(cache["pos"]) == 12 and torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("arch", ["kimi_k2_1t", "deepseek_v3_671b"])
+def test_moe_train_step_on_card_is_bit_equal_twice(card, arch):
+    """A reduced moe model at its attention widths (Kimi-K2's 112, the MLA's
+    (192, 128)) trains on the card in bf16: one flash forward and one
+    backward launch an attention (each layer's, and DeepSeek-V3's MTP
+    layer's), a finite loss with every metric, a gradient for every leaf, and
+    two forward and backward passes give bit-equal gradients (the MoE
+    dispatch's gathers, the expert products and both attention kernels
+    alike), with routes that drop (capacity factor 0.5, two chunks)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.models import build_model
+
+    cfg = _moe_on_card(arch)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, dispatch_chunks=2, capacity_factor=0.5))
+    model = build_model(cfg, device=card, seed=0).requires_grad_(True)
+    tokens = torch.randint(1, cfg.vocab, (2, 192), device=card)
+    n_attn = cfg.n_layers + int(cfg.mtp)
+    runs = []
+    for _ in range(2):
+        before = (fa.launches, fa.bwd_launches)
+        loss, metrics = model.train_loss({"tokens": tokens})
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bwd_launches) == (before[0] + n_attn, before[1] + n_attn)
+        assert set(metrics) == {"ce", "aux", "acc", "loss"} | ({"mtp"} if cfg.mtp else set())
+        assert all(torch.isfinite(m).all() for m in metrics.values())
+        grads = {n: p.grad.clone() for n, p in flatten(model.param_tree(), "param").items()}
+        model.zero_grad(set_to_none=True)
+        runs.append((float(loss), grads))
+    assert runs[0][0] == runs[1][0]
+    for name, g in runs[0][1].items():
+        assert torch.isfinite(g.float()).all() and g.any(), name
+        assert torch.equal(g, runs[1][1][name]), name
 
 
 def test_decode_attention_is_one_kernel_per_call(card):

@@ -18,6 +18,7 @@ oracles at MLA's widths, (192, 128) for the prefill and (576, 512) over
 shared rows for the decode.
 """
 
+import contextlib
 import dataclasses
 import math
 
@@ -31,15 +32,22 @@ import jax.numpy as jnp
 import repro.checkpoint as jck
 from repro.checkpoint.store import _leaf_name
 from repro.configs import get_config as jax_config
+from repro.data import DataLoader as JaxLoader
+from repro.data import RaDataset as JaxDataset
+from repro.distributed import optimizer as jopt
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.models import build_model as jax_build
 from repro.models import moe as jmoe
 from repro.models.common import Initializer as JaxInitializer
 from repro.serving import ServeEngine as JaxEngine
+from repro.train import TrainLoopConfig as JaxLoopConfig
+from repro.train import train as jax_train
 from repro_torch.checkpoint import load_checkpoint, restore_pipelined, save_checkpoint
 from repro_torch.checkpoint.store import flatten
 from repro_torch.configs import get_config
+from repro_torch.data import DataLoader, RaDataset, make_token_dataset
+from repro_torch.distributed import optimizer as topt
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
@@ -49,6 +57,8 @@ from repro_torch.models.common import rope_freqs
 from repro_torch.models.convert import load_params, params_from_jax
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serving import ServeEngine
+from repro_torch.train import TrainLoopConfig
+from repro_torch.train import train as port_train
 
 TOL = 1e-4  # of each tensor's scale: rtol 1e-4, atol 1e-4 * max(1, max |want|)
 ATTN_TOL = 2e-5  # f32, tests/test_kernels.py:19
@@ -112,7 +122,7 @@ def _temper(params, cfg):
 def _pair(arch, seed=0, **changes):
     jcfg, tcfg = _configs(arch, **changes)
     jmodel = jax_build(jcfg)
-    params = _temper(jmodel.init(jax.random.PRNGKey(seed)), jcfg)
+    params = _temper(jax.jit(jmodel.init)(jax.random.PRNGKey(seed)), jcfg)
     port = build_model(tcfg, device="cpu")
     assert isinstance(port, TransformerLM)
     assert _leaves(port) == _jax_leaves(params)
@@ -274,10 +284,210 @@ def test_checkpoints_cross_both_ways_bit_equal(tmp_path, arch, dtype):
                                       np.asarray(want[name]).view(width), err_msg=name)
 
 
-def test_training_is_refused_naming_its_item():
-    port = build_model(_configs("deepseek_v3_671b")[1], device="meta")
-    with pytest.raises(NotImplementedError, match="item 10: MoE, MLA and MTP, its training half"):
-        port.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+# ------------------------------------------------------------------ training
+LOSS_TOL = 1e-5  # tests/test_torch_train.py's tolerances and their reasons
+GRAD_TOL = 1e-3
+RUN_TOL = 1e-4
+FLIP_SHARE = 1e-4
+
+
+@contextlib.contextmanager
+def _recorded_routes(out: list):
+    """Each routing call's expert ids in the port, in call order."""
+    kept = tmoe.route
+
+    def route(p, x2d, cfg):
+        idx, gates, aux = kept(p, x2d, cfg)
+        out.append((idx.detach().clone(), x2d.shape[0], cfg))
+        return idx, gates, aux
+
+    tmoe.route = route
+    try:
+        yield
+    finally:
+        tmoe.route = kept
+
+
+def _dropped(records) -> int:
+    """Routes past their expert's capacity, over the recorded calls."""
+    n = 0
+    for idx, T, cfg in records:
+        m = cfg.moe
+        C = max(1, math.ceil(T * m.top_k / m.n_experts * m.capacity_factor))
+        n += int(np.maximum(np.bincount(idx.numpy().ravel(), minlength=m.n_experts) - C, 0).sum())
+    return n
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("remat,chunks,capacity_factor", [
+    (False, 1, 1.25),
+    (True, 1, 1.25),    # each layer under torch.utils.checkpoint
+    (False, 2, 0.5),    # two dispatch chunks, routes dropped
+    (True, 2, 0.5),
+])
+def test_train_loss_and_grads_match_jax(arch, remat, chunks, capacity_factor):
+    """``train_loss`` of the reduced moe models (DeepSeek-V3 with MLA and
+    MTP, Kimi-K2 on GQA) and every gradient leaf against
+    ``jax.value_and_grad`` of the reference's, at tests/test_torch_train.py's
+    tolerances: every metric (``mtp`` too), with and without remat, over one
+    and two dispatch chunks, and at a capacity factor at which routes drop
+    (the gradient then flows through the dropped routes' gates, by their
+    renormalization, and not through their slot)."""
+    jcfg, _ = _configs(arch)
+    m = dataclasses.replace(jcfg.moe, dispatch_chunks=chunks, capacity_factor=capacity_factor)
+    jmodel, params, port = _pair(arch, remat=remat, moe=m)
+    port.requires_grad_(True)
+    cfg = port.cfg
+    toks = np.random.default_rng(chunks).integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.train_loss(p, {"tokens": jnp.asarray(toks)}), has_aux=True))(params)
+    records = []
+    with _recorded_routes(records):
+        loss, met = port.train_loss({"tokens": torch.from_numpy(toks)})
+    loss.backward()
+    assert set(met) == set(jmet) == {"ce", "aux", "acc", "loss"} | ({"mtp"} if cfg.mtp else set())
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=LOSS_TOL)
+    for key in jmet:
+        np.testing.assert_allclose(float(met[key].detach()), float(jmet[key]), rtol=LOSS_TOL,
+                                   atol=1e-7, err_msg=key)
+    assert float(met["aux"].detach()) > 0
+    if capacity_factor < 1.0:
+        assert _dropped(records) > 0
+    want = {name: np.asarray(g) for name, g in flatten(jax.device_get(jg), "param").items()}
+    got = {name: p.grad for name, p in flatten(port.param_tree(), "param").items()}
+    assert set(got) == set(want)
+    for name, g in want.items():
+        assert got[name] is not None and np.abs(g).max() > 0, name
+        scale = float(np.abs(g).max())
+        np.testing.assert_allclose(_np(got[name]), g, rtol=GRAD_TOL, atol=GRAD_TOL * scale,
+                                   err_msg=name)
+
+
+def test_moe_backward_is_bit_equal_twice():
+    """Two backward passes of a MoE layer give bit-equal gradients: the
+    dispatch's index ops are gathers whose gradients are gathers, summed in
+    a fixed order (on the card too: tests/test_torch_cuda.py)."""
+    jcfg, tcfg = _configs("kimi_k2_1t")
+    m = dataclasses.replace(tcfg.moe, dispatch_chunks=2, capacity_factor=0.5)
+    tcfg = tcfg.with_(moe=m)
+    _, tp = _module_params(jmoe.init_moe, jcfg, seed=41)
+    x = torch.from_numpy(_x(tcfg, 2, 24, seed=42))
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+        xg = x.clone().requires_grad_()
+        y, aux = tmoe.moe_ffn(leaves, xg, tcfg)
+        (y.square().sum() + aux).backward()
+        grads.append([xg.grad] + [leaves[k].grad for k in sorted(leaves)])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_one_adamw_step_with_int8_moments_matches_jax():
+    """One step of each package from the same reduced DeepSeek-V3 (MLA, MTP,
+    both stacks) and batch, AdamW with the config's int8 blockwise moments
+    (``opt_moment_dtype``, as the reference's distributed step sets it). A
+    first step moves each entry by about lr·sign(g), so entries whose
+    gradient is within the gradient tolerance of zero may be up to 2·lr
+    apart; of the rest, at most ``FLIP_SHARE`` may differ past ``RUN_TOL``
+    (a moment whose value sits at a rounding edge of its code takes the
+    other code). The int8 codes are at most one apart."""
+    jmodel, params, port = _pair("deepseek_v3_671b")
+    port.requires_grad_(True)
+    cfg = port.cfg
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+    kw = dict(lr=1e-3, warmup_steps=0, total_steps=10, moment_dtype="int8")
+    jcfg, tcfg = jopt.AdamWConfig(**kw), topt.AdamWConfig(**kw)
+    batch = {"tokens": jnp.asarray(toks)}
+    grads = jax.jit(jax.grad(lambda p: jmodel.train_loss(p, batch)[0]))(params)
+    jp, js, _ = jax.jit(lambda p, g: jopt.apply_updates(p, g, jopt.init_state(p, jcfg),
+                                                        jcfg))(params, grads)
+
+    from repro_torch.train.loop import make_step
+
+    tparams = port.param_tree()
+    state = topt.init_state(tparams, tcfg)
+    make_step(port, tcfg)(tparams, state, {"tokens": torch.from_numpy(toks)})
+    want = {n: np.asarray(x) for n, x in flatten(jax.device_get(jp), "param").items()}
+    grad = {n: np.abs(np.asarray(x)) for n, x in flatten(jax.device_get(grads), "param").items()}
+    off_total = size = 0
+    for name, p in flatten(port.param_tree(), "param").items():
+        got = _np(p)
+        np.testing.assert_allclose(got, want[name], rtol=0, atol=2.2 * kw["lr"], err_msg=name)
+        off = ~np.isclose(got, want[name], rtol=RUN_TOL, atol=1e-6)
+        off_total += int((off & (grad[name] > GRAD_TOL * grad[name].max())).sum())
+        size += got.size
+    assert off_total <= FLIP_SHARE * size, f"{off_total} of {size}"
+    jstate = flatten(jax.device_get(js), "opt")
+    tstate = flatten(state, "opt")
+    assert set(tstate) == set(jstate) and any(t.dtype == torch.int8 for t in tstate.values())
+    for name, t in tstate.items():
+        if t.dtype == torch.int8:
+            assert np.abs(t.numpy().astype(np.int32) - jstate[name].astype(np.int32)).max() <= 1
+    assert int(state["step"]) == 1
+
+
+def _moe_loop(pkg_cfg, adamw_cls, ckpt_dir, steps):
+    return pkg_cfg(steps=steps, ckpt_every=3, ckpt_dir=ckpt_dir, log_every=1000,
+                   adamw=adamw_cls(lr=1e-4, warmup_steps=2, total_steps=50, moment_dtype="int8"))
+
+
+def _jax_moe_run(dataset, ckpt_dir, steps, resume=False):
+    """The reference's ``train()`` on the reduced Kimi-K2 from its own
+    init, tempered as ``_pair`` tempers it."""
+    jcfg, _ = _configs("kimi_k2_1t")
+    jmodel = jax_build(jcfg)
+    init = jmodel.init
+    jmodel.init = lambda key: _temper(init(key), jcfg)
+    return jax_train(jmodel, JaxLoader(JaxDataset(dataset), 4, seed=0),
+                     _moe_loop(JaxLoopConfig, jopt.AdamWConfig, ckpt_dir, steps), resume=resume)
+
+
+def _port_moe_run(dataset, ckpt_dir, steps, resume=False):
+    """The port's ``train()`` from the reference's init (carried over)."""
+    _, params, port = _pair("kimi_k2_1t")
+    return port_train(port.requires_grad_(True), DataLoader(RaDataset(dataset), 4, seed=0),
+                      _moe_loop(TrainLoopConfig, topt.AdamWConfig, ckpt_dir, steps),
+                      resume=resume)
+
+
+@pytest.fixture(scope="module")
+def moe_dataset(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("moe_train") / "ds")
+    make_token_dataset(root, n_docs=48, seq_len=32, vocab=512, shard_rows=48)
+    return root
+
+
+def _losses_close(got, want):
+    """tests/test_torch_train.py's per-step gate: the k-th step after a shared
+    state within LOSS_TOL·10^k, at most 3e-2."""
+    assert len(got) == len(want)
+    for k, (g, w) in enumerate(zip(got, want)):
+        tol = min(LOSS_TOL * 10 ** k, 3e-2)
+        assert abs(g - w) <= tol * abs(w), f"step {k}: {g} vs {w} (rtol {tol})"
+
+
+def test_port_moe_checkpoint_resumes_in_jax(moe_dataset, tmp_path, capsys):
+    """The port's checkpoint of a reduced Kimi-K2 at step 3 (parameters,
+    int8 moments with their scales, loader position) resumes in the
+    reference's ``train()``, which continues the port's own losses."""
+    ck = str(tmp_path / "ck")
+    _port_moe_run(moe_dataset, ck, 3)
+    straight = _port_moe_run(moe_dataset, str(tmp_path / "straight"), 6)
+    out = _jax_moe_run(moe_dataset, ck, 6, resume=True)
+    assert "[train] resumed from step 3" in capsys.readouterr().out
+    _losses_close(out["losses"], straight["losses"][3:])
+
+
+def test_jax_moe_checkpoint_resumes_in_the_port(moe_dataset, tmp_path, capsys):
+    """And the reverse: the reference's moe checkpoint with int8 moments
+    resumes in the port and continues the reference's losses."""
+    ck = str(tmp_path / "ck")
+    _jax_moe_run(moe_dataset, ck, 3)
+    straight = _jax_moe_run(moe_dataset, str(tmp_path / "straight"), 6)
+    out = _port_moe_run(moe_dataset, ck, 6, resume=True)
+    assert "[train] resumed from step 3" in capsys.readouterr().out
+    _losses_close(out["losses"], straight["losses"][3:])
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,causal", [

@@ -158,6 +158,33 @@ def test_apply_updates_matches_jax(moments, stacked):
     assert int(ts["step"]) == 3
 
 
+def test_int8_moments_move_a_vanished_gradient_by_m_over_eps():
+    """The reference's int8 moments (ROADMAP.md §3, fault 10), mirrored: a
+    block's absmax quantization keeps a small first moment (|g| above
+    1/254 of the block's largest) and zeroes its second (|g| below 1/16 of
+    it), so where the next gradient is exactly zero (an embedding row or an
+    expert that the next batch does not reach) the second step divides the
+    surviving first moment by eps alone and moves the entry by ~lr·m/eps;
+    with f32 moments it moves by < lr. Both packages alike, at OPT_TOL."""
+    g1 = np.full((1, 128), 0.05, np.float32)
+    g1[0, 0] = 1.0
+    kw = dict(lr=1e-6, warmup_steps=0, total_steps=10, grad_clip=0.0, weight_decay=0.0)
+    moved = {}
+    for moments in ("float32", "int8"):
+        jcfg = jopt.AdamWConfig(**kw, moment_dtype=moments)
+        tcfg = topt.AdamWConfig(**kw, moment_dtype=moments)
+        jp, tp = {"w": jnp.zeros((1, 128))}, {"w": torch.zeros(1, 128)}
+        js, ts = jopt.init_state(jp, jcfg), topt.init_state(tp, tcfg)
+        for g in (g1, np.zeros_like(g1)):
+            jp, js, _ = jopt.apply_updates(jp, {"w": jnp.asarray(g)}, js, jcfg)
+            before = tp["w"].clone()
+            tp, ts, _ = topt.apply_updates(tp, {"w": torch.from_numpy(g.copy())}, ts, tcfg)
+        np.testing.assert_allclose(tp["w"].numpy(), np.asarray(jp["w"]), **OPT_TOL)
+        moved[moments] = np.abs((tp["w"] - before).numpy()[0, 1:]).max() / kw["lr"]
+    assert moved["float32"] < 1.0
+    assert moved["int8"] > 1e4
+
+
 def _close_or_flipped(got, want, flips: bool, flip_atol: float):
     """Within ``OPT_TOL``; or, where int8 codes may flip, all within
     ``flip_atol`` and at most ``FLIP_SHARE`` of the entries past ``OPT_TOL``."""

@@ -59,7 +59,14 @@ Phases (any failure exits non-zero and prints no result):
    the serving shape, Zamba2-1.2B's prefill (x (8,64,256,64), N 64), a
    long prompt, the JAX sweep's f32 shapes, a chunk of 100, a single chunk
    and a slow decay that keeps the state alive across every chunk; y and
-   the final state within their tolerances;
+   the final state within their tolerances; then the scan's backward
+   (``csrc/ssd_scan_bwd.cu``, f32 on the SIMT pipes) against its plain
+   version (``ref.ssd_scan_bwd_ref``) at phases 22-23's training shapes (x
+   (4,48,2048,64), B/C (4,2048,128) bf16; x (4,64,2048,64), N 64) and edges
+   (Q 100 and 40, slow decay, f32 at N 64 and 128, the reduced widths): dx,
+   d(dtA), dB and dC within f32 1e-4 / bf16 2e-2 of each one's largest entry,
+   two calls bit-equal; at the training shapes the device time, the plain
+   version's and the bound (no library call computes the scan);
 6. serving: Mamba2-780M at its full widths and depth (48 layers, bf16,
    random weights from seed 0 on the card) saved as a raw RawArray
    checkpoint and restored through ``ServeEngine(checkpoint=raw)`` (leaves
@@ -304,7 +311,28 @@ Phases (any failure exits non-zero and prints no result):
    1 MoE) with 64 of 256 routed experts, MLA expanded at (192, 128), and the
    MTP loss (its one dense layer, not under remat): its MLA's
    wq_a/wq_b/wkv_a/wkv_b/wo gradients gated, the MTP layer's too; launch
-   counts (4 × 2 + 1) × 4 forward and 5 × 4 backward.
+   counts (4 × 2 + 1) × 4 forward and 5 × 4 backward;
+22. training: Mamba2-780M at full size (48 layers, d_model 1,536, 48 SSD
+   heads of 64, N 128, chunk 128, bf16, remat; nothing cut but the steps),
+   random weights from seed 0, a RawArray token dataset of 16 × 2,048 tokens
+   at vocab 50,280 through ``DeviceLoader``, batch 4 × 2,048, the config's
+   f32 AdamW moments: the first step against the same forward kernels with
+   the scan's plain backward (loss within 1%, gradient norm within 2%, each
+   layer's w_x/w_B/w_C/w_dt/A_log/dt_bias/D gradient within
+   ``SSM_GRAD_TOL``; two planted faults of the scan's backward, dB from one
+   head and d(dtA) 10% too large, must break that gate), two first steps
+   bit-equal leaf by leaf, then ``train()`` for 4 steps with a checkpoint at
+   step 2 and a second ``train()`` resumed there (its losses within rtol
+   1e-5, atol 1e-6 of the first's); launch counts 48 × 4 × 2 forward (all on
+   the tensor cores) and 48 × 4 backward; step s (the median of steps 2 and
+   4: step 1 warms, step 3 waits for the checkpoint's snapshot), tokens/s,
+   peak memory, a
+   profiled step (device ms by kind, scan forward and backward by their
+   sources' kernel names);
+23. training: Zamba2-1.2B at full size as phase 22 (38 layers at N 64 and
+   the shared block 6 times, its attention tempered as in phase 5), the
+   shared block's flash forward and backward at (128, 128), group 1, 6 × 4
+   each beside the scan's 38 × 4 × 2 and 38 × 4.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -910,6 +938,80 @@ def phase_ssd(torch) -> list:
         if not ok:
             raise SystemExit(f"chip_smoke: ssd_scan differs from its plain version: {row}")
         rows.append(row)
+    return rows
+
+
+def _ssd_bwd_work(B: int, H: int, L: int, P: int, N: int, Q: int, esize: int) -> tuple:
+    """Bytes and operations the scan's backward needs for this input: x, dy
+    and dx, B, C, dB and dC at the inputs' width, dtA and its gradient in
+    f32, once each; C·Bᵀ once per (batch, chunk) over the causal pairs, and
+    per (batch, head, chunk) dy·xᵀ, (G ⊙ L)ᵀ·dy, (dS ⊙ L)·B and (dS ⊙ L)ᵀ·C over
+    the pairs and six Q·P·N products (the state, its gradient, and the
+    state terms of dx, dB, dC and d(dtA)), two operations a multiply-add."""
+    nc, pairs = L // Q, Q * (Q + 1) // 2
+    nbytes = 3 * B * H * L * P * esize + 2 * B * H * L * 4 + 4 * B * L * N * esize
+    flops = 2 * B * nc * (pairs * N + H * (2 * pairs * P + 2 * pairs * N + 6 * Q * P * N))
+    return nbytes, flops
+
+
+def phase_ssd_bwd(torch) -> list:
+    """The scan's backward kernel (``csrc/ssd_scan_bwd.cu``) against its plain
+    version (``ref.ssd_scan_bwd_ref``) on the card: dx, d(dtA), dB and dC
+    within ``BWD_TOL`` of each one's largest entry, two calls bit-equal; at
+    the training shapes (phases 22-23) its device time beside the plain
+    version's and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    model_decay, slow = (0.5, 8.0), (0.0, 0.01)
+    # (label, B, H, L, P, N, chunk, dtype, dtA range, timed)
+    cases = [
+        ("mamba2_train", 4, 48, 2048, 64, 128, 128, "bfloat16", model_decay, True),
+        ("zamba2_train", 4, 64, 2048, 64, 64, 128, "bfloat16", model_decay, True),
+        ("edge_q100", 2, 48, 200, 64, 128, 100, "bfloat16", model_decay, False),
+        ("edge_slow_decay", 2, 48, 512, 64, 128, 128, "bfloat16", slow, False),
+        ("edge_f32_n128_slow", 1, 4, 512, 64, 128, 128, "float32", slow, False),
+        ("edge_f32_n64_q40", 2, 4, 240, 64, 64, 40, "float32", model_decay, False),
+        ("edge_reduced_widths", 2, 8, 96, 32, 16, 32, "float32", (0.0, 0.3), False),
+    ]
+    rows = []
+    for label, B, H, L, P, N, chunk, dt, (lo, hi), timed in cases:
+        def randn(*shape):
+            return (torch.randn(shape, generator=gen, device=dev) * 0.5).to(dtypes[dt])
+
+        x, dy, Bm, Cm = randn(B, H, L, P), randn(B, H, L, P), randn(B, L, N), randn(B, L, N)
+        dtA = -(lo + (hi - lo) * torch.rand((B, H, L), generator=gen, device=dev))
+        got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
+        again = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
+        errs = {name: float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for name, g, w in zip(("dx", "ddtA", "dB", "dC"), got, want)}
+        bit_equal = all(bool(torch.equal(g, g2)) for g, g2 in zip(got, again))
+        row = {"case": label, "shape": {"x": [B, H, L, P], "BC": [B, L, N]}, "chunk": chunk,
+               "n_chunks": L // chunk, "dtype": dt, "dtA": [-hi, -lo],
+               "rel_err": errs, "max_abs_err": max(
+                   float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
+               "tolerance": BWD_TOL[dt], "bit_equal": bit_equal}
+        del got, again, want
+        if timed:
+            nbytes, flops = _ssd_bwd_work(B, H, L, P, N, chunk, x.element_size())
+            row.update(_timings(
+                torch, lambda: ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk),
+                lambda: ref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk),
+                None, flush, nbytes, flops,
+                peak=BF16_FLOPS if dt == "bfloat16" else F32_FLOPS))
+        log(f"[kernels] ssd_scan_bwd {json.dumps(row)}")
+        if not bit_equal or max(errs.values()) > BWD_TOL[dt]:
+            raise SystemExit(f"chip_smoke: ssd_scan_bwd differs from its plain version or "
+                             f"from itself: {row}")
+        rows.append(row)
+        del x, dy, Bm, Cm, dtA
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1890,6 +1992,11 @@ MLA_LEAVES = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
 #: through 24 layers), its planted faults 0.106 (dq 10% too large) and 1.0 (dk
 #: zeroed); gemma3's (12 layers, head width 256) 0.0123, 0.102 and 1.0: PERF.md §6
 ATTN_GRAD_TOL = 0.05
+#: the leaves of each Mamba2 layer that phases 22-23's first-step gate holds to the
+#: plain scan backward's, and their tolerance: ATTN_GRAD_TOL's rule (the largest
+#: relative error of one layer's gradient)
+SSM_LEAVES = ("w_x", "w_B", "w_C", "w_dt", "A_log", "dt_bias", "D")
+SSM_GRAD_TOL = 0.05
 
 
 @functools.lru_cache(maxsize=None)
@@ -1909,7 +2016,9 @@ def _kernel_kind(name: str) -> str:
     attention kernels by the ``__global__`` functions of their sources, so a
     renamed kernel is still counted as what it is."""
     for source, kind in (("flash_attention_bwd.cu", "attention backward"),
-                         ("flash_attention.cu", "attention forward")):
+                         ("flash_attention.cu", "attention forward"),
+                         ("ssd_scan_bwd.cu", "scan backward"),
+                         ("ssd_scan.cu", "scan forward")):
         if any(k in name for k in _kernel_names(source)):  # demangled or mangled
             return kind
     if any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -1917,11 +2026,13 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _profiled_step(torch, model, adamw, batch) -> dict:
+def _profiled_step(torch, model, adamw, batch,
+                   require=("attention forward", "attention backward")) -> dict:
     """One more train step under the profiler (after the checks: it moves the
     weights), in two traces: the forward and backward, then the optimizer.
     For each, its wall time, the summed device time of its kernels by kind,
-    and the share of the wall time the card had no kernel running."""
+    and the share of the wall time the card had no kernel running. The
+    forward and backward must show a kernel of each kind in ``require``."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1959,9 +2070,9 @@ def _profiled_step(torch, model, adamw, batch) -> dict:
                      "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
                      "device_ms_by_kind": dict(by_kind)}
     kinds = out["forward_backward"]["device_ms_by_kind"]
-    if not (kinds.get("attention forward") and kinds.get("attention backward")):
-        raise SystemExit(f"chip_smoke: the profiled step shows no attention forward or "
-                         f"backward kernel by name: {kinds}")
+    if not all(kinds.get(kind) for kind in require):
+        raise SystemExit(f"chip_smoke: the profiled step shows no kernel of some kind of "
+                         f"{require} by name: {kinds}")
     del state
     return out
 
@@ -1985,10 +2096,24 @@ def _attention_trees(params) -> dict:
     return trees
 
 
-def _first_step(torch, model, batch) -> tuple:
-    """Loss, global gradient norm and a copy of the attention projections'
-    gradients (``ATTN_LEAVES`` of each attention subtree, MLA's
-    ``MLA_LEAVES``, stacked over the layers; an unstacked one as a stack of
+def _attention_leaves(params) -> dict:
+    """The attention projections a first-step gate holds: ``ATTN_LEAVES`` of
+    each attention subtree, MLA's ``MLA_LEAVES``; name -> (parameter,
+    stacked over the layers)."""
+    return {prefix + n: (attn[n], stacked)
+            for prefix, (attn, stacked) in _attention_trees(params).items()
+            for n in (MLA_LEAVES if "wkv_b" in attn else ATTN_LEAVES)}
+
+
+def _ssm_leaves(params) -> dict:
+    """The Mamba2 layers' leaves the scan's gradients reach first
+    (``SSM_LEAVES``), stacked over the layers."""
+    return {n: (params["layers"]["ssm"][n], True) for n in SSM_LEAVES}
+
+
+def _first_step(torch, model, batch, select=_attention_leaves) -> tuple:
+    """Loss, global gradient norm and a copy of the gradients of the leaves
+    ``select`` picks (stacked over the layers; an unstacked one as a stack of
     one) of one forward and backward; the model's gradients are freed."""
     from repro_torch.distributed import optimizer as optim
 
@@ -1997,10 +2122,9 @@ def _first_step(torch, model, batch) -> tuple:
     params = model.param_tree()
     norm = float(optim.global_norm(optim.tree_map(lambda p: p.grad, params)))
     grads = {}
-    for prefix, (attn, stacked) in _attention_trees(params).items():
-        for n in MLA_LEAVES if "wkv_b" in attn else ATTN_LEAVES:
-            g = attn[n].grad.clone()
-            grads[prefix + n] = g if stacked else g[None]
+    for name, (p, stacked) in select(params).items():
+        g = p.grad.clone()
+        grads[name] = g if stacked else g[None]
     for p in optim.leaves(params):
         p.grad = None
     return float(loss.detach()), norm, grads
@@ -2092,6 +2216,45 @@ def _f64_attention(torch, heads=None):
         ops.flash_attention = kept
 
 
+@contextlib.contextmanager
+def _plain_scan_backward():
+    """The scan's backward kernel swapped for its plain version
+    (``ref.ssd_scan_bwd_ref`` on the card), the forward kernel kept."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    kept = ssd.ssd_scan_bwd
+    ssd.ssd_scan_bwd = lambda *args, **kw: ref.ssd_scan_bwd_ref(*args, **kw)
+    try:
+        yield
+    finally:
+        ssd.ssd_scan_bwd = kept
+
+
+@contextlib.contextmanager
+def _planted_scan_fault(which: str):
+    """The scan's backward kernel with a planted fault in its output, for the
+    control of the scan's gradient gate: dB summed over one head only (the
+    kernel run again on head 0 alone), or d(dtA) 10% too large."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    kept = ssd.ssd_scan_bwd
+
+    def faulty(x, dtA, Bm, Cm, dy, *, chunk):
+        dx, da, dB, dC = kept(x, dtA, Bm, Cm, dy, chunk=chunk)
+        if which == "dB_one_head":
+            one = (t[:, :1].contiguous() for t in (x, dtA))
+            dB = kept(*one, Bm, Cm, dy[:, :1].contiguous(), chunk=chunk)[2]
+            return dx, da, dB, dC
+        return dx, da.mul_(1.1), dB, dC
+
+    ssd.ssd_scan_bwd = faulty
+    try:
+        yield
+    finally:
+        ssd.ssd_scan_bwd = kept
+
+
 def _first_step_gates(torch, model, batch, name: str, out: dict,
                       reference: str = "plain attention", heads=None) -> dict:
     """The first train step of ``model`` on ``batch`` against the same step
@@ -2110,23 +2273,33 @@ def _first_step_gates(torch, model, batch, name: str, out: dict,
     take it: there that spread reaches or passes the tolerance with no kernel
     in the path (PERF.md §6). With ``heads`` every plain attention runs
     that many q heads a call (the moe family's scores would be 8.6 and 17 GB
-    a tensor whole)."""
+    a tensor whole).
+
+    With ``reference="plain scan backward"`` (the ssm and hybrid families)
+    every gate compares against the same forward kernels with the scan's
+    backward kernel swapped for its plain version, the leaves gated are the
+    Mamba2 layers' ``SSM_LEAVES`` (within ``SSM_GRAD_TOL``), and the planted
+    faults are the scan backward's (dB from one head, d(dtA) 10% too large)."""
+    scan = reference == "plain scan backward"
+    what = "scan" if scan else "attention"
+    select = _ssm_leaves if scan else _attention_leaves
+    tol = SSM_GRAD_TOL if scan else ATTN_GRAD_TOL
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss_k, norm_k, grads_k = _first_step(torch, model, batch)
+    loss_k, norm_k, grads_k = _first_step(torch, model, batch, select)
     out["first_step_s_kernels"] = time.perf_counter() - t0
-    with _plain_attention(heads):
-        loss_p, norm_p, grads_p = _first_step(torch, model, batch)
-    attn_err = _attention_grad_err(torch, grads_k, grads_p)
+    with _plain_scan_backward() if scan else _plain_attention(heads):
+        loss_p, norm_p, grads_p = _first_step(torch, model, batch, select)
+    grad_err = _attention_grad_err(torch, grads_k, grads_p)
     first = {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
              "plain_grad_norm": norm_p,
              "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
              "grad_norm_rel_diff": abs(norm_k - norm_p) / norm_p,
              "gradient_reference": reference}
     if reference == "plain backward":
-        first["attention_grads_vs_plain_attention"] = attn_err
+        first["attention_grads_vs_plain_attention"] = grad_err
         first["attention_grad_err_vs_plain_attention"] = max(
-            e["err"] for e in attn_err.values())
+            e["err"] for e in grad_err.values())
         with _f64_attention(torch, heads):
             _, _, grads_64 = _first_step(torch, model, batch)
         floor = _attention_grad_err(torch, grads_64, grads_p)
@@ -2134,32 +2307,32 @@ def _first_step_gates(torch, model, batch, name: str, out: dict,
         del grads_64
         with _plain_backward(heads):
             _, _, grads_p = _first_step(torch, model, batch)
-        attn_err = _attention_grad_err(torch, grads_k, grads_p)
-    first.update({"attention_grads": attn_err,
-                  "attention_grad_err": max(e["err"] for e in attn_err.values()),
-                  "attention_grad_tolerance": ATTN_GRAD_TOL})
+        grad_err = _attention_grad_err(torch, grads_k, grads_p)
+    first.update({f"{what}_grads": grad_err,
+                  f"{what}_grad_err": max(e["err"] for e in grad_err.values()),
+                  f"{what}_grad_tolerance": tol})
     del grads_k
     # the control: the same step with a fault planted in the backward's
     # output must fail the gradient gate
+    faults = (("dB_one_head", "ddtA_times_1.1") if scan else ("dk_zeroed", "dq_times_1.1"))
     first["planted_faults"] = {}
-    for fault in ("dk_zeroed", "dq_times_1.1"):
-        with _planted_backward_fault(fault):
-            _, _, grads_f = _first_step(torch, model, batch)
+    for fault in faults:
+        with _planted_scan_fault(fault) if scan else _planted_backward_fault(fault):
+            _, _, grads_f = _first_step(torch, model, batch, select)
         err = _attention_grad_err(torch, grads_f, grads_p)
         first["planted_faults"][fault] = {
-            "attention_grads": err,
-            "attention_grad_err": max(e["err"] for e in err.values())}
+            f"{what}_grads": err,
+            f"{what}_grad_err": max(e["err"] for e in err.values())}
         del grads_f
     del grads_p
     log(f"[{name} training] first step {json.dumps(first)}")
-    caught = all(f["attention_grad_err"] > ATTN_GRAD_TOL
-                 for f in first["planted_faults"].values())
+    caught = all(f[f"{what}_grad_err"] > tol for f in first["planted_faults"].values())
     if not (first["loss_rel_diff"] <= 0.01 and first["grad_norm_rel_diff"] <= 0.02
-            and first["attention_grad_err"] <= ATTN_GRAD_TOL):
-        raise SystemExit(f"chip_smoke: {name}'s first step differs from plain "
-                         f"attention's: {first}")
+            and first[f"{what}_grad_err"] <= tol):
+        raise SystemExit(f"chip_smoke: {name}'s first step differs from {reference}'s: "
+                         f"{first}")
     if not caught:
-        raise SystemExit(f"chip_smoke: the attention-gradient gate let a planted "
+        raise SystemExit(f"chip_smoke: the {what}-gradient gate let a planted "
                          f"backward fault through ({name}): {first['planted_faults']}")
     return first
 
@@ -2447,7 +2620,8 @@ def phase_zamba2_serving(torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts(kernels)
-    tokens = engine.generate(prompts, max_new=max_new)
+    with _first_logits(engine) as first:
+        tokens = engine.generate(prompts, max_new=max_new)
     launches = _counts(kernels)
     out["launches"] = launches
     out["decode_attention_launches"] = launches["decode_attention"]
@@ -2469,11 +2643,11 @@ def phase_zamba2_serving(torch) -> dict:
     out["warm"]["ms_per_decode_step"] = out["warm"]["decode_s"] / (max_new - 1) * 1e3
     out["profiled_steps"] = _profiled_steps(torch, model, prompts, S + max_new)
 
-    # the same requests with both attention ops and the scan plain
-    first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
-    with _plain_attention(), _plain_scan():
-        plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
+    # the same requests with both attention ops and the scan plain; each run's
+    # first-step logits kept from its generate (a replay takes 10-20 s)
+    with _plain_attention(), _plain_scan(), _first_logits(engine) as plain_first:
         plain_tokens = engine.generate(prompts, max_new=max_new)
+    first, plain_first = first[0], plain_first[0]
     _first_logits_gate(torch, out, "first_logits", first, plain_first,
                        "Zamba2 first-step logits")
     out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
@@ -2528,6 +2702,24 @@ def phase_zamba2_serving(torch) -> dict:
         raise SystemExit(f"chip_smoke: Zamba2's f32 prefill and replay differ: "
                          f"{out['f32_prefill_vs_replay']}")
     return out
+
+
+@contextlib.contextmanager
+def _first_logits(engine):
+    """Keep, in the list it yields, the float32 first-step logits of each
+    prompt prefill ``engine.generate`` runs inside the block."""
+    kept, got = engine._prefill_with_capacity, []
+
+    def prefill(prompts, capacity):
+        logits, cache = kept(prompts, capacity)
+        got.append(logits.float())
+        return logits, cache
+
+    engine._prefill_with_capacity = prefill
+    try:
+        yield got
+    finally:
+        del engine._prefill_with_capacity  # the class's method again
 
 
 def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> int:
@@ -4094,6 +4286,162 @@ def phase_deepseek_training(torch, card: str) -> dict:
     return _moe_training(torch, "deepseek_v3_671b", card)
 
 
+# --------------------------------------------------------------- phases 22-23
+SSM_TRAIN_STEPS, SSM_RESUME_AT = 4, 2
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 2048
+
+
+def _ssm_training(torch, arch: str, card: str) -> dict:
+    """One ssm or hybrid config at full size (nothing cut but the steps),
+    bf16, remat, random weights from seed 0 on the card (Zamba2's shared
+    attention tempered as in phase 5), 4 × 2,048 tokens a batch from a
+    RawArray token dataset through ``DeviceLoader``, the config's f32 AdamW
+    moments: the first step's gates against the same forward kernels with the
+    scan's plain backward (``_first_step_gates``), two first steps bit-equal
+    leaf by leaf, ``train()`` for ``SSM_TRAIN_STEPS`` with a checkpoint at
+    ``SSM_RESUME_AT`` and a second ``train()`` resumed there (within the
+    resume gate), launch counts, and a profiled step. The line it prints
+    names the card and its power limit (``card``)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, DeviceLoader, RaDataset, make_token_dataset
+    from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainLoopConfig, train
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    s = cfg.ssm
+    B, S, steps, L = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, cfg.n_layers
+    out: dict = {"arch": cfg.name, "family": cfg.family, "layers": L, "d_model": cfg.d_model,
+                 "ssm_heads": cfg.n_ssm_heads, "headdim": s.headdim, "d_state": s.d_state,
+                 "chunk": s.chunk, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+                 "moments": cfg.opt_moment_dtype, "remat": cfg.remat, "batch": B, "seq": S,
+                 "steps": steps, "resume_at": SSM_RESUME_AT, "card": card}
+    model = build_model(cfg, device=dev, seed=SEED)
+    n_inv = len(getattr(model, "invocations", ()))
+    if n_inv:
+        _temper_attention(torch, model)
+        out["shared_invocations"] = n_inv
+        out["shared_head_dim"] = model.attn_cfg.head_dim
+    model.requires_grad_(True)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=2, moment_dtype=cfg.opt_moment_dtype)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{arch}_train_") as tmp:
+        root = os.path.join(tmp, "tokens")
+        make_token_dataset(root, n_docs=8 * B, seq_len=S, vocab=cfg.vocab, seed=9,
+                           shard_rows=8 * B)
+        host = DataLoader(RaDataset(root), B, seed=SEED)
+        batch = {"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+        host.stop()
+        out["first_step"] = _first_step_gates(torch, model, batch, arch, out,
+                                              reference="plain scan backward")
+        torch.cuda.empty_cache()
+        out["repeat"] = _first_steps_bit_equal(torch, model, batch)
+        log(f"[{arch} training] two first steps {json.dumps(out['repeat'])}")
+        if not out["repeat"]["bit_equal"]:
+            raise SystemExit(f"chip_smoke: {arch}'s two first steps differ: {out['repeat']}")
+        torch.cuda.empty_cache()
+
+        def run(ckpt_dir, resume):
+            feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
+                                device=dev)
+            return train(model, feed, TrainLoopConfig(
+                steps=steps, ckpt_every=SSM_RESUME_AT, ckpt_dir=ckpt_dir, log_every=1,
+                adamw=adamw), resume=resume)
+
+        def counts():
+            return {"ssd_scan": ssd.launches, "ssd_scan_tc": ssd.tc_launches,
+                    "ssd_scan_bwd": ssd.bwd_launches, **_flash_counts()}
+
+        def reset():
+            ssd.launches = ssd.tc_launches = ssd.bwd_launches = 0
+            _reset_flash_counts()
+
+        ckpt = os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        res = run(ckpt, resume=False)
+        torch.cuda.synchronize()
+        launches = counts()
+        # step s: the median of the steps after the first (which warms the
+        # allocator) but the one after the checkpoint (which waits for its host
+        # snapshot); tokens/s from it
+        timed = [t for i, t in enumerate(res["step_s"]) if i not in (0, SSM_RESUME_AT)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        row = {"losses": res["losses"], "step_s": res["step_s"],
+               "median_step_s": statistics.median(timed),
+               "tokens_per_s": B * S / statistics.median(timed),
+               "peak_device_bytes": peak, "peak_device_gb": peak / 1e9}
+        row["ckpt_save_s"] = res["ckpt_save_s"]
+        row["launches"] = launches
+        mult = 2 if cfg.remat else 1
+        row["want_launches"] = {"ssd_scan": L * steps * mult, "ssd_scan_tc": L * steps * mult,
+                                "ssd_scan_bwd": L * steps, "forward": n_inv * steps,
+                                "backward": n_inv * steps}
+        out["train"] = row
+        log(f"[{arch} training] steps {json.dumps(row)}")
+        if not all(np.isfinite(res["losses"])) or res["losses"][-1] >= res["losses"][0]:
+            raise SystemExit(f"chip_smoke: {arch} training: losses {res['losses']}")
+        if launches != row["want_launches"]:
+            raise SystemExit(f"chip_smoke: {arch} training launched {launches}, wanted "
+                             f"{row['want_launches']}")
+
+        # a second train() from the checkpoint at SSM_RESUME_AT (hard links in a
+        # directory of its own) for the last steps: within the resume gate
+        straight = res["losses"]
+        path = os.path.join(ckpt, f"step_{SSM_RESUME_AT:08d}")
+        saved = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        del res
+        torch.cuda.empty_cache()
+        again = os.path.join(tmp, "resume")
+        shutil.copytree(path, os.path.join(again, f"step_{SSM_RESUME_AT:08d}"),
+                        copy_function=os.link)
+        reset()
+        with _tee_stdout() as printed:
+            res = run(again, resume=True)
+        torch.cuda.synchronize()
+        resumed = {"losses": res["losses"], "straight_losses": straight[SSM_RESUME_AT:],
+                   "checkpoint_bytes": saved,
+                   "cold_start": _cold(res["cold_start"]) if res["cold_start"] else None,
+                   "launches": counts(),
+                   "bit_equal": res["losses"] == straight[SSM_RESUME_AT:]}
+        out["resume"] = resumed
+        del res
+        log(f"[{arch} training] resume {json.dumps(resumed)}")
+        if f"resumed from step {SSM_RESUME_AT}" not in printed.getvalue() or \
+                len(resumed["losses"]) != steps - SSM_RESUME_AT or \
+                not np.allclose(resumed["losses"], straight[SSM_RESUME_AT:], rtol=1e-5,
+                                atol=1e-6):
+            raise SystemExit(f"chip_smoke: the {arch} resume differs: {resumed}")
+    torch.cuda.empty_cache()
+    kinds = ("scan forward", "scan backward") + (
+        ("attention forward", "attention backward") if n_inv else ())
+    out["profiled_step"] = _profiled_step(torch, model, adamw, batch, require=kinds)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[{arch} training] {json.dumps(out)}")
+    return out
+
+
+def phase_mamba2_training(torch, card: str) -> dict:
+    """Mamba2-780M trained at full size: 48 Mamba2 layers, the scan's forward
+    and backward kernels at P 64, N 128."""
+    return _ssm_training(torch, "mamba2_780m", card)
+
+
+def phase_zamba2_training(torch, card: str) -> dict:
+    """Zamba2-1.2B trained at full size: 38 Mamba2 layers at N 64 and the
+    shared block 6 times, its attention at (128, 128), group 1."""
+    return _ssm_training(torch, "zamba2_1_2b", card)
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -4140,6 +4488,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     rows = run(phase_kernels, torch)
     flash_rows, decode_rows = run(phase_attention, torch)
     ssd_rows = run(phase_ssd, torch)
+    ssd_bwd_rows = run(phase_ssd_bwd, torch)
     bwd_rows = run(phase_attention_bwd, torch)
     runs = run(phase_main_path, torch, keep)
     serve = run(phase_serving, torch, keep)
@@ -4159,6 +4508,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     deepseek = run(phase_deepseek_serving, torch, card)
     k_train = run(phase_kimi_training, torch, card)
     d_train = run(phase_deepseek_training, torch, card)
+    m_train = run(phase_mamba2_training, torch, card)
+    z_train = run(phase_zamba2_training, torch, card)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -4221,7 +4572,14 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         for t in (k_train, d_train):
             runs[f"{t['arch']} train ({t['layers']} layers, {t['experts']} experts)"] = \
                 t["train"]["launches"][kind]
+        runs[f"{z_train['arch']} train"] = z_train["train"]["launches"][kind]
+        runs[f"{z_train['arch']} train (resumed)"] = z_train["resume"]["launches"][kind]
         return runs
+
+    def ssm_train_launches(key):
+        return {f"{t['arch']} train{how}": row["launches"][key]
+                for t in (m_train, z_train)
+                for how, row in (("", t["train"]), (" (resumed)", t["resume"]))}
 
     zamba_prefill = f"{zamba['arch']} prefill"
     for name, replaces, rows_, launches, call in (
@@ -4240,7 +4598,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
          "enable_gqa=True)"),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows,
          {ssm["arch"]: ssm["ssd_scan_launches"],
-          zamba_prefill: zamba["prefill_launches"]["ssd_scan"]}, None),
+          zamba_prefill: zamba["prefill_launches"]["ssd_scan"],
+          **ssm_train_launches("ssd_scan")}, None),
     ):
         main = rows_[0]  # the shape the serving path gives the kernel
         kernels.append({
@@ -4268,7 +4627,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 + whisper["launches"]["flash_attention_tc"]
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
-                + zamba["prefill_launches"]["ssd_scan_tc"]
+                + zamba["prefill_launches"]["ssd_scan_tc"] \
+                + sum(ssm_train_launches("ssd_scan_tc").values())
     main = bwd_rows[0]  # paper_lm's training shape: the north star's train step
     kernels.append({
         "name": "flash_attention_bwd",
@@ -4289,6 +4649,26 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                         "(q, k, v, is_causal=True), K/V repeated over the group",
         "shapes": bwd_rows,
         "sass": sass["flash_attention_bwd.cu"],
+    })
+    main = ssd_bwd_rows[0]  # Mamba2-780M's training shape (phase 22)
+    kernels.append({
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:68 (its gradient, which the JAX package "
+                    "leaves to XLA through models/mamba.py:ssd_chunked)",
+        "launches": sum(ssm_train_launches("ssd_scan_bwd").values()),
+        "main_path_launches": ssm_train_launches("ssd_scan_bwd"),
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_bwd_rows),
+        "tolerance": main["tolerance"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_call": None,
+        "bit_equal": all(r["bit_equal"] for r in ssd_bwd_rows),
+        "shapes": ssd_bwd_rows,
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; by phase {json.dumps(phase_s)}")
     log(card)

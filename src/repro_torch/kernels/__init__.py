@@ -12,7 +12,9 @@ Each kernel ships:
   tests hold the kernel against.
 
 Ported: ``dequant_u8``, ``flash_attention``, ``decode_attention`` and
-``ssd_scan``, every TPU kernel of the JAX package.
+``ssd_scan``, every TPU kernel of the JAX package; and the gradients the
+JAX package leaves to XLA, each a kernel of its own beside its forward:
+``csrc/flash_attention_bwd.cu`` and ``csrc/ssd_scan_bwd.cu``.
 
 The public functions live in ``ops`` and are not re-exported here, so
 ``repro_torch.kernels.dequant_u8`` stays the wrapper module, whose

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "dequant_u8.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu",
-    "ssd_scan.cu",
+    "ssd_scan.cu", "ssd_scan_bwd.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -4,9 +4,10 @@ and signatures (``repro.kernels.ops``).
 Every wrapper dispatches by the device of the tensor it is given: a CPU
 tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel or the call raises. There is no fallback from one to
-the other. ``flash_attention`` is differentiable (its backward is a kernel
-too); ``decode_attention`` and ``ssd_scan`` are forward-only, as their TPU
-kernels are, and raise under grad.
+the other. ``flash_attention`` and ``ssd_scan`` are differentiable (their
+backwards are kernels too; the JAX package leaves both to XLA);
+``decode_attention`` is forward-only, as its TPU kernel is, and raises
+under grad.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from .decode_attention import decode_attention_fwd
 from .dequant_u8 import dequant_u8_fwd
 from .flash_attention import flash_attention as _flash_attention
-from .ssd_scan import ssd_scan_fwd
+from .ssd_scan import ssd_scan as _ssd_scan
 
 
 def dequant_u8(x, scale, bias, *, out_dtype=torch.float32, block_rows: int = 256):
@@ -87,6 +88,12 @@ def ssd_scan(x, dtA, Bm, Cm, *, chunk: int = 128, return_state: bool = False):
     TPU kernel keeps in its scratch after the last chunk and the model's
     prefill needs. On the card bf16 runs on the tensor cores (two kernels:
     ``C·Bᵀ`` once per batch and chunk, then the scan) and float32 on the
-    SIMT pipes (one kernel)."""
+    SIMT pipes (one kernel).
+
+    With grad enabled and an input that requires it, the call records its
+    backward: ``csrc/ssd_scan_bwd.cu`` on the card (f32 on the SIMT pipes at
+    both dtypes, P in ``ssd_scan.BWD_HEAD_DIMS``, N in
+    ``ssd_scan.BWD_STATE_DIMS``), the plain scan under autograd on the CPU.
+    The final state has no backward: ``return_state`` under grad raises."""
     L = int(x.shape[2])
-    return ssd_scan_fwd(x, dtA, Bm, Cm, chunk=max(1, min(chunk, L)), return_state=return_state)
+    return _ssd_scan(x, dtA, Bm, Cm, chunk=max(1, min(chunk, L)), return_state=return_state)

@@ -156,3 +156,84 @@ def ssd_scan_ref(x, dtA, Bm, Cm, *, chunk=128):
     y_off = torch.einsum("bcin,bhcpn->bhcip", Cf, torch.stack(starts, dim=2))
     y = y_diag + y_off * torch.exp(acs)[..., None]
     return y.reshape(B, H, L, P).to(x.dtype), state
+
+
+def ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, *, chunk=128):
+    """The gradient of ``ssd_scan_ref``'s y (with respect to x, dtA, Bm and
+    Cm, the final state taking none) for ``dy`` (B,H,L,P), written as the
+    backward kernel's passes (``csrc/ssd_scan_bwd.cu``) in f32. Per chunk c of
+    Q steps, with Acs the inclusive cumsum of dtA, Λ = Acs_{Q-1}, e = exp(Acs),
+    e' = exp(Λ - Acs), the mask L and G = C Bᵀ as in the forward:
+
+    1. the states s_c at each chunk's start, from zero, as the forward;
+    2. their gradients, walking the chunks from last to first from g_nc = 0:
+       g_c = g_{c+1}·exp(Λ_c) + (dy ⊙ e)ᵀ C;
+    3. each chunk's gradients from dy, s_c and g_{c+1}, with dS = dy xᵀ::
+
+           dx   = ((G ⊙ L)ᵀ dy) + e' ⊙ (B g_{c+1}ᵀ)
+           dC_h = ((dS ⊙ L) B) + e ⊙ (dy s_c)
+           dB_h = ((dS ⊙ L)ᵀ C) + e' ⊙ (x g_{c+1})
+           dAcs = rowsum(M) - colsum(M) + rowsum(dy ⊙ e ⊙ (C s_cᵀ)) - w,
+                  M = dS ⊙ L ⊙ G,  w = rowsum(x ⊙ e' ⊙ (B g_{c+1}ᵀ))
+           dAcs_{Q-1} += Σ w + exp(Λ)·Σ(g_{c+1} ⊙ s_c)    (the terms through Λ)
+
+       and d(dtA) the reverse cumsum of dAcs within the chunk;
+    4. dB and dC summed over the heads (B and C are shared by all of them).
+
+    The mask is applied before the exp, so the upper triangle's gradient is
+    exactly zero. Returns (dx, d(dtA), dB, dC) in the dtypes of x, dtA, Bm and
+    Cm."""
+    B, H, L, P = x.shape
+    N = Bm.shape[-1]
+    if L % chunk:
+        raise ValueError(f"ssd_scan: L={L} is not a multiple of chunk={chunk}")
+    nc, Q = L // chunk, chunk
+    xf = x.float().reshape(B, H, nc, Q, P)
+    dyf = dy.float().reshape(B, H, nc, Q, P)
+    acs = torch.cumsum(dtA.float().reshape(B, H, nc, Q), dim=-1)
+    Bf = Bm.float().reshape(B, nc, Q, N)
+    Cf = Cm.float().reshape(B, nc, Q, N)
+    last = acs[..., -1]  # Λ of each chunk, (B,H,nc)
+    e = torch.exp(acs)
+    e_end = torch.exp(last[..., None] - acs)
+
+    # 1. the states at each chunk's start
+    own = torch.einsum("bhcjp,bhcj,bcjn->bhcpn", xf, e_end, Bf)
+    state = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    starts = []
+    for c in range(nc):
+        starts.append(state)
+        state = state * torch.exp(last[:, :, c])[..., None, None] + own[:, :, c]
+    s = torch.stack(starts, dim=2)  # (B,H,nc,P,N)
+
+    # 2. their gradients, from the last chunk back; g[:, :, c] is g_{c+1}
+    inject = torch.einsum("bhcip,bhci,bcin->bhcpn", dyf, e, Cf)
+    grad = torch.zeros(B, H, P, N, dtype=torch.float32, device=x.device)
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = grad
+        grad = grad * torch.exp(last[:, :, c])[..., None, None] + inject[:, :, c]
+    g = torch.stack(ends, dim=2)
+
+    # 3. each chunk's gradients
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    Lm = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, -1e9))
+    G = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[:, None]  # (B,1,nc,Q,Q)
+    D = torch.einsum("bhcip,bhcjp->bhcij", dyf, xf) * Lm
+    x_off = e_end[..., None] * torch.einsum("bcjn,bhcpn->bhcjp", Bf, g)
+    dx = torch.einsum("bhcij,bhcip->bhcjp", G * Lm, dyf) + x_off
+    dC = torch.einsum("bhcij,bcjn->bhcin", D, Bf) \
+        + e[..., None] * torch.einsum("bhcip,bhcpn->bhcin", dyf, s)
+    dB = torch.einsum("bhcij,bcin->bhcjn", D, Cf) \
+        + e_end[..., None] * torch.einsum("bhcjp,bhcpn->bhcjn", xf, g)
+    M = D * G
+    y_off = e[..., None] * torch.einsum("bcin,bhcpn->bhcip", Cf, s)
+    w = (xf * x_off).sum(-1)
+    dacs = M.sum(-1) - M.sum(-2) + (dyf * y_off).sum(-1) - w
+    dlast = w.sum(-1) + torch.exp(last) * (g * s).sum((-1, -2))
+    dacs = torch.cat([dacs[..., :-1], (dacs[..., -1] + dlast)[..., None]], dim=-1)
+    ddtA = torch.flip(torch.cumsum(torch.flip(dacs, [-1]), dim=-1), [-1])
+
+    # 4. B and C are shared by the heads
+    return (dx.reshape(B, H, L, P).to(x.dtype), ddtA.reshape(B, H, L).to(dtA.dtype),
+            dB.sum(1).reshape(B, L, N).to(Bm.dtype), dC.sum(1).reshape(B, L, N).to(Cm.dtype))

@@ -1,7 +1,7 @@
 """Mamba2 (SSD, state-space duality) block: chunked prefill scan and O(1) decode.
 
-The torch twin of the JAX package's ``models/mamba.py`` for serving, with
-the same parameters and arithmetic. The recurrence::
+The torch twin of the JAX package's ``models/mamba.py`` for training and
+serving, with the same parameters and arithmetic. The recurrence::
 
     h_t = exp(dt_t · A_h) · h_{t-1} + B_t ⊗ (dt_t · x_t)
     y_t = C_t · h_t + D_h · x_t
@@ -10,7 +10,9 @@ The prefill runs it in its chunked dual form through ``ops.ssd_scan`` (the
 hand-written CUDA kernel on the card, its plain version on the CPU), which
 computes in f32 and returns the f32 final state; the JAX package's
 ``ssd_chunked`` computes the same form with einsums in the activations'
-dtype. Decode is a constant-time state update in plain PyTorch ops, as in
+dtype. Under autograd the scan records its backward (the hand-written
+backward kernel on the card, the plain scan's autograd on the CPU); the
+final state has none, so ``return_state`` under grad raises. Decode is a constant-time state update in plain PyTorch ops, as in
 the JAX package, and writes the cache in place without a host sync.
 
 The input projection is split into ``w_z``/``w_x``/``w_B``/``w_C``/``w_dt``
@@ -19,7 +21,7 @@ as in the JAX package (n_groups 1), so checkpoints move between the two.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,13 +78,15 @@ def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
 
 
 def ssd_chunked(u: torch.Tensor, dtA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunk: int, return_state: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """u (B,L,H,P) already scaled by dt, dtA (B,L,H), Bm/Cm (B,L,N) ->
-    (y (B,L,H,P) in u's dtype, final state (B,H,P,N) in f32), from a zero
-    state. The model layout of the JAX package's ``ssd_chunked``, moved to
-    the kernel's (B,H,L,P) and back."""
-    y, final = ops.ssd_scan(u.transpose(1, 2).contiguous(), dtA.transpose(1, 2).contiguous(),
-                            Bm.contiguous(), Cm.contiguous(), chunk=chunk, return_state=True)
+    (y (B,L,H,P) in u's dtype, final state (B,H,P,N) in f32, or None without
+    ``return_state``), from a zero state. The model layout of the JAX
+    package's ``ssd_chunked``, moved to the kernel's (B,H,L,P) and back."""
+    got = ops.ssd_scan(u.transpose(1, 2).contiguous(), dtA.transpose(1, 2).contiguous(),
+                       Bm.contiguous(), Cm.contiguous(), chunk=chunk, return_state=return_state)
+    y, final = got if return_state else (got, None)
     return y.transpose(1, 2), final
 
 
@@ -102,7 +106,7 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, return_state: bool = Fal
     dtA = dt * A  # (B,S,H)
     xh = xs.reshape(B, S, H, P)
     u = xh * dt[..., None].to(x.dtype)
-    y, final = ssd_chunked(u, dtA, Bm, Cm, s.chunk)
+    y, final = ssd_chunked(u, dtA, Bm, Cm, s.chunk, return_state=return_state)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = rmsnorm(y.reshape(B, S, cfg.d_inner) * F.silu(z), p["norm"])
     out = y @ p["out_proj"].to(x.dtype)

@@ -1,7 +1,5 @@
-"""Family -> model class dispatch. The port serves the dense, vlm, moe,
-ssm, hybrid and encdec families and trains the dense, vlm, moe and encdec
-ones; the ssm and hybrid families' training raises ``NotImplementedError``
-naming its ROADMAP item."""
+"""Family -> model class dispatch. The port serves and trains every family
+of the JAX package: dense, vlm, moe, ssm, hybrid and encdec."""
 
 from __future__ import annotations
 

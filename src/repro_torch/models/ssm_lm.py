@@ -1,6 +1,6 @@
 """Mamba2 LM (pure SSM) and the Zamba2 hybrid (Mamba2 layers and one shared
 attention block): the torch twins of the JAX package's
-``models/ssm_lm.py:Mamba2LM`` and ``Zamba2LM`` for serving.
+``models/ssm_lm.py:Mamba2LM`` and ``Zamba2LM`` for training and serving.
 
 The parameters keep the JAX package's names and stacked layout (``embed``,
 ``layers.ln``, ``layers.ssm.*`` with the layer count as leading axis,
@@ -15,8 +15,15 @@ leading layer axis. Zamba2's cache adds one K/V cache per invocation of the
 shared block. ``pos`` is a 0-d int32 tensor on the device, and
 ``decode_step`` writes the cache in place and syncs nothing with the host.
 
-``train_loss`` raises ``NotImplementedError`` naming its ROADMAP item:
-training needs a backward of ``ssd_scan``, a kernel of its own.
+``train_loss`` is ``TransformerLM``'s next-token loss over ``_backbone``,
+as the reference's models inherit it: the Mamba2 layers run with autograd
+on through ``ops.ssd_scan`` (its backward kernel on the card), each under
+``torch.utils.checkpoint`` where ``cfg.remat`` is set (``jax.checkpoint``
+there); Zamba2's shared block runs outside it, its attention through the
+differentiable ``ops.flash_attention``. Per-layer views and RoPE tables are
+made anew each training call: the serving ones may be inference tensors.
+The parameters are built with ``requires_grad=False`` for serving; a
+trainer turns them on (``model.requires_grad_(True)``).
 """
 
 from __future__ import annotations
@@ -25,14 +32,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
-from .attention import gqa_decode, gqa_prefill, init_gqa
-from .common import Initializer, ParamTree, make_norm, stack_init
+from .attention import gqa_attention, gqa_decode, gqa_prefill, init_gqa
+from .common import Initializer, ParamTree, make_norm, rope_freqs, stack_init
 from .config import ModelConfig
 from .ffn import init_mlp, mlp
 from .mamba import empty_mamba_cache, init_mamba, mamba_decode, mamba_forward
-from .transformer import TransformerLM, _index
+from .transformer import TransformerLM, _index, _unstack
 
 _CACHE_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
 
@@ -141,11 +149,36 @@ class Mamba2LM(TransformerLM):
         cache["pos"] = cache["pos"] + 1
         return logits[:, 0], cache
 
-    def train_loss(self, batch: Dict[str, Any]):
-        raise NotImplementedError(
-            f"{type(self).__name__} training is not ported yet: it needs a backward kernel "
-            "for ssd_scan (ROADMAP.md, modules to port, item 15); the port trains the dense, "
-            "vlm, moe and encdec families")
+    # ---- train --------------------------------------------------------------
+    def _train_layers(self) -> Callable[[int, torch.Tensor], torch.Tensor]:
+        """``layer(i, x)``: Mamba2 layer ``i`` with autograd on, under
+        ``torch.utils.checkpoint`` where ``cfg.remat`` is set; its views are
+        unstacked anew for this call."""
+        cfg = self.cfg
+        _, norm = make_norm(cfg.norm)
+        layers = _unstack(self.layers.tree(), cfg.n_layers)
+
+        def body(x, p):
+            return x + mamba_forward(p["ssm"], norm(p["ln"], x), cfg)
+
+        def layer(i, x):
+            if cfg.remat:
+                return checkpoint(body, x, layers[i], use_reentrant=False)
+            return body(x, layers[i])
+
+        return layer
+
+    def _backbone(self, x: torch.Tensor,
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The Mamba2 layers in order and the final norm, with autograd on:
+        (h, a zero f32 aux loss), as the reference's ``_backbone``."""
+        del positions
+        layer = self._train_layers()
+        for i in range(self.cfg.n_layers):
+            x = layer(i, x)
+        _, norm = make_norm(self.cfg.norm)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return norm(self.ln_f, x), aux
 
 
 class Zamba2LM(Mamba2LM):
@@ -251,6 +284,24 @@ class Zamba2LM(Mamba2LM):
         logits = self._logits(h[:, -1:, :])
         cache["pos"].fill_(S)
         return logits[:, 0], cache
+
+    # ---- train --------------------------------------------------------------
+    def _backbone(self, x: torch.Tensor,
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_run``'s order with autograd on: the Mamba2 layers (each under
+        remat where ``cfg.remat`` is set) and the shared block after each
+        segment but the last, its attention ``gqa_attention`` over
+        ``concat([x, x0])`` with RoPE tables made for this call and not under
+        remat, as the reference's; (h, a zero f32 aux loss)."""
+        acfg = self.attn_cfg
+        freqs = rope_freqs(acfg.head_dim, acfg.rope_theta, device=self.device)
+
+        def attn(j, u):
+            return gqa_attention(self.shared.attn, u, acfg, positions=positions, window=0,
+                                 freqs=freqs)
+
+        h = self._run(x, self._train_layers(), attn)
+        return h, torch.zeros((), dtype=torch.float32, device=self.device)
 
     @torch.inference_mode()
     def empty_cache(self, batch: int, seq: int, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:

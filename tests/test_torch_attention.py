@@ -149,9 +149,9 @@ def test_decode_attention_takes_pos_as_a_tensor():
 
 
 def test_attention_ops_are_forward_only():
-    """``decode_attention`` (and ``ssd_scan``, tests/test_torch_ssd.py) have no
-    backward and raise under grad; ``flash_attention`` under grad returns
-    gradients, through its ``autograd.Function``."""
+    """``decode_attention`` has no backward and raises under grad;
+    ``flash_attention`` under grad returns gradients, through its
+    ``autograd.Function`` (as ``ssd_scan`` does: tests/test_torch_ssd.py)."""
     q = torch.randn(1, 2, 8, 32, requires_grad=True)
     q1 = torch.randn(1, 2, 32, requires_grad=True)
     k, v = torch.randn(1, 2, 8, 32), torch.randn(1, 2, 8, 32)

@@ -1129,6 +1129,114 @@ def test_ssd_scan_tensor_core_kernels_match_plain_version(card, B, H, L, P, N, c
     torch.testing.assert_close(state, want_state, rtol=1e-3, atol=tol)
 
 
+@pytest.mark.parametrize("B,H,L,P,N,chunk,slow", [
+    (2, 4, 256, 64, 128, 128, False),   # Mamba2-780M's P and N, two chunks
+    (2, 4, 256, 64, 64, 128, False),    # Zamba2-1.2B's N
+    (2, 4, 200, 64, 128, 100, False),   # a runtime chunk below 128 (Q 100, padded to 128)
+    (1, 4, 80, 64, 64, 40, False),      # Q 40: padded to 64
+    (1, 4, 512, 64, 128, 128, True),    # slow decay: the gradient crosses every chunk
+    (2, 3, 96, 32, 16, 32, False),      # the reduced configs' P and N
+    (1, 2, 64, 32, 32, 64, False),      # one chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_kernel_matches_plain_version(card, B, H, L, P, N, chunk, slow,
+                                                        dtype):
+    """dx, d(dtA), dB and dC within f32 1e-4 / bf16 2e-2 of each gradient's
+    largest entry (the attention backward's tolerance), one launch a call,
+    two calls bit-equal; through ``ops.ssd_scan`` under grad the same
+    gradients, by ``SsdScan``."""
+    rng = np.random.default_rng(L + P + N + chunk)
+    x, dtA, Bm, Cm = _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow)
+    dy = _normal(rng, (B, H, L, P), dtype, card)
+    before = ssd.bwd_launches
+    got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
+    again = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 2
+    want = ref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
+    tol = BWD_TOL[dtype]
+    for name, g, g2, w, t in zip(("dx", "ddtA", "dB", "dC"), got, again, want, (x, dtA, Bm, Cm)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        assert torch.equal(g, g2), name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dtA, Bm, Cm)]
+    before = (ssd.launches, ssd.bwd_launches)
+    y = ops.ssd_scan(*leaves, chunk=chunk)
+    assert type(y.grad_fn).__name__ == "SsdScanBackward"
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssd.launches, ssd.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for name, g, g2 in zip(("dx", "ddtA", "dB", "dC"), grads, got):
+        assert torch.equal(g, g2), name
+
+
+def test_ssd_scan_backward_refuses_what_it_cannot_take(card):
+    """Under grad a shape the backward kernel is not instantiated for (N 8,
+    P 16) raises before the forward runs; without grad the forward runs."""
+    rng = np.random.default_rng(3)
+    x, dtA, Bm, Cm = _ssd_inputs(rng, 1, 2, 64, 16, 8, torch.float32, card)
+    before = (ssd.launches, ssd.bwd_launches)
+    with pytest.raises(RawArrayError, match="backward kernel supports"):
+        ops.ssd_scan(x.requires_grad_(), dtA, Bm, Cm, chunk=32)
+    assert (ssd.launches, ssd.bwd_launches) == before
+    with pytest.raises(RawArrayError, match="no backward"):
+        ops.ssd_scan(x, dtA, Bm, Cm, chunk=32, return_state=True)
+    with torch.no_grad():
+        assert ops.ssd_scan(x, dtA, Bm, Cm, chunk=32).shape == x.shape
+    assert ssd.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("mamba2_780m", {"remat": True}),   # each layer's forward twice, its backward once
+    ("zamba2_1_2b", {}),                # and the shared block's flash forward and backward
+])
+def test_ssm_train_step_on_card_matches_the_plain_backward(card, arch, changes):
+    """A reduced ssm or hybrid model's loss and gradients on the card (the
+    scan's forward and backward kernels) against the same step with the
+    scan's backward swapped for its plain version (``ref.ssd_scan_bwd_ref``
+    on the card), in f32: the loss equal, every gradient leaf within 1e-4 of
+    its largest entry (the backward kernel's f32 tolerance); a second step
+    with the kernel bit-equal to the first."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().with_(**changes)
+    model = build_model(cfg, device=card, seed=0).requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 96))
+                              .astype(np.uint32))
+    n_inv = len(getattr(model, "invocations", []))
+
+    def step():
+        loss, _ = model.train_loss({"tokens": tokens})
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in flatten(model.param_tree(), "param").items()}
+        model.zero_grad(set_to_none=True)
+        return float(loss), grads
+
+    before = (ssd.launches, ssd.bwd_launches, fa.launches, fa.bwd_launches)
+    runs = [step(), step()]
+    mult = 2 if cfg.remat else 1
+    assert (ssd.launches, ssd.bwd_launches, fa.launches, fa.bwd_launches) == (
+        before[0] + 2 * mult * cfg.n_layers, before[1] + 2 * cfg.n_layers,
+        before[2] + 2 * n_inv, before[3] + 2 * n_inv)
+    kept = ssd.ssd_scan_bwd
+    ssd.ssd_scan_bwd = lambda *a, **k: ref.ssd_scan_bwd_ref(*a, **k)
+    try:
+        plain = step()
+    finally:
+        ssd.ssd_scan_bwd = kept
+    assert runs[0][0] == runs[1][0] == plain[0]
+    for name, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][name]), name
+        w = plain[1][name]
+        assert g.any(), name
+        tol = 1e-4 * float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=tol, msg=name)
+
+
 def test_mamba2_decode_step_does_not_sync_with_the_host(card):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model

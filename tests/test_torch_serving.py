@@ -228,18 +228,6 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2_780m", "item 15"),
-])
-def test_other_families_are_not_ported_yet(arch, item):
-    """mamba2 (ssm) builds and serves, and its training raises (the moe
-    family trains: tests/test_torch_moe.py; whisper, the encdec family, and
-    llava, the vlm family, train: tests/test_torch_whisper.py,
-    tests/test_torch_vlm.py)."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(get_config(arch).reduced(), device="meta").train_loss({})
-
-
 def test_serving_cli_runs_random_and_from_a_checkpoint(tmp_path, capsys):
     serve_main(["--arch", "paper_lm", "--device", "cpu", "--batch", "2", "--max-new", "3"])
     model = build_model(get_config("paper_lm"), device="cpu")

@@ -339,12 +339,6 @@ def test_one_adamw_step_matches_jax():
     assert int(state["step"]) == 1
 
 
-def test_mamba2_train_loss_names_its_roadmap_item():
-    model = build_model(get_config("mamba2_780m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        model.train_loss({"tokens": torch.zeros(1, 8, dtype=torch.int64)})
-
-
 # ------------------------------------------------------------------ loop
 def _loop(cls, adamw_cls, ckpt_dir, steps, ckpt_every=3):
     return cls(steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir, log_every=1000,

@@ -16,6 +16,15 @@ then move logits by more than the tolerance. The port's ``ServeEngine``, which r
 tokens on a JAX-saved checkpoint, and a port-saved Zamba2 checkpoint must
 restore through the JAX package bit for bit. The prefill/replay
 consistency check mirrors ``tests/test_models.py:63-78``.
+
+Training: ``train_loss``, its metrics and all 29 gradient leaves against
+``jax.value_and_grad`` of the reference's, with the shared attention
+tempered, at the reduced config and at ``with_(d_model=256)`` (the shared
+head width 128), within ``tests/test_torch_train.py``'s tolerances (loss
+rtol 1e-5, each gradient 1e-3 of its largest entry; its docstring gives
+their reasons). The shared block runs outside remat, its attention through
+the differentiable ``ops.flash_attention``; the Mamba2 layers through the
+scan's autograd.
 """
 
 import numpy as np
@@ -40,6 +49,7 @@ from repro_torch.serving import ServeEngine
 from repro_torch.serving.__main__ import main as serve_main
 
 TOL = 1e-4  # of each tensor's scale: rtol 1e-4, atol 1e-4 * max(1, max |want|)
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-3  # tests/test_torch_train.py's
 ARCH = "zamba2_1_2b"
 SSM_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
 WIDE = {"reduced": None, "shared_hd128": lambda c: c.with_(d_model=256)}
@@ -257,7 +267,27 @@ def test_serving_cli_routes_the_hybrid_arch(monkeypatch, capsys):
     assert "random init" in out and "generated (2, 3) tokens" in out
 
 
-def test_train_loss_names_its_roadmap_item():
-    model = build_model(get_config(ARCH).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        model.train_loss({"tokens": torch.zeros(1, 8, dtype=torch.int64)})
+@pytest.mark.parametrize("wide", list(WIDE), ids=list(WIDE))
+def test_train_loss_and_grads_match_jax(wide):
+    """4 Mamba2 layers and the shared block twice (6 times over 38 layers at
+    full size), 2 × 64 tokens: the loss, its metrics and every gradient leaf
+    against the reference's, the shared block's included."""
+    jmodel, params, port = _pair(seed=2, cfg_edit=WIDE[wide])
+    port.requires_grad_(True)
+    toks = _tokens(port.cfg.vocab, 2, 64, seed=9)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.train_loss(p, {"tokens": jnp.asarray(toks)}), has_aux=True))(params)
+    loss, met = port.train_loss({"tokens": torch.from_numpy(toks)})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=LOSS_TOL)
+    assert set(met) == set(jmet) == {"ce", "aux", "acc", "loss"}
+    for key in met:
+        np.testing.assert_allclose(float(met[key].detach()), float(jmet[key]), rtol=LOSS_TOL,
+                                   atol=1e-7)
+    want = {name: np.asarray(g) for name, g in flatten(jax.device_get(jg), "param").items()}
+    got = {name: p.grad for name, p in flatten(port.param_tree(), "param").items()}
+    assert set(got) == set(want) and len(want) == 29
+    for name, g in want.items():
+        assert got[name] is not None and got[name].any(), name
+        np.testing.assert_allclose(_np(got[name].detach()), g, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL * float(np.abs(g).max()), err_msg=name)

@@ -12,7 +12,7 @@ Phases (any failure exits non-zero and prints no result):
    loads) in the flash library and in the flash backward library (with
    UBLKCP there too: the LSE and D rows come by bulk copies), UBLKCP (bulk copies) and UCGABAR_ARV /
    UCGABAR_WAIT (the cluster barrier) in the decode library, and HMMA
-   (mma.sync) in the SSD library;
+   (mma.sync) in the SSD library and in the SSD backward library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it and at edge shapes: ``dequant_u8``
    bit-equal (also at the largest leaf of phase 5's u8 cold start),
@@ -60,13 +60,15 @@ Phases (any failure exits non-zero and prints no result):
    long prompt, the JAX sweep's f32 shapes, a chunk of 100, a single chunk
    and a slow decay that keeps the state alive across every chunk; y and
    the final state within their tolerances; then the scan's backward
-   (``csrc/ssd_scan_bwd.cu``, f32 on the SIMT pipes) against its plain
-   version (``ref.ssd_scan_bwd_ref``) at phases 22-23's training shapes (x
-   (4,48,2048,64), B/C (4,2048,128) bf16; x (4,64,2048,64), N 64) and edges
-   (Q 100 and 40, slow decay, f32 at N 64 and 128, the reduced widths): dx,
+   (``csrc/ssd_scan_bwd.cu``: bf16 on the tensor cores, ``mma.sync``; f32 on
+   the SIMT pipes) against its plain version (``ref.ssd_scan_bwd_ref``) at
+   phases 22-23's training shapes (x (4,48,2048,64), B/C (4,2048,128) bf16;
+   x (4,64,2048,64), N 64) and edges (Q 100 and 40, slow decay, P 32 at N 16
+   and 32 with 9 and 12 heads, f32 at N 64 and 128, the reduced widths): dx,
    d(dtA), dB and dC within f32 1e-4 / bf16 2e-2 of each one's largest entry,
-   two calls bit-equal; at the training shapes the device time, the plain
-   version's and the bound (no library call computes the scan);
+   two calls bit-equal, every bf16 call on the tensor-core kernels; at the
+   training shapes the device time, the plain version's and the bound (no
+   library call computes the scan);
 6. serving: Mamba2-780M at its full widths and depth (48 layers, bf16,
    random weights from seed 0 on the card) saved as a raw RawArray
    checkpoint and restored through ``ServeEngine(checkpoint=raw)`` (leaves
@@ -323,8 +325,9 @@ Phases (any failure exits non-zero and prints no result):
    head and d(dtA) 10% too large, must break that gate), two first steps
    bit-equal leaf by leaf, then ``train()`` for 4 steps with a checkpoint at
    step 2 and a second ``train()`` resumed there (its losses within rtol
-   1e-5, atol 1e-6 of the first's); launch counts 48 × 4 × 2 forward (all on
-   the tensor cores) and 48 × 4 backward; step s (the median of steps 2 and
+   1e-5, atol 1e-6 of the first's); launch counts 48 × 4 × 2 forward and
+   48 × 4 backward, all on the tensor cores (the resumed run's 48 × 2
+   backward too); step s (the median of steps 2 and
    4: step 1 warms, step 3 waits for the checkpoint's snapshot), tokens/s,
    peak memory, a
    profiled step (device ms by kind, scan forward and backward by their
@@ -409,8 +412,9 @@ def phase_sass() -> dict:
     (UTMALDG); so does the bf16 flash backward, whose dK/dV kernel also
     brings each tile's LSE and D rows by bulk copies (UBLKCP); the decode kernel streams K/V by bulk
     copies (UBLKCP) and folds its splits across a cluster (UCGABAR_ARV /
-    UCGABAR_WAIT, the cluster barrier); the bf16 SSD scan runs its products
-    on the tensor cores (HMMA, mma.sync). Any count of 0 fails."""
+    UCGABAR_WAIT, the cluster barrier); the bf16 SSD scan and its backward
+    run their products on the tensor cores (HMMA, mma.sync). Any count of 0
+    fails."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
@@ -419,6 +423,7 @@ def phase_sass() -> dict:
         "flash_attention_bwd.cu": ("HGMMA", "UTMALDG", "UBLKCP"),
         "decode_attention.cu": ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT"),
         "ssd_scan.cu": ("HMMA",),
+        "ssd_scan_bwd.cu": ("HMMA",),
     }
     counts = {}
     for source, ops in wanted.items():
@@ -955,11 +960,13 @@ def _ssd_bwd_work(B: int, H: int, L: int, P: int, N: int, Q: int, esize: int) ->
 
 
 def phase_ssd_bwd(torch) -> list:
-    """The scan's backward kernel (``csrc/ssd_scan_bwd.cu``) against its plain
-    version (``ref.ssd_scan_bwd_ref``) on the card: dx, d(dtA), dB and dC
-    within ``BWD_TOL`` of each one's largest entry, two calls bit-equal; at
-    the training shapes (phases 22-23) its device time beside the plain
-    version's and the bound."""
+    """The scan's backward kernels (``csrc/ssd_scan_bwd.cu``: bf16 on the
+    tensor cores, f32 on the SIMT pipes) against their plain version
+    (``ref.ssd_scan_bwd_ref``) on the card: dx, d(dtA), dB and dC within
+    ``BWD_TOL`` of each one's largest entry, two calls bit-equal, every bf16
+    call on the tensor-core kernels (``bwd_tc_launches``); at the training
+    shapes (phases 22-23) the device time beside the plain version's and the
+    bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -974,6 +981,9 @@ def phase_ssd_bwd(torch) -> list:
         ("zamba2_train", 4, 64, 2048, 64, 64, 128, "bfloat16", model_decay, True),
         ("edge_q100", 2, 48, 200, 64, 128, 100, "bfloat16", model_decay, False),
         ("edge_slow_decay", 2, 48, 512, 64, 128, 128, "bfloat16", slow, False),
+        # P 32 at N 16 and 32, Q 100, heads that are not a multiple of the group of 8
+        ("edge_p32_n16_q100_h9", 2, 9, 200, 32, 16, 100, "bfloat16", model_decay, False),
+        ("edge_p32_n32_q100_h12", 2, 12, 200, 32, 32, 100, "bfloat16", model_decay, False),
         ("edge_f32_n128_slow", 1, 4, 512, 64, 128, 128, "float32", slow, False),
         ("edge_f32_n64_q40", 2, 4, 240, 64, 64, 40, "float32", model_decay, False),
         ("edge_reduced_widths", 2, 8, 96, 32, 16, 32, "float32", (0.0, 0.3), False),
@@ -985,9 +995,11 @@ def phase_ssd_bwd(torch) -> list:
 
         x, dy, Bm, Cm = randn(B, H, L, P), randn(B, H, L, P), randn(B, L, N), randn(B, L, N)
         dtA = -(lo + (hi - lo) * torch.rand((B, H, L), generator=gen, device=dev))
+        tc_before = ssd.bwd_tc_launches
         got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
         again = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
         torch.cuda.synchronize()
+        tc_calls = ssd.bwd_tc_launches - tc_before
         want = ref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
         errs = {name: float((g.float() - w.float()).abs().max() / w.float().abs().max())
                 for name, g, w in zip(("dx", "ddtA", "dB", "dC"), got, want)}
@@ -996,7 +1008,7 @@ def phase_ssd_bwd(torch) -> list:
                "n_chunks": L // chunk, "dtype": dt, "dtA": [-hi, -lo],
                "rel_err": errs, "max_abs_err": max(
                    float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)),
-               "tolerance": BWD_TOL[dt], "bit_equal": bit_equal}
+               "tolerance": BWD_TOL[dt], "bit_equal": bit_equal, "tc_launches": tc_calls}
         del got, again, want
         if timed:
             nbytes, flops = _ssd_bwd_work(B, H, L, P, N, chunk, x.element_size())
@@ -1009,6 +1021,9 @@ def phase_ssd_bwd(torch) -> list:
         if not bit_equal or max(errs.values()) > BWD_TOL[dt]:
             raise SystemExit(f"chip_smoke: ssd_scan_bwd differs from its plain version or "
                              f"from itself: {row}")
+        if tc_calls != (2 if dt == "bfloat16" else 0):
+            raise SystemExit(f"chip_smoke: ssd_scan_bwd's bf16 calls did not all run on the "
+                             f"tensor cores (and f32 ones none): {row}")
         rows.append(row)
         del x, dy, Bm, Cm, dtA
         torch.cuda.empty_cache()
@@ -4357,10 +4372,11 @@ def _ssm_training(torch, arch: str, card: str) -> dict:
 
         def counts():
             return {"ssd_scan": ssd.launches, "ssd_scan_tc": ssd.tc_launches,
-                    "ssd_scan_bwd": ssd.bwd_launches, **_flash_counts()}
+                    "ssd_scan_bwd": ssd.bwd_launches, "ssd_scan_bwd_tc": ssd.bwd_tc_launches,
+                    **_flash_counts()}
 
         def reset():
-            ssd.launches = ssd.tc_launches = ssd.bwd_launches = 0
+            ssd.launches = ssd.tc_launches = ssd.bwd_launches = ssd.bwd_tc_launches = 0
             _reset_flash_counts()
 
         ckpt = os.path.join(tmp, "ckpt")
@@ -4383,8 +4399,8 @@ def _ssm_training(torch, arch: str, card: str) -> dict:
         row["launches"] = launches
         mult = 2 if cfg.remat else 1
         row["want_launches"] = {"ssd_scan": L * steps * mult, "ssd_scan_tc": L * steps * mult,
-                                "ssd_scan_bwd": L * steps, "forward": n_inv * steps,
-                                "backward": n_inv * steps}
+                                "ssd_scan_bwd": L * steps, "ssd_scan_bwd_tc": L * steps,
+                                "forward": n_inv * steps, "backward": n_inv * steps}
         out["train"] = row
         log(f"[{arch} training] steps {json.dumps(row)}")
         if not all(np.isfinite(res["losses"])) or res["losses"][-1] >= res["losses"][0]:
@@ -4420,6 +4436,11 @@ def _ssm_training(torch, arch: str, card: str) -> dict:
                 not np.allclose(resumed["losses"], straight[SSM_RESUME_AT:], rtol=1e-5,
                                 atol=1e-6):
             raise SystemExit(f"chip_smoke: the {arch} resume differs: {resumed}")
+        bwd = resumed["launches"]
+        if bwd["ssd_scan_bwd"] != L * (steps - SSM_RESUME_AT) or \
+                bwd["ssd_scan_bwd_tc"] != bwd["ssd_scan_bwd"]:
+            raise SystemExit(f"chip_smoke: the {arch} resume's scan backward did not run "
+                             f"{L} tensor-core launches a step: {bwd}")
     torch.cuda.empty_cache()
     kinds = ("scan forward", "scan backward") + (
         ("attention forward", "attention backward") if n_inv else ())
@@ -4668,7 +4689,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         "library_ms": None,
         "library_call": None,
         "bit_equal": all(r["bit_equal"] for r in ssd_bwd_rows),
+        "tc_launches": sum(ssm_train_launches("ssd_scan_bwd_tc").values()),
         "shapes": ssd_bwd_rows,
+        "sass": sass["ssd_scan_bwd.cu"],
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; by phase {json.dumps(phase_s)}")
     log(card)

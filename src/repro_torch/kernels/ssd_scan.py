@@ -41,12 +41,32 @@ grad enabled on a tensor that requires it, it raises); ``ssd_scan`` is the
 differentiable call.
 
 The backward (the JAX package leaves it to XLA's gradient of
-``models/mamba.py:ssd_chunked``) is ``csrc/ssd_scan_bwd.cu``: three
-launches, one call of ``ssd_scan_bwd`` (the chunks' starting states and
-their gradients per (batch, head), each chunk's gradients per (batch, head,
-chunk), dB and dC summed over the heads), f32 on the SIMT pipes at both
-dtypes, P in ``BWD_HEAD_DIMS`` and N in ``BWD_STATE_DIMS``;
-``bwd_geometry`` is its plan. ``bwd_launches`` counts its calls. Under
+``models/mamba.py:ssd_chunked``) is ``csrc/ssd_scan_bwd.cu``, one call of
+``ssd_scan_bwd``, P in ``BWD_HEAD_DIMS`` and N in ``BWD_STATE_DIMS``;
+``bwd_geometry`` is its plan, the f32 kernels' fields and the bf16 ones'
+in ``tc``. It dispatches by dtype:
+
+* bfloat16 runs on the tensor cores (``mma.sync``), four launches: each
+  chunk's local state products for every head, in parallel over the chunks
+  (TF32, the decayed x and dy rounded to it); their carry across the chunks,
+  elementwise (the states and their gradients, f32); each chunk's gradients,
+  one block per (chunk, group of ``BWD_GROUP`` heads, batch), which computes
+  ``C·Bᵀ`` once for its heads and sums dB and dC over them in its
+  accumulators (bf16 products with f32 sums; the f32 (Q, Q) operands as two
+  bf16 terms, the states rounded to TF32); and the groups' partials summed
+  in order. What bounds it at Mamba2-780M's training shape: operations and
+  bytes are close (0.059 and 0.049 ms); the f32 scratch the states and
+  their gradients make (written and read back, some 0.9 GB) is most of what
+  stands between the kernels and that bound;
+* float32 runs three kernels on the f32 SIMT pipes (on the tensor cores it
+  would be TF32 and miss the f32 tolerance): the states and their gradients
+  per (batch, head), each chunk's gradients per (batch, head, chunk), dB and
+  dC summed over the heads from per-head partials.
+
+A bf16 call launches the tensor-core kernels or raises; it never takes the
+SIMT ones. Every sum is taken in a fixed order, so two calls give bit-equal
+outputs. ``bwd_launches`` counts the backward's calls and
+``bwd_tc_launches`` the bf16 ones, which ran the tensor-core kernels. Under
 grad, ``ssd_scan`` runs a CUDA tensor through ``SsdScan`` (the forward
 kernel, then this backward) and a CPU tensor through the plain scan under
 autograd.
@@ -75,18 +95,41 @@ MAX_CHUNK = 128
 _MIN_TILE = 16  # state rows a block owns, at least
 BWD_SLAB = 32  # rows (or columns) of a chunk's (Q, Q) matrices the backward holds at once
 BWD_THREADS = 256
+BWD_GROUP = 8  # heads a block of the bf16 backward takes (dB and dC summed over them inside)
+_CARRY_VEC = 8  # state entries a thread of the bf16 backward's carry owns
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
 tc_launches = 0  # guarded-by: _count_lock
 bwd_launches = 0  # guarded-by: _count_lock
+bwd_tc_launches = 0  # guarded-by: _count_lock
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+class TcBwdPlan(NamedTuple):
+    """The bf16 backward's launch plan (tensor cores; ``bwd_geometry``'s ``tc``)."""
+
+    group: int                          # heads a block takes
+    n_groups: int                       # ceil(H / group)
+    local_grid: Tuple[int, int, int]    # (n_chunks, n_groups, B): the chunk-local states
+    carry_grid: Tuple[int, int, int]    # (slices, H, B): the carry across the chunks
+    carry_threads: int
+    chunk_grid: Tuple[int, int, int]    # (n_chunks, n_groups, B): each chunk's gradients
+    reduce_grid: Tuple[int, int]        # (blocks over B·L·N, 2): dB, then dC
+    threads: int
+    local_smem: int                     # bytes of shared memory a local block takes
+    chunk_smem: int                     # and a chunk block
+    states: Tuple[int, ...]             # (B,H,n_chunks,P,N) f32: own_c, then s_c; inject_c, then g_{c+1}
+    lam: Tuple[int, ...]                # (B,H,n_chunks) f32: Λ of each chunk
+    gs: Tuple[int, ...]                 # (B,H,parts,n_chunks) f32: exp(Λ_c)·Σ(g_{c+1} ⊙ s_c), a part a carry warp
+    parts: Tuple[int, ...]              # (B,n_groups,L,N) f32: dB's and dC's partials by group
 
 
 class BwdPlan(NamedTuple):
-    """The backward's launch plan (``bwd_geometry``)."""
+    """The backward's launch plan (``bwd_geometry``): the f32 SIMT kernels'
+    fields, and the bf16 tensor-core kernels' in ``tc``."""
 
     n_chunks: int
     scan_grid: Tuple[int, int]          # (H, B): one block a (batch, head)
@@ -99,17 +142,44 @@ class BwdPlan(NamedTuple):
     states: Tuple[int, ...]             # (B,H,n_chunks,P,N) f32: s_c, and g_{c+1}
     gs: Tuple[int, ...]                 # (B,H,n_chunks) f32: exp(Λ_c)·Σ(g_{c+1} ⊙ s_c)
     parts: Tuple[int, ...]              # (B,H,L,N) f32: dB's and dC's per-head partials
+    tc: TcBwdPlan
+
+
+def _tc_bwd_geometry(B: int, H: int, L: int, P: int, N: int, Q: int) -> TcBwdPlan:
+    """The bf16 backward's plan (``csrc/ssd_scan_bwd.cu``, namespace tc, whose
+    ``LocalSmem`` and ``ChunkSmem`` the launch checks against these). Qp is Q
+    rounded up to 16, T = (Qp/16)(Qp/16 + 1)/2 the lower-triangle 16x16 tiles
+    of a chunk. local_kernel holds B and C (Qp, N) and x and dy (Qp, P) in bf16
+    and three (128) f32 vectors; chunk_kernel the same four slabs, G in f32 and
+    D or G ⊙ L as two bf16 terms (T tiles each), the state or its gradient f32
+    (P, N + 4), eight (128) f32 vectors and two (T, 16) f32 sums."""
+    nc = L // Q
+    Qp = -(-Q // 16) * 16
+    tiles = (Qp // 16) * (Qp // 16 + 1) // 2
+    groups = -(-H // BWD_GROUP)
+    carry_threads = min(BWD_THREADS, P * N // _CARRY_VEC)
+    slices = P * N // (carry_threads * _CARRY_VEC)
+    slabs = 2 * Qp * N * 2 + 2 * Qp * P * 2
+    chunk = (slabs + tiles * 256 * 4 + tiles * 256 * 2 * 2 + P * (N + 4) * 4 + 8 * MAX_CHUNK * 4
+             + 2 * tiles * 16 * 4)
+    return TcBwdPlan(
+        group=BWD_GROUP, n_groups=groups, local_grid=(nc, groups, B),
+        carry_grid=(slices, H, B), carry_threads=carry_threads, chunk_grid=(nc, groups, B),
+        reduce_grid=(-(-(B * L * N) // BWD_THREADS), 2), threads=BWD_THREADS,
+        local_smem=slabs + 3 * MAX_CHUNK * 4, chunk_smem=chunk, states=(B, H, nc, P, N),
+        lam=(B, H, nc), gs=(B, H, slices * carry_threads // 32, nc), parts=(B, groups, L, N))
 
 
 def bwd_geometry(B: int, H: int, L: int, P: int, N: int, Q: int) -> BwdPlan:
-    """The backward kernel's plan for x (B,H,L,P), B/C (B,L,N) and a chunk of Q
-    steps: grids, slab, threads, the f32 scratch the wrapper allocates and the
-    shared memory of each kernel (``csrc/ssd_scan_bwd.cu:Plan``, which the
-    launch checks against these). Qp is Q rounded up to the slab: the chunk
-    kernel holds B or C (Qp, N+1), x or dy (Qp, P+1), the state or its gradient
-    (P, N+1), a slab of each (32 rows), two (Qp, 33) slabs of the (Q, Q)
-    matrices and four (Qp) vectors; the scan kernel a chunk's B or C and x or
-    dy, two (Qp) vectors and one float a thread."""
+    """The backward kernels' plan for x (B,H,L,P), B/C (B,L,N) and a chunk of Q
+    steps. The f32 fields: grids, slab, threads, the f32 scratch the wrapper
+    allocates and the shared memory of each SIMT kernel
+    (``csrc/ssd_scan_bwd.cu:Plan``, which the launch checks against these). Qp
+    is Q rounded up to the slab: the chunk kernel holds B or C (Qp, N+1), x or
+    dy (Qp, P+1), the state or its gradient (P, N+1), a slab of each (32 rows),
+    two (Qp, 33) slabs of the (Q, Q) matrices and four (Qp) vectors; the scan
+    kernel a chunk's B or C and x or dy, two (Qp) vectors and one float a
+    thread. ``tc`` is the bf16 tensor-core kernels' plan (``_tc_bwd_geometry``)."""
     nc = L // Q
     Qp = -(-Q // BWD_SLAB) * BWD_SLAB
     ld_n, ld_p = N + 1, P + 1
@@ -120,7 +190,7 @@ def bwd_geometry(B: int, H: int, L: int, P: int, N: int, Q: int) -> BwdPlan:
         n_chunks=nc, scan_grid=(H, B), chunk_grid=(nc, H, B),
         reduce_grid=(-(-(B * L * N) // BWD_THREADS), 2), slab=BWD_SLAB, threads=BWD_THREADS,
         scan_smem=4 * scan, chunk_smem=4 * chunk, states=(B, H, nc, P, N), gs=(B, H, nc),
-        parts=(B, H, L, N))
+        parts=(B, H, L, N), tc=_tc_bwd_geometry(B, H, L, P, N, Q))
 
 
 def state_split(B: int, H: int, P: int, sms: int) -> int:
@@ -254,9 +324,9 @@ def ssd_scan_bwd(
     """(dx, d(dtA), dB, dC) of ``ssd_scan_fwd``'s y (the final state takes no
     gradient), each in its input's dtype: dx, dB and dC summed in f32 and
     rounded once, d(dtA) in f32 and then converted. A CPU tensor takes
-    ``ref.ssd_scan_bwd_ref``; on CUDA three kernels run on the current stream
-    and are not waited for."""
-    global bwd_launches
+    ``ref.ssd_scan_bwd_ref``; on CUDA the kernels (bf16: four on the tensor
+    cores; f32: three) run on the current stream and are not waited for."""
+    global bwd_launches, bwd_tc_launches
     check_backward(x, dtA, Bm, Cm, chunk)
     if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
         raise RawArrayError(f"ssd_scan backward: dy {tuple(dy.shape)} on {dy.device} must "
@@ -276,22 +346,34 @@ def ssd_scan_bwd(
         return dx, da.to(dtA.dtype), dB.zero_(), dC.zero_()
     plan = bwd_geometry(B, H, L, P, N, chunk)
     f32 = dict(dtype=torch.float32, device=x.device)
-    states, dstates = torch.empty(plan.states, **f32), torch.empty(plan.states, **f32)
-    gs = torch.empty(plan.gs, **f32)
-    dbp, dcp = torch.empty(plan.parts, **f32), torch.empty(plan.parts, **f32)
+    tensor_cores = x.dtype == torch.bfloat16
+    if tensor_cores:  # cp.async reads 16 bytes a copy: a view at an odd offset is copied
+        x, dy, Bm, Cm = (t.clone() if t.data_ptr() % 16 else t for t in (x, dy, Bm, Cm))
+        tc = plan.tc
+        states, dstates = torch.empty(tc.states, **f32), torch.empty(tc.states, **f32)
+        gs, lam = torch.empty(tc.gs, **f32), torch.empty(tc.lam, **f32)
+        dbp, dcp = torch.empty(tc.parts, **f32), torch.empty(tc.parts, **f32)
+        sizes = (0, tc.group, tc.local_smem, tc.chunk_smem)
+    else:
+        states, dstates = torch.empty(plan.states, **f32), torch.empty(plan.states, **f32)
+        gs, lam = torch.empty(plan.gs, **f32), None
+        dbp, dcp = torch.empty(plan.parts, **f32), torch.empty(plan.parts, **f32)
+        sizes = (plan.slab, 0, plan.scan_smem, plan.chunk_smem)
     fn = _build.function("ssd_scan_bwd.cu", "ssd_scan_bwd_launch", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), dy.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             dx.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(), states.data_ptr(),
-            dstates.data_ptr(), gs.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
-            B, H, L, P, N, int(chunk), plan.slab, plan.scan_smem, plan.chunk_smem,
+            dstates.data_ptr(), gs.data_ptr(), lam.data_ptr() if lam is not None else None,
+            dbp.data_ptr(), dcp.data_ptr(), B, H, L, P, N, int(chunk), *sizes,
             DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RawArrayError(f"ssd_scan backward launch failed: cudaError_t {err}")
     with _count_lock:
         bwd_launches += 1
+        if tensor_cores:
+            bwd_tc_launches += 1
     return dx, da.to(dtA.dtype), dB, dC
 
 

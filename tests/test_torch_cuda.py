@@ -1137,22 +1137,26 @@ def test_ssd_scan_tensor_core_kernels_match_plain_version(card, B, H, L, P, N, c
     (1, 4, 512, 64, 128, 128, True),    # slow decay: the gradient crosses every chunk
     (2, 3, 96, 32, 16, 32, False),      # the reduced configs' P and N
     (1, 2, 64, 32, 32, 64, False),      # one chunk
+    (2, 9, 200, 32, 16, 100, False),    # P 32, N 16, Q 100; H 9: groups of 8 and 1
+    (2, 12, 200, 32, 32, 100, False),   # P 32, N 32, Q 100; H 12: groups of 8 and 4
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_backward_kernel_matches_plain_version(card, B, H, L, P, N, chunk, slow,
                                                         dtype):
     """dx, d(dtA), dB and dC within f32 1e-4 / bf16 2e-2 of each gradient's
-    largest entry (the attention backward's tolerance), one launch a call,
-    two calls bit-equal; through ``ops.ssd_scan`` under grad the same
-    gradients, by ``SsdScan``."""
+    largest entry (the attention backward's tolerance), one launch a call
+    (bf16 on the tensor-core kernels, ``bwd_tc_launches``), two calls
+    bit-equal; through ``ops.ssd_scan`` under grad the same gradients, by
+    ``SsdScan``."""
     rng = np.random.default_rng(L + P + N + chunk)
     x, dtA, Bm, Cm = _ssd_inputs(rng, B, H, L, P, N, dtype, card, slow)
     dy = _normal(rng, (B, H, L, P), dtype, card)
-    before = ssd.bwd_launches
+    before, before_tc = ssd.bwd_launches, ssd.bwd_tc_launches
     got = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
     again = ssd.ssd_scan_bwd(x, dtA, Bm, Cm, dy, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd.bwd_launches == before + 2
+    assert ssd.bwd_tc_launches == before_tc + (2 if dtype == torch.bfloat16 else 0)
     want = ref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
     tol = BWD_TOL[dtype]
     for name, g, g2, w, t in zip(("dx", "ddtA", "dB", "dC"), got, again, want, (x, dtA, Bm, Cm)):

@@ -18,8 +18,14 @@ of the JAX model's ``ssd_chunked`` in f32 within ``GRAD_TOL`` (1e-5) of
 each gradient's largest entry: both compute in f32, in another order of
 sums. ``SsdScan`` on CPU tensors (the plain forward and backward under the
 op the card runs with its kernels) gives the plain backward's gradients. A
-CPU emulation of the backward kernel's plan (``ssd_scan.bwd_geometry``)
-walks its blocks, slabs and per-head partial sums.
+CPU emulation of the f32 backward kernels' plan (``ssd_scan.bwd_geometry``)
+walks their blocks, slabs and per-head partial sums; a numpy one of the bf16
+plan's index maps (``bwd_geometry(...).tc``) checks its blocks, the carry's
+threads, the warps' items and the sums over heads by group. A torch
+emulation of the bf16 kernels' roundings (``_tensor_core_backward``) is held
+to the plain backward and to the exact gradient. The kernels' own source
+runs on a CPU emulator of its CUDA subset (``tests/cuda_emu``), the bf16
+tensor-core kernels included.
 """
 
 import numpy as np
@@ -511,15 +517,241 @@ def test_trained_ssm_configs_fit_the_backward_kernel(arch):
         assert s.chunk <= tssd.MAX_CHUNK
         plan = tssd.bwd_geometry(4, cfg.n_ssm_heads, 2048, s.headdim, s.d_state, s.chunk)
         assert max(plan.chunk_smem, plan.scan_smem) <= 232448
+        assert max(plan.tc.chunk_smem, plan.tc.local_smem) <= 232448
+
+
+# ------------------------------------------------------------------ the bf16 backward
+def _same(t):
+    return t
+
+
+def _tensor_core_backward(x, dtA, Bm, Cm, dy, chunk, state_operand=_tf32,
+                          scores_operand=_bf16_hi_lo, decayed_operand=_tf32,
+                          work=torch.float32):
+    """The bf16 tensor-core backward's arithmetic (``csrc/ssd_scan_bwd.cu``,
+    namespace tc) in plain PyTorch: the chunk-local state products with the
+    decayed x and dy rounded by ``decayed_operand`` (the kernel: TF32), the
+    carry in ``work`` (f32), G and dS exact products summed into ``work``, D =
+    dS ⊙ L and G ⊙ L rounded by ``scores_operand`` where they enter a product
+    (the kernel: two bf16 terms), the states and their gradients rounded by
+    ``state_operand`` (the kernel: TF32). Products summed in f64 (the
+    kernel's in f32). Returns (dx, d(dtA), dB, dC) unrounded, in f64; with
+    ``work=torch.float64`` and ``_same`` operands it is the exact gradient."""
+    B, H, L, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc, f64 = L // Q, torch.float64
+    xf = x.to(work).reshape(B, H, nc, Q, P)
+    dyf = dy.to(work).reshape(B, H, nc, Q, P)
+    acs = torch.cumsum(dtA.to(work).reshape(B, H, nc, Q), -1)
+    last = acs[..., -1]
+    e, ep = torch.exp(acs), torch.exp(last[..., None] - acs)
+    Bf, Cf = (t.to(f64).reshape(B, nc, Q, N) for t in (Bm, Cm))
+    own = torch.einsum("bhcjp,bcjn->bhcpn", decayed_operand(xf * ep[..., None]).to(f64), Bf)
+    inject = torch.einsum("bhcip,bcin->bhcpn", decayed_operand(dyf * e[..., None]).to(f64), Cf)
+    own, inject = own.to(work), inject.to(work)
+    s, starts = torch.zeros(B, H, P, N, dtype=work), []
+    for c in range(nc):
+        starts.append(s)
+        s = s * torch.exp(last[:, :, c])[..., None, None] + own[:, :, c]
+    g, ends = torch.zeros(B, H, P, N, dtype=work), [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = g
+        g = g * torch.exp(last[:, :, c])[..., None, None] + inject[:, :, c]
+    s, g = torch.stack(starts, 2), torch.stack(ends, 2)
+    gs = (torch.exp(last) * (g * s).sum((-1, -2))).to(f64)
+    G = torch.einsum("bcin,bcjn->bcij", Cf, Bf).to(work)[:, None]
+    dS = torch.einsum("bhcip,bhcjp->bhcij", dyf.to(f64), xf.to(f64)).to(work)
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    Lm = torch.exp((acs[..., :, None] - acs[..., None, :]).masked_fill(~tri, -1e9))
+    D, GL = dS * Lm, G * Lm
+    M = (D * G).to(f64)
+    Dr, GLr = scores_operand(D).to(f64), scores_operand(GL).to(f64)
+    sr, gr = state_operand(s).to(f64), state_operand(g).to(f64)
+    e, ep, xf, dyf = e.to(f64), ep.to(f64), xf.to(f64), dyf.to(f64)
+    ys = torch.einsum("bhcip,bhcpn->bhcin", dyf, sr)
+    dC = torch.einsum("bhcij,bcjn->bhcin", Dr, Bf) + e[..., None] * ys
+    dB = torch.einsum("bhcij,bcin->bhcjn", Dr, Cf) \
+        + ep[..., None] * torch.einsum("bhcjp,bhcpn->bhcjn", xf, gr)
+    bg = torch.einsum("bcjn,bhcpn->bhcjp", Bf, gr) * ep[..., None]
+    dx = torch.einsum("bhcij,bhcip->bhcjp", GLr, dyf) + bg
+    w = (xf * bg).sum(-1)
+    dacs = M.sum(-1) - M.sum(-2) + e * (Cf[:, None] * ys).sum(-1) - w
+    dacs[..., -1] += w.sum(-1) + gs
+    ddtA = torch.flip(torch.cumsum(torch.flip(dacs, [-1]), -1), [-1])
+    return (dx.reshape(B, H, L, P), ddtA.reshape(B, H, L), dB.sum(1).reshape(B, L, N),
+            dC.sum(1).reshape(B, L, N))
+
+
+def _bf16_grad_inputs(seed, B, H, L, P, N, decay):
+    rng = np.random.default_rng(seed)
+    x, dy = (torch.from_numpy((rng.standard_normal((B, H, L, P)) * 0.5).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    Bm, Cm = (torch.from_numpy((rng.standard_normal((B, L, N)) * 0.5).astype(np.float32))
+              .to(torch.bfloat16) for _ in range(2))
+    dtA = torch.from_numpy(-rng.uniform(*decay, (B, H, L)).astype(np.float32))
+    return x, dtA, Bm, Cm, dy
+
+
+def _as_kernel_writes(grads, x):
+    """dx, dB and dC rounded once to x's dtype, d(dtA) to f32."""
+    dx, ddtA, dB, dC = grads
+    return dx.to(x.dtype), ddtA.float(), dB.to(x.dtype), dC.to(x.dtype)
+
+
+BWD_ROUNDING_SHAPES = {  # (B, H, L, P, N, dtA range)
+    "mamba2_reduced": (2, 8, 512, 64, 128, (0.5, 8.0)),     # Mamba2's widths, model decays
+    "slow_decay_32_chunks": (1, 2, 4096, 64, 128, (0.0, 0.01)),  # the carry over 32 chunks
+}
+
+
+@pytest.mark.parametrize("state_operand", [_tf32, _bf16_hi_lo], ids=["states_tf32", "states_hi_lo"])
+@pytest.mark.parametrize("shape", list(BWD_ROUNDING_SHAPES), ids=list(BWD_ROUNDING_SHAPES))
+def test_tensor_core_backward_roundings_fit_the_tolerance(shape, state_operand):
+    """The bf16 backward's roundings, as its outputs are written, stay within
+    the card's tolerance of the plain backward: each of dx, d(dtA), dB and dC
+    within 2e-2 of its largest entry."""
+    x, dtA, Bm, Cm, dy = _bf16_grad_inputs(7, *BWD_ROUNDING_SHAPES[shape])
+    got = _as_kernel_writes(_tensor_core_backward(x, dtA, Bm, Cm, dy, 128, state_operand), x)
+    want = tref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=128)
+    for name, g, w in zip(("dx", "ddtA", "dB", "dC"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert 0 < err <= BF16_TOL * float(w.float().abs().max()), name
+
+
+@pytest.mark.parametrize("shape", list(BWD_ROUNDING_SHAPES), ids=list(BWD_ROUNDING_SHAPES))
+def test_tensor_core_backward_roundings_add_little_to_the_rounding_of_the_outputs(shape):
+    """Against the exact (f64) gradient, the kernel's roundings (D and G ⊙ L
+    in two bf16 terms, the states and the decayed x and dy in TF32) leave dx,
+    dB and dC within 10% (RMS) of their own bf16 rounding's error, and d(dtA),
+    written in f32, within 2^-11 (TF32's unit roundoff) of its RMS. D and
+    G ⊙ L in one bf16 term would not do (some 20-45% more)."""
+    x, dtA, Bm, Cm, dy = _bf16_grad_inputs(7, *BWD_ROUNDING_SHAPES[shape])
+    exact = _tensor_core_backward(x, dtA, Bm, Cm, dy, 128, _same, _same, _same, torch.float64)
+
+    def rms(got, want):
+        return float(((got.double() - want) ** 2).mean().sqrt() / (want ** 2).mean().sqrt())
+
+    kernel = _as_kernel_writes(_tensor_core_backward(x, dtA, Bm, Cm, dy, 128), x)
+    one_term = _as_kernel_writes(
+        _tensor_core_backward(x, dtA, Bm, Cm, dy, 128, scores_operand=_bf16), x)
+    for name, k, o, ex in zip(("dx", "ddtA", "dB", "dC"), kernel, one_term, exact):
+        if name == "ddtA":
+            assert 0 < rms(k, ex) <= 2.0 ** -11, name
+            continue
+        rounding = rms(ex.to(x.dtype), ex)
+        assert rms(k, ex) <= 1.1 * rounding, name
+        assert rms(o, ex) > 1.15 * rounding, name
+
+
+def _emulate_tc_plan(tc, H, P, N, Q):
+    """The bf16 backward's index maps as its launches lay them out (numpy):
+    how many times local_kernel and chunk_kernel visit each (b, h, chunk),
+    how many carry threads own each (b, h, state entry), how many chunk_kernel
+    warps own each (row tile, column half) of dC, dB and dx, and each
+    block's heads in the order it sums them."""
+    B = tc.local_grid[2]
+    nc = tc.local_grid[0]
+    visits = {k: np.zeros((B, H, nc), np.int64) for k in ("local", "chunk")}
+    heads = {}
+    for kernel, grid in (("local", tc.local_grid), ("chunk", tc.chunk_grid)):
+        for b in range(grid[2]):
+            for gi in range(grid[1]):
+                for c in range(grid[0]):
+                    hs = list(range(gi * tc.group, min(H, (gi + 1) * tc.group)))
+                    visits[kernel][b, hs, c] += 1
+                    heads[(b, gi, c)] = hs
+    entries = np.zeros((B, H, P * N), np.int64)
+    slices, Hg, Bg = tc.carry_grid
+    for b in range(Bg):
+        for h in range(Hg):
+            for sl in range(slices):
+                for t in range(tc.carry_threads):
+                    for f4 in (t, t + tc.carry_threads):  # two float4s a thread
+                        base = (sl * 2 * tc.carry_threads + f4) * 4
+                        entries[b, h, base:base + 4] += 1
+    RT = -(-Q // 16)
+    items = np.zeros((RT, 2), np.int64)
+    for warp in range(tc.threads // 32):
+        if warp < RT:
+            items[warp, 0] += 1
+            items[RT - 1 - warp, 1] += 1
+    return visits, entries, items, heads
+
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk", [
+    (2, 12, 256, 64, 128, 128),  # H not a multiple of the group: groups of 8 and 4
+    (1, 48, 512, 64, 128, 128),  # Mamba2's heads: six groups of 8
+    (1, 3, 200, 32, 16, 100),    # fewer heads than a group; Q 100: 7 row tiles
+    (2, 9, 96, 32, 32, 32),      # Q 32: 2 row tiles
+])
+def test_tensor_core_backward_plan_covers_every_chunk_once(B, H, L, P, N, chunk):
+    """The bf16 plan's grids visit every (b, h, chunk) once in local_kernel
+    and in chunk_kernel, the carry's threads own every state entry once, every
+    (row tile, column half) of dC, dB and dx has one owning warp, the scratch
+    holds one partial per group, and dB and dC summed as the kernels sum them
+    (each block over its heads in order, then the groups in order) are that
+    fold, bit for bit, on every call, where another order may differ."""
+    plan = tssd.bwd_geometry(B, H, L, P, N, chunk)
+    tc = plan.tc
+    groups = -(-H // tc.group)
+    assert tc.group == 8 and tc.n_groups == groups and tc.threads == 256
+    assert tc.local_grid == tc.chunk_grid == (L // chunk, groups, B)
+    assert tc.parts == (B, groups, L, N) and tc.states == (B, H, L // chunk, P, N)
+    assert tc.reduce_grid[0] * tc.threads >= B * L * N
+    assert tc.gs == (B, H, tc.carry_grid[0] * tc.carry_threads // 32, L // chunk)
+    visits, entries, items, heads = _emulate_tc_plan(tc, H, P, N, chunk)
+    assert (visits["local"] == 1).all() and (visits["chunk"] == 1).all()
+    assert (entries == 1).all() and (items == 1).all()
+    rng = np.random.default_rng(L + H)
+    per_head = (rng.standard_normal((B, H, L, N)) * 3).astype(np.float32)
+    parts = np.zeros(tc.parts, np.float32)
+    for (b, gi, c), hs in heads.items():
+        rows = slice(c * chunk, (c + 1) * chunk)
+        acc = np.zeros((chunk, N), np.float32)
+        for h in hs:
+            acc = acc + per_head[b, h, rows]
+        parts[b, gi, rows] = acc
+    total = np.zeros((B, L, N), np.float32)
+    for gi in range(groups):
+        total = total + parts[:, gi]
+    fold = np.zeros((B, L, N), np.float32)
+    for gi in range(groups):
+        acc = np.zeros((B, L, N), np.float32)
+        for h in range(gi * tc.group, min(H, (gi + 1) * tc.group)):
+            acc = acc + per_head[:, h]
+        fold = fold + acc
+    assert np.array_equal(total, fold)
+    backwards = np.zeros((B, L, N), np.float32)
+    for h in reversed(range(H)):
+        backwards = backwards + per_head[:, h]
+    np.testing.assert_allclose(total, backwards, rtol=1e-5, atol=1e-5)
+    if H > 2:
+        assert not np.array_equal(total, backwards)
+
+
+def test_tensor_core_backward_fits_the_h100_at_every_width():
+    """Shared memory of the bf16 backward's blocks fits an H100 block at the
+    largest chunk for every P and N it takes, and matches the source's note at
+    Mamba2's widths; local_kernel's fits two blocks an SM."""
+    for P in tssd.BWD_HEAD_DIMS:
+        for N in tssd.BWD_STATE_DIMS:
+            tc = tssd.bwd_geometry(4, 48, 2048, P, N, 128).tc
+            assert tc.chunk_smem <= 232448 and 2 * tc.local_smem <= 232448, (P, N)
+    tc = tssd.bwd_geometry(4, 48, 2048, 64, 128, 128).tc
+    assert (tc.chunk_smem, tc.local_smem) == (214528, 99840)  # csrc/ssd_scan_bwd.cu's note
+    assert tc.chunk_grid == (16, 6, 4)  # 384 blocks for 132 SMs
+    assert tssd.bwd_geometry(4, 64, 2048, 64, 64, 128).tc.chunk_grid == (16, 8, 4)
 
 
 @pytest.fixture(scope="module")
 def emulated_backward(tmp_path_factory):
     """``csrc/ssd_scan_bwd.cu`` itself, compiled for the CPU against the
     emulator of the CUDA subset it uses (``tests/cuda_emu``: a block's
-    threads as ``std::thread``s, ``__syncthreads`` a barrier, warp shuffles
-    an exchange) and loaded with ``ctypes``: its C entry point, called with
-    CPU pointers and the Python plan, as the wrapper calls it on the card."""
+    threads as fibers on one OS thread, each run until it reaches a barrier,
+    ``__syncthreads`` the block's, and warp shuffles and the tensor-core
+    kernels' ``mma.sync``, ``ldmatrix`` and ``cp.async`` an exchange at the
+    warp's) and loaded with ``ctypes``: its C entry point, called with CPU
+    pointers and the Python plan, as the wrapper calls it on the card."""
     import ctypes
     import pathlib
     import shutil
@@ -538,11 +770,44 @@ def emulated_backward(tmp_path_factory):
     src = pathlib.Path(tssd.__file__).with_name("csrc") / "ssd_scan_bwd.cu"
     out = tmp_path_factory.mktemp("emu")
     (out / "k.cpp").write_text(translate(src.read_text()))
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC", "-w",
-                    f"-I{here}", "-o", str(out / "k.so"), str(out / "k.cpp")], check=True)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
+                    f"-I{here}", f"-I{src.parent}", "-o", str(out / "k.so"), str(out / "k.cpp")],
+                   check=True)
     fn = ctypes.CDLL(str(out / "k.so")).ssd_scan_bwd_launch
     fn.argtypes, fn.restype = tssd._BWD_ARGTYPES, ctypes.c_int
     return fn
+
+
+def _run_emulated(fn, x, dtA, Bm, Cm, dy, chunk):
+    """The emulated entry point on these inputs, with the plan's scratch for
+    their dtype filled with NaN first (a read of an entry the kernels never
+    wrote shows). Returns its status and (dx, d(dtA), dB, dC)."""
+    B, H, L, P = x.shape
+    N = Bm.shape[-1]
+    plan = tssd.bwd_geometry(B, H, L, P, N, chunk)
+    dx, dB, dC, da = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm), \
+        torch.empty(B, H, L)
+    if x.dtype == torch.bfloat16:
+        tc = plan.tc
+        shapes = (tc.states, tc.states, tc.gs, tc.lam, tc.parts, tc.parts)
+        sizes = (0, tc.group, tc.local_smem, tc.chunk_smem)
+    else:
+        shapes = (plan.states, plan.states, plan.gs, None, plan.parts, plan.parts)
+        sizes = (plan.slab, 0, plan.scan_smem, plan.chunk_smem)
+    scratch = [torch.full(shape, float("nan")) if shape else None for shape in shapes]
+    err = fn(x.data_ptr(), dy.data_ptr(), dtA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+             dx.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+             *(t.data_ptr() if t is not None else None for t in scratch), B, H, L, P, N, chunk,
+             *sizes, tssd.DTYPES[x.dtype], None)
+    return err, (dx, da, dB, dC)
+
+
+def _emulator_inputs(B, H, L, P, N, dtype, decay, seed):
+    g = torch.Generator().manual_seed(seed)
+    x, dy = ((torch.randn(B, H, L, P, generator=g) * 0.5).to(dtype) for _ in range(2))
+    Bm, Cm = ((torch.randn(B, L, N, generator=g) * 0.5).to(dtype) for _ in range(2))
+    dtA = -decay * torch.rand(B, H, L, generator=g)
+    return x, dtA, Bm, Cm, dy
 
 
 @pytest.mark.parametrize("B,H,L,P,N,chunk,dtype,decay", [
@@ -551,46 +816,75 @@ def emulated_backward(tmp_path_factory):
     (1, 1, 100, 32, 16, 100, torch.float32, 0.3),      # Q 100, one chunk
     (1, 2, 256, 32, 16, 64, torch.float32, 0.01),      # slow decay over four chunks
     (1, 1, 256, 64, 128, 128, torch.float32, 0.3),     # Mamba2's P, N and chunk
-    (1, 2, 128, 64, 64, 64, torch.bfloat16, 8.0),      # bf16 at Zamba2's N
-], ids=["three_chunks", "q40", "q100", "slow_decay", "mamba2_widths", "bf16_n64"])
+    (1, 2, 128, 64, 64, 64, torch.float32, 8.0),       # Zamba2's N at the model's fast decay
+], ids=["three_chunks", "q40", "q100", "slow_decay", "mamba2_widths", "f32_n64_fast_decay"])
 def test_backward_kernel_source_on_a_cpu_emulator(emulated_backward, B, H, L, P, N, chunk,
                                                   dtype, decay):
-    """The backward kernel's own source, run on the emulator, against the
-    plain backward: f32 within 1e-5 of each gradient's largest entry (sums in
-    another order), bf16 within one rounding of the outputs (2e-2, as on the
-    card); scratch filled with NaN first, so a read of an entry the kernel
-    never wrote shows."""
-    g = torch.Generator().manual_seed(L + N)
-    x, dy = ((torch.randn(B, H, L, P, generator=g) * 0.5).to(dtype) for _ in range(2))
-    Bm, Cm = ((torch.randn(B, L, N, generator=g) * 0.5).to(dtype) for _ in range(2))
-    dtA = -decay * torch.rand(B, H, L, generator=g)
-    plan = tssd.bwd_geometry(B, H, L, P, N, chunk)
-    dx, dB, dC, da = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm), \
-        torch.empty(B, H, L)
-    scratch = [torch.full(shape, float("nan"))
-               for shape in (plan.states, plan.states, plan.gs, plan.parts, plan.parts)]
-    err = emulated_backward(
-        x.data_ptr(), dy.data_ptr(), dtA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        dx.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        *(t.data_ptr() for t in scratch), B, H, L, P, N, chunk, plan.slab, plan.scan_smem,
-        plan.chunk_smem, tssd.DTYPES[dtype], None)
+    """The f32 backward kernels' own source, run on the emulator, against the
+    plain backward within 1e-5 of each gradient's largest entry (sums in
+    another order); scratch filled with NaN first, so a read of an entry the
+    kernels never wrote shows. At the model's fast decay (the cumsum reaches
+    -500, where an f32 ulp moves exp(Acs) by 3e-5 in both versions) the plain
+    version is itself ~8e-6 from the exact gradient: there the kernel is held
+    within 1e-5 of the exact (f64) gradient and within the card's f32
+    backward tolerance, 1e-4, of the plain version."""
+    x, dtA, Bm, Cm, dy = _emulator_inputs(B, H, L, P, N, dtype, decay, L + N)
+    err, got = _run_emulated(emulated_backward, x, dtA, Bm, Cm, dy, chunk)
     assert err == 0
     want = tref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
-    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
-    for name, got, w in zip(("dx", "ddtA", "dB", "dC"), (dx, da, dB, dC), want):
-        assert torch.isfinite(got.float()).all(), name
+    exact = _tensor_core_backward(x.double(), dtA.double(), Bm.double(), Cm.double(),
+                                  dy.double(), chunk, _same, _same, _same, torch.float64)
+    fast = decay > 1.0
+    for name, g, w, ex in zip(("dx", "ddtA", "dB", "dC"), got, want, exact):
+        assert torch.isfinite(g.float()).all(), name
         scale = float(w.float().abs().max())
-        torch.testing.assert_close(got.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=(1e-4 if fast else GRAD_TOL) * scale, msg=name)
+        torch.testing.assert_close(g.double(), ex, rtol=0, atol=GRAD_TOL * scale, msg=name)
+
+
+@pytest.mark.parametrize("B,H,L,P,N,chunk,decay", [
+    (1, 9, 96, 32, 16, 32, 0.3),      # H 9: groups of 8 and 1; three chunks
+    (1, 2, 200, 64, 32, 100, 8.0),    # Q 100 (padded to 112), the model's fast decay
+    (2, 3, 96, 64, 64, 48, 0.3),      # Zamba2's P and N, Q 48
+    (1, 2, 384, 64, 128, 128, 0.01),  # Mamba2's P, N and chunk; slow decay: the carry over 3 chunks
+    (1, 2, 34, 32, 64, 17, 0.3),      # Q 17: a row tile of one live row
+    (1, 2, 8, 32, 16, 1, 0.3),        # Q 1
+], ids=["h9_groups", "q100", "zamba2_widths", "mamba2_widths", "q17", "q1"])
+def test_tensor_core_backward_source_on_a_cpu_emulator(emulated_backward, B, H, L, P, N,
+                                                       chunk, decay):
+    """The bf16 tensor-core kernels' own source (mma.sync, ldmatrix and
+    cp.async emulated warp-wide), run on the emulator: each of dx, d(dtA), dB
+    and dC within 2e-2 of its largest entry of the plain backward (as on the
+    card), d(dtA) within 2^-11 of it (it is written in f32; the roundings are
+    TF32's), two calls bit-equal, scratch filled with NaN first."""
+    x, dtA, Bm, Cm, dy = _emulator_inputs(B, H, L, P, N, torch.bfloat16, decay, L + N)
+    err, got = _run_emulated(emulated_backward, x, dtA, Bm, Cm, dy, chunk)
+    assert err == 0
+    err, again = _run_emulated(emulated_backward, x, dtA, Bm, Cm, dy, chunk)
+    assert err == 0
+    want = tref.ssd_scan_bwd_ref(x, dtA, Bm, Cm, dy, chunk=chunk)
+    for name, g, g2, w in zip(("dx", "ddtA", "dB", "dC"), got, again, want):
+        assert torch.isfinite(g.float()).all() and torch.equal(g, g2), name
+        scale = float(w.float().abs().max())
+        tol = 2.0 ** -11 if name == "ddtA" else BF16_TOL
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol * scale, msg=name)
 
 
 def test_emulated_backward_rejects_a_plan_it_does_not_share(emulated_backward):
-    """The launch checks the Python plan's shared-memory sizes and slab
-    against its own and refuses a mismatch (cudaErrorInvalidValue, 1)."""
+    """The launch checks the Python plan's shared-memory sizes and slab (f32)
+    or group (bf16) against its own and refuses a mismatch
+    (cudaErrorInvalidValue, 1)."""
     plan = tssd.bwd_geometry(1, 1, 64, 32, 16, 32)
     t = torch.zeros(4096)
-    ptrs = [t.data_ptr()] * 14
+    ptrs = [t.data_ptr()] * 15
     args = (1, 1, 64, 32, 16, 32)
     for slab, scan, chunk in ((16, plan.scan_smem, plan.chunk_smem),
                               (plan.slab, plan.scan_smem + 4, plan.chunk_smem),
                               (plan.slab, plan.scan_smem, plan.chunk_smem - 4)):
-        assert emulated_backward(*ptrs, *args, slab, scan, chunk, 0, None) == 1
+        assert emulated_backward(*ptrs, *args, slab, 0, scan, chunk, 0, None) == 1
+    tc = plan.tc
+    for group, local, chunk in ((4, tc.local_smem, tc.chunk_smem),
+                                (tc.group, tc.local_smem + 16, tc.chunk_smem),
+                                (tc.group, tc.local_smem, tc.chunk_smem - 16)):
+        assert emulated_backward(*ptrs, *args, 0, group, local, chunk, 2, None) == 1

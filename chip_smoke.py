@@ -160,9 +160,10 @@ Phases (any failure exits non-zero and prints no result):
    seed 0 with the shared attention tempered as in phase 5, saved as a raw
    RawArray checkpoint and restored through ``ServeEngine(checkpoint=raw)``
    (leaves bit-equal); 8 prompts of 256 tokens (numpy seed 3) with 32 new
-   tokens each, served through the engine's prompt replay (6 × 287
-   ``decode_attention`` launches and nothing else), warm again (ms per
-   replayed token), and again with attention and scan plain: first-step
+   tokens each, served once through the engine's prompt replay (6 × 287
+   ``decode_attention`` launches and nothing else; ms per replayed token and
+   per decode step of that one, cold, generate), and again with attention
+   and scan plain: first-step
    logits within a bf16 tolerance, greedy-token agreement reported; then
    ``model.prefill`` (6 flash and 38 ``ssd_scan`` launches, all on the
    tensor cores) within the same tolerance of its plain version, and an f32
@@ -173,13 +174,15 @@ Phases (any failure exits non-zero and prints no result):
    byte-range server in a subprocess (``python -m
    repro_torch.remote.server``, uploads with a token): ``restore_pipelined``
    from its URL, raw (3,778,220,032 bytes) and u8 (12 ``dequant_u8``
-   launches), each bit-equal to the local restore run beside it; the raw
+   launches), each bit-equal to the local restore run beside it; the u8
    restore again through ``fleet.serve(origin_url=..., replicas=3)``, cold
-   and then warm edges (bit-equal, the warm pass with no origin fetch);
+   and then warm edges (bit-equal, the warm pass with no origin fetch; the
+   u8 checkpoint's quarter of the raw bytes keeps the phase short);
    ``ServeEngine(checkpoint=url)`` answering phase 5's 8 prompts with 64
    tokens (24 flash and 24 × 64 decode launches), its greedy tokens equal
-   to phase 5's engine's; the device feed over the URL for one epoch (every
-   batch bit-equal to the host decode of the local files); a save of the
+   to phase 5's engine's; the device feed over the URL for the epoch's
+   first ``URL_FEED_BATCHES`` (every batch bit-equal to the host decode of
+   the local files); a save of the
    restored weights to the URL, restored from it bit-equal. Loopback HTTP
    on one host: its rates are bound by the host, not by a network;
 13. the data mesh (DESIGN.md §15) over phase 4's dataset and phase 5's
@@ -335,7 +338,33 @@ Phases (any failure exits non-zero and prints no result):
 23. training: Zamba2-1.2B at full size as phase 22 (38 layers at N 64 and
    the shared block 6 times, its attention tempered as in phase 5), the
    shared block's flash forward and backward at (128, 128), group 1, 6 × 4
-   each beside the scan's 38 × 4 × 2 and 38 × 4.
+   each beside the scan's 38 × 4 × 2 and 38 × 4;
+24. the sharded steps (``distributed/steps.py``) on a one-rank NCCL mesh
+   ``("data", "model")`` = (1, 1): (a) olmo-1b at full size (16 layers, d_model
+   2,048, 16 heads of 128 over 16, vocab 50,304, non-parametric LayerNorm,
+   bf16, remat, f32 moments), tempered, through ``make_train_step(strategy=
+   "dp")`` on phase 9's token generator, 4 × 2,048 tokens: phase 9's first-step
+   gates against plain attention, the step's loss, gradient norm and updated
+   parameters bit-equal to ``train.loop.make_step``'s (nothing is reduced on
+   one rank) and twice to itself, two microbatches within 1e-3 of one (loss
+   and gradient norm, relative), then 4 timed steps (the loss falling; 16 × 4 × 2
+   forward and 16 × 4 backward launches; steps/s, tokens/s, peak memory); (b)
+   qwen2.5-14b at full size (48 layers, d_model 5,120, 40 heads zero-padded to
+   48 over 8 KV heads, QKV bias, vocab 152,064; bf16, 29.5 GB), tempered (its
+   8 padded heads' ``wq``, ``wo`` and ``bq`` still exactly zero), its leaves
+   placed by the ``tp`` tables, through ``make_prefill_step`` (8 prompts of
+   512, a cache of 576 positions) and 64 greedy ``make_decode_step``s (the
+   decode kernel at group 6, 2 heads a CTA): 48 flash launches on the tensor
+   cores and 48 × 64 decode launches, the first logits within ``LOGITS_TOL``
+   of plain attention's, prefill s and decode tokens/s; (c) deepseek-v3's MoE
+   FFN at full width with 64 routed experts (phase 21's cut) over 2 × 4,096
+   tokens through ``moe_ffn_ep`` on the one-rank ``model`` group against the
+   dense dispatch at a capacity factor where neither drops a route (within
+   2e-2 of the largest entry; the aux loss equal), the routes each drops at
+   the config's factor beside it. Phase 3b times the flash kernel at qwen's
+   prefill q (8,48,512,128) and olmo's training q (4,16,2048,128), the
+   decode kernel at qwen's q (8,48,128) over (8,8,576,128); phase 3d the
+   backward at olmo's training shape.
 
 The last three lines are the card's name and power limit, one JSON object
 listing each kernel, and the result ``{"ok": true, "device": {...}}``.
@@ -346,6 +375,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -723,6 +753,11 @@ def phase_attention(torch) -> tuple:
         ("edge_mla_sk_gt_sq", 2, 8, 8, 96, 161, 192, "bfloat16", True, 0, False, 128),
         ("edge_mla_non_causal", 1, 4, 4, 200, 200, 192, "bfloat16", False, 0, False, 128),
         ("edge_mla_f32", 2, 4, 4, 130, 130, 192, "float32", True, 0, False, 128),
+        # phase 24: qwen2.5-14b's prefill step, 8 prompts of 512 tokens, 48 heads
+        # (40 + 8 zero) over 8 KV heads (group 6); olmo-1b's training forward, 4
+        # sequences of 2,048 tokens, 16 heads over 16 (group 1)
+        ("qwen_prefill", 8, 48, 8, 512, 512, 128, "bfloat16", True, 0, True),
+        ("olmo_train", 4, 16, 16, 2048, 2048, 128, "bfloat16", True, 0, True),
     ]
     flash_rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed, *dv in flash_cases:
@@ -812,6 +847,10 @@ def phase_attention(torch) -> tuple:
         ("edge_mla_pos0", 8, 1, 128, 576, 576, 0, "bfloat16", 0, True, False, 512),
         ("edge_mla_pos_in_first_tile", 8, 1, 128, 576, 576, 17, "bfloat16", 0, True, False, 512),
         ("edge_mla_ragged", 2, 1, 16, 100, 576, 99, "bfloat16", 0, False, False, 512),
+        # phase 24: qwen2.5-14b's decode step at its last pos (512 + 64 rows), group 6,
+        # which the kernel serves 2 heads a CTA
+        ("qwen_decode", 8, 8, 6, 576, 128, 575, "bfloat16", 0, False, True),
+        ("edge_g6_bf16", 2, 8, 6, 300, 128, 299, "bfloat16", 0, True, False),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed, *dv in decode_cases:
@@ -1133,6 +1172,8 @@ def phase_attention_bwd(torch) -> list:
         # over 8 of width 112; deepseek-v3's expanded MLA, 128 heads at (192, 128)
         ("kimi_k2_train", 2, 64, 8, 4096, 4096, (112, 112), "bfloat16", True, 0, True),
         ("deepseek_mla_train", 2, 128, 128, 4096, 4096, (192, 128), "bfloat16", True, 0, True),
+        # olmo-1b's (phase 24): 16 heads over 16, 4 sequences of 2,048 tokens
+        ("olmo_train", 4, 16, 16, 2048, 2048, 128, "bfloat16", True, 0, True),
         ("edge_ragged", 2, 16, 8, 300, 300, 128, "bfloat16", True, 0, False),
         ("edge_64_row_tiles", 2, 16, 8, 192, 192, 128, "bfloat16", True, 0, False),
         ("edge_hd256_ragged", 2, 16, 8, 300, 300, 256, "bfloat16", True, 0, False),
@@ -2650,12 +2691,10 @@ def phase_zamba2_serving(torch) -> dict:
     if launches != want:
         raise SystemExit(f"chip_smoke: Zamba2 generate launched {launches}, wanted {want}")
 
-    # the same requests again: warm (launches from here on are not counted)
-    engine.stats = {key: 0.0 for key in engine.stats}
-    engine.generate(prompts, max_new=max_new)
-    out["warm"] = engine.throughput()
-    out["warm"]["ms_per_replayed_token"] = out["warm"]["prefill_s"] / S * 1e3
-    out["warm"]["ms_per_decode_step"] = out["warm"]["decode_s"] / (max_new - 1) * 1e3
+    # the rates of this first, cold generate (a second, warm one would cost as
+    # much again on the host; launches from here on are not counted)
+    out["cold_ms_per_replayed_token"] = out["prefill_s"] / S * 1e3
+    out["cold_ms_per_decode_step"] = out["decode_s"] / (max_new - 1) * 1e3
     out["profiled_steps"] = _profiled_steps(torch, model, prompts, S + max_new)
 
     # the same requests with both attention ops and the scan plain; each run's
@@ -2768,6 +2807,7 @@ def _decode_events(torch, engine, prompts, capacity: int, attempts: int = 3) -> 
 # --------------------------------------------------------------- phase 12
 #: the bearer token of phase 12's origin, which takes uploads with it
 REMOTE_TOKEN = "chip-smoke-upload"
+URL_FEED_BATCHES = 24
 #: RAM cache of each edge in phase 12's fleet: a third of the raw InternLM2
 #: checkpoint (3.78 GB over 3 edges) with room for the hash's imbalance, so
 #: the warm pass is served by the edges alone
@@ -2863,26 +2903,29 @@ def phase_remote(torch, keep: str, serve: dict, runs: list) -> dict:
             del got
 
             # u8 (an f32 copy's codes): decoded on the card, one launch a leaf
-            want, out["u8_local"] = _restore(torch, local["u8"], like)
+            want_u8, out["u8_local"] = _restore(torch, local["u8"], like)
             dequant_u8.launches = 0
             got, out["u8_url"] = _restore(torch, url["u8"], like)
             u8_launches = out["u8_url"]["dequant_launches"] = dequant_u8.launches
-            _same_tree(torch, got, want, "u8 URL cold start")
-            del got, want
+            _same_tree(torch, got, want_u8, "u8 URL cold start")
+            del got
             float_leaves = sum(1 for t in flatten(like, "param").values()
                                if t.is_floating_point() and t.dim())
             if not u8_launches == out["u8_url"]["dequant_leaves"] == float_leaves:
                 raise SystemExit(f"chip_smoke: u8 URL cold start: {u8_launches} dequant "
                                  f"launches for {float_leaves} float leaves")
 
-            # through a fleet of 3 edges and a router in front of the origin
+            # through a fleet of 3 edges and a router in front of the origin: the u8
+            # checkpoint (945 MB, a quarter of the raw one: the in-process fleet
+            # moves ~0.14 GB/s cold)
             with fleet.serve(origin_url=origin, replicas=3, cache_bytes=EDGE_CACHE_BYTES,
                              spill=False) as fl:
-                out["fleet"] = {"replicas": len(fl.edges), "edge_cache_bytes": EDGE_CACHE_BYTES}
+                out["fleet"] = {"replicas": len(fl.edges), "edge_cache_bytes": EDGE_CACHE_BYTES,
+                                "checkpoint": "u8"}
                 for run in ("cold", "warm"):
                     before = sum(e.edge_metrics()["origin_fetches"] for e in fl.edges)
-                    got, row = _restore(torch, f"{fl.url}/raw/step_00000001", like)
-                    _same_tree(torch, got, want_raw, f"raw cold start through the fleet ({run})")
+                    got, row = _restore(torch, f"{fl.url}/u8/step_00000001", like)
+                    _same_tree(torch, got, want_u8, f"u8 cold start through the fleet ({run})")
                     del got
                     row["edge_ram_hits"] = [int(e.cache.stats()["hits"]) for e in fl.edges]
                     row["origin_fetches"] = sum(
@@ -2890,6 +2933,7 @@ def phase_remote(torch, keep: str, serve: dict, runs: list) -> dict:
                     out["fleet"][run] = row
             if out["fleet"]["warm"]["origin_fetches"] != 0:
                 raise SystemExit(f"chip_smoke: the warm fleet went to the origin: {out['fleet']}")
+            del want_u8
 
             # serve from the URL: the tokens of phase 5's engine (local checkpoint)
             remote.close_readers()
@@ -2914,10 +2958,11 @@ def phase_remote(torch, keep: str, serve: dict, runs: list) -> dict:
             out["serve_url"]["tokens_equal_local"] = True
             del engine
 
-            # the device feed from the URL, every batch against the local files' host decode
+            # the device feed from the URL, every batch against the local files' host
+            # decode: the epoch's first URL_FEED_BATCHES (~5 batches/s by URL)
             local_feed = next(r for r in runs if r["name"] == "cifar10_epoch")
             out["feed_url"] = _drive(torch, f"{origin}/cifar10_epoch", local_feed["batch"],
-                                     local_feed["batches"],
+                                     min(URL_FEED_BATCHES, local_feed["batches"]),
                                      host_root=os.path.join(keep, "cifar10_epoch"))
             out["feed_local"] = {k: local_feed[k] for k in (
                 "batches", "batch", "launches", "seconds", "batches_per_s", "h2d_gb_per_s")}
@@ -4463,6 +4508,370 @@ def phase_zamba2_training(torch, card: str) -> dict:
     return _ssm_training(torch, "zamba2_1_2b", card)
 
 
+# --------------------------------------------------------------- phase 24
+SHARDED_TRAIN_STEPS = 4
+#: two microbatches against one, relative, on the loss and the gradient norm: the
+#: accumulation in f32 differs from one batch's sum in its rounding only, while a
+#: step that trains on part of the batch moves the gradient norm by far more
+MICROBATCH_TOL = 1e-3
+EP_TOKENS = (2, 4096)
+EP_TOL = 2e-2  # of the dense dispatch's largest |entry|: bf16, the same products
+
+
+def _one_rank_mesh(torch):
+    """A (1, 1) ``("data", "model")`` mesh over a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def _leaf_copies(torch, model) -> dict:
+    from repro_torch.checkpoint.store import flatten
+
+    return {n: t.detach().clone() for n, t in flatten(model.param_tree(), "param").items()}
+
+
+def _put_leaves(torch, model, leaves: dict) -> None:
+    from repro_torch.checkpoint.store import flatten
+
+    with torch.no_grad():
+        for n, t in flatten(model.param_tree(), "param").items():
+            t.copy_(leaves[n])
+
+
+def _same_leaves(torch, model, leaves: dict) -> bool:
+    from repro_torch.checkpoint.store import flatten
+
+    return all(torch.equal(t.detach(), leaves[n])
+               for n, t in flatten(model.param_tree(), "param").items())
+
+
+def _olmo_dp_training(torch, mesh) -> dict:
+    """olmo-1b at full size through ``distributed.steps.make_train_step``
+    (``strategy="dp"``) on the one-rank mesh: phase 9's first-step gates,
+    the step bit-equal to ``train/loop.make_step``'s (and to itself), two
+    microbatches against one, then ``SHARDED_TRAIN_STEPS`` timed steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataLoader, RaDataset, make_token_dataset
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("olmo_1b")
+    B, S = 4, 2048
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab,
+                 "dtype": cfg.param_dtype, "remat": cfg.remat, "batch": B, "seq": S,
+                 "strategy": "dp", "steps": SHARDED_TRAIN_STEPS}
+    model = build_model(cfg, device=dev, seed=SEED)
+    _temper_attention(torch, model)
+    model.requires_grad_(True)
+    out["params"] = sum(p.numel() for p in model.parameters())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_olmo_") as tmp:
+        root = os.path.join(tmp, "tokens")
+        make_token_dataset(root, n_docs=64, seq_len=S, vocab=cfg.vocab, seed=3, shard_rows=64)
+        host = DataLoader(RaDataset(root), B, seed=SEED)
+        batches = [{"tokens": torch.from_numpy(np.array(next(host)["tokens"]))}
+                   for _ in range(SHARDED_TRAIN_STEPS)]
+        host.stop()
+    batch = batches[0]
+    out["first_step"] = _first_step_gates(torch, model, batch, "OLMo", out)
+    torch.cuda.empty_cache()
+
+    adamw = optim.AdamWConfig(lr=1e-3, warmup_steps=2)
+    start = _leaf_copies(torch, model)
+    params = model.param_tree()
+    _, _, ref = make_step(model, adamw)(params, optim.init_state(params, adamw), batch)
+    after = _leaf_copies(torch, model)
+    shape = ShapeSpec("olmo_train", "train", S, B)
+
+    def dp_step(microbatches: int):
+        _put_leaves(torch, model, start)
+        step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
+            model, mesh, shape, adamw=adamw, strategy="dp", microbatches=microbatches)
+        steps.shard_model(model, mesh, ppl)  # dp: every leaf replicated, left as it is
+        state = steps.init_opt_state(ometa, mesh, opl, dev)
+        return step, state
+
+    runs = []
+    for _ in range(2):
+        step, state = dp_step(1)
+        _, state, metrics = step(model.param_tree(), state, batch)
+        runs.append((metrics, _same_leaves(torch, model, after)))
+        del state
+    m1 = runs[0][0]
+    out["bit_equal_to_make_step"] = {
+        "loss": bool(torch.equal(m1["loss"], ref["loss"])),
+        "grad_norm": bool(torch.equal(m1["grad_norm"], ref["grad_norm"])),
+        "params": runs[0][1],
+        "second_run_params": runs[1][1],
+        "second_run_metrics": all(bool(torch.equal(runs[1][0][k], m1[k])) for k in m1)}
+    out["first_step_metrics"] = {k: float(v) for k, v in m1.items()}
+    step, state = dp_step(2)
+    _, state, m2 = step(model.param_tree(), state, batch)
+    del state
+    out["microbatches_2"] = {
+        "loss": float(m2["loss"]), "grad_norm": float(m2["grad_norm"]),
+        "loss_rel_diff": abs(float(m2["loss"]) - float(m1["loss"])) / float(m1["loss"]),
+        "grad_norm_rel_diff": abs(float(m2["grad_norm"]) - float(m1["grad_norm"]))
+        / float(m1["grad_norm"])}
+    torch.cuda.empty_cache()
+
+    step, state = dp_step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_flash_counts()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, state, metrics = step(model.param_tree(), state, b)
+        losses.append(float(metrics["loss"]))  # syncs
+        step_s.append(time.perf_counter() - t0)
+    launches = _flash_counts()
+    med = statistics.median(step_s[1:])
+    out["train"] = {"losses": losses, "step_s": step_s, "median_step_s": med,
+                    "steps_per_s": 1 / med, "tokens_per_s": B * S / med,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                    "launches": launches,
+                    "want_launches": {"forward": cfg.n_layers * len(batches) * 2,
+                                      "backward": cfg.n_layers * len(batches)}}
+    del state, model, params, start, after
+    torch.cuda.empty_cache()
+    log(f"[olmo sharded training] {json.dumps(out)}")
+    bits = out["bit_equal_to_make_step"]
+    if not all(bits.values()):
+        raise SystemExit(f"chip_smoke: olmo's one-rank dp step is not make_step's: {bits}")
+    mb = out["microbatches_2"]
+    if not max(mb["loss_rel_diff"], mb["grad_norm_rel_diff"]) <= MICROBATCH_TOL:
+        raise SystemExit(f"chip_smoke: olmo's two microbatches differ from one: {mb}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise SystemExit(f"chip_smoke: olmo's sharded training losses {losses}")
+    if launches != out["train"]["want_launches"]:
+        raise SystemExit(f"chip_smoke: olmo's sharded training launched {launches}, wanted "
+                         f"{out['train']['want_launches']}")
+    return out
+
+
+def _qwen_serving(torch, mesh) -> dict:
+    """qwen2.5-14b at full size (48 heads, 8 of them zero) through
+    ``make_prefill_step``/``make_decode_step`` with the ``tp`` tables on the
+    one-rank mesh: 8 prompts of 512 tokens and 64 greedy decode steps, the
+    first logits against plain attention's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("qwen2_5_14b")
+    B, S, max_new = 8, 512, 64
+    H, Hp = cfg.n_heads, cfg.n_heads + cfg.head_pad
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "heads": Hp, "zero_heads": cfg.head_pad, "kv_heads": cfg.n_kv_heads,
+                 "group": Hp // cfg.n_kv_heads, "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+                 "qkv_bias": cfg.qkv_bias, "dtype": cfg.param_dtype, "batch": B, "prompt": S,
+                 "max_new": max_new,
+                 "decode_heads_per_cta": decode_attention.heads_per_block(Hp // cfg.n_kv_heads,
+                                                                          cfg.head_dim)}
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    _temper_attention(torch, model)
+    attn = model.dense_layers.attn
+    out["padded_heads_zero"] = bool((attn.wq[:, :, H:] == 0).all() and (attn.wo[:, H:] == 0).all()
+                                    and (attn.bq[:, H:] == 0).all())
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompts)}
+
+    def own_serve():
+        """The model's own prefill and decode steps, unsharded: the yardstick
+        of what the steps add on one rank."""
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(batch["tokens"].to(dev), capacity=S + max_new)
+            toks = [logits.float().argmax(-1, keepdim=True)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(max_new):
+                logits, cache = model.decode_step(cache, toks[-1])
+                toks.append(logits.argmax(-1, keepdim=True))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return torch.cat(toks, 1).cpu().numpy(), t1 - t0, t2 - t1
+
+    own_serve()  # warm
+    own_tokens, own_prefill_s, own_decode_s = own_serve()
+    out["unsharded"] = {"prefill_s": own_prefill_s, "decode_s": own_decode_s,
+                        "decode_tokens_per_s": B * max_new / own_decode_s}
+    prefill, (ppl, _), _, _ = steps.make_prefill_step(
+        model, mesh, ShapeSpec("qwen_prefill", "prefill", S, B), capacity=S + max_new)
+    decode, _, _, _ = steps.make_decode_step(
+        model, mesh, ShapeSpec("qwen_decode", "decode", S + max_new, B))
+    steps.shard_model(model, mesh, ppl)
+    out["sharded_leaves"] = sum(1 for p in model.parameters() if is_dtensor(p))
+
+    def serve(steps: int = max_new):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = prefill(model.param_tree(), batch)
+            first = logits.to_local().float()
+            tok = first.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            toks = [tok]
+            for _ in range(steps):
+                logits, cache = decode(model.param_tree(), cache, toks[-1])
+                toks.append(logits.to_local().argmax(-1, keepdim=True))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return first, torch.cat(toks, 1).cpu().numpy(), t1 - t0, t2 - t1, cache
+
+    serve(steps=2)  # the steps' first calls (DTensor's caches), apart from the timed run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = flash_attention.tc_launches = decode_attention.launches = 0
+    first, tokens, prefill_s, decode_s, cache = serve()
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_tc": flash_attention.tc_launches,
+                "decode_attention": decode_attention.launches}
+    out["launches"] = launches
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["cache_placements"] = {k: str(t.placements) for k, t in
+                               steps._leaves_with_paths(cache) if is_dtensor(t)}
+    out.update({"prefill_s": prefill_s, "decode_s": decode_s,
+                "decode_tokens_per_s": B * max_new / decode_s,
+                "tokens_equal_unsharded": bool((tokens == own_tokens).all())})
+    del cache
+    with _plain_attention():  # the first logits: the prefill step alone
+        plain_first = serve(steps=0)[0]
+    _first_logits_gate(torch, out, "first_logits", first, plain_first,
+                       "qwen2.5-14b's first-step logits")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[qwen sharded serving] {json.dumps(out)}")
+    want = {"flash_attention": cfg.n_layers, "flash_attention_tc": cfg.n_layers,
+            "decode_attention": cfg.n_layers * max_new}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: qwen's steps launched {launches}, wanted {want}")
+    if not out["padded_heads_zero"]:
+        raise SystemExit("chip_smoke: qwen's padded heads are not zero after tempering")
+    if not out["tokens_equal_unsharded"]:  # one rank: the same tensors through the same ops
+        raise SystemExit("chip_smoke: qwen's steps gave other tokens than the model's own")
+    if tokens.shape != (B, max_new + 1) or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        raise SystemExit(f"chip_smoke: qwen's steps gave {tokens.shape} tokens out of range")
+    return out
+
+
+def _route_drops(torch, p, x, cfg) -> dict:
+    """The most routes an expert takes in a dispatch chunk, the capacity
+    factor at which neither dispatch drops one, and the share of routes each
+    drops at the config's own factor (the dense: C = ceil(T·K/E·f); the
+    expert-parallel on one shard: stage 1 keeps every route, stage 2 C2 =
+    ceil(Cs/E·f) with Cs = ceil(T·K·f))."""
+    from repro_torch.models.moe import route
+
+    m = cfg.moe
+    T, d = x.shape[0] * x.shape[1], x.shape[2]
+    nc = m.dispatch_chunks if (m.dispatch_chunks > 1 and T % m.dispatch_chunks == 0) else 1
+    Tc, E, K, f = T // nc, m.n_experts, m.top_k, m.capacity_factor
+    loads = []
+    with torch.inference_mode():
+        for xc in x.reshape(nc, Tc, d):
+            idx = route(p, xc, cfg)[0]
+            loads.append(torch.bincount(idx.reshape(-1), minlength=E))
+    loads = torch.stack(loads)
+    most = int(loads.max())
+    C = math.ceil(Tc * K / E * f)
+    C2 = math.ceil(math.ceil(Tc * K * f) / E * f)
+    return {"chunks": nc, "tokens_per_chunk": Tc, "most_routes_an_expert": most,
+            "no_drop_factor": max(1.0, most * E / (Tc * K)),
+            "config_factor": f,
+            "dense_drop_share": float((loads - C).clamp_min(0).sum()) / (T * K),
+            "ep_drop_share": float((loads - C2).clamp_min(0).sum()) / (T * K)}
+
+
+def _deepseek_ep_ffn(torch, mesh) -> dict:
+    """deepseek-v3-671b's MoE FFN at full width (``MOE_TRAIN_EXPERTS`` routed
+    experts, as phase 21 cuts) over 2 × 4,096 tokens: ``moe_ffn_ep`` on the
+    one-rank model group against ``moe_ffn``'s dense dispatch, at a capacity
+    factor where neither drops a route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.moe_ep import moe_ffn_ep
+    from repro_torch.models.common import Initializer
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    dev = torch.device("cuda", 0)
+    full = get_config("deepseek_v3_671b")
+    cfg = full.with_(moe=dataclasses.replace(full.moe, n_experts=MOE_TRAIN_EXPERTS))
+    m = cfg.moe
+    p = init_moe(Initializer(dev, cfg.pdtype, SEED), cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(EP_TOKENS + (cfg.d_model,), generator=gen, device=dev).to(cfg.cdtype)
+    out: dict = {"arch": full.name, "d_model": cfg.d_model, "d_ff_expert": m.d_ff_expert,
+                 "experts": m.n_experts, "experts_in_config": full.moe.n_experts,
+                 "top_k": m.top_k, "tokens": list(EP_TOKENS), "dtype": cfg.param_dtype}
+    out["routes"] = _route_drops(torch, p, x, cfg)
+    wide = cfg.with_(moe=dataclasses.replace(m, capacity_factor=out["routes"]["no_drop_factor"]))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        y_dense, aux_dense = moe_ffn(p, x, wide)
+        y_ep, aux_ep = moe_ffn_ep(p, x, wide, mesh)
+        torch.cuda.synchronize()
+        out["max_abs_diff"] = float((y_ep.float() - y_dense.float()).abs().max())
+        out["max_abs"] = float(y_dense.float().abs().max())
+        out["tolerance"] = EP_TOL * out["max_abs"]
+        out["aux"] = [float(aux_ep), float(aux_dense)]
+        out["ep_ms"] = _event_ms(torch, lambda: moe_ffn_ep(p, x, wide, mesh), flush)
+        out["dense_ms"] = _event_ms(torch, lambda: moe_ffn(p, x, wide), flush)
+    del p, x, y_dense, y_ep
+    torch.cuda.empty_cache()
+    log(f"[deepseek ep ffn] {json.dumps(out)}")
+    if not (out["max_abs_diff"] <= out["tolerance"]
+            and abs(out["aux"][0] - out["aux"][1]) <= 1e-5 * abs(out["aux"][1])):
+        raise SystemExit(f"chip_smoke: the expert-parallel FFN differs from the dense "
+                         f"dispatch: {out}")
+    return out
+
+
+def phase_sharded_steps(torch, card: str) -> dict:
+    """The sharded steps (``distributed/steps.py``) on a one-rank NCCL mesh
+    (1, 1): olmo-1b trains through the ``dp`` step, qwen2.5-14b serves
+    through the prefill and decode steps, deepseek-v3's MoE FFN runs
+    expert-parallel once."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        mesh = _one_rank_mesh(torch)
+        out = {"card": card, "mesh": {"data": 1, "model": 1},
+               "olmo": _olmo_dp_training(torch, mesh),
+               "qwen": _qwen_serving(torch, mesh),
+               "moe_ep": _deepseek_ep_ffn(torch, mesh)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -4531,6 +4940,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     d_train = run(phase_deepseek_training, torch, card)
     m_train = run(phase_mamba2_training, torch, card)
     z_train = run(phase_zamba2_training, torch, card)
+    sharded = run(phase_sharded_steps, torch, card)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -4595,6 +5005,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 t["train"]["launches"][kind]
         runs[f"{z_train['arch']} train"] = z_train["train"]["launches"][kind]
         runs[f"{z_train['arch']} train (resumed)"] = z_train["resume"]["launches"][kind]
+        runs[f"{sharded['olmo']['arch']} train (sharded dp step)"] = \
+            sharded["olmo"]["train"]["launches"][kind]
         return runs
 
     def ssm_train_launches(key):
@@ -4606,6 +5018,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
          {**by_phase("flash_attention_launches"), **train_launches("forward"),
+          f"{sharded['qwen']['arch']} prefill step": sharded["qwen"]["launches"]["flash_attention"],
           zamba_prefill: zamba["prefill_launches"]["flash_attention"],
           **{k: v["flash_attention"] for k, v in llava_prefills.items()},
           **{k: v for k, v in whisper_kinds.items() if not k.endswith("decode")}},
@@ -4614,6 +5027,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         ("decode_attention", "src/repro/kernels/decode_attention.py:61", decode_rows,
          {**by_phase("decode_attention_launches"),
           zamba["arch"]: zamba["decode_attention_launches"],
+          f"{sharded['qwen']['arch']} decode steps": sharded["qwen"]["launches"]["decode_attention"],
           **{k: v for k, v in whisper_kinds.items() if k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
@@ -4645,7 +5059,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
             kernels[-1]["tc_launches"] = sum(by_phase("flash_attention_tc_launches").values()) \
                 + zamba["prefill_launches"]["flash_attention_tc"] \
                 + sum(v["flash_attention_tc"] for v in llava_prefills.values()) \
-                + whisper["launches"]["flash_attention_tc"]
+                + whisper["launches"]["flash_attention_tc"] \
+                + sharded["qwen"]["launches"]["flash_attention_tc"]
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
                 + zamba["prefill_launches"]["ssd_scan_tc"] \

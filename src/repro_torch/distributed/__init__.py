@@ -1,10 +1,14 @@
-"""Distributed-runtime pieces of the port: the optimizer and the data mesh.
+"""Distributed runtime of the port: the optimizer, the data mesh, the
+sharding rules and partition specs, the expert-parallel MoE, and the
+sharded train / prefill / decode steps (``sharding``, ``partition``,
+``moe_ep``, ``steps``; ``DeviceMesh``/``DTensor`` code whose spec tables
+are the JAX package's). The Megatron compute split over ``model`` and
+context-parallel decode over several ranks are ROADMAP.md item 18.
 
 ``data_mesh`` (DESIGN.md §15) is the data plane's view of the process
 mesh: shard-ownership partitioning, the deterministic global shuffle, and
 elastic membership. It stays numpy-only at import time; the torch-dependent
-assembly helpers defer their import. The sharded steps are ROADMAP.md item
-11.
+assembly helpers defer their import.
 """
 
 from typing import Any

@@ -31,9 +31,10 @@ gradients gathers.
 
 Every expert is computed for every chunk, also one that no token of the
 chunk chose: the reference's dense dispatch, kept for its exact drops and
-outputs (ROADMAP.md lists skipping empty experts as open). The reference's
-expert-parallel branch (``_moe_ep``, ``distributed/moe_ep.py``) is not
-ported (ROADMAP.md, modules to port, item 11).
+outputs (ROADMAP.md lists skipping empty experts as open). Under rules
+that set ``_moe_ep`` (a train step's ``moe_ep=True``) the FFN is the
+expert-parallel dispatch of ``distributed/moe_ep.py`` instead, as the
+reference's ``moe_ffn`` branches.
 """
 
 from __future__ import annotations
@@ -104,6 +105,12 @@ def route(p, x2d: torch.Tensor, cfg: ModelConfig
 
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, d) -> ((B, S, d), aux loss)."""
+    from ..distributed import sharding
+
+    if sharding.moe_ep_active():
+        from ..distributed.moe_ep import moe_ffn_ep
+
+        return moe_ffn_ep(p, x, cfg, sharding._mesh())
     m = cfg.moe
     B, S, d = x.shape
     T = B * S

@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
+from ..distributed.sharding import gather_tree
 from .attention import gqa_attention, gqa_decode, gqa_prefill, init_gqa
 from .common import Initializer, ParamTree, make_norm, rope_freqs, stack_init
 from .config import ModelConfig
@@ -97,7 +98,7 @@ class Mamba2LM(TransformerLM):
         """Mamba2 layer ``i`` over the prompt; writes its final SSM state and
         conv tails into row ``i`` of the stacked ``cache``."""
         _, norm = make_norm(self.cfg.norm)
-        p = self._layer_params()[i]
+        p = gather_tree(self._layer_params()[i])
         h, (ssm, conv) = mamba_forward(p["ssm"], norm(p["ln"], x), self.cfg, return_state=True)
         cache["ssm"][i].copy_(ssm)
         for key, tail in (("conv_x", conv["x"]), ("conv_B", conv["B"]), ("conv_C", conv["C"])):
@@ -108,7 +109,7 @@ class Mamba2LM(TransformerLM):
     def _ssm_decode(self, i: int, x: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
         """Mamba2 layer ``i`` for one token; updates row ``i`` of ``cache`` in place."""
         _, norm = make_norm(self.cfg.norm)
-        p = self._layer_params()[i]
+        p = gather_tree(self._layer_params()[i])
         layer_cache = {key: cache[key][i] for key in _CACHE_KEYS}
         return x + mamba_decode(p["ssm"], norm(p["ln"], x), layer_cache, self.cfg)
 
@@ -117,13 +118,12 @@ class Mamba2LM(TransformerLM):
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process prompts ``tokens`` (B, S); returns (last-position logits
         (B, V), cache with ``pos`` = S)."""
-        _, norm = make_norm(self.cfg.norm)
         x = self._embed_inputs(tokens)
         B, S, _ = x.shape
         cache = self.empty_cache(B, S)
         for i in range(self.cfg.n_layers):
             x = self._ssm_prefill(i, x, cache)
-        logits = self._logits(norm(self.ln_f, x[:, -1:, :]))
+        logits = self._logits(self._final_norm(x[:, -1:, :]))
         cache["pos"].fill_(S)
         return logits[:, 0], cache
 
@@ -141,11 +141,10 @@ class Mamba2LM(TransformerLM):
     def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token (B, 1) for every sequence. Writes the cache in place and
         returns (logits (B, V), the cache with ``pos + 1``)."""
-        _, norm = make_norm(self.cfg.norm)
         x = self._embed_inputs(tokens)
         for i in range(self.cfg.n_layers):
             x = self._ssm_decode(i, x, cache)
-        logits = self._logits(norm(self.ln_f, x))
+        logits = self._logits(self._final_norm(x))
         cache["pos"] = cache["pos"] + 1
         return logits[:, 0], cache
 
@@ -159,6 +158,7 @@ class Mamba2LM(TransformerLM):
         layers = _unstack(self.layers.tree(), cfg.n_layers)
 
         def body(x, p):
+            p = gather_tree(p)
             return x + mamba_forward(p["ssm"], norm(p["ln"], x), cfg)
 
         def layer(i, x):
@@ -176,9 +176,8 @@ class Mamba2LM(TransformerLM):
         layer = self._train_layers()
         for i in range(self.cfg.n_layers):
             x = layer(i, x)
-        _, norm = make_norm(self.cfg.norm)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        return norm(self.ln_f, x), aux
+        return self._final_norm(x), aux
 
 
 class Zamba2LM(Mamba2LM):
@@ -241,7 +240,8 @@ class Zamba2LM(Mamba2LM):
                       attn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
         """The shared block around its attention ``attn(u) -> a`` over the
         normed ``concat([x, x0])`` (width 2d): project to d, residual add,
-        then the MLP."""
+        then the MLP (``attn`` gathers its own weights)."""
+        p = gather_tree(p, keep=("attn",))
         _, norm = make_norm(self.cfg.norm)
         a = attn(norm(p["ln_in"], torch.cat([x, x0], dim=-1)))
         x = x + a @ p["out_proj"].to(x.dtype)
@@ -258,8 +258,7 @@ class Zamba2LM(Mamba2LM):
                 x = layer(i, x)
             if j < n_inv:
                 x = self._shared_block(self.shared, x, x0, lambda u, j=j: attn(j, u))
-        _, norm = make_norm(self.cfg.norm)
-        return norm(self.ln_f, x)
+        return self._final_norm(x)
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
@@ -274,8 +273,8 @@ class Zamba2LM(Mamba2LM):
         freqs = self._rope(acfg.head_dim, acfg.rope_theta)
 
         def attn(j, u):
-            a, k, v = gqa_prefill(self.shared.attn, u, acfg, positions=positions, window=0,
-                                  freqs=freqs)
+            a, k, v = gqa_prefill(gather_tree(self.shared.attn), u, acfg,
+                                  positions=positions, window=0, freqs=freqs)
             cache["attn"]["k"][j].copy_(k)
             cache["attn"]["v"][j].copy_(v)
             return a
@@ -297,8 +296,8 @@ class Zamba2LM(Mamba2LM):
         freqs = rope_freqs(acfg.head_dim, acfg.rope_theta, device=self.device)
 
         def attn(j, u):
-            return gqa_attention(self.shared.attn, u, acfg, positions=positions, window=0,
-                                 freqs=freqs)
+            return gqa_attention(gather_tree(self.shared.attn), u, acfg,
+                                 positions=positions, window=0, freqs=freqs)
 
         h = self._run(x, self._train_layers(), attn)
         return h, torch.zeros((), dtype=torch.float32, device=self.device)
@@ -327,8 +326,8 @@ class Zamba2LM(Mamba2LM):
         freqs = self._rope(acfg.head_dim, acfg.rope_theta)
 
         def attn(j, u):
-            return gqa_decode(self.shared.attn, u, cache["attn"]["k"][j], cache["attn"]["v"][j],
-                              pos, acfg, window=0, freqs=freqs)
+            return gqa_decode(gather_tree(self.shared.attn), u, cache["attn"]["k"][j],
+                              cache["attn"]["v"][j], pos, acfg, window=0, freqs=freqs)
 
         h = self._run(self._embed_inputs(tokens),
                       lambda i, x: self._ssm_decode(i, x, cache["ssm"]), attn)

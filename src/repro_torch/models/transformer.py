@@ -42,6 +42,11 @@ The vlm family (llava-next) is this model with ``mm_proj`` (d, d): its
 embeddings (B, P, d), project them, prepend them to the tokens and run the
 layers over ``P + S`` positions; the loss scores the text positions only.
 ``decode_step`` and the engine are text-only, as the JAX package's are.
+
+Parameters placed on a mesh (``distributed/steps.py:shard_model``) are
+``DTensor`` blocks: each layer gathers its slice of them at its entry
+(``_block``, through ``distributed.sharding.gather_tree``), and the rest
+of the model runs on the plain tensors it always takes.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
+from ..distributed.sharding import (Layer, gather, gather_tree, is_dtensor, layer_view,
+                                   moe_ep_active)
 from .attention import (
     gqa_attention,
     gqa_decode,
@@ -91,20 +98,29 @@ def _init_layer(ini: Initializer, cfg: ModelConfig, *, use_moe: bool = False) ->
 
 
 def _index(tree: Any, i: int) -> Any:
-    """Layer ``i`` of a stacked params dict: views, no copies."""
+    """Layer ``i`` of a stacked params dict, for serving: views, no copies
+    (``sharding.layer_view``: a leaf sharded over several ranks stays so
+    until the layer's entry gathers it)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+    return layer_view(tree, i)
 
 
 def _unstack(tree: Any, n: int) -> List[Any]:
     """Every layer of a stacked params dict as views, one ``unbind`` a leaf:
     under autograd each leaf's gradient is then stacked once from its
-    layers' (where ``tree[i]`` would build a full-size gradient a layer)."""
+    layers' (where ``tree[i]`` would build a full-size gradient a layer). A
+    sharded leaf gives its layers, each gathered at the layer's entry."""
     if isinstance(tree, dict):
         subs = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    if is_dtensor(tree):
+        return [Layer(tree, i) for i in range(n)]
     return list(tree.unbind(0))
+
+
+#: the MoE FFN's expert weights, which the expert-parallel FFN gathers itself
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def token_ids(tokens: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -241,22 +257,28 @@ class TransformerLM(nn.Module):
         prepended: (B, P + S, d). A config without patches ignores them, as
         the reference does."""
         cfg = self.cfg
-        x = embed_lookup(self.embed, tokens.to(self.device), cfg.embed_scale, cfg.cdtype)
+        x = embed_lookup(gather(self.embed), tokens.to(self.device), cfg.embed_scale, cfg.cdtype)
         if patch_embeds is None or not cfg.n_patches:
             return x
         pe = torch.as_tensor(patch_embeds).to(device=self.device, dtype=cfg.cdtype)
-        return torch.cat([pe @ self.mm_proj.to(cfg.cdtype), x], dim=1)
+        return torch.cat([pe @ gather(self.mm_proj).to(cfg.cdtype), x], dim=1)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        head = self.embed.t() if cfg.tie_embeddings else self.lm_head
+        head = gather(self.embed).t() if cfg.tie_embeddings else gather(self.lm_head)
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
 
-    def _block(self, p, x, attn, use_moe: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One layer around its attention ``attn(h) -> a``: (x, the MoE aux
-        loss, 0-d f32, 0 for a dense FFN)."""
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
         _, norm = make_norm(self.cfg.norm)
-        a = attn(norm(p["ln_attn"], x))
+        return norm(gather_tree(self.ln_f), x)
+
+    def _block(self, p, x, attn, use_moe: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One layer around its attention ``attn(h, p_attn) -> a``: (x, the
+        MoE aux loss, 0-d f32, 0 for a dense FFN). The layer's parameters
+        are gathered here, at its entry, where they are sharded."""
+        p = gather_tree(p, EXPERT_LEAVES if use_moe and moe_ep_active() else ())
+        _, norm = make_norm(self.cfg.norm)
+        a = attn(norm(p["ln_attn"], x), p["attn"])
         if self.cfg.sandwich_norm:
             a = norm(p["ln_attn_post"], a)
         x = x + a
@@ -299,15 +321,14 @@ class TransformerLM(nn.Module):
 
                 def layer(x, p=p, window=0 if is_global else cfg.sliding_window,
                           f=freqs[theta], use_moe=use_moe):
-                    return self._block(p, x, lambda h: self._train_attention(
-                        p["attn"], h, positions, window, f), use_moe)
+                    return self._block(p, x, lambda h, pa: self._train_attention(
+                        pa, h, positions, window, f), use_moe)
 
                 x, a = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
                 stack_aux = stack_aux + a
             aux = aux + stack_aux
             offset += n
-        _, norm = make_norm(cfg.norm)
-        return norm(self.ln_f, x), aux
+        return self._final_norm(x), aux
 
     def _chunked_ce(self, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                     chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -364,13 +385,14 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         _, norm = make_norm(cfg.norm)
         p = self.mtp.tree()
+        head = gather_tree({"ln": p["ln"], "proj": p["proj"]})
         next_tok = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        emb_next = embed_lookup(self.embed, next_tok, cfg.embed_scale, cfg.cdtype)
-        h_in = torch.cat([norm(p["ln"], h), emb_next], dim=-1) @ p["proj"].to(h.dtype)
+        emb_next = embed_lookup(gather(self.embed), next_tok, cfg.embed_scale, cfg.cdtype)
+        h_in = torch.cat([norm(head["ln"], h), emb_next], dim=-1) @ head["proj"].to(h.dtype)
         positions = torch.arange(h_in.shape[1], device=self.device)
         freqs = rope_freqs(self._rope_dim(), cfg.rope_theta, device=self.device)
-        h_out, _ = self._block(p["layer"], h_in, lambda a: self._train_attention(
-            p["layer"]["attn"], a, positions, 0, freqs))
+        h_out, _ = self._block(p["layer"], h_in, lambda a, pa: self._train_attention(
+            pa, a, positions, 0, freqs))
         labels = torch.cat([tokens[:, 2:], tokens[:, -2:]], dim=1)
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -2:] = 0.0
@@ -378,33 +400,35 @@ class TransformerLM(nn.Module):
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None,
+                *, capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process prompts ``tokens`` (B, S), after ``patch_embeds`` (B, P, d)
         when given (vlm); returns (last-position logits (B, V), cache with
-        capacity P + S and ``pos`` = P + S)."""
+        capacity P + S, or ``capacity`` positions where given, and ``pos`` =
+        P + S)."""
         cfg = self.cfg
         x = self._embed_inputs(tokens, patch_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
-        cache = self.empty_cache(B, S)
+        if capacity is not None and capacity < S:
+            raise ValueError(f"a cache of capacity {capacity} cannot hold {S} positions")
+        cache = self.empty_cache(B, capacity or S)
         for p, window, freqs, group, i, use_moe in self._layer_args():
-            def attn(h, p=p, c=cache[group], i=i, window=window, freqs=freqs):
+            def attn(h, pa, c=cache[group], i=i, window=window, freqs=freqs):
                 if cfg.attn_type == "mla":
-                    a, latent, k_rope = mla_prefill(p["attn"], h, cfg, positions=positions,
+                    a, latent, k_rope = mla_prefill(pa, h, cfg, positions=positions,
                                                     freqs=freqs)
-                    c["latent"][i].copy_(latent)
-                    c["k_rope"][i].copy_(k_rope)
+                    c["latent"][i][:, :S].copy_(latent)
+                    c["k_rope"][i][:, :S].copy_(k_rope)
                     return a
-                a, k, v = gqa_prefill(p["attn"], h, cfg, positions=positions,
+                a, k, v = gqa_prefill(pa, h, cfg, positions=positions,
                                       window=window, freqs=freqs)
-                c["k"][i].copy_(k)
-                c["v"][i].copy_(v)
+                c["k"][i][:, :, :S].copy_(k)
+                c["v"][i][:, :, :S].copy_(v)
                 return a
 
             x = self._block(p, x, attn, use_moe)[0]
-        _, norm = make_norm(cfg.norm)
-        logits = self._logits(norm(self.ln_f, x[:, -1:, :]))
+        logits = self._logits(self._final_norm(x[:, -1:, :]))
         cache["pos"].fill_(S)
         return logits[:, 0], cache
 
@@ -442,13 +466,12 @@ class TransformerLM(nn.Module):
         for p, window, freqs, group, i, use_moe in self._layer_args():
             c = cache[group]
             if cfg.attn_type == "mla":
-                def attn(h, p=p, rows=c["kv"][i], f=freqs):
-                    return mla_decode(p["attn"], h, rows, pos, cfg, freqs=f)
+                def attn(h, pa, rows=c["kv"][i], f=freqs):
+                    return mla_decode(pa, h, rows, pos, cfg, freqs=f)
             else:
-                def attn(h, p=p, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
-                    return gqa_decode(p["attn"], h, kc, vc, pos, cfg, window=w, freqs=f)
+                def attn(h, pa, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
+                    return gqa_decode(pa, h, kc, vc, pos, cfg, window=w, freqs=f)
             x = self._block(p, x, attn, use_moe)[0]
-        _, norm = make_norm(cfg.norm)
-        logits = self._logits(norm(self.ln_f, x))
+        logits = self._logits(self._final_norm(x))
         cache["pos"] = pos + 1
         return logits[:, 0], cache

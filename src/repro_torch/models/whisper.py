@@ -53,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
+from ..distributed.sharding import gather, gather_tree
 from ..kernels import ops
 from .attention import _heads, _out_proj
 from .common import Initializer, ParamTree, cross_entropy_loss, layernorm, stack_init
@@ -119,6 +120,7 @@ def _attend(p, xq: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bo
 
 
 def _enc_layer(p, x: torch.Tensor) -> torch.Tensor:
+    p = gather_tree(p)
     h = _ln(p["ln1"], x)
     x = x + _attend(p["attn"], h, *_kv(p["attn"], h), causal=False)
     return x + _mlp(p["mlp"], _ln(p["ln2"], x))
@@ -126,6 +128,7 @@ def _enc_layer(p, x: torch.Tensor) -> torch.Tensor:
 
 def _dec_layer(p, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
     """A decoder layer over the whole text, as training runs it."""
+    p = gather_tree(p)
     xq = _ln(p["ln1"], x)
     h = x + _attend(p["self_attn"], xq, *_kv(p["self_attn"], xq), causal=True)
     h = h + _attend(p["cross_attn"], _ln(p["ln_x"], h), *_kv(p["cross_attn"], enc),
@@ -198,13 +201,13 @@ class WhisperModel(nn.Module):
         return self._layers
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return h @ self.embed.t().to(h.dtype)
+        return h @ gather(self.embed).t().to(h.dtype)
 
     def _embed_tokens(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         """Token embeddings plus the learned positions ``positions`` (S,)."""
         cdtype = self.cfg.cdtype
-        x = F.embedding(token_ids(tokens, self.device), self.embed).to(cdtype)
-        return x + self.dec_pos.index_select(0, positions).to(cdtype)[None]
+        x = F.embedding(token_ids(tokens, self.device), gather(self.embed)).to(cdtype)
+        return x + gather(self.dec_pos).index_select(0, positions).to(cdtype)[None]
 
     # ---- encoder ------------------------------------------------------------
     @torch.inference_mode()
@@ -221,13 +224,13 @@ class WhisperModel(nn.Module):
         cdtype = self.cfg.cdtype
         x = torch.as_tensor(frames).to(device=self.device, dtype=cdtype)
         S = x.shape[1]
-        pos = self.enc_pos
+        pos = gather(self.enc_pos)
         if S != pos.shape[0]:
             pos = pos.repeat(-(-S // pos.shape[0]), 1)[:S]
         x = x + pos.to(cdtype)[None]
         for p in layers:
             x = checkpoint(_enc_layer, p, x, use_reentrant=False) if remat else _enc_layer(p, x)
-        return _ln(self.ln_enc, x)
+        return _ln(gather_tree(self.ln_enc), x)
 
     # ---- serving ------------------------------------------------------------
     @torch.inference_mode()
@@ -242,6 +245,7 @@ class WhisperModel(nn.Module):
         x = self._embed_tokens(tokens, torch.arange(S, device=self.device))
         cache = self._alloc_cache(B, S, enc.shape[1])
         for i, p in enumerate(self._layer_views()[1]):
+            p = gather_tree(p)
             xq = _ln(p["ln1"], x)
             k, v = _kv(p["self_attn"], xq)
             cache["k"][i].copy_(k)
@@ -252,7 +256,7 @@ class WhisperModel(nn.Module):
             cache["cv"][i].copy_(cv)
             h = h + _attend(p["cross_attn"], _ln(p["ln_x"], h), ck, cv, causal=False)
             x = h + _mlp(p["mlp"], _ln(p["ln2"], h))
-        logits = self._logits(_ln(self.ln_dec, x[:, -1:]))
+        logits = self._logits(_ln(gather_tree(self.ln_dec), x[:, -1:]))
         cache["pos"].fill_(S)
         return logits[:, 0], cache
 
@@ -293,6 +297,7 @@ class WhisperModel(nn.Module):
             self._cross_pos[S_audio] = cross_pos
         x = self._embed_tokens(tokens, at)
         for i, p in enumerate(self._layer_views()[1]):
+            p = gather_tree(p)
             sa, ca = p["self_attn"], p["cross_attn"]
             xq = _ln(p["ln1"], x)
             k_new, v_new = _kv(sa, xq)
@@ -305,7 +310,7 @@ class WhisperModel(nn.Module):
             o = ops.decode_attention(q, cache["ck"][i], cache["cv"][i], cross_pos)
             h = h + _out(ca, o.view(B, H, 1, hd))
             x = h + _mlp(p["mlp"], _ln(p["ln2"], h))
-        logits = self._logits(_ln(self.ln_dec, x))
+        logits = self._logits(_ln(gather_tree(self.ln_dec), x))
         cache["pos"] = pos + 1
         return logits[:, 0], cache
 
@@ -327,7 +332,7 @@ class WhisperModel(nn.Module):
         for p in _unstack(self.dec_layers.tree(), cfg.n_layers):
             x = checkpoint(_dec_layer, p, x, enc, use_reentrant=False) if remat \
                 else _dec_layer(p, x, enc)
-        logits = self._logits(_ln(self.ln_dec, x))
+        logits = self._logits(_ln(gather_tree(self.ln_dec), x))
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -1] = 0.0

@@ -1321,3 +1321,104 @@ def test_zamba2_on_card_matches_cpu(card):
     torch.cuda.synchronize()
     assert int(caches[1]["pos"]) == S + 3 and torch.isfinite(got).all()
     assert da.launches == before + n_inv * (S + 3)
+
+
+# ------------------------------------------------ the sharded steps on the card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_qwens_group_of_6(card, dtype):
+    """qwen2.5-14b's 48 heads (40 + 8 zero) over 8 KV heads: the flash
+    forward at group 6 and the decode kernel at group 6, which serves 2
+    heads a CTA, each against its plain version at head width 128."""
+    assert da.heads_per_block(6, 128) == 2
+    rng = np.random.default_rng(6)
+    B, KV, g, S, hd = 2, 8, 6, 300, 128
+    q = _normal(rng, (B, KV * g, S, hd), dtype, card)
+    k, v = (_normal(rng, (B, KV, S, hd), dtype, card) for _ in range(2))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(q, k, v, causal=True).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    qd = _normal(rng, (B, KV * g, hd), dtype, card)
+    for pos in (0, 170, S - 1):
+        p = torch.tensor(pos, dtype=torch.int32, device=card)
+        want = ref.decode_attention_ref(qd.reshape(B, KV, g, hd), k, v, p)
+        before = da.launches
+        out = ops.decode_attention(qd, k, v, p)
+        torch.cuda.synchronize()
+        assert da.launches == before + 1
+        torch.testing.assert_close(out.float(), want.reshape(B, KV * g, hd).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _one_rank_nccl_mesh():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def test_dp_step_on_a_one_rank_nccl_mesh_is_make_step(card, one_rank_group):
+    """The ``dp`` train step on a one-rank NCCL mesh: its metrics and updated
+    parameters bit-equal to ``train.loop.make_step``'s on the same weights
+    and batch (reduced olmo in bf16 through the kernels)."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = get_config("olmo_1b").reduced().with_(param_dtype="bfloat16",
+                                                compute_dtype="bfloat16", remat=True)
+    adamw = optim.AdamWConfig(lr=1e-3, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab, (4, 256))
+                            .astype(np.int32))
+    a = build_model(cfg, device=card, seed=3)
+    b = build_model(cfg, device=card, seed=3)
+    a.requires_grad_(True)
+    pa = a.param_tree()
+    _, _, ma = make_step(a, adamw)(pa, optim.init_state(pa, adamw), {"tokens": toks})
+    step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
+        b, mesh, ShapeSpec("t", "train", 256, 4), adamw=adamw, strategy="dp")
+    steps.shard_model(b, mesh, ppl)
+    before = fa.bwd_launches
+    _, _, mb = step(b.param_tree(), steps.init_opt_state(ometa, mesh, opl, card),
+                    {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + cfg.n_layers
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    got = flatten(b.param_tree(), "p")
+    for name, t in flatten(pa, "p").items():
+        assert torch.equal(t.detach(), got[name].detach()), name
+
+
+def test_moe_ffn_ep_at_one_rank_is_the_dense_dispatch(card, one_rank_group):
+    """``moe_ffn_ep`` on a one-rank ``model`` group against ``moe_ffn`` at a
+    capacity factor where no route drops (reduced deepseek-v3, bf16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.moe_ep import moe_ffn_ep
+    from repro_torch.models.common import Initializer
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = get_config("deepseek_v3_671b").reduced().with_(param_dtype="bfloat16",
+                                                          compute_dtype="bfloat16")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts),
+                                            dispatch_chunks=2))
+    p = init_moe(Initializer(card, cfg.pdtype, 0), cfg)
+    x = _normal(np.random.default_rng(5), (2, 64, cfg.d_model), torch.bfloat16, card)
+    with torch.inference_mode():
+        y, aux = moe_ffn(p, x, cfg)
+        y_ep, aux_ep = moe_ffn_ep(p, x, cfg, mesh)
+    torch.testing.assert_close(y_ep.float(), y.float(), rtol=2e-2,
+                               atol=2e-2 * float(y.float().abs().max()))
+    torch.testing.assert_close(aux_ep, aux)

@@ -1,0 +1,277 @@
+"""The port's sharded steps (``distributed/steps.py``) on a one-rank gloo mesh
+against the JAX package's, jitted with their shardings on a one-device
+``("data", "model")`` mesh: one train step of reduced OLMo, InternLM2 and
+DeepSeek-V3 (with and without ``moe_ep``) over ``tp`` and ``dp``, 1 and 2
+microbatches, ``grad_dtype`` None and bfloat16; the prefill and decode
+steps of a reduced dense model and of Mamba2. The weights are the port's
+init from a seed, handed to the JAX package as numpy arrays (the
+reference's own init folds in a salted hash and compiles for seconds), the
+attention tempered as ``tests/test_torch_moe.py`` tempers it."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import Mesh
+
+from repro.checkpoint.store import _leaf_name
+from repro.configs import get_config as jax_config
+from repro.distributed import optimizer as jopt
+from repro.distributed import steps as jsteps
+from repro.launch.shapes import ShapeSpec as JShape
+from repro.models import build_model as jax_build
+from repro_torch.checkpoint.store import flatten
+from repro_torch.configs import get_config
+from repro_torch.distributed import optimizer as topt
+from repro_torch.distributed import steps as tsteps
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import ShapeSpec
+from repro_torch.models import build_model
+from repro_torch.models.convert import load_params, params_from_jax
+from repro_torch.train.loop import make_step
+
+LR = 1e-4
+METRIC_TOL = 1e-4  # rtol of loss, ce, aux, mtp, acc and grad_norm
+PARAM_ATOL = 2.2 * LR  # a first step moves an entry by ~lr·sign(g): a flipped sign is 2·lr
+OFF_SHARE = 2e-3  # of entries past rtol 1e-4 / atol 1e-6 (near-zero gradients)
+MOMENT_TOL = 1e-4  # of each moment's largest entry
+B, S = 4, 32
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    """A one-rank gloo group and its (1, 1) mesh, gone after the file; torch
+    on one thread meanwhile (the models are tiny, and the suite's other
+    workers share the cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)
+
+
+def _jax_mesh():
+    return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+
+
+def _temper(params, cfg):
+    """``tests/test_torch_moe.py:_temper`` over the stacks a config has
+    (numpy leaves)."""
+    H = cfg.n_heads
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        factors = {"wq_b": H / m.q_lora_rank, "wkv_b": H / m.kv_lora_rank, "wo": 1 / H}
+    else:
+        KV, d = cfg.n_kv_heads, cfg.d_model
+        factors = {"wq": H / d, "wk": KV / d, "wv": KV / d, "wo": 1 / H}
+    out = dict(params)
+    for stack in ("dense_layers", "moe_layers"):
+        if stack in params:
+            attn = {k: v * factors[k] ** 0.5 if k in factors else v
+                    for k, v in params[stack]["attn"].items()}
+            out[stack] = {**params[stack], "attn": attn}
+    return out
+
+
+def _pair(arch, **moe):
+    jcfg, tcfg = jax_config(arch).reduced(), get_config(arch).reduced()
+    if moe:
+        jcfg = jcfg.with_(moe=dataclasses.replace(jcfg.moe, **moe))
+        tcfg = tcfg.with_(moe=dataclasses.replace(tcfg.moe, **moe))
+    jmodel = jax_build(jcfg)
+    port = build_model(tcfg, device="cpu")
+    params = _numpy(port.param_tree())
+    if jcfg.family != "ssm":
+        params = _temper(params, jcfg)
+    load_params(port, params_from_jax(params))
+    return jcfg, jmodel, params, port
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().numpy().copy()
+
+
+def jflatten(tree, prefix):
+    return {_leaf_name(path, prefix): x for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _np(x):
+    if is_dtensor(x):
+        x = x.full_tensor()
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy() if x.dtype != torch.int8 else x.numpy()
+    return np.asarray(x)
+
+
+def _params_close(got, want):
+    off = size = 0
+    for name, g in got.items():
+        np.testing.assert_allclose(g, want[name], rtol=0, atol=PARAM_ATOL, err_msg=name)
+        off += int((~np.isclose(g, want[name], rtol=1e-4, atol=1e-6)).sum())
+        size += g.size
+    assert off <= OFF_SHARE * size, f"{off} of {size} entries past rtol 1e-4"
+
+
+TRAIN = [
+    ("olmo_1b", "tp", 1, None, False),
+    ("olmo_1b", "dp", 2, "bfloat16", False),
+    ("internlm2_1_8b", "dp", 1, None, False),
+    ("internlm2_1_8b", "tp", 2, "bfloat16", False),
+    ("deepseek_v3_671b", "tp", 1, None, False),
+    ("deepseek_v3_671b", "dp", 2, "bfloat16", False),
+    ("deepseek_v3_671b", "tp", 1, None, True),
+]
+
+
+@pytest.mark.parametrize("arch,strategy,microbatches,grad_dtype,moe_ep", TRAIN,
+                         ids=["-".join(map(str, c)) for c in TRAIN])
+def test_train_step_matches_jax(mesh, arch, strategy, microbatches, grad_dtype, moe_ep):
+    """Metrics, parameters and optimizer state after one step, each package's
+    step from the same weights and batch (deepseek's capacity high enough
+    that no route drops, so the expert-parallel and the dense dispatch
+    agree)."""
+    moe = {"capacity_factor": 8.0} if arch.startswith("deepseek") else {}
+    jcfg, jmodel, params, port = _pair(arch, **moe)
+    kw = dict(lr=LR, warmup_steps=0, total_steps=10, moment_dtype=jcfg.opt_moment_dtype)
+    toks = np.random.default_rng(7).integers(1, jcfg.vocab, (B, S)).astype(np.int32)
+    step_kw = dict(strategy=strategy, microbatches=microbatches, grad_dtype=grad_dtype,
+                   moe_ep=moe_ep)
+
+    jstep, in_sh, out_sh, _ = jsteps.make_train_step(
+        jmodel, _jax_mesh(), JShape("t", "train", S, B), adamw=jopt.AdamWConfig(**kw), **step_kw)
+    jstate = jax.jit(lambda p: jopt.init_state(p, jopt.AdamWConfig(**kw)))(params)
+    jp, js, jm = jax.jit(jstep, in_shardings=in_sh, out_shardings=out_sh)(
+        params, jstate, {"tokens": jnp.asarray(toks)})
+
+    tstep, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
+        port, mesh, ShapeSpec("t", "train", S, B), adamw=topt.AdamWConfig(**kw), **step_kw)
+    tsteps.shard_model(port, mesh, ppl)
+    tstate = tsteps.init_opt_state(ometa, mesh, opl, "cpu")
+    tp, ts, tm = tstep(port.param_tree(), tstate, {"tokens": torch.from_numpy(toks)})
+
+    assert set(tm) == set(jm)
+    for k in tm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=METRIC_TOL, atol=1e-7,
+                                   err_msg=k)
+    want = {n: np.asarray(x, np.float32) for n, x in jflatten(jax.device_get(jp),
+                                                              "param").items()}
+    _params_close({n: _np(x) for n, x in flatten(tp, "param").items()}, want)
+    jflat = jflatten(jax.device_get(js), "opt")
+    tflat = flatten(ts, "opt")
+    assert set(tflat) == set(jflat) and int(_np(ts["step"])) == 1
+    # a bf16 gradient may round one ulp (2^-8) apart: m by that, v = 0.05·g² twice
+    # that, an int8 code and its block's scale by one more
+    flip = 2 ** -6 if grad_dtype else 0
+    for name, t in tflat.items():
+        got, exp = _np(t), np.asarray(jflat[name])
+        if got.dtype == np.int8:
+            gap = np.abs(got.astype(np.int32) - exp.astype(np.int32)).max()
+            assert gap <= (2 if grad_dtype else 1), name
+        elif name.endswith("scale"):
+            np.testing.assert_allclose(got, exp, rtol=max(1e-2, flip), atol=1e-12, err_msg=name)
+        elif got.ndim:
+            np.testing.assert_allclose(got, exp, rtol=flip,
+                                       atol=MOMENT_TOL * max(np.abs(exp).max(), 1e-12),
+                                       err_msg=name)
+
+
+def test_dp_step_is_make_steps_arithmetic_on_one_rank(mesh):
+    """On one rank the ``dp`` step communicates nothing and adds no
+    rounding: metrics and updated parameters bit-equal to ``make_step``'s."""
+    _, _, _, a = _pair("olmo_1b")
+    _, _, _, b = _pair("olmo_1b")  # the same weights: one process's init
+    adamw = topt.AdamWConfig(lr=LR, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(1, 512, (B, S)).astype(np.int32))
+    a.requires_grad_(True)
+    pa = a.param_tree()
+    _, _, ma = make_step(a, adamw)(pa, topt.init_state(pa, adamw), {"tokens": toks})
+    step, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
+        b, mesh, ShapeSpec("t", "train", S, B), adamw=adamw, strategy="dp")
+    tsteps.shard_model(b, mesh, ppl)
+    _, _, mb = step(b.param_tree(), tsteps.init_opt_state(ometa, mesh, opl, "cpu"),
+                    {"tokens": toks})
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    for (name, x), (_, y) in zip(flatten(pa, "p").items(), flatten(b.param_tree(), "p").items()):
+        assert torch.equal(x.detach(), y.detach()), name
+
+
+def test_train_step_refuses_a_batch_that_does_not_split(mesh):
+    _, _, _, port = _pair("olmo_1b")
+    step, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
+        port, mesh, ShapeSpec("t", "train", S, B), microbatches=3)
+    tsteps.shard_model(port, mesh, ppl)
+    state = tsteps.init_opt_state(ometa, mesh, opl, "cpu")
+    with pytest.raises(ValueError, match="4 rows a rank do not split into 3 microbatches"):
+        step(port.param_tree(), state, {"tokens": torch.ones((B, S), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m"])
+def test_prefill_and_decode_steps_match_jax(mesh, arch):
+    """The reference's prefill and decode steps (jitted with their
+    shardings) and the port's: the prompt's first S - 1 tokens right-padded
+    to the capacity (the engine's way to make room), ``pos`` rewound, then
+    three decode steps; logits at each, and the caches the port hands back
+    keep the placements they took."""
+    jcfg, jmodel, params, port = _pair(arch)
+    cap = S + 4
+    prompts = np.random.default_rng(9).integers(1, jcfg.vocab, (B, S)).astype(np.int32)
+    ssm = jcfg.family == "ssm"
+    toks = prompts if ssm else np.concatenate(
+        [prompts[:, :S - 1], np.zeros((B, cap - S + 1), np.int32)], 1)
+    jmesh = _jax_mesh()
+    pre, psh, _, _ = jsteps.make_prefill_step(jmodel, jmesh, JShape("p", "prefill", toks.shape[1],
+                                                                    B))
+    dec, dsh, dout, _ = jsteps.make_decode_step(jmodel, jmesh, JShape("d", "decode", cap, B))
+    jlog, jcache = jax.jit(pre, in_shardings=psh)(params, {"tokens": jnp.asarray(toks)})
+    shape = ShapeSpec("p", "prefill", toks.shape[1], B)
+    tpre, (ppl, _), _, _ = tsteps.make_prefill_step(port, mesh, shape)
+    tdec, (_, cpl, _), _, _ = tsteps.make_decode_step(port, mesh,
+                                                      ShapeSpec("d", "decode", cap, B))
+    tsteps.shard_model(port, mesh, ppl)
+    with torch.inference_mode():
+        tlog, tcache = tpre(port.param_tree(), {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(tlog), np.asarray(jlog), rtol=1e-4, atol=1e-4)
+    nxt = prompts[:, -1:]
+    if not ssm:
+        jcache = dict(jcache, pos=jnp.asarray(S - 1, jnp.int32))
+        tcache["pos"] = torch.tensor(S - 1, dtype=torch.int32)
+        nxt = prompts[:, S - 1:S]
+    jdec = jax.jit(dec, in_shardings=dsh, out_shardings=dout)
+    placed = {p: t.placements for p, t in tsteps._leaves_with_paths(tcache) if is_dtensor(t)}
+    for _ in range(3):
+        jlog, jcache = jdec(params, jcache, jnp.asarray(nxt))
+        with torch.inference_mode():
+            tlog, tcache = tdec(port.param_tree(), tcache, torch.from_numpy(nxt))
+        np.testing.assert_allclose(_np(tlog), np.asarray(jlog), rtol=1e-4, atol=1e-4)
+        nxt = np.asarray(jnp.argmax(jlog, -1))[:, None].astype(np.int32)
+        assert {p: t.placements for p, t in tsteps._leaves_with_paths(tcache)
+                if is_dtensor(t)} == placed
+    assert int(tcache["pos"]) == int(jcache["pos"])
+
+
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_initial_state_is_init_states(mesh, moments):
+    """The sharded optimizer state starts as ``optimizer.init_state``'s:
+    zero moments (a norm's ``scale`` leaf too), a quantized moment's scale
+    at 1e-12, step 0."""
+    port = build_model(get_config("internlm2_1_8b").reduced(), device="cpu")
+    adamw = topt.AdamWConfig(moment_dtype=moments)
+    for strategy in ("tp", "dp"):
+        _, (_, opl, _), _, (_, ometa) = tsteps.make_train_step(
+            port, mesh, ShapeSpec("t", "train", S, B), adamw=adamw, strategy=strategy)
+        got = flatten(tsteps.init_opt_state(ometa, mesh, opl, "cpu"), "opt")
+        want = flatten(topt.init_state(port.param_tree(), adamw), "opt")
+        assert set(got) == set(want) and any("scale" in n for n in got)
+        for name, t in want.items():
+            g = got[name].full_tensor() if is_dtensor(got[name]) else got[name]
+            assert g.dtype == t.dtype and torch.equal(g, t), (strategy, name)

@@ -391,6 +391,9 @@ BF16_FLOPS = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside the tensor cores
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of each gradient's largest |entry|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:19
+# a slice's log-sum-exp, absolute: its weight in a combine within 0.1% (both sides
+# sum the same f32 scores in another order)
+LSE_TOL = 1e-3
 # ssd_scan: f32 as tests/test_kernels.py:79 (rtol 1e-3, atol 1e-4); bf16 2e-2 of the
 # output's scale (kernel and plain version both compute in f32 and differ in the
 # order of their sums; y is rounded once to bf16, 2**-8 relative); the f32 final
@@ -668,11 +671,50 @@ def _timings(torch, kernel, plain, library, flush, nbytes, flops, events=None,
     }
 
 
+def _atol(tol: float, want) -> float:
+    """``tol`` of the output's scale where that is below 1: a long cache's
+    attention is ~1/sqrt(live rows), so a flat ``tol`` would pass a zero
+    output; never looser than ``tol``."""
+    return tol * min(1.0, float(want.abs().max())) if want.numel() else tol
+
+
+def _close(torch, got, want, tol: float) -> bool:
+    """``got`` within ``tol`` of ``want`` relative to each entry, and to the
+    output's scale (``_atol``)."""
+    want = want.float()
+    return bool(torch.allclose(got.float(), want, rtol=tol, atol=_atol(tol, want)))
+
+
+def _lse_close(torch, got, want) -> bool:
+    """Log-sum-exps within ``LSE_TOL``, -inf (no live row) on the same heads."""
+    dead = torch.isneginf(want)
+    return bool(torch.equal(torch.isneginf(got), dead)
+                and ((got - want).abs()[~dead] <= LSE_TOL).all())
+
+
+def _gate_power(torch, outs, lses, whole, tol: float) -> dict:
+    """What the combined-against-whole gate reads for two broken kernels on
+    this run's partials: every partial 0, and every odd slice dropped (its
+    LSE -inf); the gate must refuse both (``gate_sees_broken``)."""
+    from repro_torch.kernels import ref
+
+    dropped = lses.clone()
+    dropped[1::2] = float("-inf")
+    odd = ref.combine_partials(outs, dropped).to(whole.dtype)
+    zero = torch.zeros_like(whole)
+    return {"zeroed_vs_whole_max_abs": float(whole.float().abs().max()),
+            "dropped_odd_vs_whole_max_abs": float((odd.float() - whole.float()).abs().max()),
+            "gate_atol": _atol(tol, whole.float()),
+            "gate_sees_broken": not _close(torch, zero, whole, tol)
+            and not _close(torch, odd, whole, tol)}
+
+
 def _check_close(torch, name, row, out, plain):
     tol = ATTN_TOL[row["dtype"]]
     row["max_abs_err"] = float((out.float() - plain.float()).abs().max()) if out.numel() else 0.0
     row["tolerance"] = tol
-    ok = bool(torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol))
+    row["atol"] = _atol(tol, plain.float())
+    ok = _close(torch, out, plain, tol)
     log(f"[kernels] {name} {json.dumps(row)}")
     if not ok:
         raise SystemExit(f"chip_smoke: {name} differs from its plain version: {row}")
@@ -851,6 +893,11 @@ def phase_attention(torch) -> tuple:
         # which the kernel serves 2 heads a CTA
         ("qwen_decode", 8, 8, 6, 576, 128, 575, "bfloat16", 0, False, True),
         ("edge_g6_bf16", 2, 8, 6, 300, 128, 299, "bfloat16", 0, True, False),
+        # phase 25: gemma3-12b at long_500k, the whole 524,288-row cache on one card,
+        # a global layer and a local one (window 1,024)
+        ("gemma3_long_500k", 1, 8, 2, 524288, 256, 524287, "bfloat16", 0, False, True),
+        ("gemma3_long_500k_local", 1, 8, 2, 524288, 256, 524287, "bfloat16", 1024, False,
+         False),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed, *dv in decode_cases:
@@ -861,14 +908,26 @@ def phase_attention(torch) -> tuple:
         v = k[..., :dv] if dv != hd else randn((B, KV, S, hd), dt)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
         out = ops.decode_attention(q, k, v, p, window=window, scale=scale)
+        # the slice call over the whole cache (kv_start 0, the LSE): its f32 partial,
+        # rounded to q's dtype, is the whole-cache call's output bit for bit; and a
+        # repeat of the call is too
+        part, _ = ops.decode_attention(q, k, v, p, window=window, scale=scale, return_lse=True)
+        again = ops.decode_attention(q, k, v, p, window=window, scale=scale)
         torch.cuda.synchronize()
+        slice_equal = bool(torch.equal(part.to(q.dtype), out))
+        repeat_equal = bool(torch.equal(again, out))
+        del part, again
         plain = ref.decode_attention_ref(q.reshape(B, KV, g, hd), k, v, p, window=window,
                                          scale=scale).reshape(B, KV * g, dv)
         cluster, keys = decode_attention.geometry(
             B, KV, g, S, torch.cuda.get_device_properties(dev).multi_processor_count, hd)
         row = {"case": label, "shape": {"q": [B, KV * g, hd], "kv": [B, KV, S, hd]},
                "dtype": dt, "pos": pos, "window": window, "cluster": cluster,
-               "keys_per_cta": keys}
+               "keys_per_cta": keys, "slice_call_bit_equal": slice_equal,
+               "repeat_bit_equal": repeat_equal}
+        if not (slice_equal and repeat_equal):
+            raise SystemExit(f"chip_smoke: decode_attention's slice call at kv_start 0 or a "
+                             f"repeat is not the whole-cache call bit for bit: {row}")
         if dv != hd:
             row["shape"]["v"] = f"k[..., :{dv}]"
             row["scale"] = scale
@@ -907,7 +966,142 @@ def phase_attention(torch) -> tuple:
             ))
         _check_close(torch, "decode_attention", row, out, plain)
         decode_rows.append(row)
+        del q, k, v, out, plain
+    decode_rows += _decode_slice_rows(torch, randn, flush)
     return flash_rows, decode_rows
+
+
+#: (label, B, KV, g, S, dk, dv, pos, window, slices): the cuts of a cache that the
+#: split serve steps give the decode kernel; qwen2.5-14b's decode at phase 24's last
+#: step as a model axis of 16 stores it, gemma3-12b's long_500k (phase 25) as 4 ranks
+#: and as the production mesh's 256 (data × model) store it, global and local, and
+#: deepseek-v3's absorbed MLA decode at 16
+SLICE_CASES = [
+    ("slices_qwen_decode_16", 8, 8, 6, 576, 128, 128, 575, 0, 16),
+    ("slices_gemma3_long_500k_4", 1, 8, 2, 524288, 256, 256, 524287, 0, 4),
+    ("slices_gemma3_long_500k_256", 1, 8, 2, 524288, 256, 256, 524287, 0, 256),
+    ("slices_gemma3_long_500k_local_4", 1, 8, 2, 524288, 256, 256, 524287, 1024, 4),
+    ("slices_gemma3_long_500k_local_256", 1, 8, 2, 524288, 256, 256, 524287, 1024, 256),
+    ("slices_mla_decode_16", 8, 1, 128, 576, 576, 512, 575, 0, 16),
+]
+
+
+def _decode_slice_rows(torch, randn, flush) -> list:
+    """The decode kernel's slice call (``kv_start``, the LSE) on each cut of
+    ``SLICE_CASES``, every slice of it: the partials combined
+    (``ref.combine_partials``) and held to the whole-cache call and to the
+    plain version within ``ATTN_TOL`` of each entry and of the output's scale
+    (``_close``), the gate shown to refuse all partials 0 and the odd slices
+    dropped (``_gate_power``), a slice with no live row weighing 0 (partial
+    0, LSE -inf), the live slice held to its plain version (its LSE within
+    ``LSE_TOL``) and bit-equal to itself twice; times of the slice holding
+    ``pos`` beside its plain version, SDPA over the same slice and its bound
+    (its live bytes)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ops, ref
+
+    dev = torch.device("cuda", 0)
+    rows, caches = [], {}
+    for label, B, KV, g, S, dk, dv, pos, window, R in SLICE_CASES:
+        key = (B, KV, S, dk, dv)
+        if key not in caches:  # gemma3's 524,288-row cache, made once for its four cuts
+            caches.clear()
+            k = randn((B, KV, S, dk), "bfloat16")
+            caches[key] = (k, k[..., :dv] if dv != dk else randn((B, KV, S, dv), "bfloat16"))
+        k, v = caches[key]
+        scale = 192 ** -0.5 if dv != dk else None
+        q = randn((B, KV * g, dk), "bfloat16")
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        whole = ops.decode_attention(q, k, v, p, window=window, scale=scale)
+        n = S // R
+
+        def cut(r):
+            ks = k[:, :, r * n:(r + 1) * n].contiguous()
+            return ks, (ks[..., :dv] if dv != dk else v[:, :, r * n:(r + 1) * n].contiguous())
+
+        outs, lses, dead_ok = [], [], True
+        launched = decode_attention.slice_launches
+        for r in range(R):
+            o, l = ops.decode_attention(q, *cut(r), p, window=window, scale=scale,
+                                        kv_start=r * n, return_lse=True)
+            lo = max(0, pos - window + 1) if window else 0
+            if r * n > pos or (r + 1) * n <= lo:  # no live row: weight 0
+                dead_ok &= bool((o == 0).all() and torch.isneginf(l).all())
+            outs.append(o)
+            lses.append(l)
+        torch.cuda.synchronize()
+        launched = decode_attention.slice_launches - launched
+        outs, lses = torch.stack(outs), torch.stack(lses)
+        merged = ref.combine_partials(outs, lses).to(q.dtype)
+        tol = ATTN_TOL["bfloat16"]
+        power = _gate_power(torch, outs, lses, whole, tol)
+        del outs, lses
+        plain = ref.decode_attention_ref(q.reshape(B, KV, g, dk), k, v, p, window=window,
+                                         scale=scale).reshape(B, KV * g, dv)
+        live_r = pos // n
+        ks, vs = cut(live_r)
+        o1, l1 = ops.decode_attention(q, ks, vs, p, window=window, scale=scale,
+                                      kv_start=live_r * n, return_lse=True)
+        o2, l2 = ops.decode_attention(q, ks, vs, p, window=window, scale=scale,
+                                      kv_start=live_r * n, return_lse=True)
+        po, pl_ = ref.decode_attention_ref(q.reshape(B, KV, g, dk), ks, vs, p, window=window,
+                                           scale=scale, kv_start=live_r * n, return_lse=True)
+        torch.cuda.synchronize()
+        row = {"case": label, "shape": {"q": [B, KV * g, dk], "kv": [B, KV, S, dk]},
+               "dtype": "bfloat16", "pos": pos, "window": window, "slices": R,
+               "rows_per_slice": n, "timed_slice": live_r, "kv_start": live_r * n,
+               "slice_launches": launched, "dead_slices_weigh_0": dead_ok,
+               "combined_vs_whole_max_abs": float((merged.float() - whole.float()).abs().max()),
+               "combined_vs_plain_max_abs": float((merged.float() - plain.float()).abs().max()),
+               "live_slice_vs_plain_max_abs": float((o1 - po.reshape(o1.shape)).abs().max()),
+               "live_slice_lse_vs_plain_max_abs":
+                   float((l1 - pl_.reshape(l1.shape)).abs().max()),
+               "repeat_bit_equal": bool(torch.equal(o1, o2) and torch.equal(l1, l2)),
+               "cluster_keys_per_cta": list(decode_attention.geometry(
+                   B, KV, g, n, torch.cuda.get_device_properties(dev).multi_processor_count, dk)),
+               **power}
+        if dv != dk:
+            row["shape"]["v"] = f"k[..., :{dv}]"
+            row["scale"] = scale
+        lo = max(0, pos - window + 1) if window else 0
+        live = min(pos, live_r * n + n - 1) - max(lo, live_r * n) + 1
+        esize = q.element_size()
+        kv_row = dk + (dv if dv == dk else 0)
+        # q once, the slice's live K/V rows once, the f32 partial and LSE written once
+        nbytes = q.numel() * esize + B * KV * live * kv_row * esize + o1.numel() * 4 + l1.numel() * 4
+        flops = 2 * (dk + dv) * B * KV * g * live
+        kpos = live_r * n + torch.arange(n, device=dev)
+        mask = (kpos <= p) & (kpos > p - window) if window else kpos <= p
+        q4 = q.view(B, KV * g, 1, dk)
+        row.update(_timings(
+            torch,
+            lambda: ops.decode_attention(q, ks, vs, p, window=window, scale=scale,
+                                         kv_start=live_r * n, return_lse=True),
+            lambda: ref.decode_attention_ref(q.reshape(B, KV, g, dk), ks, vs, p, window=window,
+                                             scale=scale, kv_start=live_r * n, return_lse=True),
+            lambda: F.scaled_dot_product_attention(q4, ks, vs, attn_mask=mask.view(1, 1, 1, n),
+                                                   enable_gqa=True, scale=scale),
+            flush, nbytes, flops, events=1,
+        ))
+        row["max_abs_err"] = max(row["combined_vs_whole_max_abs"],
+                                 row["combined_vs_plain_max_abs"],
+                                 row["live_slice_vs_plain_max_abs"])
+        row["tolerance"] = tol
+        row["live_slice_atol"] = _atol(tol, po)
+        row["lse_tolerance"] = LSE_TOL
+        log(f"[kernels] decode_attention slices {json.dumps(row)}")
+        ok = (_close(torch, merged, whole, tol) and _close(torch, merged, plain, tol)
+              and _close(torch, o1, po.reshape(o1.shape), tol)
+              and _lse_close(torch, l1, pl_.reshape(l1.shape)) and power["gate_sees_broken"]
+              and dead_ok and row["repeat_bit_equal"] and launched == R)
+        if not ok:
+            raise SystemExit(f"chip_smoke: decode_attention's slices disagree: {row}")
+        rows.append(row)
+        del q, whole, merged, plain, ks, vs, o1, o2, l1, l2, po, pl_
+    caches.clear()
+    torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------- phase 3c
@@ -1493,11 +1687,14 @@ def _plain_attention(heads=None):
 
         return fn(q, k, v) if heads is None else _by_heads(torch, fn, heads, q, k, v)
 
-    def decode(q, k, v, pos, *, window=0, block_s=512, scale=None):
+    def decode(q, k, v, pos, *, window=0, block_s=512, scale=None, kv_start=0,
+               return_lse=False):
         B, H, hd = q.shape
         KV = k.shape[1]
         out = ref.decode_attention_ref(q.reshape(B, KV, H // KV, hd), k, v, pos, window=window,
-                                       scale=scale)
+                                       scale=scale, kv_start=kv_start, return_lse=return_lse)
+        if return_lse:
+            return out[0].reshape(B, H, out[0].shape[-1]), out[1].reshape(B, H)
         return out.reshape(B, H, out.shape[-1])
 
     ops.flash_attention, ops.decode_attention = flash, decode
@@ -4661,11 +4858,46 @@ def _olmo_dp_training(torch, mesh) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _no_gathers(found: list):
+    """Every weight gather (``sharding.gather``/``gather_tree``, as the
+    models call them) noted in ``found`` and refused while inside."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+
+    kept = {}
+    for mod in (sharding, transformer):
+        for name in ("gather", "gather_tree"):
+            kept[(mod, name)] = getattr(mod, name)
+
+            def refuse(*args, _name=name, **kw):
+                found.append(_name)
+                raise SystemExit(f"chip_smoke: a split serve step called sharding.{_name}")
+            setattr(mod, name, refuse)
+    try:
+        yield found
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+
+
+def _cache_storage(torch, cache) -> dict:
+    """{leaf: the data pointer of this rank's block} of a cache's DTensors."""
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import is_dtensor
+
+    return {k: t.to_local().data_ptr() for k, t in steps._leaves_with_paths(cache)
+            if is_dtensor(t)}
+
+
 def _qwen_serving(torch, mesh) -> dict:
     """qwen2.5-14b at full size (48 heads, 8 of them zero) through
     ``make_prefill_step``/``make_decode_step`` with the ``tp`` tables on the
-    one-rank mesh: 8 prompts of 512 tokens and 64 greedy decode steps, the
-    first logits against plain attention's."""
+    one-rank mesh, the Megatron split (``distributed/tensor_parallel.py``):
+    8 prompts of 512 tokens and 64 greedy decode steps, no weight gathered,
+    the cache's storage kept, every decode launch a slice call (``kv_start``,
+    the LSE); tokens equal to the model's own ``decode_step``'s, the first
+    logits against plain attention's."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -4726,8 +4958,10 @@ def _qwen_serving(torch, mesh) -> dict:
     steps.shard_model(model, mesh, ppl)
     out["sharded_leaves"] = sum(1 for p in model.parameters() if is_dtensor(p))
 
+    kept_storage = []
+
     def serve(steps: int = max_new):
-        with torch.inference_mode():
+        with torch.inference_mode(), _no_gathers([]):
             t0 = time.perf_counter()
             logits, cache = prefill(model.param_tree(), batch)
             first = logits.to_local().float()
@@ -4735,21 +4969,27 @@ def _qwen_serving(torch, mesh) -> dict:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             toks = [tok]
+            storage = _cache_storage(torch, cache)
             for _ in range(steps):
                 logits, cache = decode(model.param_tree(), cache, toks[-1])
                 toks.append(logits.to_local().argmax(-1, keepdim=True))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            kept_storage.append(_cache_storage(torch, cache) == storage and bool(storage))
         return first, torch.cat(toks, 1).cpu().numpy(), t1 - t0, t2 - t1, cache
 
     serve(steps=2)  # the steps' first calls (DTensor's caches), apart from the timed run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     flash_attention.launches = flash_attention.tc_launches = decode_attention.launches = 0
+    decode_attention.slice_launches = 0
     first, tokens, prefill_s, decode_s, cache = serve()
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_tc": flash_attention.tc_launches,
-                "decode_attention": decode_attention.launches}
+                "decode_attention": decode_attention.launches,
+                "decode_attention_slice": decode_attention.slice_launches}
+    out["weights_gathered"] = 0  # _no_gathers would have ended the run
+    out["cache_storage_kept"] = all(kept_storage)
     out["launches"] = launches
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["cache_placements"] = {k: str(t.placements) for k, t in
@@ -4766,9 +5006,12 @@ def _qwen_serving(torch, mesh) -> dict:
     torch.cuda.empty_cache()
     log(f"[qwen sharded serving] {json.dumps(out)}")
     want = {"flash_attention": cfg.n_layers, "flash_attention_tc": cfg.n_layers,
-            "decode_attention": cfg.n_layers * max_new}
+            "decode_attention": cfg.n_layers * max_new,
+            "decode_attention_slice": cfg.n_layers * max_new}
     if launches != want:
         raise SystemExit(f"chip_smoke: qwen's steps launched {launches}, wanted {want}")
+    if not out["cache_storage_kept"]:
+        raise SystemExit("chip_smoke: qwen's decode steps moved the cache's storage")
     if not out["padded_heads_zero"]:
         raise SystemExit("chip_smoke: qwen's padded heads are not zero after tempering")
     if not out["tokens_equal_unsharded"]:  # one rank: the same tensors through the same ops
@@ -4872,6 +5115,175 @@ def phase_sharded_steps(torch, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 25
+LONG_DECODE_STEPS = 8
+LONG_SLICES = (4, 256)  # four ranks; the production mesh's data × model
+
+
+def phase_long_context_decode(torch, card: str) -> dict:
+    """gemma3-12b at ``long_500k`` (batch 1, a 524,288-position cache) through
+    ``make_decode_step`` with context parallelism on the one-rank mesh, the
+    Megatron split's decode: full widths, ``GEMMA3_LAYERS`` of 48 layers (2
+    global, 10 local), the cache filled with tempered random K/V (no
+    524,288-token prefill: the reference's cell is decode only), then
+    ``LONG_DECODE_STEPS`` steps from pos 524,279. The steps' logits equal
+    the model's own ``decode_step``'s on the same cache, bit for bit; on a
+    global and a local layer the whole-cache call is held to the call at 4
+    and at 256 slices combined (``_close``, ``_gate_power``), and the live
+    slice to its plain version."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import decode_attention, flash_attention, ops, ref
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    shape = SHAPES["long_500k"]
+    published = get_config("gemma3_12b")
+    cfg = published.with_(n_layers=GEMMA3_LAYERS)
+    S, L, KV, hd = shape.seq, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    start = S - LONG_DECODE_STEPS - 1  # pos of the first step: the last step writes row S - 2
+    out: dict = {"card": card, "arch": cfg.name, "shape": shape.name, "layers": L,
+                 "layers_published": published.n_layers, "kv_positions": S, "batch": shape.batch,
+                 "kv_heads": KV, "head_dim": hd, "sliding_window": cfg.sliding_window,
+                 "steps": LONG_DECODE_STEPS, "first_pos": start}
+    t_phase = time.perf_counter()
+    try:
+        mesh = _one_rank_mesh(torch)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=SEED)
+        _temper_attention(torch, model)
+        decode, (ppl, cpl, _), _, _ = steps.make_decode_step(model, mesh, shape)
+        steps.shard_model(model, mesh, ppl)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the cache a layer at a time: N(0, 1) rows, tempered as the QK-normed queries
+        # are (scores of std ~1)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+        rows = 1 << 16
+        with torch.inference_mode():
+            local = model.empty_cache(shape.batch, S)
+            for name in ("k", "v"):
+                for layer in local["dense"][name]:
+                    for c in range(0, S, rows):
+                        layer[:, :, c:c + rows].copy_(torch.randn(
+                            (shape.batch, KV, min(rows, S - c), hd), generator=gen, device=dev))
+        torch.cuda.synchronize()
+        out["cache_fill_s"] = time.perf_counter() - t0
+        out["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in (local["dense"]["k"], local["dense"]["v"]))
+        out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+
+        def placed():
+            c = {"dense": {name: steps._dtensor(local["dense"][name], mesh,
+                                                cpl["dense"][name], local["dense"][name].shape)
+                           for name in ("k", "v")}}
+            c["pos"] = torch.tensor(start, dtype=torch.int32, device=dev)
+            return c
+
+        feed = torch.from_numpy(np.random.default_rng(SEED + 25).integers(
+            1, cfg.vocab, (LONG_DECODE_STEPS, 1, 1)).astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            decode(model.param_tree(), placed(), feed[0])  # warm: the steps' first call
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts((decode_attention, flash_attention))
+            decode_attention.slice_launches = 0
+            cache, got, step_s = placed(), [], []
+            storage = _cache_storage(torch, cache)
+            with _no_gathers([]):
+                for tok in feed:
+                    t0 = time.perf_counter()
+                    logits, cache = decode(model.param_tree(), cache, tok)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    got.append(logits.full_tensor())
+            launches = {"decode_attention": decode_attention.launches,
+                        "decode_attention_slice": decode_attention.slice_launches,
+                        "flash_attention": flash_attention.launches}
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+            out["cache_storage_kept"] = _cache_storage(torch, cache) == storage
+            out["final_pos"] = int(cache["pos"])
+            # the model's own decode_step from the same state, on the same storage
+            own = {"dense": dict(local["dense"]),
+                   "pos": torch.tensor(start, dtype=torch.int32, device=dev)}
+            own_logits = [model.decode_step(own, tok)[0] for tok in feed]
+        out["launches"] = launches
+        out["step_ms"] = [t * 1e3 for t in step_s]
+        out["step_ms_median"] = statistics.median(out["step_ms"])
+        out["decode_tokens_per_s"] = shape.batch * len(step_s) / sum(step_s)
+        out["logits_equal_own_decode_step"] = all(torch.equal(g, w)
+                                                  for g, w in zip(got, own_logits))
+        out["logits_finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+        out["logits_shape"] = list(got[0].shape)
+
+        # one global and one local layer: the whole-cache call against the slices
+        # combined, and the live slice against its plain version
+        p = torch.tensor(S - 1, dtype=torch.int32, device=dev)
+        q = torch.randn((shape.batch, cfg.n_heads, hd), generator=gen, device=dev).to(cfg.cdtype)
+        tol = ATTN_TOL["bfloat16"]
+        checks = {}
+        flags = model._layer_flags(L)
+        for li in (next(i for i, f in enumerate(flags) if f[0]),
+                   next(i for i, f in enumerate(flags) if not f[0])):
+            window = 0 if flags[li][0] else cfg.sliding_window
+            K, V = local["dense"]["k"][li], local["dense"]["v"][li]
+            whole = ops.decode_attention(q, K, V, p, window=window)
+            for R in LONG_SLICES:
+                n = S // R
+                outs, lses = [], []
+                for r in range(R):
+                    o, l = ops.decode_attention(q, K[:, :, r * n:(r + 1) * n].contiguous(),
+                                                V[:, :, r * n:(r + 1) * n].contiguous(), p,
+                                                window=window, kv_start=r * n, return_lse=True)
+                    outs.append(o)
+                    lses.append(l)
+                outs, lses = torch.stack(outs), torch.stack(lses)
+                merged = ref.combine_partials(outs, lses).to(q.dtype)
+                power = _gate_power(torch, outs, lses, whole, tol)
+                ks = K[:, :, S - n:].contiguous()
+                vs = V[:, :, S - n:].contiguous()
+                live, live_lse = ops.decode_attention(q, ks, vs, p, window=window,
+                                                      kv_start=S - n, return_lse=True)
+                po, pl_ = ref.decode_attention_ref(q.reshape(1, KV, -1, hd), ks, vs, p,
+                                                   window=window, kv_start=S - n,
+                                                   return_lse=True)
+                po, pl_ = po.reshape(live.shape), pl_.reshape(live_lse.shape)
+                key = f"layer {li} ({'global' if not window else 'local'}), {R} slices"
+                checks[key] = {
+                    "combined_vs_whole_max_abs": float((merged.float() - whole.float()).abs().max()),
+                    "live_slice_vs_plain_max_abs": float((live - po).abs().max()),
+                    "live_slice_lse_vs_plain_max_abs": float((live_lse - pl_).abs().max()),
+                    "live_slice_atol": _atol(tol, po), **power,
+                    "ok": _close(torch, merged, whole, tol) and _close(torch, live, po, tol)
+                    and _lse_close(torch, live_lse, pl_) and power["gate_sees_broken"]}
+                del outs, lses, merged, ks, vs
+        out["layer_checks"] = checks
+        out["tolerance"] = tol
+        out["lse_tolerance"] = LSE_TOL
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[long_500k decode] {json.dumps(out)}")
+    want = {"decode_attention": L * LONG_DECODE_STEPS,
+            "decode_attention_slice": L * LONG_DECODE_STEPS, "flash_attention": 0}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: long_500k's decode steps launched {launches}, wanted {want}")
+    if not (out["logits_equal_own_decode_step"] and out["logits_finite"]
+            and out["logits_shape"] == [shape.batch, cfg.vocab]):
+        raise SystemExit(f"chip_smoke: long_500k's decode logits are wrong: {out}")
+    if not out["cache_storage_kept"] or out["final_pos"] != S - 1:
+        raise SystemExit(f"chip_smoke: long_500k's decode moved the cache or pos: {out}")
+    if not all(c["ok"] for c in checks.values()):
+        raise SystemExit(f"chip_smoke: long_500k's slices disagree: {checks}")
+    return out
+
+
 def _float32(torch, tree):
     """A copy of a nested dict of tensors with the float leaves in float32."""
     if isinstance(tree, dict):
@@ -4941,6 +5353,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
     m_train = run(phase_mamba2_training, torch, card)
     z_train = run(phase_zamba2_training, torch, card)
     sharded = run(phase_sharded_steps, torch, card)
+    long_ctx = run(phase_long_context_decode, torch, card)
 
     main_row = rows[0]  # the CIFAR batch: the shape every epoch batch of the feed has
     feed_launches = {r["name"]: r["launches"] for r in runs}
@@ -5028,6 +5441,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
          {**by_phase("decode_attention_launches"),
           zamba["arch"]: zamba["decode_attention_launches"],
           f"{sharded['qwen']['arch']} decode steps": sharded["qwen"]["launches"]["decode_attention"],
+          f"{long_ctx['arch']} long_500k decode steps ({long_ctx['layers']} layers)":
+              long_ctx["launches"]["decode_attention"],
           **{k: v for k, v in whisper_kinds.items() if k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),

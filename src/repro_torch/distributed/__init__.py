@@ -1,9 +1,10 @@
 """Distributed runtime of the port: the optimizer, the data mesh, the
-sharding rules and partition specs, the expert-parallel MoE, and the
-sharded train / prefill / decode steps (``sharding``, ``partition``,
-``moe_ep``, ``steps``; ``DeviceMesh``/``DTensor`` code whose spec tables
-are the JAX package's). The Megatron compute split over ``model`` and
-context-parallel decode over several ranks are ROADMAP.md item 18.
+sharding rules and partition specs, the expert-parallel MoE, the Megatron
+split of the serve steps with context-parallel decode, and the sharded
+train / prefill / decode steps (``sharding``, ``partition``, ``moe_ep``,
+``tensor_parallel``, ``steps``; ``DeviceMesh``/``DTensor`` code whose spec
+tables are the JAX package's). Training's Megatron split, and the serving
+split of the moe, ssm, hybrid and encdec families, are ROADMAP.md item 18.
 
 ``data_mesh`` (DESIGN.md §15) is the data plane's view of the process
 mesh: shard-ownership partitioning, the deterministic global shuffle, and

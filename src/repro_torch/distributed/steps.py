@@ -11,20 +11,27 @@ reference's result.
 
 How the work is split:
 
-* **What is split.** Each rank computes on its block of the global batch,
-  taken over every mesh axis (``dp``'s batch spec; ``tp``'s leaves out
-  ``model``, and the port splits over it too, so that no two ranks compute
-  the same rows). The global batch must divide, or the step raises.
-* **What stays whole.** Sharded weights are gathered a layer at a time at
-  the layer's entry (``sharding.gather_tree``), FSDP-style; the backward of
-  each gather reduce-scatters the layer's gradient to the leaf's blocks.
-  Each rank's loss is its block's mean over ``n`` ranks, so the reduced
-  gradient is the global batch's.
+* **Serving the dense and vlm families: the Megatron split.** The batch is
+  split over ``data`` only (the reference's ``batch_specs``; not at all in
+  ``long_500k``); each rank computes on the weight blocks it stores, heads,
+  ``d_ff`` and vocab over ``model``, and on the cache rows it stores (the
+  sequence over ``model``, or ``data`` × ``model`` in ``long_500k``), moving
+  activations only (``tensor_parallel.py``). No weight is gathered and no
+  cache row moves; the logits come back split on the vocab over ``model``.
+* **Training, and serving the other families.** Each rank computes on its
+  block of the global batch, taken over every mesh axis (``dp``'s batch
+  spec; ``tp``'s leaves out ``model``, and the port splits over it too, so
+  that no two ranks compute the same rows). The global batch must divide,
+  or the step raises. Sharded weights are gathered a layer at a time at the
+  layer's entry (``sharding.gather_tree``), FSDP-style; the backward of each
+  gather reduce-scatters the layer's gradient to the leaf's blocks. Each
+  rank's loss is its block's mean over ``n`` ranks, so the reduced gradient
+  is the global batch's. Training's Megatron split (a vocab-parallel
+  cross-entropy, the collectives' backwards) and the other families' serving
+  split are ROADMAP.md item 18.
 * **Expert parallel.** With ``moe_ep`` the experts stay split over
   ``model`` and tokens travel by all-to-all (``moe_ep.py``).
-* **The result is the reference's**; only the communication differs from
-  GSPMD's Megatron split (which is ROADMAP.md item 18, with context-parallel
-  decode over several ranks).
+* **The result is the reference's**; only the order of the sums differs.
 
 The parameters are the model's own (the port's model owns its weights, as
 ``train/loop.make_step`` takes them): place them with :func:`shard_model`
@@ -45,6 +52,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from ..launch.shapes import ShapeSpec
 from ..models.config import ModelConfig, torch_dtype
 from . import optimizer as optim
+from . import tensor_parallel as tp
 from .partition import (is_moment, opt_state_specs, param_specs, tree_map_with_path,
                         zero1_moment_specs)
 from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
@@ -53,8 +61,14 @@ from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
 
 Tree = Any
 
-CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank (long_500k's KV "
-                         "length split) is ROADMAP.md item 18; on one rank it is today's decode")
+CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense and "
+                         "vlm families; the moe family's (MLA's latent cache, the experts), the "
+                         "ssm and hybrid families' (long_500k's state split, their SSM heads over "
+                         "model) and the encdec family's are ROADMAP.md item 18; on one rank it "
+                         "is today's decode")
+
+#: families whose serve steps run the Megatron split (``tensor_parallel.py``)
+SPLIT_FAMILIES = ("dense", "vlm")
 
 
 # ------------------------------------------------------------------ tables
@@ -584,19 +598,110 @@ def _local_cache(cache: Tree, mesh, axes) -> Tree:
     return _map_cache(local, cache)
 
 
-def _check_context_parallel(mesh, shape: ShapeSpec) -> None:
-    if shape.context_parallel and mesh.size() > 1:
+def _check_context_parallel(mesh, shape: ShapeSpec, cfg: ModelConfig) -> None:
+    if shape.context_parallel and mesh.size() > 1 and not _split(cfg):
         raise NotImplementedError(CONTEXT_PARALLEL_TODO)
+
+
+def _split(cfg: ModelConfig) -> bool:
+    return cfg.family in SPLIT_FAMILIES and cfg.attn_type == "gqa"
+
+
+def _data_axes(mesh, shape: ShapeSpec, multi_pod: bool) -> Tuple[str, ...]:
+    """The mesh axes a split serve step's batch is split over: the
+    reference's ``batch_specs`` (none in a context-parallel shape)."""
+    if shape.context_parallel:
+        return ()
+    names = mesh.mesh_dim_names
+    return tuple(a for a in (("pod", "data") if multi_pod else ("data",)) if a in names)
+
+
+def _seq_split(mesh, pl: Sequence, shape: Sequence[int]) -> Tuple[Tuple[str, ...], int, int]:
+    """(mesh axes that split an attention cache leaf's sequence, its dim 3,
+    this rank's first row, its rows) from the leaf's placements and global
+    shape; a leaf split otherwise than on its sequence and batch raises."""
+    dim = 3
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    axes, block, n = [], 0, 1
+    for k, p in enumerate(pl):
+        if not isinstance(p, Shard) or mesh.size(k) == 1:
+            continue
+        if p.dim == dim:
+            axes.append(names[k])
+            block, n = block * mesh.size(k) + coord[k], n * mesh.size(k)
+        elif p.dim != 1:
+            raise NotImplementedError(
+                f"the split serve steps take a cache split on its batch and sequence only; "
+                f"this one is {list(pl)} (its capacity does not divide the ranks that split it)")
+    rows = shape[dim] // n
+    return tuple(axes), block * rows, rows
+
+
+def _split_prefill(model, mesh, shape: ShapeSpec, multi_pod: bool, capacity: Optional[int],
+                   batch: Dict[str, Any]):
+    """A split family's prefill step (the module docstring's Megatron split)."""
+    cfg = model.cfg
+    axes = _data_axes(mesh, shape, multi_pod)
+    local = _split_batch(batch, mesh, axes)
+    args = _serve_args(model, local)
+    n = _n_ranks(mesh, axes)
+    B = args[0].shape[0] * n
+    S = args[0].shape[1] + (args[1].shape[1] if len(args) > 1 else 0)
+    cap = capacity or S
+    kshape = (model.n_dense, B, cfg.n_kv_heads, cap, cfg.head_dim)
+    kpl = placements(_cache_leaf_spec("k", kshape, shape, mesh_shape(mesh), multi_pod), mesh, 5)
+    seq_axes, start, rows = _seq_split(mesh, kpl, kshape)
+    logits, cache = model.prefill(*args, capacity=cap, split=tp.make_split(
+        mesh, seq_axes=seq_axes, kv_start=start, rows=rows))
+
+    def store(name, t):
+        if name == "pos":
+            return t
+        return _dtensor(t, mesh, kpl, kshape)
+    return _split_logits(logits, mesh, axes, cfg), _map_cache(store, cache)
+
+
+def _split_logits(logits: torch.Tensor, mesh, axes: Sequence[str], cfg: ModelConfig):
+    """This rank's logits block as a ``DTensor``: the batch split over
+    ``axes``, the vocab over ``model`` where the rank holds part of it."""
+    pl = _compute_placements(mesh, axes, 0)
+    if logits.shape[-1] != cfg.vocab:
+        pl[list(mesh.mesh_dim_names).index(tp.MODEL)] = Shard(logits.dim() - 1)
+    return _dtensor(logits, mesh, pl, (logits.shape[0] * _n_ranks(mesh, axes),) +
+                    tuple(logits.shape[1:-1]) + (cfg.vocab,))
+
+
+def _split_decode(model, mesh, shape: ShapeSpec, multi_pod: bool, cache, tokens):
+    """A split family's decode step: the cache stays in its placements, each
+    rank writing and attending its own rows in place."""
+    axes = _data_axes(mesh, shape, multi_pod)
+    tok = _split_batch({"tokens": tokens}, mesh, axes)["tokens"]
+    k = cache["dense"]["k"]
+    if is_dtensor(k):
+        seq_axes, start, rows = _seq_split(mesh, k.placements, tuple(k.shape))
+    else:
+        seq_axes, start, rows = (), 0, k.shape[3]
+    local = _map_cache(lambda _, t: t.to_local() if is_dtensor(t) else t, cache)
+    logits, local = model.decode_step(local, tok, split=tp.make_split(
+        mesh, seq_axes=seq_axes, kv_start=start, rows=rows))
+
+    def back(_, t, was):
+        if not is_dtensor(was):
+            return t
+        return _dtensor(t, mesh, list(was.placements), tuple(was.shape))
+    return _split_logits(logits, mesh, axes, model.cfg), _map_cache(back, local, cache)
 
 
 def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
                       capacity: Optional[int] = None):
     """Returns ``(step, (param_pl, batch_pl), out_pl, params_meta)``;
     ``step(params, batch) -> (logits, cache)`` runs the model's ``prefill``
-    under ``decode_rules`` on this rank's rows: the logits a ``DTensor``
-    split on the batch, the cache stored by ``cache_spec_tree``. With
-    ``capacity`` (an attention cache's positions, ``TransformerLM``) the
-    cache has room for the decode steps that follow."""
+    under ``decode_rules``: the logits a ``DTensor`` split on the batch (and,
+    for the dense and vlm families, on the vocab over ``model``), the cache
+    stored by ``cache_spec_tree``. With ``capacity`` (an attention cache's
+    positions, ``TransformerLM``) the cache has room for the decode steps
+    that follow."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)
     params_meta = _meta_model(model).param_tree()
@@ -607,7 +712,10 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
 
     def prefill_step(params, batch):
         del params  # the model's own, placed by shard_model
-        _check_context_parallel(mesh, shape)
+        _check_context_parallel(mesh, shape, cfg)
+        if _split(cfg):
+            with use_rules(rules, mesh):
+                return _split_prefill(model, mesh, shape, multi_pod, capacity, batch)
         with use_rules(rules, mesh):
             local = _split_batch(batch, mesh, axes)
             kw = {} if capacity is None else {"capacity": capacity}
@@ -623,8 +731,8 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
 def make_decode_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False):
     """Returns ``(step, (param_pl, cache_pl, tok_pl), out_pl, (params_meta,
     cache_meta))``; ``step(params, cache, tokens) -> (logits, cache)`` runs
-    ``decode_step`` on this rank's rows and hands back the cache in the
-    placements it took."""
+    ``decode_step`` (the dense and vlm families' split, the others' on this
+    rank's rows) and hands back the cache in the placements it took."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)
     meta = _meta_model(model)
@@ -639,7 +747,10 @@ def make_decode_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False):
 
     def decode_step(params, cache, tokens):
         del params
-        _check_context_parallel(mesh, shape)
+        _check_context_parallel(mesh, shape, cfg)
+        if _split(cfg):
+            with use_rules(rules, mesh):
+                return _split_decode(model, mesh, shape, multi_pod, cache, tokens)
         with use_rules(rules, mesh):
             local = _local_cache(cache, mesh, axes)
             tok = _split_batch({"tokens": tokens}, mesh, axes)["tokens"]

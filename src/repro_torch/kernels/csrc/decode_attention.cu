@@ -54,6 +54,17 @@
 //     chunk. A lane there holds 24 query columns a head, so a CTA serves 2 heads and
 //     the 64 head chunks of a sequence each stream its cache (from L2 after the
 //     first; ROADMAP.md lists merging them as open).
+//   * a call may attend one slice of a longer cache (the rows a rank holds where the
+//     cache's sequence is split over ranks): kv_start is the global position of the
+//     slice's row 0, and pos and window stay global, so row r is live iff
+//     kv_start + r <= pos and, where window > 0, kv_start + r > pos - window. Each
+//     CTA's rows are its split of the slice cut to that live range, so a dead split
+//     or a dead slice copies no byte. With a non-null lse the call also writes each
+//     head's log-sum-exp (natural log, of the scaled scores; -inf where no row of the
+//     slice is live) and stores out as the slice's normalized partial in f32 (0 where
+//     no row is live), which the ranks' partials are combined from (ref.py:
+//     combine_partials). kv_start = 0 and a null lse are the whole-cache call: its
+//     splits, partials and fold are the slice call's, only the final store differs.
 // Measured on an H100 (PERF.md): the cold cache streams at about 2.5 TB/s here, and
 // at the serving shape the pos read, the first tile's round trip and the fold add
 // some 5 µs to the 7.6 µs of streaming.
@@ -74,6 +85,7 @@ constexpr int kMaxStages = 8;
 constexpr int kMaxCluster = 8;
 constexpr float kNeg = -1e30f;  // "no key yet": finite, so kNeg - kNeg is 0, not NaN
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
     const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -150,10 +162,13 @@ __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// live key range [lo, hi] of the cache for this pos (hi < lo: none)
-__device__ __forceinline__ void live_range(int pos, int S, int window, int* lo, int* hi) {
-    *lo = (window > 0 && pos - window + 1 > 0) ? pos - window + 1 : 0;
-    *hi = pos < S - 1 ? pos : S - 1;
+// live key range [lo, hi] of the slice's rows for this pos (hi < lo: none); the
+// slice's row r is the cache's position kv_start + r
+__device__ __forceinline__ void live_range(int pos, int S, int window, int kv_start, int* lo,
+                                           int* hi) {
+    const int first = (window > 0 && pos - window + 1 > 0) ? pos - window + 1 : 0;
+    *lo = first > kv_start ? first - kv_start : 0;
+    *hi = pos - kv_start < S - 1 ? pos - kv_start : S - 1;
 }
 
 // How the lanes of a warp split one cache row (q·k width DK, v width DV): a team of
@@ -218,8 +233,8 @@ template <typename T, int DK, int DV, int G>
 __global__ void __launch_bounds__(kThreads, min_blocks<DK, G>())
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ pos_ptr,
-                        T* __restrict__ out, int KV, int g, int S, int chunk, int stages,
-                        int window, float scale_log2) {
+                        void* __restrict__ out, float* __restrict__ lse, int KV, int g, int S,
+                        int chunk, int stages, int window, int kv_start, float scale_log2) {
     using Lay = Layout<T, DK, DV, G>;
     using W = Split<DK, DV>;
     constexpr int kTile = Lay::kTile;
@@ -254,7 +269,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bk = static_cast<size_t>(b) * KV + kvh;
 
     int lo, hi;
-    live_range(__ldg(pos_ptr), S, window, &lo, &hi);
+    live_range(__ldg(pos_ptr), S, window, kv_start, &lo, &hi);
     const int s0 = max(lo, rank * chunk);
     const int s1 = min(hi + 1, (rank + 1) * chunk);  // this CTA's live keys: [s0, s1)
     const int n_tiles = s1 > s0 ? (s1 - s0 + kTile - 1) / kTile : 0;
@@ -446,7 +461,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 A = fmaf(r_acc[q * share + j], wt, A);
             }
         }
-        store1(out + (bk * g + head0) * DV + idx, A / fmaxf(Lsum, 1e-30f));
+        const size_t o = (bk * g + head0) * DV + idx;
+        if (lse == nullptr) {
+            store1(static_cast<T*>(out) + o, A / fmaxf(Lsum, 1e-30f));
+        } else {  // the slice's partial: f32, and the head's log-sum-exp with its first output
+            store1(static_cast<float*>(out) + o, A / fmaxf(Lsum, 1e-30f));
+            if (idx % DV == 0)
+                lse[bk * g + head0 + gi] = Lsum > 0.f ? (M + log2f(Lsum)) * kLn2 : -INFINITY;
+        }
     }
 }
 
@@ -466,8 +488,8 @@ int sm_count() {
 
 template <typename T, int DK, int DV, int G>
 cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos, void* out,
-                     int B, int KV, int g, int S, int window, float scale, int cluster,
-                     int chunk, cudaStream_t stream) {
+                     float* lse, int B, int KV, int g, int S, int window, int kv_start,
+                     float scale, int cluster, int chunk, cudaStream_t stream) {
     using Lay = Layout<T, DK, DV, G>;
     // the deepest ring that lets this launch's CTAs share the SMs in one wave
     const int ctas = cluster * KV * (g / G) * B;
@@ -493,8 +515,8 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                             static_cast<const T*>(v), pos, static_cast<T*>(out), KV, g, S,
-                             chunk, stages, window, scale * kLog2e);
+                             static_cast<const T*>(v), pos, out, lse, KV, g, S, chunk, stages,
+                             window, kv_start, scale * kLog2e);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -503,29 +525,29 @@ cudaError_t launch_g(const void* q, const void* k, const void* v, const int* pos
 // q·k width of 256, where a lane holds 24 query columns a head)
 template <typename T, int DK, int DV>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* pos, void* out,
-                      int B, int KV, int g, int S, int window, float scale, int cluster,
-                      int chunk, cudaStream_t stream) {
+                      float* lse, int B, int KV, int g, int S, int window, int kv_start,
+                      float scale, int cluster, int chunk, cudaStream_t stream) {
     if constexpr (DK <= 256) {
         if (g % 8 == 0)
-            return launch_g<T, DK, DV, 8>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+            return launch_g<T, DK, DV, 8>(q, k, v, pos, out, lse, B, KV, g, S, window, kv_start, scale, cluster, chunk, stream);
         if (g % 4 == 0)
-            return launch_g<T, DK, DV, 4>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+            return launch_g<T, DK, DV, 4>(q, k, v, pos, out, lse, B, KV, g, S, window, kv_start, scale, cluster, chunk, stream);
     }
     if (g % 2 == 0)
-        return launch_g<T, DK, DV, 2>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
-    return launch_g<T, DK, DV, 1>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, chunk, stream);
+        return launch_g<T, DK, DV, 2>(q, k, v, pos, out, lse, B, KV, g, S, window, kv_start, scale, cluster, chunk, stream);
+    return launch_g<T, DK, DV, 1>(q, k, v, pos, out, lse, B, KV, g, S, window, kv_start, scale, cluster, chunk, stream);
 }
 
 // the (q·k, v) width pairs of decode_attention.py's HEAD_DIMS: float32 takes the
 // first five, bfloat16 also MLA's (576, 512)
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-                   int B, int KV, int g, int S, int dk, int dv, int window, float scale,
-                   int cluster, int chunk, cudaStream_t stream) {
-#define PAIR(DK, DV)                                                                       \
-    if (dk == DK && dv == DV)                                                             \
-        return launch_hd<T, DK, DV>(q, k, v, pos, out, B, KV, g, S, window, scale, cluster, \
-                                    chunk, stream)
+                   float* lse, int B, int KV, int g, int S, int dk, int dv, int window,
+                   int kv_start, float scale, int cluster, int chunk, cudaStream_t stream) {
+#define PAIR(DK, DV)                                                                         \
+    if (dk == DK && dv == DV)                                                               \
+        return launch_hd<T, DK, DV>(q, k, v, pos, out, lse, B, KV, g, S, window, kv_start,    \
+                                    scale, cluster, chunk, stream)
     PAIR(32, 32); PAIR(64, 64); PAIR(112, 112); PAIR(128, 128); PAIR(256, 256);
     if constexpr (sizeof(T) == 2) {
         PAIR(576, 512);
@@ -544,23 +566,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, 
 // 2 = bfloat16; (dk, dv) in {(32, 32), (64, 64), (112, 112), (128, 128), (256, 256)},
 // and (576, 512) for bfloat16. One kernel launch. Returns its cudaError_t (0 =
 // cudaSuccess); cudaErrorInvalidValue for an unsupported dtype, width pair or
-// geometry.
+// geometry. The cache is one slice of a longer one whose position kv_start (>= 0) is
+// the slice's row 0 (pos and window are global); lse, where not null, is f32
+// (B,KV,g), and then out is f32 too (the slice's normalized partial).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* pos, void* out, int B, int KV, int g,
-                                       int S, int dk, int dv, int dtype, int window,
-                                       float scale, int cluster, int chunk, void* stream) {
+                                       const void* pos, void* out, void* lse, int B, int KV,
+                                       int g, int S, int dk, int dv, int dtype, int window,
+                                       int kv_start, float scale, int cluster, int chunk,
+                                       void* stream) {
     if (B <= 0 || KV <= 0 || g <= 0) return cudaSuccess;
-    if (S <= 0 || chunk <= 0 || cluster < 1 || cluster > kMaxCluster ||
+    if (S <= 0 || chunk <= 0 || kv_start < 0 || cluster < 1 || cluster > kMaxCluster ||
         (cluster & (cluster - 1)) != 0 || static_cast<long long>(chunk) * cluster < S)
         return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* p = static_cast<const int*>(pos);
+    float* l = static_cast<float*>(lse);
     switch (dtype) {
         case 0: return static_cast<int>(
-            launch<float>(q, k, v, p, out, B, KV, g, S, dk, dv, window, scale, cluster, chunk, st));
+            launch<float>(q, k, v, p, out, l, B, KV, g, S, dk, dv, window, kv_start, scale,
+                          cluster, chunk, st));
         case 2: return static_cast<int>(
-            launch<__nv_bfloat16>(q, k, v, p, out, B, KV, g, S, dk, dv, window, scale, cluster,
-                                  chunk, st));
+            launch<__nv_bfloat16>(q, k, v, p, out, l, B, KV, g, S, dk, dv, window, kv_start,
+                                  scale, cluster, chunk, st));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

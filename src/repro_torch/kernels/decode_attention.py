@@ -19,8 +19,18 @@ written to the device first.
 
 Dispatch goes by the tensor's device: a CPU tensor takes the plain version
 (``ref.decode_attention_ref``); a CUDA tensor launches the kernel, or the
-call raises. ``launches`` counts kernel launches and nothing else.
+call raises. ``launches`` counts kernel launches and nothing else
+(``slice_launches`` those of them that take ``kv_start`` or the LSE).
 Forward-only, as the TPU kernel: it raises under grad.
+
+A call may attend one slice of a longer cache, the rows a rank holds where
+the cache's sequence is split over ranks: ``kv_start`` is the global
+position of the slice's row 0 (``pos`` and ``window`` stay global), and
+``return_lse`` also returns each head's log-sum-exp, with the output the
+slice's normalized partial in f32; ``ref.combine_partials`` (or its
+process-group twin in ``distributed/tensor_parallel.py``) merges the
+slices' partials. Without either, it is the whole-cache call that the
+model's own ``decode_step`` makes.
 
 Head widths come in (q·k, v) pairs (``HEAD_DIMS``). DeepSeek-V3's absorbed
 MLA decode attends one latent cache row a token, latent ++ k_rope (576
@@ -54,8 +64,9 @@ SHARED_ROWS = ((576, 512),)
 
 _count_lock = threading.Lock()
 launches = 0  # guarded-by: _count_lock
+slice_launches = 0  # guarded-by: _count_lock  (those of them with kv_start or the LSE)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 #: cluster sizes the kernel launches with (portable: no opt-in needed)
@@ -107,10 +118,18 @@ def decode_attention_fwd(
     *,
     window: int = 0,
     scale: float | None = None,
-) -> torch.Tensor:
+    kv_start: int = 0,
+    return_lse: bool = False,
+):
     """(B, KV, g, dv) in q's dtype; the scale defaults to dk^-1/2. On CUDA the
-    kernel runs on the current stream and is not waited for."""
-    global launches
+    kernel runs on the current stream and is not waited for.
+
+    ``k``/``v`` may be one slice of a longer cache whose position
+    ``kv_start`` is the slice's row 0; with ``return_lse`` the result is
+    ``(out, lse)``: the slice's normalized partial in f32 (0 where no row
+    of the slice is live) and each head's log-sum-exp (B, KV, g) in f32
+    (-inf there)."""
+    global launches, slice_launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise RawArrayError(
             f"decode_attention takes q (B,KV,g,dk), k (B,KV,S,dk) and v (B,KV,S,dv); got "
@@ -127,8 +146,12 @@ def decode_attention_fwd(
     check_inputs("decode_attention", q, k, *(() if shared else (v,)))
     check_forward_only("decode_attention", q, k, v)
     scale = float(scale) if scale is not None else dk ** -0.5
+    kv_start = int(kv_start)
+    if kv_start < 0:
+        raise RawArrayError(f"decode_attention: kv_start must be >= 0, got {kv_start}")
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, pos, window=window, scale=scale)
+        return ref.decode_attention_ref(q, k, v, pos, window=window, scale=scale,
+                                        kv_start=kv_start, return_lse=return_lse)
     check_widths("decode_attention", q.dtype, dk, dv, HEAD_DIMS)
     if ((dk, dv) in SHARED_ROWS) != shared:
         raise RawArrayError(
@@ -145,21 +168,27 @@ def decode_attention_fwd(
         pos = pos.contiguous()
     else:
         pos = torch.full((1,), int(pos), dtype=torch.int32, device=q.device)
-    out = torch.empty((B, KV, g, dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if S == 0:
-        return out.zero_()
+    out = torch.empty((B, KV, g, dv), dtype=torch.float32 if return_lse else q.dtype,
+                      device=q.device)
+    lse = (torch.empty((B, KV, g), dtype=torch.float32, device=q.device) if return_lse
+           else None)
+    if out.numel() == 0 or S == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return (out, lse) if return_lse else out
     cluster, chunk = geometry(B, KV, g, S, _sm_count(q.device.index or 0), dk)
     fn = _build.function("decode_attention.cu", "decode_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            B, KV, g, S, dk, dv, DTYPES[q.dtype], int(window), scale, cluster, chunk,
+            None if lse is None else lse.data_ptr(), B, KV, g, S, dk, dv, DTYPES[q.dtype],
+            int(window), kv_start, scale, cluster, chunk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RawArrayError(f"decode_attention kernel launch failed: cudaError_t {err}")
     with _count_lock:
         launches += 1
-    return out
+        slice_launches += bool(kv_start or return_lse)
+    return (out, lse) if return_lse else out

@@ -60,7 +60,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, kv_start: int = 0, return_lse: bool = False):
     """q (B,H,dk) with H = KV*group, k (B,KV,S,dk), v (B,KV,S,dv) -> (B,H,dv).
 
     ``pos`` (rows ``<= pos`` live) may be an int or a one-element int32
@@ -71,12 +71,20 @@ def decode_attention(q, k, v, pos, *, window: int = 0, block_s: int = 512,
     parity and not used: on the card a call is one kernel launch whose S
     splits (a thread block cluster of 1 to 8 CTAs,
     ``decode_attention.geometry``) are sized to the card and stream K/V
-    through tiles of their own."""
+    through tiles of their own.
+
+    ``k``/``v`` may be one slice of a longer cache, whose row 0 is position
+    ``kv_start`` (``pos`` and ``window`` global); ``return_lse`` gives
+    ``(out, lse)``: the slice's normalized partial (B,H,dv) in f32 and each
+    head's log-sum-exp (B,H), for ``ref.combine_partials``."""
     del block_s
     B, H, dk = q.shape
     KV = k.shape[1]
     out = decode_attention_fwd(q.reshape(B, KV, H // KV, dk), k, v, pos, window=window,
-                               scale=scale)
+                               scale=scale, kv_start=kv_start, return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return out.reshape(B, H, out.shape[-1]), lse.reshape(B, H)
     return out.reshape(B, H, out.shape[-1])
 
 

@@ -98,20 +98,45 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=0, scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def decode_attention_ref(q, k, v, pos, *, window=0, scale=None):
+def decode_attention_ref(q, k, v, pos, *, window=0, scale=None, kv_start=0,
+                         return_lse=False):
     """q (B,KV,g,hd), k/v (B,KV,S,hd), ``pos`` an int or a 0-d integer tensor
     (on any device) -> (B,KV,g,hd) in q's dtype. Cache rows ``<= pos`` are
-    live; ``window > 0`` also needs ``kpos > pos - window``."""
+    live; ``window > 0`` also needs ``kpos > pos - window``. The rows may be
+    a slice of a longer cache: row r is position ``kv_start + r``. With
+    ``return_lse``: ``(out, lse)``, the slice's normalized partial in f32
+    (0 where no row is live) and each head's log-sum-exp (B,KV,g) of its
+    live scaled scores in f32 (-inf where none is live)."""
     hd = q.shape[-1]
     S = k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
-    kpos = torch.arange(S, device=q.device)
+    kpos = kv_start + torch.arange(S, device=q.device)
     pos = torch.as_tensor(pos, device=q.device)
     ok = kpos <= pos
     if window > 0:
         ok &= kpos > pos - window
-    return _softmax_av(s, ok, v).to(q.dtype)
+    out = _softmax_av(s, ok, v)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
+    return torch.where(ok.any(-1), out, torch.zeros((), device=q.device)), lse
+
+
+def combine_partials(outs, lses):
+    """Merge the normalized partials ``outs`` (R, ..., dv) of R slices of
+    one cache, with their log-sum-exps ``lses`` (R, ...), into the whole
+    cache's attention, f32: each slice weighted by ``exp(lse_r - max_r
+    lse)`` (a slice with no live row, lse -inf, weighs 0; where no slice has
+    one the result is 0)."""
+    outs = torch.as_tensor(outs).to(torch.float32)
+    lses = torch.as_tensor(lses).to(torch.float32)
+    top = lses.max(0).values
+    top = torch.where(torch.isfinite(top), top, torch.zeros((), device=top.device))
+    w = torch.exp(lses - top)
+    den = w.sum(0)
+    num = (w[..., None] * outs).sum(0)
+    return num / torch.where(den > 0, den, torch.ones((), device=den.device))[..., None]
 
 
 def ssd_scan_ref(x, dtA, Bm, Cm, *, chunk=128):

@@ -34,6 +34,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..distributed import tensor_parallel as tp
 from ..kernels import ops
 from .common import Initializer, apply_rope, rmsnorm
 from .config import ModelConfig
@@ -71,18 +72,37 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], h * k).to(x.dtype)).view(B, S, h, k).transpose(1, 2)
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, freqs):
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)[None, :, None, :]
-        k = k + p["bk"].to(x.dtype)[None, :, None, :]
-        v = v + p["bv"].to(x.dtype)[None, :, None, :]
+def _split_heads(x: torch.Tensor, w: torch.Tensor, b, n_heads: int, hd: int,
+                 sp: tp.Split) -> Tuple[torch.Tensor, int]:
+    """(B,h,S,hd) of the heads this rank's block of ``w`` (d, h, k) gives,
+    with their bias, and the first one's index: a block split on heads gives
+    its heads; one split on ``head_dim`` gives every head, its columns
+    all-gathered (the activation, not the weight); a whole one every head."""
+    t = _heads(x, w)
+    if w.shape[2] != hd:
+        t = tp.all_gather(t, sp, dim=3)
+    off = tp.offset(t.shape[1], n_heads, sp)
+    if b is not None:
+        b_off = tp.offset(b.shape[0], n_heads, sp)
+        t = t + b[off - b_off:off - b_off + t.shape[1]].to(x.dtype)[None, :, None, :]
+    return t, off
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions, freqs, sp: tp.Split = tp.ONE):
+    """q, k, v (B,h,S,hd) of this rank's blocks (every head where the
+    weights are whole), norms and RoPE on whole heads, and the index of q's
+    first head and of k's and v's."""
+    Hp, KV, hd = cfg.n_heads + cfg.head_pad, cfg.n_kv_heads, cfg.head_dim
+    bias = cfg.qkv_bias
+    q, q_off = _split_heads(x, p["wq"], p["bq"] if bias else None, Hp, hd, sp)
+    k, kv_off = _split_heads(x, p["wk"], p["bk"] if bias else None, KV, hd, sp)
+    v, _ = _split_heads(x, p["wv"], p["bv"] if bias else None, KV, hd, sp)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     q = apply_rope(q, positions, freqs)
     k = apply_rope(k, positions, freqs)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous(), q_off, kv_off
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -91,39 +111,86 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.transpose(1, 2).reshape(B, S, H * hd) @ wo.reshape(H * hd, -1).to(o.dtype)
 
 
+def _out_split(o: torch.Tensor, o_off: int, wo: torch.Tensor, cfg: ModelConfig,
+               sp: tp.Split) -> torch.Tensor:
+    """``_out_proj`` on this rank's block of ``wo`` (h, k, d), for ``o``
+    (B,h',S,hd) holding heads from ``o_off`` on: the block's heads, or its
+    ``head_dim`` columns of every head, then the sum over ``model``; a whole
+    ``wo`` gives the whole output."""
+    Hp, hd = cfg.n_heads + cfg.head_pad, cfg.head_dim
+    if wo.shape[0] != Hp:
+        lo = tp.offset(wo.shape[0], Hp, sp) - o_off
+        return tp.all_reduce(_out_proj(o[:, lo:lo + wo.shape[0]], wo), sp.model_groups)
+    if o.shape[1] != Hp:
+        raise ValueError(f"a whole wo takes every head; have {o.shape[1]} of {Hp}")
+    if wo.shape[1] != hd:
+        lo = tp.offset(wo.shape[1], hd, sp)
+        return tp.all_reduce(_out_proj(o[..., lo:lo + wo.shape[1]], wo), sp.model_groups)
+    return _out_proj(o, wo)
+
+
+def _kv_for(k: torch.Tensor, kv_off: int, q_off: int, nq: int, g: int) -> torch.Tensor:
+    """The KV heads query heads ``[q_off, q_off + nq)`` read (group ``g``),
+    from ``k``, which holds KV heads from ``kv_off`` on: whole groups as
+    they are, a part of one group as its one KV head, else a KV head for
+    each query head (group 1)."""
+    lo, hi = q_off // g, (q_off + nq - 1) // g + 1
+    if q_off % g == 0 and nq % g == 0 or hi - lo == 1 and g % nq == 0:
+        return k[:, lo - kv_off:hi - kv_off].contiguous()
+    idx = torch.arange(q_off, q_off + nq, device=k.device) // g - kv_off
+    return k.index_select(1, idx).contiguous()
+
+
 def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
                   window: int, freqs: torch.Tensor) -> torch.Tensor:
     """Training attention over the whole sequence of ``x`` (B,S,d), the
     twin of the JAX package's ``gqa_attention``: causal, ``window`` on local
     layers (0 on global ones). Differentiable; returns (B,S,d)."""
-    q, k, v = _project_qkv(p, x, cfg, positions, freqs)
+    q, k, v, _, _ = _project_qkv(p, x, cfg, positions, freqs)
     return _out_proj(ops.flash_attention(q, k, v, causal=True, window=window), p["wo"])
 
 
 def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                window: int, freqs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                window: int, freqs: torch.Tensor, sp: tp.Split = tp.ONE
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal attention over the whole sequence of ``x`` (B,S,d). ``window``
     is the layer's sliding window (0 on global layers). Returns the output
-    (B,S,d) and the layer's K and V (B,KV,S,hd) for the cache."""
-    q, k, v = _project_qkv(p, x, cfg, positions, freqs)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
-    return _out_proj(o, p["wo"]), k, v
+    (B,S,d) and every KV head's K and V (B,KV,S,hd) for the cache. On a
+    rank's blocks of the layer (``sp`` over several ranks): its query heads
+    through ``ops.flash_attention``, then ``wo`` row-parallel."""
+    KV, Hp = cfg.n_kv_heads, cfg.n_heads + cfg.head_pad
+    q, k, v, q_off, kv_off = _project_qkv(p, x, cfg, positions, freqs, sp)
+    g = Hp // KV
+    nq = q.shape[1]
+    o = ops.flash_attention(q, _kv_for(k, kv_off, q_off, nq, g), _kv_for(v, kv_off, q_off, nq, g),
+                            causal=True, window=window)
+    return (_out_split(o, q_off, p["wo"], cfg, sp), tp.gather_heads(k, KV, sp),
+            tp.gather_heads(v, KV, sp))
 
 
 def gqa_decode(p, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: torch.Tensor, cfg: ModelConfig, *, window: int,
-               freqs: torch.Tensor) -> torch.Tensor:
+               freqs: torch.Tensor, sp: tp.Split = tp.ONE) -> torch.Tensor:
     """One decode step for ``x`` (B,1,d) at position ``pos`` (a 0-d int32
     device tensor). Writes this step's K/V into row ``pos`` of the caches
-    (B,KV,S,hd) in place and returns the output (B,1,d)."""
+    (B,KV,rows,hd), which hold positions ``sp.kv_start`` on, in place, and
+    returns the output (B,1,d). Over several ranks (``sp``): q and the new
+    K/V all-gathered over ``model``, the new row written by the rank that
+    holds ``pos``, the rank's rows attended by the decode kernel's slice call
+    and the partials combined over the axes that split the cache, then the
+    rank's part of ``wo``."""
     B = x.shape[0]
+    KV, Hp = cfg.n_kv_heads, cfg.n_heads + cfg.head_pad
     at = pos.reshape(1).long()
-    q, k_new, v_new = _project_qkv(p, x, cfg, at, freqs)
-    k_cache.index_copy_(2, at, k_new.to(k_cache.dtype))
-    v_cache.index_copy_(2, at, v_new.to(v_cache.dtype))
-    H, hd = q.shape[1], q.shape[3]
-    o = ops.decode_attention(q.view(B, H, hd), k_cache, v_cache, pos, window=window)
-    return _out_proj(o.view(B, H, 1, hd), p["wo"])
+    q, k_new, v_new, _, _ = _project_qkv(p, x, cfg, at, freqs, sp)
+    q = tp.gather_heads(q, Hp, sp)
+    tp.write_row(k_cache, tp.gather_heads(k_new, KV, sp), at, sp)
+    tp.write_row(v_cache, tp.gather_heads(v_new, KV, sp), at, sp)
+    hd = q.shape[3]
+    o, lse = ops.decode_attention(q.view(B, Hp, hd), k_cache, v_cache, pos, window=window,
+                                  kv_start=sp.kv_start, return_lse=True)
+    o = tp.combine(o, lse, sp).to(x.dtype)
+    return _out_split(o.view(B, Hp, 1, hd), 0, p["wo"], cfg, sp)
 
 
 # ----------------------------------------------------------------- MLA

@@ -1,5 +1,6 @@
 """Dense (gated) MLP blocks: the JAX package's ``models/ffn.py`` as plain
-matmuls."""
+matmuls, on a rank's blocks of the weights in a serve step over a mesh
+(``distributed/tensor_parallel.py``)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed import tensor_parallel as tp
 from .common import Initializer, activation
 from .config import ModelConfig
 
@@ -19,8 +21,12 @@ def init_mlp(ini: Initializer, cfg: ModelConfig, d_ff: int = 0) -> Dict[str, Any
     return p
 
 
-def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, cfg: ModelConfig, sp: tp.Split = tp.ONE) -> torch.Tensor:
+    """The block on this rank's blocks (``sp``): ``w_up``/``w_gate``
+    column-parallel on ``d_ff``, ``w_down`` row-parallel and summed over
+    ``model``; whole weights give the whole output."""
     act = activation(cfg.mlp_act)
     up = x @ p["w_up"].to(x.dtype)
     h = act(x @ p["w_gate"].to(x.dtype)) * up if cfg.mlp_gated else act(up)
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    return tp.all_reduce(y, sp.model_groups) if p["w_down"].shape[0] != cfg.d_ff else y

@@ -46,7 +46,12 @@ layers over ``P + S`` positions; the loss scores the text positions only.
 Parameters placed on a mesh (``distributed/steps.py:shard_model``) are
 ``DTensor`` blocks: each layer gathers its slice of them at its entry
 (``_block``, through ``distributed.sharding.gather_tree``), and the rest
-of the model runs on the plain tensors it always takes.
+of the model runs on the plain tensors it always takes. A GQA model
+without MoE layers serves (``prefill``, ``decode_step``) on each rank's
+blocks of the weights and rows of the cache instead, the Megatron split of
+``distributed/tensor_parallel.py``, and gathers no weight: a serve step over
+a mesh hands it its ``Split``, and without one it computes under one
+rank's, on the whole weights and cache.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
+from ..distributed import tensor_parallel as tp
 from ..distributed.sharding import (Layer, gather, gather_tree, is_dtensor, layer_view,
                                    moe_ep_active)
 from .attention import (
@@ -97,13 +103,14 @@ def _init_layer(ini: Initializer, cfg: ModelConfig, *, use_moe: bool = False) ->
     return p
 
 
-def _index(tree: Any, i: int) -> Any:
+def _index(tree: Any, i: int, local: bool = False) -> Any:
     """Layer ``i`` of a stacked params dict, for serving: views, no copies
     (``sharding.layer_view``: a leaf sharded over several ranks stays so
-    until the layer's entry gathers it)."""
+    until the layer's entry gathers it; with ``local``, this rank's block
+    of it, for the Megatron split)."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return layer_view(tree, i)
+        return {k: _index(v, i, local) for k, v in tree.items()}
+    return tp.local(tree)[i] if local else layer_view(tree, i)
 
 
 def _unstack(tree: Any, n: int) -> List[Any]:
@@ -181,6 +188,9 @@ class TransformerLM(nn.Module):
             })
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[tuple]] = None  # per-layer views, made lazily
+        #: serves on each rank's blocks (the Megatron split); MLA and MoE models on
+        #: weights gathered a layer at a time
+        self.splits = cfg.attn_type == "gqa" and not self.n_moe
 
     # ---- parameters ---------------------------------------------------------
     @property
@@ -230,7 +240,9 @@ class TransformerLM(nn.Module):
 
     def _layer_args(self) -> List[Tuple[Dict[str, Any], int, torch.Tensor, str, int, bool]]:
         """(params, window, rope freqs, cache group, index in the group, MoE
-        FFN) per layer, in order; the window only on local layers."""
+        FFN) per layer, in order, for serving; the window only on local
+        layers. The params are this rank's blocks where the model
+        ``splits``."""
         if self._layers is None:
             self._layers = []
             offset = 0
@@ -238,7 +250,8 @@ class TransformerLM(nn.Module):
                 stacked = getattr(self, f"{group}_layers").tree()
                 for i, (is_global, theta) in enumerate(self._layer_flags(n, offset)):
                     window = 0 if is_global else self.cfg.sliding_window
-                    self._layers.append((_index(stacked, i), window, theta, group, i, use_moe))
+                    self._layers.append((_index(stacked, i, self.splits), window, theta, group, i,
+                                         use_moe))
                 offset += n
         return [(p, window, self._rope(self._rope_dim(), theta), group, i, use_moe)
                 for p, window, theta, group, i, use_moe in self._layers]
@@ -250,33 +263,50 @@ class TransformerLM(nn.Module):
             self._freqs[key] = rope_freqs(head_dim, theta, device=self.device)
         return self._freqs[key]
 
-    def _embed_inputs(self, tokens: torch.Tensor,
-                      patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _embed_inputs(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None,
+                      sp: Optional[tp.Split] = None) -> torch.Tensor:
         """(B, S, d) token embeddings; with ``patch_embeds`` (B, P, d) and a
         vlm config, those projected by ``mm_proj`` in the compute dtype and
         prepended: (B, P + S, d). A config without patches ignores them, as
-        the reference does."""
+        the reference does. Under a split ``sp``, on this rank's blocks: the
+        vocab-parallel lookup, ``mm_proj`` column-parallel with its output
+        all-gathered; else on the gathered weights."""
         cfg = self.cfg
-        x = embed_lookup(gather(self.embed), tokens.to(self.device), cfg.embed_scale, cfg.cdtype)
+        leaf = gather if sp is None else tp.local
+        x = tp.embed(leaf(self.embed), tokens.to(self.device), cfg.vocab, sp or tp.ONE,
+                     lambda table, ids: embed_lookup(table, ids, cfg.embed_scale, cfg.cdtype))
         if patch_embeds is None or not cfg.n_patches:
             return x
         pe = torch.as_tensor(patch_embeds).to(device=self.device, dtype=cfg.cdtype)
-        return torch.cat([pe @ gather(self.mm_proj).to(cfg.cdtype), x], dim=1)
+        proj = leaf(self.mm_proj)
+        y = pe @ proj.to(cfg.cdtype)
+        if proj.shape[1] != cfg.d_model:
+            y = tp.all_gather(y, sp, dim=2)
+        return torch.cat([y, x], dim=1)
 
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+    def _logits(self, h: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
+        """Softcapped logits: under a split ``sp``, this rank's vocab columns
+        (``lm_head``'s block, or the tied ``embed``'s rows)."""
         cfg = self.cfg
-        head = gather(self.embed).t() if cfg.tie_embeddings else gather(self.lm_head)
+        leaf = gather if sp is None else tp.local
+        head = leaf(self.embed).t() if cfg.tie_embeddings else leaf(self.lm_head)
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
 
-    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _final_norm(self, x: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
+        """``ln_f`` (replicated: ``shard_model`` leaves it a plain tensor), gathered
+        only where a model outside a split walks its leaves."""
         _, norm = make_norm(self.cfg.norm)
-        return norm(gather_tree(self.ln_f), x)
+        ln_f = self.ln_f.tree()
+        return norm(ln_f if sp else gather_tree(ln_f), x)
 
-    def _block(self, p, x, attn, use_moe: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _block(self, p, x, attn, use_moe: bool = False,
+               sp: Optional[tp.Split] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """One layer around its attention ``attn(h, p_attn) -> a``: (x, the
         MoE aux loss, 0-d f32, 0 for a dense FFN). The layer's parameters
-        are gathered here, at its entry, where they are sharded."""
-        p = gather_tree(p, EXPERT_LEAVES if use_moe and moe_ep_active() else ())
+        are gathered here, at its entry, where they are sharded; under a
+        split ``sp`` they are this rank's blocks."""
+        if sp is None:
+            p = gather_tree(p, EXPERT_LEAVES if use_moe and moe_ep_active() else ())
         _, norm = make_norm(self.cfg.norm)
         a = attn(norm(p["ln_attn"], x), p["attn"])
         if self.cfg.sandwich_norm:
@@ -286,7 +316,7 @@ class TransformerLM(nn.Module):
         if use_moe:
             f, aux = moe_ffn(p["ffn"], h, self.cfg)
         else:
-            f = mlp(p["ffn"], h, self.cfg)
+            f = mlp(p["ffn"], h, self.cfg, sp or tp.ONE)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.sandwich_norm:
             f = norm(p["ln_mlp_post"], f)
@@ -399,20 +429,38 @@ class TransformerLM(nn.Module):
         return self._chunked_ce(h_out, labels, mask)[0]
 
     # ---- serve --------------------------------------------------------------
+    def _serve_split(self, split: Optional[tp.Split]) -> Optional[tp.Split]:
+        """The split a serve call computes under: ``split`` (a serve step's
+        over a mesh), else one rank's, where the model ``splits``; None (the
+        weights gathered a layer at a time) for MLA and MoE models."""
+        if self.splits:
+            return split or tp.ONE
+        if split is not None:
+            raise NotImplementedError(
+                "the Megatron split of the serve steps covers the dense and vlm families; the "
+                "moe family serves through the gathered weights (ROADMAP.md item 18)")
+        return None
+
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None,
-                *, capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                *, capacity: Optional[int] = None,
+                split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process prompts ``tokens`` (B, S), after ``patch_embeds`` (B, P, d)
         when given (vlm); returns (last-position logits (B, V), cache with
         capacity P + S, or ``capacity`` positions where given, and ``pos`` =
-        P + S)."""
+        P + S). With ``split`` (a serve step's over a mesh): this rank's
+        batch rows, its cache rows ``[kv_start, kv_start + rows)`` of the
+        capacity, its vocab columns of the logits."""
         cfg = self.cfg
-        x = self._embed_inputs(tokens, patch_embeds)
+        sp = self._serve_split(split)
+        x = self._embed_inputs(tokens, patch_embeds, sp)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
-        if capacity is not None and capacity < S:
+        if (capacity or S) < S:
             raise ValueError(f"a cache of capacity {capacity} cannot hold {S} positions")
-        cache = self.empty_cache(B, capacity or S)
+        lo, rows = (split.kv_start, split.rows) if split else (0, capacity or S)
+        hi = min(lo + rows, S)  # the prompt's rows held here
+        cache = self.empty_cache(B, rows)
         for p, window, freqs, group, i, use_moe in self._layer_args():
             def attn(h, pa, c=cache[group], i=i, window=window, freqs=freqs):
                 if cfg.attn_type == "mla":
@@ -421,14 +469,15 @@ class TransformerLM(nn.Module):
                     c["latent"][i][:, :S].copy_(latent)
                     c["k_rope"][i][:, :S].copy_(k_rope)
                     return a
-                a, k, v = gqa_prefill(pa, h, cfg, positions=positions,
-                                      window=window, freqs=freqs)
-                c["k"][i][:, :, :S].copy_(k)
-                c["v"][i][:, :, :S].copy_(v)
+                a, k, v = gqa_prefill(pa, h, cfg, positions=positions, window=window,
+                                      freqs=freqs, sp=sp or tp.ONE)
+                if hi > lo:
+                    c["k"][i][:, :, :hi - lo].copy_(k[:, :, lo:hi])
+                    c["v"][i][:, :, :hi - lo].copy_(v[:, :, lo:hi])
                 return a
 
-            x = self._block(p, x, attn, use_moe)[0]
-        logits = self._logits(self._final_norm(x[:, -1:, :]))
+            x = self._block(p, x, attn, use_moe, sp)[0]
+        logits = self._logits(self._final_norm(x[:, -1:, :], sp), sp)
         cache["pos"].fill_(S)
         return logits[:, 0], cache
 
@@ -457,12 +506,15 @@ class TransformerLM(nn.Module):
         return cache
 
     @torch.inference_mode()
-    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor, *,
+                    split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token (B, 1) for every sequence. Writes the cache in place and
-        returns (logits (B, V), the cache with ``pos + 1``)."""
+        returns (logits (B, V), the cache with ``pos + 1``); with ``split``,
+        on this rank's cache rows, and its vocab columns of the logits."""
         cfg = self.cfg
+        sp = self._serve_split(split)
         pos = cache["pos"]
-        x = self._embed_inputs(tokens)
+        x = self._embed_inputs(tokens, None, sp)
         for p, window, freqs, group, i, use_moe in self._layer_args():
             c = cache[group]
             if cfg.attn_type == "mla":
@@ -470,8 +522,9 @@ class TransformerLM(nn.Module):
                     return mla_decode(pa, h, rows, pos, cfg, freqs=f)
             else:
                 def attn(h, pa, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
-                    return gqa_decode(pa, h, kc, vc, pos, cfg, window=w, freqs=f)
-            x = self._block(p, x, attn, use_moe)[0]
-        logits = self._logits(self._final_norm(x))
+                    return gqa_decode(pa, h, kc, vc, pos, cfg, window=w, freqs=f,
+                                      sp=sp or tp.ONE)
+            x = self._block(p, x, attn, use_moe, sp)[0]
+        logits = self._logits(self._final_norm(x, sp), sp)
         cache["pos"] = pos + 1
         return logits[:, 0], cache

@@ -9,7 +9,9 @@ with patches on the card against the CPU's, and dense, Whisper, Mamba2 and
 Zamba2 decode steps that must not sync with the host; the attention kernels
 at the moe family's widths (112, MLA's (192, 128) and (576, 512)), their
 backward at 112 and (192, 128), moe decode steps and a moe train step on
-the card. Each skips without a
+the card; the decode kernel's slice call (``kv_start``, the LSE) combined
+against the whole-cache call, and the split serve steps on a one-rank NCCL
+mesh against the model's own. Each skips without a
 card. This file imports nothing of JAX, so it runs on a machine that has a
 card and no JAX:
 
@@ -1422,3 +1424,92 @@ def test_moe_ffn_ep_at_one_rank_is_the_dense_dispatch(card, one_rank_group):
     torch.testing.assert_close(y_ep.float(), y.float(), rtol=2e-2,
                                atol=2e-2 * float(y.float().abs().max()))
     torch.testing.assert_close(aux_ep, aux)
+
+
+# the decode kernel's slice call: (B, KV, g, S, dk, dv, pos, window, slices)
+SLICE_CASES = [
+    (8, 8, 6, 576, 128, 128, 575, 0, 16),   # qwen2.5-14b's decode as a model axis of 16 stores it
+    (2, 8, 2, 4096, 256, 256, 4095, 0, 4),  # gemma3's width, global, 4 slices
+    (2, 8, 2, 4096, 256, 256, 3000, 1024, 4),  # its window across a slice boundary at 3072
+    (2, 1, 16, 576, 576, 512, 575, 0, 16),  # MLA's absorbed decode: V is K's rows
+    (4, 2, 4, 512, 128, 128, 40, 0, 8),     # pos in the first slice: seven dead slices
+]
+
+
+@pytest.mark.parametrize("B,KV,g,S,dk,dv,pos,window,R", SLICE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_slices_combine_to_the_whole_call(card, B, KV, g, S, dk, dv, pos,
+                                                           window, R, dtype):
+    """The slice call over the whole cache (kv_start 0, the LSE) rounded to
+    q's dtype is the whole-cache call bit for bit; R slices, each attended at
+    its global positions by the kernel and combined, are within the kernel
+    tolerance of the whole-cache call and of the plain version; a dead slice
+    gives 0 and -inf; every call is one launch, counted as a slice call."""
+    if (dtype == torch.float32 and dv != dk):
+        pytest.skip("the (576, 512) pair is bf16 only")
+    rng = np.random.default_rng(S + pos + R)
+    q = _normal(rng, (B, KV * g, dk), dtype, card)
+    k = _normal(rng, (B, KV, S, dk), dtype, card)
+    v = k[..., :dv] if dv != dk else _normal(rng, (B, KV, S, dv), dtype, card)
+    scale = 192 ** -0.5 if dv != dk else None
+    p = torch.tensor(pos, dtype=torch.int32, device=card)
+    whole = ops.decode_attention(q, k, v, p, window=window, scale=scale)
+    part, lse = ops.decode_attention(q, k, v, p, window=window, scale=scale, return_lse=True)
+    assert part.dtype == torch.float32 and torch.equal(part.to(dtype), whole)
+    n = S // R
+    outs, lses = [], []
+    before, sliced = da.launches, da.slice_launches
+    for r in range(R):
+        ks = k[:, :, r * n:(r + 1) * n].contiguous()
+        vs = ks[..., :dv] if dv != dk else v[:, :, r * n:(r + 1) * n].contiguous()
+        o, l = ops.decode_attention(q, ks, vs, p, window=window, scale=scale, kv_start=r * n,
+                                    return_lse=True)
+        first = max(0, pos - window + 1) if window else 0
+        if r * n > pos or (r + 1) * n <= first:
+            assert torch.equal(o, torch.zeros_like(o)) and torch.isneginf(l).all()
+        outs.append(o)
+        lses.append(l)
+    torch.cuda.synchronize()
+    assert da.launches - before == R and da.slice_launches - sliced == R
+    merged = ref.combine_partials(torch.stack(outs), torch.stack(lses)).to(dtype)
+    want = ref.decode_attention_ref(q.reshape(B, KV, g, dk), k, v, p, window=window,
+                                    scale=scale).reshape(B, KV * g, dv)
+    torch.testing.assert_close(merged.float(), whole.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(merged.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_rank_group):
+    """Reduced qwen (bias, padded heads) in bf16 through the split prefill and
+    decode steps on a one-rank NCCL mesh: logits bit-equal to the model's own
+    ``prefill``/``decode_step`` on the card, every decode launch (the
+    model's own too) a slice call, the cache's storage kept."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = get_config("qwen2_5_14b").reduced().with_(param_dtype="bfloat16",
+                                                     compute_dtype="bfloat16")
+    own, model = (build_model(cfg, device=card, seed=6) for _ in range(2))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg.vocab, (4, 32))
+                            .astype(np.int32))
+    feed = torch.from_numpy(np.random.default_rng(7).integers(1, cfg.vocab, (3, 4, 1))
+                            .astype(np.int32)).to(card)
+    pre, (ppl, _), _, _ = steps.make_prefill_step(model, mesh, ShapeSpec("p", "prefill", 32, 4),
+                                                  capacity=40)
+    dec, _, _, _ = steps.make_decode_step(model, mesh, ShapeSpec("d", "decode", 40, 4))
+    steps.shard_model(model, mesh, ppl)
+    with torch.inference_mode():
+        want, wc = own.prefill(toks.to(card), capacity=40)
+        got, cache = pre(model.param_tree(), {"tokens": toks})
+        assert torch.equal(got.to_local(), want)
+        ptr = cache["dense"]["k"].to_local().data_ptr()
+        launched, sliced = da.launches, da.slice_launches
+        for tok in feed:
+            want, wc = own.decode_step(wc, tok)
+            got, cache = dec(model.param_tree(), cache, tok)
+            assert torch.equal(got.to_local(), want)
+        torch.cuda.synchronize()
+    assert da.slice_launches - sliced == da.launches - launched == 2 * cfg.n_layers * len(feed)
+    assert cache["dense"]["k"].to_local().data_ptr() == ptr

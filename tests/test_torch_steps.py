@@ -259,6 +259,53 @@ def test_prefill_and_decode_steps_match_jax(mesh, arch):
     assert int(tcache["pos"]) == int(jcache["pos"])
 
 
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b"])
+def test_split_serve_steps_are_the_models_own_on_one_rank(mesh, arch):
+    """On one rank the Megatron split is the model's own serving, op for op:
+    the prefill step's and every decode step's logits equal the unsharded
+    model's ``prefill``/``decode_step`` bit for bit (qwen's bias and padded
+    heads, gemma3's windows, QK-norm, sandwich norms and tied embedding,
+    llava's patches), and every decode launch, the model's own too, is the
+    kernel's slice call."""
+    from repro_torch.kernels import ref
+
+    jcfg, _, params, port = _pair(arch)
+    own = build_model(port.cfg, device="cpu")
+    load_params(own, params_from_jax(params))
+    cap = S + 4 + (port.cfg.n_patches or 0)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, jcfg.vocab, (B, S)).astype(np.int32))}
+    if port.cfg.n_patches:
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, port.cfg.n_patches, port.cfg.d_model)).astype(np.float32))
+    feed = torch.from_numpy(rng.integers(1, jcfg.vocab, (4, B, 1)).astype(np.int32))
+    pre, (ppl, _), _, _ = tsteps.make_prefill_step(port, mesh, ShapeSpec("p", "prefill", S, B),
+                                                   capacity=cap)
+    dec, _, _, _ = tsteps.make_decode_step(port, mesh, ShapeSpec("d", "decode", cap, B))
+    tsteps.shard_model(port, mesh, ppl)
+    calls = []
+    plain = ref.decode_attention_ref
+
+    def counted(*args, **kw):
+        calls.append(kw.get("return_lse", False))
+        return plain(*args, **kw)
+    ref.decode_attention_ref = counted
+    try:
+        with torch.inference_mode():
+            args = [batch[k] for k in ("tokens", "patch_embeds") if k in batch]
+            want, wcache = own.prefill(*args, capacity=cap)
+            got, cache = pre(port.param_tree(), batch)
+            assert torch.equal(got.full_tensor(), want)
+            for tok in feed:
+                want, wcache = own.decode_step(wcache, tok)
+                got, cache = dec(port.param_tree(), cache, tok)
+                assert torch.equal(got.full_tensor(), want)
+    finally:
+        ref.decode_attention_ref = plain
+    n = port.cfg.n_layers * len(feed)
+    assert calls == [True] * (2 * n)  # the model's and the steps': slice calls, one a layer
+
+
 @pytest.mark.parametrize("moments", ["float32", "int8"])
 def test_initial_state_is_init_states(mesh, moments):
     """The sharded optimizer state starts as ``optimizer.init_state``'s:

@@ -5,8 +5,15 @@ The updated parameters, gathered, equal the one-rank step's; each rank
 stores the reference's per-device block of every parameter and moment (the
 JAX package's spec tables on an ``AbstractMesh`` of the same shape); the
 int8 moments are quantized on whole blocks where a mesh cuts a block of
-128; a context-parallel serve step over several ranks raises."""
+128. The serve steps of the dense and vlm families run the Megatron split:
+prefill and decode equal one rank's, gather no weight and keep every cache
+leaf's storage; ``long_500k``'s context-parallel decode (batch 1, the
+cache's sequence split over data × model) equals one rank's and the
+reference's jitted step at one device; the other families' context-parallel
+decode over several ranks (the ssm family's, the moe family's) raises,
+naming ROADMAP item 18."""
 
+import functools
 import json
 import os
 import subprocess
@@ -26,6 +33,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 300
 PARAM_TOL = 1e-5  # f32: the gathered parameters against one rank's
 MESHES = {4: [(2, 2), (4, 1), (1, 4)], 2: [(1, 2)]}
+#: (arch, seed, batch, prompt, capacity) of the context-parallel decode: 199
+#: prompt tokens in a cache of 256, so pos 199-201 lie in the last rank's rows
+#: and the local layer's window of 64 crosses a slice boundary
+CP_CASE = ("gemma3_12b", 3, 1, 200, 256)
+CP_STEPS = 3
 
 _RANKS = r"""
 import json, os, sys
@@ -40,11 +52,12 @@ try:
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.shapes import ShapeSpec
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, transformer
     from repro_torch.train.loop import make_step
 
     B, S = 8, 32
     CASES = (("internlm2_1_8b", "float32"), ("olmo_1b", "int8"))
+    CP_CASE = json.loads(os.environ["RA_CP_CASE"])
     out = {}
 
     def tokens_for(cfg):
@@ -64,6 +77,85 @@ try:
 
     def full(t):
         return t.full_tensor() if sh.is_dtensor(t) else t
+
+    def temper(model):
+        # the attention weights scaled as tests/test_torch_steps.py:_temper does
+        cfg = model.cfg
+        H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+        attn = model.dense_layers.attn
+        with torch.no_grad():
+            for name, f in (("wq", H / d), ("wk", KV / d), ("wv", KV / d), ("wo", 1 / H)):
+                getattr(attn, name).mul_(f ** 0.5)
+
+    def config(arch):
+        cfg = get_config(arch).reduced()
+        return cfg.with_(global_every=2) if arch == "gemma3_12b" else cfg
+
+    def serve_case(arch, seed, B, S, cap, cp=False, patches=False, steps_n=3):
+        # prefill (the prompt's first S - 1 tokens padded to the capacity where
+        # cp, pos then rewound) and decode steps of fixed random tokens, through
+        # the steps over the mesh and through the plain model in this process
+        cfg = config(arch)
+        plain, model = (build_model(cfg, device="cpu", seed=seed) for _ in range(2))
+        temper(plain)
+        temper(model)
+        rng = np.random.default_rng(seed)
+        prompts = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(np.int32))
+        feed = torch.from_numpy(rng.integers(1, cfg.vocab, (steps_n, B, 1)).astype(np.int32))
+        if cp:
+            feed = torch.cat([prompts[None, :, S - 1:], feed[1:]])
+            prompts = torch.cat([prompts[:, :S - 1],
+                                 torch.zeros((B, cap - S + 1), dtype=torch.int32)], 1)
+        batch = {"tokens": prompts}
+        if patches:
+            batch["patch_embeds"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        args = [batch[k] for k in ("tokens", "patch_embeds") if k in batch]
+        with torch.inference_mode():
+            l0, c0 = plain.prefill(*args, capacity=cap)
+            if cp:
+                c0["pos"] = torch.tensor(S - 1, dtype=torch.int32)
+            want = [plain.decode_step(c0, feed[i])[0] for i in range(steps_n)]
+        pre, (ppl, _), _, _ = steps.make_prefill_step(
+            model, mesh, ShapeSpec("p", "prefill", prompts.shape[1], B, context_parallel=cp),
+            capacity=cap)
+        dec, _, _, _ = steps.make_decode_step(
+            model, mesh, ShapeSpec("d", "decode", cap, B, context_parallel=cp))
+        steps.shard_model(model, mesh, ppl)
+        gathers = []
+        saved = {}
+        for mod, names in ((sh, ("gather", "gather_tree")), (transformer, ("gather", "gather_tree"))):
+            for name in names:
+                saved[(mod, name)] = getattr(mod, name)
+                setattr(mod, name, lambda *a, _n=name, **k: gathers.append(_n))
+        try:
+            with torch.inference_mode():
+                g0, cache = pre(model.param_tree(), batch)
+                took = {k: str(t.placements) for k, t in steps._leaves_with_paths(cache)
+                        if sh.is_dtensor(t)}
+                if cp:
+                    cache["pos"] = torch.tensor(S - 1, dtype=torch.int32)
+                ptrs = {k: t.to_local().data_ptr() for k, t in steps._leaves_with_paths(cache)
+                        if sh.is_dtensor(t)}
+                got, kept_storage = [], True
+                for i in range(steps_n):
+                    g, cache = dec(model.param_tree(), cache, feed[i])
+                    got.append(g.full_tensor())
+                    kept_storage &= ptrs == {k: t.to_local().data_ptr() for k, t in
+                                             steps._leaves_with_paths(cache) if sh.is_dtensor(t)}
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        kept = {k: str(t.placements) for k, t in steps._leaves_with_paths(cache)
+                if sh.is_dtensor(t)}
+        res = {"prefill": float((g0.full_tensor() - l0).abs().max()),
+               "decode": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               "scale": float(l0.abs().max()), "same_placements": took == kept and bool(took),
+               "storage_kept": kept_storage, "gathers": len(gathers),
+               "logits_placements": str(g0.placements), "cache_placements": took}
+        if cp:
+            res["decode_logits"] = [g.tolist() for g in got]
+        return res
 
     want = {case: one_rank(*case) for case in CASES}
     for shape in map(tuple, json.loads(os.environ["RA_MESHES"])):
@@ -134,46 +226,32 @@ try:
                 torch.equal(V["scale"].full_tensor(), vr["scale"])}
         out[f"{shape}/cuts"] = cuts
 
-        # serving over the mesh: logits equal one process's; context parallel raises
-        serve_cfg = get_config("qwen2_5_14b").reduced()
-        plain = build_model(serve_cfg, device="cpu", seed=2)
-        model = build_model(serve_cfg, device="cpu", seed=2)
-        prompts = torch.from_numpy(np.random.default_rng(1).integers(1, serve_cfg.vocab, (8, 12))
-                                   .astype(np.int32))
-        with torch.inference_mode():
-            l0, c0 = plain.prefill(prompts, capacity=16)
-            nxt = l0.argmax(-1)[:, None]
-            l1, _ = plain.decode_step(c0, nxt)
-        pre, (ppl, _), _, _ = steps.make_prefill_step(model, mesh,
-                                                      ShapeSpec("p", "prefill", 12, 8),
-                                                      capacity=16)
-        dec, _, _, _ = steps.make_decode_step(model, mesh, ShapeSpec("d", "decode", 16, 8))
-        steps.shard_model(model, mesh, ppl)
-        with torch.inference_mode():
-            g0, cache = pre(model.param_tree(), {"tokens": prompts})
-            took = {k: str(t.placements) for k, t in steps._leaves_with_paths(cache)
-                    if sh.is_dtensor(t)}
-            g1, cache = dec(model.param_tree(), cache, nxt)
-        kept = {k: str(t.placements) for k, t in steps._leaves_with_paths(cache)
-                if sh.is_dtensor(t)}
-        try:
-            cp = steps.make_decode_step(model, mesh, ShapeSpec("l", "decode", 16, 1,
-                                                               context_parallel=True))[0]
-            cp(model.param_tree(), cache, nxt[:1])
-            refused = ""
-        except NotImplementedError as e:
-            refused = str(e)
+        # serving over the mesh, the Megatron split: logits equal one process's, no
+        # weight gathered, every cache leaf's storage kept; qwen's 2 KV heads do not
+        # divide a model axis of 4 (wk/wv split on head_dim); llava adds mm_proj
+        out[f"{shape}/serve"] = serve_case("qwen2_5_14b", 2, 8, 12, 16)
+        out[f"{shape}/serve_vlm"] = serve_case("llava_next_mistral_7b", 4, 4, 12, 32,
+                                               patches=True)
+        # long_500k's split: batch 1, the cache's sequence over data x model
+        out[f"{shape}/serve_cp"] = serve_case(*CP_CASE, cp=True)
+        refused = {}
+        for arch in ("mamba2_780m", "deepseek_v3_671b"):  # ssm; moe on MLA
+            try:
+                other = build_model(get_config(arch).reduced(), device="cpu", seed=2)
+                cp = steps.make_decode_step(other, mesh, ShapeSpec("l", "decode", 16, 1,
+                                                                   context_parallel=True))[0]
+                cp(other.param_tree(), {}, torch.zeros((1, 1), dtype=torch.int32))
+                refused[arch] = ""
+            except NotImplementedError as e:
+                refused[arch] = str(e)
+        out[f"{shape}/serve"]["refused"] = refused
         # constrain drops an axis that does not divide the dim
         x5 = steps._dtensor(torch.zeros(5, 4), mesh, [Replicate(), Replicate()], (5, 4))
         x8 = steps._dtensor(torch.zeros(8, 4), mesh, [Replicate(), Replicate()], (8, 4))
         with sh.use_rules(sh.train_rules(False), mesh):
             c5 = sh.constrain(x5, "batch", "embed").placements
             c8 = sh.constrain(x8, "batch", "embed").placements
-        out[f"{shape}/serve"] = {
-            "prefill": float((g0.full_tensor() - l0).abs().max()),
-            "decode": float((g1.full_tensor() - l1).abs().max()),
-            "scale": float(l0.abs().max()), "same_placements": took == kept and bool(took),
-            "refused": refused, "constrain": [str(c5), str(c8)]}
+        out[f"{shape}/serve"]["constrain"] = [str(c5), str(c8)]
     print(json.dumps({"rank": rank, "out": out}))
 finally:
     dist.destroy_process_group()
@@ -184,7 +262,7 @@ def _spawn(world, tmp):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")])),
         RA_STORE=str(tmp / f"store{world}"), RA_WORLD=str(world), OMP_NUM_THREADS="1",
-        RA_MESHES=json.dumps(MESHES[world]))
+        RA_MESHES=json.dumps(MESHES[world]), RA_CP_CASE=json.dumps(CP_CASE))
     procs = [subprocess.Popen([sys.executable, "-c", _RANKS], env=dict(env, RA_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(world)]
@@ -297,15 +375,97 @@ def test_int8_moments_on_cut_blocks_equal_one_rank(ranks, world, shape):
 
 @pytest.mark.parametrize("world,shape", CASES, ids=IDS)
 def test_serving_over_the_mesh(ranks, world, shape):
-    """Prefill and decode over the mesh equal one process's logits, the cache
-    comes back in the placements it took, a context-parallel step raises
-    naming ROADMAP item 18, and ``constrain`` drops an axis that does not
-    divide (5 rows over 2 or 4 data ranks) and keeps one that does."""
+    """Prefill and decode over the mesh, split Megatron-style, equal one
+    process's logits (qwen's 2 KV heads, which a model axis of 4 does not
+    divide, and llava's ``mm_proj`` and patches among them), gather no
+    weight, keep each cache leaf's storage and placements, and give logits
+    split on the vocab over ``model``; the ssm and moe families'
+    context-parallel steps over several ranks raise naming ROADMAP item 18
+    (the dense family's no longer does:
+    ``test_context_parallel_decode_over_the_mesh``); and
+    ``constrain`` drops an axis that does not divide (5 rows over 2 or 4 data
+    ranks) and keeps one that does."""
     for out in ranks[world].values():
+        for case in ("serve", "serve_vlm"):
+            got = out[f"{shape}/{case}"]
+            assert got["prefill"] <= 1e-5 * got["scale"], (case, got["prefill"], got["scale"])
+            assert got["decode"] <= 1e-4 * got["scale"], (case, got["decode"], got["scale"])
+            assert got["same_placements"] and got["storage_kept"], case
+            assert got["gathers"] == 0, case
+            assert ("Shard(dim=1)" in got["logits_placements"]) == (shape[1] > 1), case
         got = out[f"{shape}/serve"]
-        assert got["prefill"] <= 1e-5 * got["scale"] and got["decode"] <= 1e-4 * got["scale"]
-        assert got["same_placements"]
-        assert "ROADMAP.md item 18" in got["refused"]
+        for arch, refused in got["refused"].items():
+            assert "ROADMAP.md item 18" in refused, arch
         c5, c8 = got["constrain"]
         assert ("Shard" in c5) == (shape[0] == 1)  # 5 rows divide over 1 data rank only
         assert c8.startswith("(Shard(dim=0)")
+
+
+@functools.lru_cache(maxsize=None)
+def _cp_reference():
+    """The reference's jitted prefill and decode steps at one device on
+    ``CP_CASE`` (``long_500k``'s specs: batch 1, the KV length over data ×
+    model), with the ranks' tempered weights and tokens: the decode logits."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.distributed import steps as jsteps
+    from repro.launch.shapes import ShapeSpec as JShape
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model as port_build
+
+    arch, seed, B, S, cap = CP_CASE
+    port = port_build(get_config(arch).reduced().with_(global_every=2), device="cpu", seed=seed)
+    cfg = port.cfg
+    attn = port.dense_layers.attn
+    H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    with torch.no_grad():  # the ranks' temper()
+        for name, f in (("wq", H / d), ("wk", KV / d), ("wv", KV / d), ("wo", 1 / H)):
+            getattr(attn, name).mul_(f ** 0.5)
+
+    def numpy(tree):
+        if isinstance(tree, dict):
+            return {k: numpy(v) for k, v in tree.items()}
+        return tree.detach().numpy().copy()
+
+    params = numpy(port.param_tree())
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)
+    feed = rng.integers(1, cfg.vocab, (CP_STEPS, B, 1)).astype(np.int32)
+    feed = np.concatenate([prompts[None, :, S - 1:], feed[1:]])
+    toks = np.concatenate([prompts[:, :S - 1], np.zeros((B, cap - S + 1), np.int32)], 1)
+    jmodel = jax_build(jax_config(arch).reduced().with_(global_every=2))
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    pre, psh, _, _ = jsteps.make_prefill_step(jmodel, jmesh, JShape("p", "prefill", cap, B,
+                                                                    context_parallel=True))
+    dec, dsh, dout, _ = jsteps.make_decode_step(jmodel, jmesh, JShape("d", "decode", cap, B,
+                                                                      context_parallel=True))
+    _, cache = jax.jit(pre, in_shardings=psh)(params, {"tokens": jnp.asarray(toks)})
+    cache = dict(cache, pos=jnp.asarray(S - 1, jnp.int32))
+    jdec = jax.jit(dec, in_shardings=dsh, out_shardings=dout)
+    out = []
+    for i in range(CP_STEPS):
+        logits, cache = jdec(params, cache, jnp.asarray(feed[i]))
+        out.append(np.asarray(logits))
+    return out
+
+
+@pytest.mark.parametrize("world,shape", CASES, ids=IDS)
+def test_context_parallel_decode_over_the_mesh(ranks, world, shape):
+    """``long_500k``'s split at a tiny size (gemma3's reduced config, a
+    global and a local layer, batch 1, a cache of 256 rows split over every
+    rank): the steps' decode logits equal one process's and the reference's
+    jitted decode at one device, with the cache's sequence split over data ×
+    model and no weight gathered."""
+    want = _cp_reference()
+    n = shape[0] * shape[1]
+    for out in ranks[world].values():
+        got = out[f"{shape}/serve_cp"]
+        assert got["decode"] <= 1e-4 * got["scale"], (got["decode"], got["scale"])
+        assert got["same_placements"] and got["storage_kept"] and got["gathers"] == 0
+        k_pl = got["cache_placements"]["dense/k"]
+        assert k_pl == "(Shard(dim=3), Shard(dim=3))", k_pl  # rows over data, then model
+        assert len(got["decode_logits"]) == CP_STEPS
+        for g, w in zip(got["decode_logits"], want):
+            g = np.asarray(g, np.float32)
+            assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), (n, np.abs(g - w).max())

@@ -800,6 +800,8 @@ def phase_attention(torch) -> tuple:
         # sequences of 2,048 tokens, 16 heads over 16 (group 1)
         ("qwen_prefill", 8, 48, 8, 512, 512, 128, "bfloat16", True, 0, True),
         ("olmo_train", 4, 16, 16, 2048, 2048, 128, "bfloat16", True, 0, True),
+        # qwen2.5-14b's (phase 24's tp step): 48 heads (8 zero) over 8, group 6
+        ("qwen_train", 4, 48, 8, 2048, 2048, 128, "bfloat16", True, 0, True),
     ]
     flash_rows = []
     for label, B, H, KV, Sq, Sk, hd, dt, causal, window, timed, *dv in flash_cases:
@@ -1368,6 +1370,8 @@ def phase_attention_bwd(torch) -> list:
         ("deepseek_mla_train", 2, 128, 128, 4096, 4096, (192, 128), "bfloat16", True, 0, True),
         # olmo-1b's (phase 24): 16 heads over 16, 4 sequences of 2,048 tokens
         ("olmo_train", 4, 16, 16, 2048, 2048, 128, "bfloat16", True, 0, True),
+        # qwen2.5-14b's (phase 24's tp step): 48 heads (8 zero) over 8, group 6
+        ("qwen_train", 4, 48, 8, 2048, 2048, 128, "bfloat16", True, 0, True),
         ("edge_ragged", 2, 16, 8, 300, 300, 128, "bfloat16", True, 0, False),
         ("edge_64_row_tiles", 2, 16, 8, 192, 192, 128, "bfloat16", True, 0, False),
         ("edge_hd256_ragged", 2, 16, 8, 300, 300, 256, "bfloat16", True, 0, False),
@@ -2794,26 +2798,31 @@ def _first_logits_gate(torch, out: dict, key: str, got, plain, what: str) -> Non
 def _profiled_steps(torch, model, prompts, capacity: int, n: int = 8) -> dict:
     """Wall and device time of ``n`` decode steps under the profiler, fed
     as the engine's replay feeds them (the prompt's tokens) and as its decode
-    loop does (the argmax of the last logits), on one cache; both traced
-    twice, the second pass kept. Per step: wall ms, device ms (the summed
-    kernel durations) and the share of the wall time the card had no kernel
-    running."""
+    loop does (the argmax of the last logits), on one cache; each traced
+    once, after a one-step trace that warms the profiler (a trace of ``n``
+    steps costs ~10 s of host time). Per step: wall ms, device ms (the
+    summed kernel durations) and the share of the wall time the card had no
+    kernel running."""
     from torch.profiler import ProfilerActivity, profile
 
     tokens = torch.from_numpy(prompts[:, :n].astype("int64")).to(model.device)
-    cache = model.empty_cache(tokens.shape[0], capacity)  # room for 4n + 1 steps
+    cache = model.empty_cache(tokens.shape[0], capacity)  # room for 2n + 2 steps
     logits, cache = model.decode_step(cache, tokens[:, :1])
     out = {}
-    feeds = (("replay", lambda i, _: tokens[:, i:i + 1]),
+    feeds = (("warm", lambda i, _: tokens[:, :1]),
+             ("replay", lambda i, _: tokens[:, i:i + 1]),
              ("decode", lambda i, lg: lg.argmax(-1, keepdim=True)))
-    for name, feed in feeds + feeds:
+    for name, feed in feeds:
+        steps = 1 if name == "warm" else n
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for i in range(n):
+            for i in range(steps):
                 logits, cache = model.decode_step(cache, feed(i, logits))
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        if name == "warm":
+            continue
         device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         out[name] = {"steps": n, "wall_ms_per_step": wall_ms / n,
@@ -2892,12 +2901,16 @@ def phase_zamba2_serving(torch) -> dict:
     # much again on the host; launches from here on are not counted)
     out["cold_ms_per_replayed_token"] = out["prefill_s"] / S * 1e3
     out["cold_ms_per_decode_step"] = out["decode_s"] / (max_new - 1) * 1e3
+    t0 = time.perf_counter()
     out["profiled_steps"] = _profiled_steps(torch, model, prompts, S + max_new)
+    out["profiled_steps_s"] = time.perf_counter() - t0
 
     # the same requests with both attention ops and the scan plain; each run's
     # first-step logits kept from its generate (a replay takes 10-20 s)
+    t0 = time.perf_counter()
     with _plain_attention(), _plain_scan(), _first_logits(engine) as plain_first:
         plain_tokens = engine.generate(prompts, max_new=max_new)
+    out["plain_generate_s"] = time.perf_counter() - t0
     first, plain_first = first[0], plain_first[0]
     _first_logits_gate(torch, out, "first_logits", first, plain_first,
                        "Zamba2 first-step logits")
@@ -4931,7 +4944,7 @@ def _qwen_serving(torch, mesh) -> dict:
     prompts = np.random.default_rng(SEED).integers(1, cfg.vocab, (B, S)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(prompts)}
 
-    def own_serve():
+    def own_serve(steps: int = max_new):
         """The model's own prefill and decode steps, unsharded: the yardstick
         of what the steps add on one rank."""
         with torch.inference_mode():
@@ -4940,14 +4953,14 @@ def _qwen_serving(torch, mesh) -> dict:
             toks = [logits.float().argmax(-1, keepdim=True)]
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            for _ in range(max_new):
+            for _ in range(steps):
                 logits, cache = model.decode_step(cache, toks[-1])
                 toks.append(logits.argmax(-1, keepdim=True))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
         return torch.cat(toks, 1).cpu().numpy(), t1 - t0, t2 - t1
 
-    own_serve()  # warm
+    own_serve(steps=2)  # warm
     own_tokens, own_prefill_s, own_decode_s = own_serve()
     out["unsharded"] = {"prefill_s": own_prefill_s, "decode_s": own_decode_s,
                         "decode_tokens_per_s": B * max_new / own_decode_s}
@@ -5094,11 +5107,158 @@ def _deepseek_ep_ffn(torch, mesh) -> dict:
     return out
 
 
+#: qwen2.5-14b's training depth on one card (PERF.md §4): ~12 B a parameter (bf16
+#: weight and gradient, f32 m and v), embed + lm_head 1.557 B parameters (18.7 GB),
+#: ~286 M a layer (3.4 GB), AdamW's f32 temporaries of the 778.6 M-entry embedding
+#: (~3.1 GB each): 10 layers come to ~68 GB at the update
+QWEN_TRAIN_LAYERS = 10
+QWEN_TRAIN_STEPS = 4
+
+
+def _param_digest(torch, model):
+    """Each parameter's f32 sum and sum of |x|, stacked: equal for equal
+    parameters (the same reductions over the same bits)."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.distributed.tensor_parallel import local
+
+    return torch.stack([f(local(t).detach().float()) for t in
+                        flatten(model.param_tree(), "param").values()
+                        for f in (torch.sum, lambda x: x.abs().sum())])
+
+
+def _qwen_tp_training(torch, mesh) -> dict:
+    """qwen2.5-14b at full width (48 heads, 8 of them zero; d_ff 13,824; vocab
+    152,064), ``QWEN_TRAIN_LAYERS`` of its 48 layers, remat, f32 moments,
+    4 × 2,048 tokens, through ``make_train_step(strategy="tp")`` on the
+    one-rank mesh: the Megatron split (each leaf a ``DTensor`` block that
+    requires grad, no weight gathered). Gates: the first step's kernels
+    against plain attention (``_first_step_gates``); the step's loss,
+    gradient norm, parameters and ``wo``'s padded rows bit-equal to
+    ``train/loop.make_step``'s, twice; the padded rows nonzero after it
+    (ROADMAP.md §3 fault 11, mirrored); then ``QWEN_TRAIN_STEPS`` timed
+    steps, each layer's flash forward twice (remat) and backward once, on
+    the tensor cores."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import make_step
+
+    dev = torch.device("cuda", 0)
+    full = get_config("qwen2_5_14b")
+    cfg = full.with_(n_layers=QWEN_TRAIN_LAYERS)
+    B, S = 4, 2048
+    H, Hp = cfg.n_heads, cfg.n_heads + cfg.head_pad
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "layers_in_config": full.n_layers,
+                 "d_model": cfg.d_model, "heads": Hp, "zero_heads": cfg.head_pad,
+                 "kv_heads": cfg.n_kv_heads, "group": Hp // cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab, "dtype": cfg.param_dtype, "moments": "float32",
+                 "remat": cfg.remat, "batch": B, "seq": S, "strategy": "tp",
+                 "steps": QWEN_TRAIN_STEPS}
+    rng = np.random.default_rng(SEED + 14)
+    batches = [{"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(np.int32))}
+               for _ in range(QWEN_TRAIN_STEPS)]
+    adamw = optim.AdamWConfig(lr=1e-3, warmup_steps=2, moment_dtype="float32")
+    shape = ShapeSpec("qwen_train", "train", S, B)
+    secs: dict = {}
+
+    def fresh():
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=SEED)
+        _temper_attention(torch, model)
+        torch.cuda.synchronize()
+        secs.setdefault("init_s", []).append(time.perf_counter() - t0)
+        return model
+
+    t0 = time.perf_counter()
+    model = fresh()
+    out["params"] = sum(p.numel() for p in model.parameters())
+    model.requires_grad_(True)
+    # against the plain backward, as whisper's and llava's (phases 16-17): with
+    # plain attention's forward this model's gradients part by ~0.2 (PERF.md §6)
+    out["first_step"] = _first_step_gates(torch, model, batches[0], "qwen2.5-14b tp", out,
+                                          reference="plain backward")
+    secs["gates_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = model.param_tree()
+    _, _, ref = make_step(model, adamw)(params, optim.init_state(params, adamw), batches[0])
+    pad_ref = model.dense_layers.attn.wo.detach()[:, H:].clone()
+    digest_ref = _param_digest(torch, model)
+    secs["make_step_s"] = time.perf_counter() - t0
+    del model, params
+    torch.cuda.empty_cache()
+
+    runs = []
+    for run in range(2):
+        model = fresh()
+        step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
+            model, mesh, shape, adamw=adamw, strategy="tp")
+        steps.shard_model(model, mesh, ppl)
+        state = steps.init_opt_state(ometa, mesh, opl, dev)
+        sharded = sum(1 for p in model.parameters() if is_dtensor(p))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_flash_counts()
+        losses, step_s = [], []
+        with _no_gathers([]):
+            for i, b in enumerate(batches if run else batches[:1]):
+                t1 = time.perf_counter()
+                _, state, metrics = step(model.param_tree(), state, b)
+                losses.append(float(metrics["loss"]))  # syncs
+                step_s.append(time.perf_counter() - t1)
+                if i == 0:
+                    pad = model.dense_layers.attn.wo.to_local().detach()[:, H:]
+                    runs.append({
+                        "loss": bool(torch.equal(metrics["loss"], ref["loss"])),
+                        "grad_norm": bool(torch.equal(metrics["grad_norm"], ref["grad_norm"])),
+                        "params": bool(torch.equal(_param_digest(torch, model), digest_ref)),
+                        "padded_wo_rows": bool(torch.equal(pad, pad_ref)),
+                        "padded_wo_rows_max_abs": float(pad.float().abs().max())})
+        launches = {**_flash_counts(), "forward_tc": flash_attention.tc_launches}
+        if run:
+            med = statistics.median(step_s[1:])
+            out["train"] = {
+                "losses": losses, "step_s": step_s, "median_step_s": med,
+                "steps_per_s": 1 / med, "tokens_per_s": B * S / med,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "sharded_leaves": sharded, "weights_gathered": 0, "launches": launches,
+                "want_launches": {"forward": cfg.n_layers * len(batches) * 2,
+                                  "backward": cfg.n_layers * len(batches),
+                                  "forward_tc": cfg.n_layers * len(batches) * 2}}
+        del state, model
+        torch.cuda.empty_cache()
+    out["bit_equal_to_make_step"] = runs
+    out["first_step_metrics"] = {k: float(v) for k, v in ref.items()}
+    out["seconds_by_part"] = {k: v if isinstance(v, float) else sum(v) for k, v in secs.items()}
+    log(f"[qwen tp training] {json.dumps(out)}")
+    flags = [v for r in runs for k, v in r.items() if k != "padded_wo_rows_max_abs"]
+    if not all(flags):
+        raise SystemExit(f"chip_smoke: qwen's one-rank tp step is not make_step's: {runs}")
+    if not runs[0]["padded_wo_rows_max_abs"] > 0:  # fault 11: the padded rows take a step
+        raise SystemExit("chip_smoke: qwen's padded wo rows did not move in the first step")
+    train = out["train"]
+    if not all(np.isfinite(train["losses"])):
+        raise SystemExit(f"chip_smoke: qwen's tp training losses {train['losses']}")
+    if train["launches"] != train["want_launches"]:
+        raise SystemExit(f"chip_smoke: qwen's tp training launched {train['launches']}, wanted "
+                         f"{train['want_launches']}")
+    return out
+
+
 def phase_sharded_steps(torch, card: str) -> dict:
     """The sharded steps (``distributed/steps.py``) on a one-rank NCCL mesh
     (1, 1): olmo-1b trains through the ``dp`` step, qwen2.5-14b serves
-    through the prefill and decode steps, deepseek-v3's MoE FFN runs
-    expert-parallel once."""
+    through the prefill and decode steps and then trains through the ``tp``
+    step (the Megatron split, ``QWEN_TRAIN_LAYERS`` layers), deepseek-v3's
+    MoE FFN runs expert-parallel once."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -5106,8 +5266,11 @@ def phase_sharded_steps(torch, card: str) -> dict:
         mesh = _one_rank_mesh(torch)
         out = {"card": card, "mesh": {"data": 1, "model": 1},
                "olmo": _olmo_dp_training(torch, mesh),
-               "qwen": _qwen_serving(torch, mesh),
-               "moe_ep": _deepseek_ep_ffn(torch, mesh)}
+               "qwen": _qwen_serving(torch, mesh)}
+        t1 = time.perf_counter()
+        out["qwen_train"] = _qwen_tp_training(torch, mesh)
+        out["qwen_train"]["seconds"] = time.perf_counter() - t1
+        out["moe_ep"] = _deepseek_ep_ffn(torch, mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5420,6 +5583,9 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         runs[f"{z_train['arch']} train (resumed)"] = z_train["resume"]["launches"][kind]
         runs[f"{sharded['olmo']['arch']} train (sharded dp step)"] = \
             sharded["olmo"]["train"]["launches"][kind]
+        q_train = sharded["qwen_train"]
+        runs[f"{q_train['arch']} train (tp step, {q_train['layers']} layers)"] = \
+            q_train["train"]["launches"][kind]
         return runs
 
     def ssm_train_launches(key):

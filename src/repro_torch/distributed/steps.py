@@ -11,24 +11,28 @@ reference's result.
 
 How the work is split:
 
-* **Serving the dense and vlm families: the Megatron split.** The batch is
-  split over ``data`` only (the reference's ``batch_specs``; not at all in
+* **The dense and vlm families: the Megatron split** (``tensor_parallel.py``),
+  in the serve steps and in the ``tp`` train step. The batch is split over
+  ``data`` only (the reference's ``batch_specs``; not at all in
   ``long_500k``); each rank computes on the weight blocks it stores, heads,
   ``d_ff`` and vocab over ``model``, and on the cache rows it stores (the
   sequence over ``model``, or ``data`` × ``model`` in ``long_500k``), moving
-  activations only (``tensor_parallel.py``). No weight is gathered and no
-  cache row moves; the logits come back split on the vocab over ``model``.
-* **Training, and serving the other families.** Each rank computes on its
-  block of the global batch, taken over every mesh axis (``dp``'s batch
-  spec; ``tp``'s leaves out ``model``, and the port splits over it too, so
-  that no two ranks compute the same rows). The global batch must divide,
-  or the step raises. Sharded weights are gathered a layer at a time at the
-  layer's entry (``sharding.gather_tree``), FSDP-style; the backward of each
-  gather reduce-scatters the layer's gradient to the leaf's blocks. Each
-  rank's loss is its block's mean over ``n`` ranks, so the reduced gradient
-  is the global batch's. Training's Megatron split (a vocab-parallel
-  cross-entropy, the collectives' backwards) and the other families' serving
-  split are ROADMAP.md item 18.
+  activations and their gradients only. No weight is gathered and no cache
+  row moves; the logits come back split on the vocab over ``model``. The
+  train step lets each rank's blocks require grad, takes the gradient of
+  its data block's loss (a vocab-parallel cross-entropy) over ``data`` ranks
+  and all-reduces each gradient over ``data``, then runs AdamW on the
+  blocks.
+* **Training the other families, the ``dp`` step, and serving the moe, ssm,
+  hybrid and encdec families.** Each rank computes on its block of the
+  global batch, taken over every mesh axis (``dp``'s batch spec; ``tp``'s
+  leaves out ``model``, and the port splits over it too, so that no two
+  ranks compute the same rows). The global batch must divide, or the step
+  raises. Sharded weights are gathered a layer at a time at the layer's
+  entry (``sharding.gather_tree``), FSDP-style; the backward of each gather
+  reduce-scatters the layer's gradient to the leaf's blocks. Each rank's
+  loss is its block's mean over ``n`` ranks, so the reduced gradient is the
+  global batch's. Their Megatron split is ROADMAP.md item 18.
 * **Expert parallel.** With ``moe_ep`` the experts stay split over
   ``model`` and tokens travel by all-to-all (``moe_ep.py``).
 * **The result is the reference's**; only the order of the sums differs.
@@ -62,12 +66,14 @@ from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
 Tree = Any
 
 CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense and "
-                         "vlm families; the moe family's (MLA's latent cache, the experts), the "
-                         "ssm and hybrid families' (long_500k's state split, their SSM heads over "
-                         "model) and the encdec family's are ROADMAP.md item 18; on one rank it "
-                         "is today's decode")
+                         "vlm families, which serve and train through the Megatron split; the "
+                         "moe family's (MLA's latent cache, the experts), the ssm and hybrid "
+                         "families' (long_500k's state split, their SSM heads over model) and the "
+                         "encdec family's are ROADMAP.md item 18; on one rank it is today's "
+                         "decode")
 
-#: families whose serve steps run the Megatron split (``tensor_parallel.py``)
+#: families whose serve steps and ``tp`` train step run the Megatron split
+#: (``tensor_parallel.py``)
 SPLIT_FAMILIES = ("dense", "vlm")
 
 
@@ -402,7 +408,9 @@ def make_train_step(
     ``zero1_moment_specs``; the gradients are reduce-scattered to the
     moments' blocks, AdamW runs on the blocks and the parameters are
     all-gathered. ``strategy="tp"``: parameters and moments split by
-    ``param_specs``/``opt_state_specs``, each rank holding its blocks."""
+    ``param_specs``/``opt_state_specs``, each rank holding its blocks; the
+    dense and vlm families compute on them (the Megatron split:
+    :func:`_block_grads`), the others gather a layer at a time."""
     cfg = model.cfg
     adamw = adamw or optim.AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
     rules = dict(train_rules(multi_pod, strategy))
@@ -431,14 +439,17 @@ def make_train_step(
     for path, _ in _leaves_with_paths(params_meta):
         mom = _get(opt_pl["m"], path)
         grad_pl[path] = mom["q"] if isinstance(mom, dict) else mom
-    axes = _compute_axes(mesh, shape)
-    n = _n_ranks(mesh, axes)
+    if strategy == "tp" and _split(cfg):
+        axes = _data_axes(mesh, shape, multi_pod)
+        grads_for = _block_grads(model, mesh, axes)
+        reduce = _reduce_over(mesh, axes)
+    else:
+        axes = _compute_axes(mesh, shape)
+        grads_for = _gathered_grads(model, mesh, axes, gdt if k == 1 else None)
+        reduce = _reduce_to_moments(mesh, grad_pl)
 
     def train_step(params, opt_state, batch):
         leaves = _leaves_with_paths(params)
-        sharded = any(is_dtensor(p) for _, p in leaves)
-        for _, p in leaves:
-            p.requires_grad_(not is_dtensor(p))
         with use_rules(rules, mesh):
             local = _split_batch(batch, mesh, axes)
             rows = next(iter(local.values())).shape[0]
@@ -446,29 +457,19 @@ def make_train_step(
                 raise ValueError(f"{rows} rows a rank do not split into {k} microbatches")
             acc: Optional[Dict[str, torch.Tensor]] = None
             mb_metrics: List[Dict[str, torch.Tensor]] = []
-            for j in range(k):
-                mb = {key: v[j * rows // k:(j + 1) * rows // k] for key, v in local.items()}
-                sink = GradSink(gdt if k == 1 else None) if sharded else None
-                with collect_grads(sink) if sink else contextlib.nullcontext():
-                    loss, metrics = model.train_loss(mb)
-                    (loss / n if n > 1 else loss).backward()
-                mb_metrics.append({key: v.detach() for key, v in metrics.items()})
-                grads = {}
-                for path, p in leaves:
-                    if is_dtensor(p):
-                        g = sink.grad(p)
-                        grads[path] = g if g is not None else torch.zeros_like(p.to_local())
-                    else:
-                        grads[path] = p.grad if p.grad is not None else torch.zeros_like(p)
-                        p.grad = None
-                if k == 1:
-                    break
-                if acc is None:
-                    acc = {path: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-                           for path, g in grads.items()}
-                for path, g in grads.items():
-                    acc[path] = acc[path] + g.to(torch.float32)
-                del grads
+            with grads_for(leaves) as take:
+                for j in range(k):
+                    mb = {key: v[j * rows // k:(j + 1) * rows // k] for key, v in local.items()}
+                    metrics, grads = take(mb)
+                    mb_metrics.append({key: v.detach() for key, v in metrics.items()})
+                    if k == 1:
+                        break
+                    if acc is None:
+                        acc = {path: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                               for path, g in grads.items()}
+                    for path, g in grads.items():
+                        acc[path] = acc[path] + g.to(torch.float32)
+                    del grads
             if k > 1:
                 grads = {path: g / k for path, g in acc.items()}
                 metrics = {key: torch.stack([m[key] for m in mb_metrics]).mean(0)
@@ -477,13 +478,8 @@ def make_train_step(
                 metrics = mb_metrics[0]
             if gdt is not None:
                 grads = {path: g.to(gdt) for path, g in grads.items()}
-            # dp: reduce-scatter each gradient to its moment's blocks
-            for path, p in leaves:
-                if not is_dtensor(p):
-                    grads[path] = _redistribute(grads[path].contiguous(), mesh,
-                                                [Partial()] * mesh.ndim, grad_pl[path],
-                                                tuple(p.shape))
-            names = list(metrics)
+            reduce(leaves, grads)
+            names = list(metrics)  # the same on every model rank of a split step
             metrics = dict(zip(names, _mean_over(mesh, [metrics[key] for key in names])))
             new_opt, info = _apply_updates(params, leaves, grads, grad_pl, opt_state, adamw,
                                            mesh)
@@ -491,6 +487,101 @@ def make_train_step(
 
     out_pl = (param_pl, opt_pl, None)  # metrics: replicated
     return train_step, (param_pl, opt_pl, batch_pl), out_pl, (params_meta, opt_meta)
+
+
+def _block_grads(model, mesh, axes: Sequence[str]):
+    """The Megatron split's gradients: each rank's stored blocks require
+    grad for the step (and no longer after it, also where it raises); the
+    model's ``train_loss`` under the mesh's ``Split``, the loss divided by
+    the ``axes`` (``data``) ranks only, since the ``model`` ranks compute one
+    batch block together. On one rank this is ``make_step``'s arithmetic."""
+    sp = tp.make_split(mesh)
+    n = _n_ranks(mesh, axes)
+
+    @contextlib.contextmanager
+    def grads_for(leaves):
+        blocks = {path: tp.local(p) for path, p in leaves}
+
+        def take(mb):
+            loss, metrics = model.train_loss(mb, split=sp)
+            (loss / n if n > 1 else loss).backward()
+            grads = {}
+            for path, b in blocks.items():
+                grads[path] = b.grad if b.grad is not None else torch.zeros_like(b)
+                b.grad = None
+            return metrics, grads
+
+        for b in blocks.values():
+            b.requires_grad_(True)
+        try:
+            yield take
+        finally:  # the stored blocks, as they were between steps
+            for b in blocks.values():
+                b.requires_grad_(False)
+
+    return grads_for
+
+
+def _gathered_grads(model, mesh, axes: Sequence[str], sink_dtype: Optional[torch.dtype]):
+    """The gathered weights' gradients: a ``DTensor`` leaf's reduce-scattered
+    to its blocks by its gathers' backwards (``GradSink``, cast to
+    ``sink_dtype`` there), a plain leaf's whole on each rank; each rank's
+    loss divided by the ``axes`` ranks."""
+    n = _n_ranks(mesh, axes)
+
+    @contextlib.contextmanager
+    def grads_for(leaves):
+        sharded = any(is_dtensor(p) for _, p in leaves)
+        for _, p in leaves:
+            p.requires_grad_(not is_dtensor(p))
+
+        def take(mb):
+            sink = GradSink(sink_dtype) if sharded else None
+            with collect_grads(sink) if sink else contextlib.nullcontext():
+                loss, metrics = model.train_loss(mb)
+                (loss / n if n > 1 else loss).backward()
+            grads = {}
+            for path, p in leaves:
+                if is_dtensor(p):
+                    g = sink.grad(p)
+                    grads[path] = g if g is not None else torch.zeros_like(p.to_local())
+                else:
+                    grads[path] = p.grad if p.grad is not None else torch.zeros_like(p)
+                    p.grad = None
+            return metrics, grads
+
+        yield take
+
+    return grads_for
+
+
+def _reduce_over(mesh, axes: Sequence[str]):
+    """Each gradient all-reduced in place over ``axes``: the ``data`` ranks'
+    shares of the global batch's gradient of a block."""
+    import torch.distributed as dist
+
+    groups = tp.axis_groups(mesh, axes)
+
+    def reduce(leaves, grads):
+        for group in groups:
+            for g in grads.values():
+                dist.all_reduce(g, group=group)
+
+    return reduce
+
+
+def _reduce_to_moments(mesh, grad_pl: Dict[str, Any]):
+    """``dp``: each plain leaf's gradient reduce-scattered to its moment's
+    blocks (a ``DTensor`` leaf's is already on its blocks)."""
+
+    def reduce(leaves, grads):
+        for path, p in leaves:
+            if not is_dtensor(p):
+                grads[path] = _redistribute(grads[path].contiguous(), mesh,
+                                            [Partial()] * mesh.ndim, grad_pl[path],
+                                            tuple(p.shape))
+
+    return reduce
 
 
 @torch.no_grad()

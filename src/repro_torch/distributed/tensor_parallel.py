@@ -1,6 +1,6 @@
-"""The Megatron split of the serve steps over the mesh's ``model`` axis,
-and the split-S combine of context-parallel decode: plain functions on
-tensors over the mesh's process groups.
+"""The Megatron split over the mesh's ``model`` axis, of the serve steps and
+of the ``tp`` train step, and the split-S combine of context-parallel
+decode: functions on tensors over the mesh's process groups.
 
 The reference has no such module: GSPMD writes this for it from the spec
 tables (``partition.param_specs``, ``steps.cache_spec_tree``), which fix
@@ -25,11 +25,38 @@ blocks it stores and moves only activations:
   log-sum-exps, then one of the weighted sums.
 
 A serve step hands its :class:`Split` to the model's ``prefill``/
-``decode_step`` (``split=``). Without one, a GQA model computes under
-:data:`ONE`, the split of one rank: its blocks are the whole weights and
-cache, every collective is the identity and the combine of one partial
-returns it, so a step on a one-rank mesh and the model's own call run the
-same code.
+``decode_step`` (``split=``), the ``tp`` train step to its ``train_loss``.
+Without one, a GQA model without MoE layers computes under :data:`ONE`, the
+split of one rank: its blocks are the whole weights and cache, every
+collective is the identity and the combine of one partial returns it, so a
+step on a one-rank mesh and the model's own call run the same code.
+
+**Training** runs the same products under autograd, Megatron's way. The
+residual stream is whole on every ``model`` rank, and so is its gradient.
+Each collective is an autograd op, the identity (and no op at all) on one
+rank, and under ``torch.no_grad`` or on tensors that need no gradient the
+serve steps' plain collective:
+
+* :func:`copy_to_model` (Megatron's ``f``) at the entry of a column-parallel
+  product (``wq``/``wk``/``wv``, ``w_up``/``w_gate``, ``lm_head``, the tied
+  ``embed``): the identity forward, an all-reduce of the gradient backward,
+  whose every rank holds only its heads' or columns' share. A whole leaf
+  used inside such a region (QK-norm's scales, a bias or a ``wk`` that the
+  mesh does not split) takes it too: its gradient is a share as well;
+* :func:`reduce_from_model` (``g``) for the row-parallel outputs (``wo``,
+  ``w_down``) and the vocab-parallel embedding: an all-reduce forward (out
+  of place), the identity backward;
+* two all-gathers that differ in their backward only:
+  :func:`all_gather_for_replicated` where the gathered tensor feeds the
+  residual stream (``mm_proj``'s output: its gradient is whole on every
+  rank, so a rank keeps its slice) and :func:`all_gather_for_split` where it
+  feeds ranks that each use a part (``wk``/``wv`` split on ``head_dim``: each
+  rank's gradient is its query heads' share, so the backward sums over
+  ``model`` before taking the slice);
+* :func:`cross_entropy`, the vocab-parallel loss over each rank's logit
+  columns, equal to ``models/common.py:cross_entropy_loss`` on the whole
+  logits, gradient included (the reference's extra one-hot at the argmax,
+  ROADMAP.md §3 fault 3, lands once, on the rank that holds the argmax).
 """
 
 from __future__ import annotations
@@ -62,7 +89,9 @@ class Split(NamedTuple):
     seq_groups: Tuple[Any, ...] = ()
 
 
-def _groups(mesh, axes: Sequence[str]) -> Tuple[Any, ...]:
+def axis_groups(mesh, axes: Sequence[str]) -> Tuple[Any, ...]:
+    """The process groups of those of ``axes`` that ``mesh`` has with more
+    than one rank."""
     names = list(mesh.mesh_dim_names)
     return tuple(mesh.get_group(a) for a in axes
                  if a in names and mesh.size(names.index(a)) > 1)
@@ -76,8 +105,8 @@ def make_split(mesh, *, seq_axes: Sequence[str] = (), kv_start: int = 0,
         model, rank = mesh.size(k), mesh.get_coordinate()[k]
     else:
         model, rank = 1, 0
-    return Split(model, rank, kv_start, rows, _groups(mesh, (MODEL,)),
-                 _groups(mesh, seq_axes))
+    return Split(model, rank, kv_start, rows, axis_groups(mesh, (MODEL,)),
+                 axis_groups(mesh, seq_axes))
 
 
 #: one rank: whole weights and cache, no collective
@@ -85,9 +114,14 @@ ONE = Split(1, 0)
 
 
 def local(x: Any) -> torch.Tensor:
-    """The block this rank stores: a ``DTensor``'s local tensor, a plain
-    tensor itself."""
-    return x.to_local() if is_dtensor(x) else x
+    """The block this rank stores: a ``DTensor``'s local tensor itself (the
+    one the ``tp`` train step lets require grad, so that every use of it,
+    each layer's view included, adds into its ``.grad``), a plain tensor
+    itself. Under ``torch.no_grad()`` (serving) ``to_local()`` returns this
+    same tensor; under grad it returns a new autograd alias at each call,
+    whose gradients would not reach the block. ``_local_tensor`` is torch's
+    private attribute of a ``DTensor`` (torch 2.x)."""
+    return x._local_tensor if is_dtensor(x) else x
 
 
 def offset(n_local: int, n_global: int, sp: Split) -> int:
@@ -109,6 +143,57 @@ def all_reduce(x: torch.Tensor, groups: Sequence[Any], op=dist.ReduceOp.SUM) -> 
     return x
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over
+    ``model`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.groups), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the sum over ``model`` forward, into a new tensor
+    (autograd may have saved ``x``), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, sp: Split) -> torch.Tensor:
+    """``x`` at the entry of a region split over ``model`` (Megatron's
+    ``f``): itself forward; backward, its gradient summed over ``model``.
+    ``x`` itself on one rank or where nothing needs its gradient."""
+    if not sp.model_groups or not _tracked(x):
+        return x
+    return _CopyToModel.apply(x, sp.model_groups)
+
+
+def reduce_from_model(x: torch.Tensor, sp: Split) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial ``x`` (Megatron's ``g``),
+    whose gradient is the sum's on every rank. Outside autograd the serve
+    steps' in-place :func:`all_reduce`."""
+    if not sp.model_groups:
+        return x
+    if not _tracked(x):
+        return all_reduce(x, sp.model_groups)
+    return _ReduceFromModel.apply(x, sp.model_groups)
+
+
 def all_gather(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
     """The blocks of the ``model`` ranks along ``dim``, concatenated in rank
     order (``x`` itself on one rank)."""
@@ -118,6 +203,42 @@ def all_gather(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(sp.model)]
     dist.all_gather(parts, x, group=sp.model_groups[0])
     return torch.cat(parts, dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather` forward; backward, this rank's slice of the
+    gradient, summed over ``model`` first where each rank holds only its
+    share of it (``summed``: a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, sp, dim, summed):
+        ctx.sp, ctx.dim, ctx.n, ctx.summed = sp, dim, x.shape[dim], summed
+        return all_gather(x, sp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = all_reduce(g.contiguous().clone(), ctx.sp.model_groups)
+        return g.narrow(ctx.dim, ctx.sp.rank * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+def all_gather_for_replicated(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' blocks along ``dim`` for a consumer that every
+    rank computes alike (the residual stream), whose gradient is whole on
+    each rank: the backward keeps this rank's slice."""
+    if not sp.model_groups or not _tracked(x):
+        return all_gather(x, sp, dim)
+    return _AllGather.apply(x, sp, dim, False)
+
+
+def all_gather_for_split(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
+    """The ``model`` ranks' blocks along ``dim`` for a consumer split over
+    ``model`` (each rank attends its own query heads over every KV head),
+    whose gradient on a rank is that rank's share: the backward sums the
+    shares over ``model`` and keeps this rank's slice."""
+    if not sp.model_groups or not _tracked(x):
+        return all_gather(x, sp, dim)
+    return _AllGather.apply(x, sp, dim, True)
 
 
 def gather_heads(t: torch.Tensor, n_global: int, sp: Split, dim: int = 1) -> torch.Tensor:
@@ -139,7 +260,45 @@ def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int, sp: Split,
     mine = (idx >= 0) & (idx < table.shape[0])
     x = lookup(table, idx.clamp(0, table.shape[0] - 1))
     x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-    return all_reduce(x, sp.model_groups)
+    return reduce_from_model(x, sp)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, vocab: int,
+                  sp: Split, whole: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``whole(logits, labels, mask)`` (``models/common.py:cross_entropy_loss``)
+    of the whole logits (B, S, vocab) from this rank's block of their columns
+    (B, S, V/model): the mean NLL over ``mask`` and the accuracy, each the
+    same on every rank, and their gradient into this rank's columns;
+    ``whole`` itself where the rank holds every column.
+
+    The global max is the largest of the ranks' maxima (an all-gather of
+    them, which also names the rank holding the argmax: the first rank with
+    the global max, so the lowest global index, as ``argmax``); the sum of
+    ``exp(l - max)``, the label's logit (from the rank whose block holds
+    it), the max as added back (its gradient a one-hot at the argmax: the
+    reference's fault 3, once, on that rank) and the accuracy's hit are
+    summed over ``model`` in one :func:`reduce_from_model`."""
+    if logits.shape[-1] == vocab:
+        return whole(logits, labels, mask)
+    logits32 = logits.to(torch.float32)
+    top, arg = torch.max(logits32, dim=-1, keepdim=True)
+    off = offset(logits.shape[-1], vocab, sp)
+    idx = labels[..., None].long() - off
+    tops = all_gather(top.detach()[None], sp, 0)  # (model, B, S, 1)
+    m_all = tops.max(0).values
+    own = torch.argmax((tops == m_all).to(torch.uint8), dim=0) == sp.rank
+    sumexp = torch.sum(torch.exp(logits32 - m_all), dim=-1)
+    mine = (idx >= 0) & (idx < logits.shape[-1])
+    label_logit = torch.where(mine, torch.gather(logits32, -1, idx.clamp(
+        0, logits.shape[-1] - 1)), 0.0)
+    m = torch.where(own, top, 0.0)
+    hit = (own & (arg == idx)).to(torch.float32)
+    sums = reduce_from_model(torch.cat([sumexp[..., None], label_logit, m, hit], -1), sp)
+    nll = torch.log(sums[..., 0]) + sums[..., 2] - sums[..., 1]
+    mask = mask.to(torch.float32)
+    total = torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll * mask) / total, torch.sum(sums[..., 3].detach() * mask) / total
 
 
 def combine(out: torch.Tensor, lse: torch.Tensor, sp: Split) -> torch.Tensor:

@@ -9,6 +9,13 @@ start-aligned, with the window on local layers) and ``ops.decode_attention``
 activations' dtype. Training (``gqa_attention``) runs the same flash kernel
 under autograd; its backward is a kernel too.
 
+Every GQA entry point computes on a rank's blocks of the layer's weights
+(``sp``, ``distributed/tensor_parallel.py``), the whole weights under
+``tp.ONE``. In training the split layer is Megatron's region: its input and
+each whole leaf it uses enter through ``tp.copy_to_model`` (the gradient's
+shares summed over ``model``), and ``wo``'s partial outputs leave through
+``tp.reduce_from_model``.
+
 Decode writes the new K/V row into the cache at ``pos`` in place
 (``index_copy_``; the JAX package returns an updated copy), and ``pos`` is
 a device tensor throughout, so a decode step issues no host sync.
@@ -79,8 +86,8 @@ def _split_heads(x: torch.Tensor, w: torch.Tensor, b, n_heads: int, hd: int,
     its heads; one split on ``head_dim`` gives every head, its columns
     all-gathered (the activation, not the weight); a whole one every head."""
     t = _heads(x, w)
-    if w.shape[2] != hd:
-        t = tp.all_gather(t, sp, dim=3)
+    if w.shape[2] != hd:  # every rank uses the heads its queries read: shares of the gradient
+        t = tp.all_gather_for_split(t, sp, dim=3)
     off = tp.offset(t.shape[1], n_heads, sp)
     if b is not None:
         b_off = tp.offset(b.shape[0], n_heads, sp)
@@ -120,13 +127,32 @@ def _out_split(o: torch.Tensor, o_off: int, wo: torch.Tensor, cfg: ModelConfig,
     Hp, hd = cfg.n_heads + cfg.head_pad, cfg.head_dim
     if wo.shape[0] != Hp:
         lo = tp.offset(wo.shape[0], Hp, sp) - o_off
-        return tp.all_reduce(_out_proj(o[:, lo:lo + wo.shape[0]], wo), sp.model_groups)
+        return tp.reduce_from_model(_out_proj(o[:, lo:lo + wo.shape[0]], wo), sp)
     if o.shape[1] != Hp:
         raise ValueError(f"a whole wo takes every head; have {o.shape[1]} of {Hp}")
     if wo.shape[1] != hd:
         lo = tp.offset(wo.shape[1], hd, sp)
-        return tp.all_reduce(_out_proj(o[..., lo:lo + wo.shape[1]], wo), sp.model_groups)
+        return tp.reduce_from_model(_out_proj(o[..., lo:lo + wo.shape[1]], wo), sp)
     return _out_proj(o, wo)
+
+
+def _region(p, x: torch.Tensor, cfg: ModelConfig, sp: tp.Split):
+    """The layer's input and weights as a training step over ``model`` uses
+    them: where ``wo`` is split (the layer is a Megatron region), ``x`` and
+    each leaf the rank holds whole through ``tp.copy_to_model``, since each
+    rank's gradient of them is its heads' share; as they are elsewhere."""
+    Hp, hd = cfg.n_heads + cfg.head_pad, cfg.head_dim
+    if not sp.model_groups or tuple(p["wo"].shape[:2]) == (Hp, hd):
+        return p, x
+    heads = {"wq": Hp, "bq": Hp, "wk": cfg.n_kv_heads, "bk": cfg.n_kv_heads,
+             "wv": cfg.n_kv_heads, "bv": cfg.n_kv_heads}
+
+    def whole(name, w):  # (..., heads, hd) unsplit; QK-norm's (hd,) scales always
+        return name in ("q_norm", "k_norm") or (name in heads and
+                                                 tuple(w.shape[-2:]) == (heads[name], hd))
+
+    return ({k: tp.copy_to_model(w, sp) if whole(k, w) else w for k, w in p.items()},
+            tp.copy_to_model(x, sp))
 
 
 def _kv_for(k: torch.Tensor, kv_off: int, q_off: int, nq: int, g: int) -> torch.Tensor:
@@ -135,6 +161,8 @@ def _kv_for(k: torch.Tensor, kv_off: int, q_off: int, nq: int, g: int) -> torch.
     they are, a part of one group as its one KV head, else a KV head for
     each query head (group 1)."""
     lo, hi = q_off // g, (q_off + nq - 1) // g + 1
+    if lo == kv_off and hi - lo == k.shape[1] and q_off % g == 0 and nq % g == 0:
+        return k  # every KV head this rank holds, in order
     if q_off % g == 0 and nq % g == 0 or hi - lo == 1 and g % nq == 0:
         return k[:, lo - kv_off:hi - kv_off].contiguous()
     idx = torch.arange(q_off, q_off + nq, device=k.device) // g - kv_off
@@ -142,12 +170,19 @@ def _kv_for(k: torch.Tensor, kv_off: int, q_off: int, nq: int, g: int) -> torch.
 
 
 def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                  window: int, freqs: torch.Tensor) -> torch.Tensor:
+                  window: int, freqs: torch.Tensor, sp: tp.Split = tp.ONE) -> torch.Tensor:
     """Training attention over the whole sequence of ``x`` (B,S,d), the
     twin of the JAX package's ``gqa_attention``: causal, ``window`` on local
-    layers (0 on global ones). Differentiable; returns (B,S,d)."""
-    q, k, v, _, _ = _project_qkv(p, x, cfg, positions, freqs)
-    return _out_proj(ops.flash_attention(q, k, v, causal=True, window=window), p["wo"])
+    layers (0 on global ones). Differentiable; returns (B,S,d). On a rank's
+    blocks (``sp``): its query heads through ``ops.flash_attention`` over
+    the KV heads they read, ``wo`` row-parallel (``_region``)."""
+    Hp = cfg.n_heads + cfg.head_pad
+    p, x = _region(p, x, cfg, sp)
+    q, k, v, q_off, kv_off = _project_qkv(p, x, cfg, positions, freqs, sp)
+    g, nq = Hp // cfg.n_kv_heads, q.shape[1]
+    o = ops.flash_attention(q, _kv_for(k, kv_off, q_off, nq, g), _kv_for(v, kv_off, q_off, nq, g),
+                            causal=True, window=window)
+    return _out_split(o, q_off, p["wo"], cfg, sp)
 
 
 def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,

@@ -1,6 +1,6 @@
 """Dense (gated) MLP blocks: the JAX package's ``models/ffn.py`` as plain
-matmuls, on a rank's blocks of the weights in a serve step over a mesh
-(``distributed/tensor_parallel.py``)."""
+matmuls, on a rank's blocks of the weights in a serve or train step over a
+mesh (``distributed/tensor_parallel.py``)."""
 
 from __future__ import annotations
 
@@ -23,10 +23,14 @@ def init_mlp(ini: Initializer, cfg: ModelConfig, d_ff: int = 0) -> Dict[str, Any
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig, sp: tp.Split = tp.ONE) -> torch.Tensor:
     """The block on this rank's blocks (``sp``): ``w_up``/``w_gate``
-    column-parallel on ``d_ff``, ``w_down`` row-parallel and summed over
-    ``model``; whole weights give the whole output."""
+    column-parallel on ``d_ff`` (entered through Megatron's ``f``),
+    ``w_down`` row-parallel and summed over ``model`` (``g``); whole weights
+    give the whole output."""
     act = activation(cfg.mlp_act)
+    split = p["w_down"].shape[0] != cfg.d_ff
+    if split:
+        x = tp.copy_to_model(x, sp)
     up = x @ p["w_up"].to(x.dtype)
     h = act(x @ p["w_gate"].to(x.dtype)) * up if cfg.mlp_gated else act(up)
     y = h @ p["w_down"].to(x.dtype)
-    return tp.all_reduce(y, sp.model_groups) if p["w_down"].shape[0] != cfg.d_ff else y
+    return tp.reduce_from_model(y, sp) if split else y

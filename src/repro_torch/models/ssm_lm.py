@@ -52,6 +52,7 @@ class Mamba2LM(TransformerLM):
     as there."""
 
     family = "ssm"
+    splits = False  # gathers its sharded weights; the Megatron split is TransformerLM's
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         nn.Module.__init__(self)

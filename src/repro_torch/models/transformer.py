@@ -44,14 +44,16 @@ layers over ``P + S`` positions; the loss scores the text positions only.
 ``decode_step`` and the engine are text-only, as the JAX package's are.
 
 Parameters placed on a mesh (``distributed/steps.py:shard_model``) are
-``DTensor`` blocks: each layer gathers its slice of them at its entry
-(``_block``, through ``distributed.sharding.gather_tree``), and the rest
-of the model runs on the plain tensors it always takes. A GQA model
-without MoE layers serves (``prefill``, ``decode_step``) on each rank's
-blocks of the weights and rows of the cache instead, the Megatron split of
-``distributed/tensor_parallel.py``, and gathers no weight: a serve step over
-a mesh hands it its ``Split``, and without one it computes under one
-rank's, on the whole weights and cache.
+``DTensor`` blocks. A GQA model without MoE layers (the dense and vlm
+families) serves (``prefill``, ``decode_step``) and trains (``train_loss``)
+on each rank's blocks of the weights and rows of the cache, the Megatron
+split of ``distributed/tensor_parallel.py``, and gathers no weight: a serve
+or train step over a mesh hands it its ``Split``, and without one it
+computes under one rank's, on the whole weights and cache, so that the
+split is its only path. The moe family gathers each layer's slice of its
+sharded leaves at the layer's entry (``_block``, through
+``distributed.sharding.gather_tree``), and the rest of the model runs on
+the plain tensors it always takes.
 """
 
 from __future__ import annotations
@@ -113,14 +115,17 @@ def _index(tree: Any, i: int, local: bool = False) -> Any:
     return tp.local(tree)[i] if local else layer_view(tree, i)
 
 
-def _unstack(tree: Any, n: int) -> List[Any]:
+def _unstack(tree: Any, n: int, local: bool = False) -> List[Any]:
     """Every layer of a stacked params dict as views, one ``unbind`` a leaf:
     under autograd each leaf's gradient is then stacked once from its
     layers' (where ``tree[i]`` would build a full-size gradient a layer). A
-    sharded leaf gives its layers, each gathered at the layer's entry."""
+    sharded leaf gives its layers, each gathered at the layer's entry; with
+    ``local``, the layers of this rank's block of it (the Megatron split)."""
     if isinstance(tree, dict):
-        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        subs = {k: _unstack(v, n, local) for k, v in tree.items()}
         return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    if local:
+        return list(tp.local(tree).unbind(0))
     if is_dtensor(tree):
         return [Layer(tree, i) for i in range(n)]
     return list(tree.unbind(0))
@@ -188,8 +193,8 @@ class TransformerLM(nn.Module):
             })
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[tuple]] = None  # per-layer views, made lazily
-        #: serves on each rank's blocks (the Megatron split); MLA and MoE models on
-        #: weights gathered a layer at a time
+        #: serves and trains on each rank's blocks (the Megatron split); MLA and MoE
+        #: models on weights gathered a layer at a time
         self.splits = cfg.attn_type == "gqa" and not self.n_moe
 
     # ---- parameters ---------------------------------------------------------
@@ -280,16 +285,18 @@ class TransformerLM(nn.Module):
         pe = torch.as_tensor(patch_embeds).to(device=self.device, dtype=cfg.cdtype)
         proj = leaf(self.mm_proj)
         y = pe @ proj.to(cfg.cdtype)
-        if proj.shape[1] != cfg.d_model:
-            y = tp.all_gather(y, sp, dim=2)
+        if proj.shape[1] != cfg.d_model:  # joins the residual stream: whole on every rank
+            y = tp.all_gather_for_replicated(y, sp, dim=2)
         return torch.cat([y, x], dim=1)
 
     def _logits(self, h: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
         """Softcapped logits: under a split ``sp``, this rank's vocab columns
-        (``lm_head``'s block, or the tied ``embed``'s rows)."""
+        (``lm_head``'s block, or the tied ``embed``'s rows), column-parallel."""
         cfg = self.cfg
         leaf = gather if sp is None else tp.local
         head = leaf(self.embed).t() if cfg.tie_embeddings else leaf(self.lm_head)
+        if sp is not None and head.shape[1] != cfg.vocab:
+            h = tp.copy_to_model(h, sp)
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
 
     def _final_norm(self, x: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
@@ -324,26 +331,30 @@ class TransformerLM(nn.Module):
 
     # ---- train --------------------------------------------------------------
     def _train_attention(self, p, h: torch.Tensor, positions: torch.Tensor, window: int,
-                         freqs: torch.Tensor) -> torch.Tensor:
+                         freqs: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
         """A layer's training attention: MLA's expanded form, or GQA with the
-        layer's window."""
+        layer's window (on this rank's blocks under a split ``sp``)."""
         if self.cfg.attn_type == "mla":
             return mla_attention(p, h, self.cfg, positions=positions, freqs=freqs)
-        return gqa_attention(p, h, self.cfg, positions=positions, window=window, freqs=freqs)
+        return gqa_attention(p, h, self.cfg, positions=positions, window=window, freqs=freqs,
+                             sp=sp or tp.ONE)
 
-    def _backbone(self, x: torch.Tensor,
-                  positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _backbone(self, x: torch.Tensor, positions: torch.Tensor,
+                  sp: Optional[tp.Split] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both stacks' layers in order and the final norm, with autograd on:
         (h, aux loss), the aux summed over each stack's layers and then over
         the stacks, as the reference's ``_scan_stack`` and ``_backbone``.
         Per-layer views and RoPE tables (at ``_rope_dim``) are made anew each
-        call (the serving caches may hold inference tensors)."""
+        call (the serving caches may hold inference tensors). Under a split
+        ``sp`` each layer computes on this rank's blocks; a layer recomputed
+        by ``torch.utils.checkpoint`` repeats its forward collectives, in the
+        same order on every rank."""
         cfg = self.cfg
         freqs: Dict[float, torch.Tensor] = {}
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         offset = 0
         for group, n, use_moe in self._stacks():
-            layers = _unstack(getattr(self, f"{group}_layers").tree(), n)
+            layers = _unstack(getattr(self, f"{group}_layers").tree(), n, sp is not None)
             stack_aux = torch.zeros((), dtype=torch.float32, device=self.device)
             for p, (is_global, theta) in zip(layers, self._layer_flags(n, offset)):
                 if theta not in freqs:
@@ -352,23 +363,29 @@ class TransformerLM(nn.Module):
                 def layer(x, p=p, window=0 if is_global else cfg.sliding_window,
                           f=freqs[theta], use_moe=use_moe):
                     return self._block(p, x, lambda h, pa: self._train_attention(
-                        pa, h, positions, window, f), use_moe)
+                        pa, h, positions, window, f, sp), use_moe, sp)
 
                 x, a = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
                 stack_aux = stack_aux + a
             aux = aux + stack_aux
             offset += n
-        return self._final_norm(x), aux
+        return self._final_norm(x, sp), aux
 
     def _chunked_ce(self, h: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-                    chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int = 256,
+                    sp: Optional[tp.Split] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """CE and accuracy over ``chunk``-token pieces, each checkpointed, so
-        the full (B,S,V) logits never exist at once."""
+        the full (B,S,V) logits never exist at once; under a split ``sp``,
+        the vocab-parallel ``tp.cross_entropy`` of this rank's columns."""
         S = h.shape[1]
         chunk = min(chunk, S)
 
         def piece(hc, lc, mc):
-            loss, acc = cross_entropy_loss(self._logits(hc), lc, mc)
+            if sp is None:
+                loss, acc = cross_entropy_loss(self._logits(hc), lc, mc)
+            else:
+                loss, acc = tp.cross_entropy(self._logits(hc, sp), lc, mc, self.cfg.vocab, sp,
+                                             cross_entropy_loss)
             cnt = torch.clamp_min(torch.sum(mc.to(torch.float32)), 1e-9)
             return loss * cnt, acc * cnt, cnt
 
@@ -381,22 +398,26 @@ class TransformerLM(nn.Module):
             tl, ta, tc = tl + l, ta + a, tc + c
         return tl / torch.clamp_min(tc, 1e-9), ta / torch.clamp_min(tc, 1e-9)
 
-    def train_loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def train_loss(self, batch: Dict[str, Any], *, split: Optional[tp.Split] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: ``tokens`` (B,S) [+ ``patch_embeds`` (B,P,d), vlm]. The
         next-token LM loss over the text positions, on the module's device:
         labels are the tokens shifted by one, the last position masked, plus
         the MoE aux loss and, with ``cfg.mtp``, ``cfg.mtp_weight`` times the
         MTP loss. Returns (loss, {"ce", "aux", "acc", ["mtp",] "loss"}), all
-        0-d f32."""
+        0-d f32, the same on every rank of a split. With ``split`` (the
+        ``tp`` train step's over a mesh): on this rank's weight blocks, the
+        gradients into them."""
+        sp = self._split_for(split)
         tokens = token_ids(batch["tokens"], self.device)
-        x = self._embed_inputs(tokens, batch.get("patch_embeds"))
+        x = self._embed_inputs(tokens, batch.get("patch_embeds"), sp)
         positions = torch.arange(x.shape[1], device=self.device)
-        h, aux = self._backbone(x, positions)
+        h, aux = self._backbone(x, positions) if sp is None else self._backbone(x, positions, sp)
         h = h[:, h.shape[1] - tokens.shape[1]:]  # the text positions, after the patches
         labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -1] = 0.0
-        loss, acc = self._chunked_ce(h, labels, mask)
+        loss, acc = self._chunked_ce(h, labels, mask, sp=sp)
         metrics = {"ce": loss, "aux": aux, "acc": acc}
         total = loss + aux
         if self.cfg.mtp:
@@ -429,16 +450,16 @@ class TransformerLM(nn.Module):
         return self._chunked_ce(h_out, labels, mask)[0]
 
     # ---- serve --------------------------------------------------------------
-    def _serve_split(self, split: Optional[tp.Split]) -> Optional[tp.Split]:
-        """The split a serve call computes under: ``split`` (a serve step's
+    def _split_for(self, split: Optional[tp.Split]) -> Optional[tp.Split]:
+        """The split a serve or train call computes under: ``split`` (a step's
         over a mesh), else one rank's, where the model ``splits``; None (the
         weights gathered a layer at a time) for MLA and MoE models."""
         if self.splits:
             return split or tp.ONE
         if split is not None:
             raise NotImplementedError(
-                "the Megatron split of the serve steps covers the dense and vlm families; the "
-                "moe family serves through the gathered weights (ROADMAP.md item 18)")
+                "the Megatron split covers the dense and vlm families; the moe family serves "
+                "and trains through the gathered weights (ROADMAP.md item 18)")
         return None
 
     @torch.inference_mode()
@@ -452,7 +473,7 @@ class TransformerLM(nn.Module):
         batch rows, its cache rows ``[kv_start, kv_start + rows)`` of the
         capacity, its vocab columns of the logits."""
         cfg = self.cfg
-        sp = self._serve_split(split)
+        sp = self._split_for(split)
         x = self._embed_inputs(tokens, patch_embeds, sp)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
@@ -512,7 +533,7 @@ class TransformerLM(nn.Module):
         returns (logits (B, V), the cache with ``pos + 1``); with ``split``,
         on this rank's cache rows, and its vocab columns of the logits."""
         cfg = self.cfg
-        sp = self._serve_split(split)
+        sp = self._split_for(split)
         pos = cache["pos"]
         x = self._embed_inputs(tokens, None, sp)
         for p, window, freqs, group, i, use_moe in self._layer_args():

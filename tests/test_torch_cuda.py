@@ -326,6 +326,7 @@ _BWD_SHAPES = [
     (1, 8, 1, 130, 64, True, 0),       # groups of 8
     (1, 4, 4, 200, 128, False, 0),     # non-causal
     (2, 16, 8, 192, 128, True, 0),     # a multiple of the 64-row tiles, not of 128
+    (1, 48, 8, 300, 128, True, 0),     # qwen2.5-14b's group of 6 (40 + 8 padded heads)
 ]
 _BWD_CASES = [(*shape, dtype) for dtype in (torch.float32, torch.bfloat16)
               for shape in _BWD_SHAPES] + [
@@ -1399,6 +1400,56 @@ def test_dp_step_on_a_one_rank_nccl_mesh_is_make_step(card, one_rank_group):
     got = flatten(b.param_tree(), "p")
     for name, t in flatten(pa, "p").items():
         assert torch.equal(t.detach(), got[name].detach()), name
+
+
+def test_split_tp_step_on_a_one_rank_nccl_mesh_is_make_step(card, one_rank_group):
+    """The ``tp`` train step's Megatron split on a one-rank NCCL mesh: its
+    metrics and updated parameters bit-equal to ``train.loop.make_step``'s on
+    the same weights and batch (reduced qwen in bf16 through the kernels:
+    qkv bias, 4 + 8 padded heads over 2 KV heads, group 6), every weight a
+    ``DTensor`` block that requires grad, no weight gathered."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import sharding, steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train.loop import make_step
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = get_config("qwen2_5_14b").reduced().with_(param_dtype="bfloat16",
+                                                    compute_dtype="bfloat16", remat=True)
+    adamw = optim.AdamWConfig(lr=1e-3, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(1, cfg.vocab, (4, 256))
+                            .astype(np.int32))
+    a = build_model(cfg, device=card, seed=3)
+    b = build_model(cfg, device=card, seed=3)
+    a.requires_grad_(True)
+    pa = a.param_tree()
+    _, _, ma = make_step(a, adamw)(pa, optim.init_state(pa, adamw), {"tokens": toks})
+    step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
+        b, mesh, ShapeSpec("t", "train", 256, 4), adamw=adamw, strategy="tp")
+    steps.shard_model(b, mesh, ppl)
+    assert all(sharding.is_dtensor(p) for p in b.dense_layers.attn.parameters())
+    before, bwd = fa.launches, fa.bwd_launches
+    kept = {(m, n): getattr(m, n) for m in (sharding, transformer) for n in ("gather",
+                                                                              "gather_tree")}
+    for m, n in kept:
+        setattr(m, n, None)  # a call would raise
+    try:
+        _, _, mb = step(b.param_tree(), steps.init_opt_state(ometa, mesh, opl, card),
+                        {"tokens": toks})
+    finally:
+        for (m, n), fn in kept.items():
+            setattr(m, n, fn)
+    torch.cuda.synchronize()
+    assert (fa.launches - before, fa.bwd_launches - bwd) == (2 * cfg.n_layers, cfg.n_layers)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    got = flatten(b.param_tree(), "p")
+    for name, t in flatten(pa, "p").items():
+        g = got[name]
+        assert torch.equal(t.detach(), (g.to_local() if sharding.is_dtensor(g) else g).detach()), \
+            name
 
 
 def test_moe_ffn_ep_at_one_rank_is_the_dense_dispatch(card, one_rank_group):

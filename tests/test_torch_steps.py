@@ -130,7 +130,22 @@ TRAIN = [
     ("deepseek_v3_671b", "tp", 1, None, False),
     ("deepseek_v3_671b", "dp", 2, "bfloat16", False),
     ("deepseek_v3_671b", "tp", 1, None, True),
+    # the Megatron split's other paths: qkv bias and padded heads; tied embedding,
+    # QK-norm, sandwich norms; mm_proj and patches
+    ("qwen2_5_14b", "tp", 1, None, False),
+    ("gemma3_12b", "tp", 2, None, False),
+    ("llava_next_mistral_7b", "tp", 1, "bfloat16", False),
 ]
+
+
+def _batch(cfg, seed):
+    """Tokens (B, S), and patch embeddings (B, P, d) for a vlm config, as numpy."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.n_patches:
+        batch["patch_embeds"] = rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(
+            np.float32)
+    return batch
 
 
 @pytest.mark.parametrize("arch,strategy,microbatches,grad_dtype,moe_ep", TRAIN,
@@ -143,7 +158,7 @@ def test_train_step_matches_jax(mesh, arch, strategy, microbatches, grad_dtype, 
     moe = {"capacity_factor": 8.0} if arch.startswith("deepseek") else {}
     jcfg, jmodel, params, port = _pair(arch, **moe)
     kw = dict(lr=LR, warmup_steps=0, total_steps=10, moment_dtype=jcfg.opt_moment_dtype)
-    toks = np.random.default_rng(7).integers(1, jcfg.vocab, (B, S)).astype(np.int32)
+    batch = _batch(jcfg, 7)
     step_kw = dict(strategy=strategy, microbatches=microbatches, grad_dtype=grad_dtype,
                    moe_ep=moe_ep)
 
@@ -151,13 +166,14 @@ def test_train_step_matches_jax(mesh, arch, strategy, microbatches, grad_dtype, 
         jmodel, _jax_mesh(), JShape("t", "train", S, B), adamw=jopt.AdamWConfig(**kw), **step_kw)
     jstate = jax.jit(lambda p: jopt.init_state(p, jopt.AdamWConfig(**kw)))(params)
     jp, js, jm = jax.jit(jstep, in_shardings=in_sh, out_shardings=out_sh)(
-        params, jstate, {"tokens": jnp.asarray(toks)})
+        params, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
 
     tstep, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
         port, mesh, ShapeSpec("t", "train", S, B), adamw=topt.AdamWConfig(**kw), **step_kw)
     tsteps.shard_model(port, mesh, ppl)
     tstate = tsteps.init_opt_state(ometa, mesh, opl, "cpu")
-    tp, ts, tm = tstep(port.param_tree(), tstate, {"tokens": torch.from_numpy(toks)})
+    tp, ts, tm = tstep(port.param_tree(), tstate,
+                       {k: torch.from_numpy(v) for k, v in batch.items()})
 
     assert set(tm) == set(jm)
     for k in tm:
@@ -205,7 +221,50 @@ def test_dp_step_is_make_steps_arithmetic_on_one_rank(mesh):
         assert torch.equal(x.detach(), y.detach()), name
 
 
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b"])
+def test_split_train_step_is_make_steps_on_one_rank(mesh, arch):
+    """On one rank the ``tp`` step's Megatron split is ``make_step``, op for
+    op: metrics and updated parameters bit-equal (every collective the
+    identity, the vocab-parallel cross-entropy ``cross_entropy_loss``'s
+    arithmetic), and no weight gathered."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+
+    _, _, _, a = _pair(arch)
+    _, _, _, b = _pair(arch)
+    adamw = topt.AdamWConfig(lr=LR, warmup_steps=0)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(a.cfg, 8).items()}
+    a.requires_grad_(True)
+    pa = a.param_tree()
+    _, _, ma = make_step(a, adamw)(pa, topt.init_state(pa, adamw), batch)
+    step, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
+        b, mesh, ShapeSpec("t", "train", S, B), adamw=adamw)
+    tsteps.shard_model(b, mesh, ppl)
+    assert any(is_dtensor(p) for p in b.parameters())
+    state = tsteps.init_opt_state(ometa, mesh, opl, "cpu")
+    gathers = []
+    kept = {(m, n): getattr(m, n) for m in (sharding, transformer) for n in ("gather",
+                                                                              "gather_tree")}
+    for (m, n), fn in kept.items():
+        setattr(m, n, lambda *x, _n=n, _f=fn, **k: (gathers.append(_n), _f(*x, **k))[1])
+    try:
+        _, _, mb = step(b.param_tree(), state, batch)
+    finally:
+        for (m, n), fn in kept.items():
+            setattr(m, n, fn)
+    assert gathers == []
+    assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+    for (name, x), (_, y) in zip(flatten(pa, "p").items(), flatten(b.param_tree(), "p").items()):
+        assert torch.equal(x.detach(), _local(y).detach()), name
+
+
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
 def test_train_step_refuses_a_batch_that_does_not_split(mesh):
+    from repro_torch.distributed import tensor_parallel
+
     _, _, _, port = _pair("olmo_1b")
     step, (ppl, opl, _), _, (_, ometa) = tsteps.make_train_step(
         port, mesh, ShapeSpec("t", "train", S, B), microbatches=3)
@@ -213,6 +272,8 @@ def test_train_step_refuses_a_batch_that_does_not_split(mesh):
     state = tsteps.init_opt_state(ometa, mesh, opl, "cpu")
     with pytest.raises(ValueError, match="4 rows a rank do not split into 3 microbatches"):
         step(port.param_tree(), state, {"tokens": torch.ones((B, S), dtype=torch.int32)})
+    # the split step's stored blocks are left as they were between steps
+    assert not any(tensor_parallel.local(p).requires_grad for p in port.parameters())
 
 
 @pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m"])

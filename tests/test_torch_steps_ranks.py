@@ -32,12 +32,42 @@ from repro.models import build_model as jax_build
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 300
 PARAM_TOL = 1e-5  # f32: the gathered parameters against one rank's
+#: the split's gradients against one rank's, of each leaf's largest |entry|: f32
+#: sums over the ranks' partial products (1.6e-6 seen)
+SPLIT_GRAD_TOL = 1e-5
+#: the split's whole step against one rank's: where |g| is near AdamW's eps (1e-8)
+#: a first step moves an entry by lr·g/(|g| + eps), so the gradients' rounding
+#: moves it by up to 2·lr (a sign), as ``tests/test_torch_steps.py:PARAM_ATOL``.
+#: Seen over 2 and 4 ranks: InternLM2 4.3e-6, qwen 2.4e-5, gemma3 1.4e-5, llava
+#: 2.7e-5, OLMo's int8 4.0e-5 (one moment code), past ``PARAM_TOL`` but for the first
+SPLIT_STEP_ATOL = 2.2 * 3e-4
 MESHES = {4: [(2, 2), (4, 1), (1, 4)], 2: [(1, 2)]}
 #: (arch, seed, batch, prompt, capacity) of the context-parallel decode: 199
 #: prompt tokens in a cache of 256, so pos 199-201 lie in the last rank's rows
 #: and the local layer's window of 64 crosses a slice boundary
 CP_CASE = ("gemma3_12b", 3, 1, 200, 256)
 CP_STEPS = 3
+#: (arch, moment dtype, sequence) of each strategy's train step. ``tp``: the
+#: Megatron split for the dense and vlm families (InternLM2; reduced qwen: qkv
+#: bias, 4 + 8 padded heads over 2 KV heads, which a model axis of 4 does not
+#: divide, so ``wk``/``wv`` split on head_dim; gemma3: tied embedding, logit
+#: softcap, QK-norm, a local layer of window 64 under 80 positions and a global
+#: one; llava: ``mm_proj`` and 16 patches), the weights gathered a layer at a time
+#: for the others (reduced Mamba2, with int8 moments on blocks the mesh cuts);
+#: OLMo's int8 moments through the split. The split's cases run with the
+#: attention tempered (``temper``): its partial sums round otherwise than one
+#: rank's matmuls, and at the reference's init scales (ROADMAP.md §3 fault 4)
+#: the f32 gradients then part by up to 3.1e-5 of a leaf's largest entry and
+#: the gradient norm by 1.1e-5 (InternLM2), by 1.6e-6 and 0 tempered; in f64 the
+#: same untempered weights part by 2.3e-6 (the cross-entropy is f32 in both
+#: packages), so the split itself is sound. ``dp`` runs the reference's init.
+TRAIN_CASES = {
+    "tp": [("internlm2_1_8b", "float32", 32), ("qwen2_5_14b", "float32", 32),
+           ("gemma3_12b", "float32", 80), ("llava_next_mistral_7b", "float32", 32),
+           ("olmo_1b", "int8", 32), ("mamba2_780m", "int8", 32)],
+    "dp": [("internlm2_1_8b", "float32", 32), ("olmo_1b", "int8", 32)],
+}
+TRAIN_CHANGES = {"gemma3_12b": {"global_every": 2, "logit_softcap": 30.0}}
 
 _RANKS = r"""
 import json, os, sys
@@ -55,25 +85,72 @@ try:
     from repro_torch.models import build_model, transformer
     from repro_torch.train.loop import make_step
 
-    B, S = 8, 32
-    CASES = (("internlm2_1_8b", "float32"), ("olmo_1b", "int8"))
+    B = 8
+    TRAIN_CASES = json.loads(os.environ["RA_TRAIN_CASES"])
     CP_CASE = json.loads(os.environ["RA_CP_CASE"])
     out = {}
 
-    def tokens_for(cfg):
-        return torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (B, S))
-                                .astype(np.int32))
-
-    def one_rank(arch, moments):
+    def train_config(arch):
         cfg = get_config(arch).reduced()
-        tokens = tokens_for(cfg)
-        model = build_model(cfg, device="cpu", seed=1)
+        return cfg.with_(**TRAIN_CHANGES.get(arch, {}))
+
+    def batch_for(cfg, S):
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(np.int32))}
+        if cfg.n_patches:
+            batch["patch_embeds"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        return batch
+
+    def split_case(strategy, arch):
+        return strategy == "tp" and steps._split(train_config(arch))
+
+    def train_model(arch, tempered):
+        model = build_model(train_config(arch), device="cpu", seed=1)
+        if tempered:  # the split's f32 rounding, not amplified by the init
+            temper(model)
+        return model
+
+    def one_rank(arch, moments, S, tempered):
+        cfg = train_config(arch)
+        model = train_model(arch, tempered)
+        model.requires_grad_(True)
+        loss, _ = model.train_loss(batch_for(cfg, S))
+        loss.backward()
+        grads = {k: p.grad for k, p in steps._leaves_with_paths(model.param_tree())}
+        model = train_model(arch, tempered)
         model.requires_grad_(True)
         adamw = optim.AdamWConfig(moment_dtype=moments, warmup_steps=0)
         params = model.param_tree()
         state = optim.init_state(params, adamw)
-        _, state, metrics = make_step(model, adamw)(params, state, {"tokens": tokens})
-        return dict(steps._leaves_with_paths(params)), state, metrics
+        _, state, metrics = make_step(model, adamw)(params, state, batch_for(cfg, S))
+        return dict(steps._leaves_with_paths(params)), state, metrics, grads
+
+    def update_of(arch, moments, grads):
+        # one rank's AdamW step from the split case's initial weights with the
+        # given gradients
+        model = train_model(arch, True)
+        adamw = optim.AdamWConfig(moment_dtype=moments, warmup_steps=0)
+        params = model.param_tree()
+
+        def like(node, path=""):  # the params' tree (OLMo's empty ln_f too), the grads' leaves
+            if isinstance(node, dict):
+                return {k: like(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+            return grads[path]
+        tree = like(params)
+        with torch.no_grad():
+            optim.apply_updates(params, tree, optim.init_state(params, adamw), adamw)
+        return dict(steps._leaves_with_paths(params))
+
+    def counting_gathers(found):
+        # every weight gather (as the models call them, and the train step's
+        # autograd gather) noted in ``found``, passed through
+        saved = {}
+        for mod, name in ((sh, "gather"), (sh, "gather_tree"), (transformer, "gather"),
+                          (transformer, "gather_tree"), (sh._Gather, "apply")):
+            saved[(mod, name)] = fn = getattr(mod, name)
+            setattr(mod, name, lambda *a, _n=name, _f=fn, **k: (found.append(_n), _f(*a, **k))[1])
+        return saved
 
     def full(t):
         return t.full_tensor() if sh.is_dtensor(t) else t
@@ -157,24 +234,50 @@ try:
             res["decode_logits"] = [g.tolist() for g in got]
         return res
 
-    want = {case: one_rank(*case) for case in CASES}
+    want = {(strategy, arch, moments): one_rank(arch, moments, S, split_case(strategy, arch))
+            for strategy, cases in TRAIN_CASES.items() for arch, moments, S in cases}
     for shape in map(tuple, json.loads(os.environ["RA_MESHES"])):
         mesh = make_mesh(shape, ("data", "model"), "cpu")
-        for strategy in ("tp", "dp"):
-            for arch, moments in CASES:
-                cfg = get_config(arch).reduced()
-                tokens = tokens_for(cfg)
-                model = build_model(cfg, device="cpu", seed=1)
+        for strategy, cases in TRAIN_CASES.items():
+            for arch, moments, S in cases:
+                cfg = train_config(arch)
+                model = train_model(arch, split_case(strategy, arch))
                 adamw = optim.AdamWConfig(moment_dtype=moments, warmup_steps=0)
                 step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
                     model, mesh, ShapeSpec("t", "train", S, B), adamw=adamw, strategy=strategy)
                 steps.shard_model(model, mesh, ppl)
                 state = steps.init_opt_state(ometa, mesh, opl, "cpu")
                 params = model.param_tree()
-                _, state, metrics = step(params, state, {"tokens": tokens})
-                p1, s1, m1 = want[(arch, moments)]
+                gathers, seen = [], {}
+                saved = counting_gathers(gathers)
+                apply = steps._apply_updates
+
+                def spy(params, leaves, grads, *a, **k):  # the gradients the update takes
+                    seen.update({p: g.detach().clone() for p, g in grads.items()})
+                    return apply(params, leaves, grads, *a, **k)
+                steps._apply_updates = spy
+                try:
+                    _, state, metrics = step(params, state, batch_for(cfg, S))
+                finally:
+                    steps._apply_updates = apply
+                    for (mod, name), fn in saved.items():
+                        setattr(mod, name, fn)
+                p1, s1, m1, g1 = want[(strategy, arch, moments)]
                 diff = max(float((full(t).detach() - p1[k].detach()).abs().max())
                            for k, t in steps._leaves_with_paths(params))
+                res = {}
+                if model.splits and strategy == "tp":
+                    # the step's gradients, whole, against one rank's; its update against
+                    # one rank's AdamW of those same gradients
+                    whole = {k: full(steps._dtensor(seen[k], mesh, t.placements, tuple(t.shape)))
+                             if sh.is_dtensor(t) else seen[k]
+                             for k, t in steps._leaves_with_paths(params)}
+                    res["grad_err"] = max(float((whole[k] - g1[k]).abs().max() /
+                                                g1[k].abs().max().clamp_min(1e-30)) for k in g1)
+                    same = update_of(arch, moments, whole)
+                    res["step_param_diff"] = diff
+                    diff = max(float((full(t).detach() - same[k].detach()).abs().max())
+                               for k, t in steps._leaves_with_paths(params))
                 codes = 0
                 for part in ("m", "v"):
                     ref = dict(steps._leaves_with_paths(s1[part]))
@@ -188,6 +291,7 @@ try:
                                    for k, t in steps._leaves_with_paths(state[part])})
                 out[f"{shape}/{strategy}/{arch}/{moments}"] = {
                     "param_diff": diff, "int8_code_gap": codes, "shapes": shapes,
+                    "gathers": len(gathers), "split": model.splits, **res,
                     "loss": [float(metrics["loss"]), float(m1["loss"])],
                     "grad_norm": [float(metrics["grad_norm"]), float(m1["grad_norm"])]}
 
@@ -262,8 +366,10 @@ def _spawn(world, tmp):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")])),
         RA_STORE=str(tmp / f"store{world}"), RA_WORLD=str(world), OMP_NUM_THREADS="1",
-        RA_MESHES=json.dumps(MESHES[world]), RA_CP_CASE=json.dumps(CP_CASE))
-    procs = [subprocess.Popen([sys.executable, "-c", _RANKS], env=dict(env, RA_RANK=str(r)),
+        RA_MESHES=json.dumps(MESHES[world]), RA_CP_CASE=json.dumps(CP_CASE),
+        RA_TRAIN_CASES=json.dumps(TRAIN_CASES))
+    script = f"TRAIN_CHANGES = {TRAIN_CHANGES!r}\n" + _RANKS
+    procs = [subprocess.Popen([sys.executable, "-c", script], env=dict(env, RA_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(world)]
     outs = []
@@ -299,13 +405,10 @@ def _abstract(shape):
         return AbstractMesh(shape, names)
 
 
-CASES_ = (("internlm2_1_8b", "float32"), ("olmo_1b", "int8"))
-
-
 def _reference_blocks(shape, strategy, arch, moments):
     """{leaf: per-device block shape} by the JAX package's tables for the
     reduced ``arch`` on a ``shape`` mesh, the rank's coordinates aside."""
-    cfg = jax_config(arch).reduced()
+    cfg = jax_config(arch).reduced().with_(**TRAIN_CHANGES.get(arch, {}))
     model = jax_build(cfg)
     params = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0)))
     adamw = jopt.AdamWConfig(moment_dtype=moments)
@@ -339,23 +442,38 @@ def _reference_blocks(shape, strategy, arch, moments):
 @pytest.mark.parametrize("world,shape", CASES, ids=IDS)
 @pytest.mark.parametrize("strategy", ["tp", "dp"])
 def test_several_ranks_give_the_one_rank_step(ranks, world, shape, strategy):
-    """Reduced InternLM2 (GQA, norm scales replicated, f32 moments) and OLMo
-    (int8 moments): the gathered parameters within 1e-5 of one rank's step,
-    the loss and gradient norm within f32 rounding, the int8 codes at most
-    one apart (the gradients' sums differ by rounding)."""
-    for arch, moments in CASES_:
+    """Each case of ``TRAIN_CASES`` (InternLM2: GQA, norm scales replicated, f32
+    moments; OLMo: int8 moments; under ``tp`` these and qwen, gemma3 and
+    llava through the Megatron split, Mamba2 through the gathered weights): the
+    gathered parameters within 1e-5 of one rank's step, the loss and
+    gradient norm within f32 rounding (a leaf replicated over ``model``
+    counted once in the norm), the int8 codes at most one apart (the
+    gradients' sums differ by rounding). The split step gathers no weight;
+    its gradients are one rank's within ``SPLIT_GRAD_TOL``, its parameters
+    one rank's AdamW step of those gradients within ``PARAM_TOL`` (and one
+    rank's whole step within ``SPLIT_STEP_ATOL``: entries whose gradient is
+    near AdamW's eps move by far more than the gradient's rounding)."""
+    for arch, moments, _ in TRAIN_CASES[strategy]:
         for rank, out in ranks[world].items():
             got = out[f"{shape}/{strategy}/{arch}/{moments}"]
             assert got["param_diff"] <= PARAM_TOL, (rank, arch, got["param_diff"])
-            np.testing.assert_allclose(*got["loss"], rtol=1e-6)
-            np.testing.assert_allclose(*got["grad_norm"], rtol=1e-6)
+            np.testing.assert_allclose(*got["loss"], rtol=1e-6, err_msg=arch)
+            np.testing.assert_allclose(*got["grad_norm"], rtol=1e-6, err_msg=arch)
             assert got["int8_code_gap"] <= 1
+            if got["split"]:
+                assert got["gathers"] == 0, (arch, got["gathers"])
+            else:
+                assert got["gathers"] > 0, arch
+            if "grad_err" in got:
+                assert got["grad_err"] <= SPLIT_GRAD_TOL, (rank, arch, got["grad_err"])
+                assert got["step_param_diff"] <= SPLIT_STEP_ATOL, (rank, arch)
+        assert got["split"] == (arch != "mamba2_780m"), arch  # dp: one rank's split, whole
 
 
 @pytest.mark.parametrize("world,shape", CASES, ids=IDS)
 @pytest.mark.parametrize("strategy", ["tp", "dp"])
 def test_each_rank_stores_the_reference_block(ranks, world, shape, strategy):
-    for arch, moments in CASES_:
+    for arch, moments, _ in TRAIN_CASES[strategy]:
         want = _reference_blocks(shape, strategy, arch, moments)
         for out in ranks[world].values():
             assert out[f"{shape}/{strategy}/{arch}/{moments}"]["shapes"] == want

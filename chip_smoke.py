@@ -402,6 +402,10 @@ SSD_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (0.0, 2e-2)}
 SSD_STATE_TOL = 1e-3
 LOGITS_TOL = 5e-2  # of max |plain logits|: bf16 activations through 24 layers
 REPS = 25
+#: a plain version is timed over REPS calls, or over as many as take about
+#: this much device time, and at least 3 (the moe rows' plain backward takes
+#: ~250 ms a call): ``_plain_reps``
+PLAIN_BUDGET_MS = 500.0
 SEED = 0
 
 
@@ -471,13 +475,13 @@ def phase_sass() -> dict:
 
 
 # --------------------------------------------------------------- phase 3
-def _event_ms(torch, fn, flush) -> float:
-    """Median over REPS of one call between two CUDA events, L2 flushed
+def _event_ms(torch, fn, flush, reps: int = REPS) -> float:
+    """Median over ``reps`` of one call between two CUDA events, L2 flushed
     before each. Includes any gap while the host issues the call."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()  # cold L2; also keeps the card busy while the call is issued
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -489,62 +493,91 @@ def _event_ms(torch, fn, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None) -> float:
+def _plain_reps(torch, fn, flush) -> int:
+    """How many calls ``_device_ms`` takes of a plain version: REPS, or as
+    many as fit in ``PLAIN_BUDGET_MS`` by one call between two CUDA events
+    (after a warm call), at least 3."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush.zero_()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return max(3, min(REPS, int(PLAIN_BUDGET_MS / max(start.elapsed_time(end), 1e-3))))
+
+
+def _device_ms(torch, fn, flush, attempts: int = 3, events: int | None = None,
+               reps: int = REPS) -> float:
     """Device time of one call: the summed durations of the kernels it ran,
-    from a profiler trace of REPS calls (L2 flushed before each; the flush's
-    own fill kernels are left out), divided by REPS. Host launch overhead
-    and gaps between a call's kernels are not in it. A trace whose event
-    count is not a multiple of REPS (a library call, cuDNN's masked SDPA,
-    has shown one now and then) is taken again, up to ``attempts`` times;
-    if the last is still short by at most 2 events of each kernel, the call's
-    time is each kernel's mean duration times its count a call.
-    With ``events``, a trace must show exactly that many device events per
-    call; one that does not (the profiler has dropped a few events now and
-    then) is taken again, and if no trace of ``attempts`` does, the run
-    fails."""
+    from a profiler trace of ``reps`` calls (L2 flushed before each; the flush's
+    own fill kernels are left out), divided by ``reps``. Host launch overhead
+    and gaps between a call's kernels are not in it.
+
+    The profiler on the card loses device events now and then: a few of a
+    trace, or all of them (0 of 25 has been seen), so a trace whose event count
+    is not a multiple of ``reps`` (with ``events``: not exactly ``events`` a
+    call) is taken again, up to ``attempts`` times. If none is whole, the
+    call's time is each kernel's mean duration over the events of every trace
+    times its count a call, where that count is clear: within 2 events a trace
+    of a whole number a call (with ``events``: ``events`` kernels seen by name,
+    one each a call); else the median of ``reps`` calls between CUDA events
+    (``_event_ms``), which includes the host's gaps. With ``events``, the run
+    fails if no trace is whole and one saw more than ``events`` a call, or more
+    than ``events`` kernels by name: the call launched a kernel it should not."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    names, name_us = Counter(), Counter()  # over every trace
+    over = []  # event counts of traces that saw more than ``events`` a call
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
+            for _ in range(reps):
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
-        names, name_us = Counter(), Counter()
+        seen, seen_us = Counter(), Counter()
         for evt in prof.events():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             if "FillFunctor" in evt.name or evt.name == "Activity Buffer Request":
                 continue
-            total_us += evt.time_range.elapsed_us()
-            names[evt.name[:120]] += 1
-            name_us[evt.name[:120]] += evt.time_range.elapsed_us()
-        count = sum(names.values())
-        if events is not None and count == events * REPS:
-            return total_us / REPS / 1e3
-        if events is None and count and count % REPS == 0:
-            return total_us / REPS / 1e3
-        log(f"[kernels] the profiler saw {count} device events in {REPS} calls: "
-            f"{dict(names)}")
+            seen[evt.name[:120]] += 1
+            seen_us[evt.name[:120]] += evt.time_range.elapsed_us()
+        count = sum(seen.values())
+        if events is not None and count == events * reps:
+            return sum(seen_us.values()) / reps / 1e3
+        if events is None and count and count % reps == 0:
+            return sum(seen_us.values()) / reps / 1e3
+        log(f"[kernels] the profiler saw {count} device events in {reps} calls: "
+            f"{dict(seen)}")
+        if events is not None and count > events * reps:
+            over.append(count)
+        names.update(seen)
+        name_us.update(seen_us)
+    if events is not None and (over or len(names) > events):
+        raise SystemExit(f"chip_smoke: {attempts} profiler traces of {reps} calls each, "
+                         f"none with {events} device events per call: {dict(names)}")
+    calls = attempts * reps
     if events is not None:
-        raise SystemExit(f"chip_smoke: {attempts} profiler traces of {REPS} calls each, "
-                         f"none with {events} device events per call")
-    # every trace missed a few events of a call of many kernels (a plain version
-    # has missed one in 325 on three traces running): each kernel's mean over the
-    # events seen, times its count a call, where that count is clear
-    per_call = {n: round(c / REPS) for n, c in names.items()}
-    if names and all(per_call[n] >= 1 and abs(c - per_call[n] * REPS) <= 2
-                     for n, c in names.items()):
+        per_call = dict.fromkeys(names, 1)
+        clear = len(names) == events
+    else:
+        per_call = {n: round(c / calls) for n, c in names.items()}
+        clear = all(k >= 1 and abs(names[n] - k * calls) <= 2 * attempts
+                    for n, k in per_call.items())
+    if names and clear:
         ms = sum(name_us[n] / names[n] * per_call[n] for n in names) / 1e3
-        log(f"[kernels] {ms} ms a call from each kernel's mean, the last trace short")
+        log(f"[kernels] {ms} ms a call from each kernel's mean over {attempts} short traces")
         return ms
-    raise SystemExit(f"chip_smoke: {attempts} profiler traces of {REPS} calls each "
-                     f"saw a number of device events that is not a multiple of {REPS}")
+    ms = _event_ms(torch, fn, flush, reps=reps)
+    log(f"[kernels] {ms} ms a call between CUDA events: no profiler trace was whole")
+    return ms
 
 
 def _largest_leaf(torch) -> tuple:
@@ -658,13 +691,14 @@ def _bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> tuple:
 def _timings(torch, kernel, plain, library, flush, nbytes, flops, events=None,
              peak: float = BF16_FLOPS) -> dict:
     """Device ms of the kernel (``events``: the device events each call must
-    show), its plain version and the library call (None where no single
-    library call computes the function), event ms, bound (operations over
-    ``peak``)."""
+    show), its plain version (over ``_plain_reps`` calls) and the library
+    call (None where no single library call computes the function), event
+    ms, bound (operations over ``peak``)."""
     bound_ms, bound_by = _bound(nbytes, flops, peak)
+    plain_reps = _plain_reps(torch, plain, flush)
     return {
         "ms": _device_ms(torch, kernel, flush, events=events),
-        "plain_ms": _device_ms(torch, plain, flush),
+        "plain_ms": _device_ms(torch, plain, flush, reps=plain_reps), "plain_reps": plain_reps,
         "library_ms": _device_ms(torch, library, flush) if library is not None else None,
         "event_ms": _event_ms(torch, kernel, flush),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -2284,12 +2318,14 @@ def _kernel_kind(name: str) -> str:
 
 
 def _profiled_step(torch, model, adamw, batch,
-                   require=("attention forward", "attention backward")) -> dict:
+                   require=("attention forward", "attention backward"),
+                   attempts: int = 3) -> dict:
     """One more train step under the profiler (after the checks: it moves the
     weights), in two traces: the forward and backward, then the optimizer.
     For each, its wall time, the summed device time of its kernels by kind,
     and the share of the wall time the card had no kernel running. The
-    forward and backward must show a kernel of each kind in ``require``."""
+    forward and backward must show a kernel of each kind in ``require``, in
+    one of ``attempts`` traces."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -2308,11 +2344,7 @@ def _profiled_step(torch, model, adamw, batch,
         for p in optim.leaves(params):
             p.grad = None
 
-    forward_backward()  # warm: the moments and the allocator
-    update()
-    torch.cuda.synchronize()
-    out = {}
-    for name, fn in (("forward_backward", forward_backward), ("optimizer", update)):
+    def traced(fn) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
@@ -2323,13 +2355,28 @@ def _profiled_step(torch, model, adamw, batch,
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 by_kind[_kernel_kind(evt.name)] += evt.time_range.elapsed_us() / 1e3
         device_ms = sum(by_kind.values())
-        out[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
-                     "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-                     "device_ms_by_kind": dict(by_kind)}
-    kinds = out["forward_backward"]["device_ms_by_kind"]
-    if not all(kinds.get(kind) for kind in require):
-        raise SystemExit(f"chip_smoke: the profiled step shows no kernel of some kind of "
-                         f"{require} by name: {kinds}")
+        return {"wall_ms": wall_ms, "device_ms": device_ms,
+                "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+                "device_ms_by_kind": dict(by_kind)}
+
+    forward_backward()  # warm: the moments and the allocator
+    update()
+    torch.cuda.synchronize()
+    # the profiler loses device events now and then (a whole trace has been
+    # lost): a trace without a kernel of each required kind is taken again
+    for _ in range(attempts):
+        out = {"forward_backward": traced(forward_backward)}
+        kinds = out["forward_backward"]["device_ms_by_kind"]
+        if all(kinds.get(kind) for kind in require):
+            break
+        log(f"[train] a profiled forward and backward shows no kernel of some kind of "
+            f"{require}: {kinds}")
+        for p in optim.leaves(params):
+            p.grad = None
+    else:
+        raise SystemExit(f"chip_smoke: {attempts} profiled steps show no kernel of some kind "
+                         f"of {require} by name: {kinds}")
+    out["optimizer"] = traced(update)
     del state
     return out
 
@@ -4089,8 +4136,8 @@ def _routes(record=None, replay=None):
     kept = moe.route
     given = iter(replay) if replay is not None else None
 
-    def route(p, x2d, cfg):
-        idx, gates, aux = kept(p, x2d, cfg)
+    def route(p, x2d, cfg, *split):
+        idx, gates, aux = kept(p, x2d, cfg, *split)
         if given is not None:
             idx, gates = next(given)
         if record is not None:
@@ -4278,7 +4325,7 @@ MOE_TRAIN_LR = 3e-4
 #: the reference's train_4k row (src/repro/launch/shapes.py:33) at batch 2
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 4096
 #: the peak device memory PERF.md §6 predicted for each phase, printed beside the reading
-MOE_TRAIN_PEAK_PREDICTED_GB = {"kimi_k2_1t": 58, "deepseek_v3_671b": 68}
+MOE_TRAIN_PEAK_PREDICTED_GB = {"kimi_k2_1t": 68.4, "deepseek_v3_671b": 71.0}
 #: the first-step gates' plain attention takes q heads a call within this many
 #: bytes of scores, beside the model and its gradients
 GATE_PLAIN_BYTES = 2 ** 30
@@ -4294,8 +4341,8 @@ def _expert_loads(loads: list):
 
     kept = moe.route
 
-    def route(p, x2d, cfg):
-        idx, gates, aux = kept(p, x2d, cfg)
+    def route(p, x2d, cfg, *split):
+        idx, gates, aux = kept(p, x2d, cfg, *split)
         loads.append((x2d.shape[0], torch.bincount(idx.detach().flatten(),
                                                    minlength=cfg.moe.n_experts)))
         return idx, gates, aux
@@ -4358,13 +4405,16 @@ def _stale_moments(torch, state) -> int:
     and whose second did not (m != 0, v = 0): where the next gradient is
     exactly zero (an embedding row, an expert that the batch does not
     reach), the reference's update moves them by ~lr·m/eps (ROADMAP.md §3,
-    fault 10). Counted a slice of 2^28 entries at a time."""
+    fault 10). Counted a slice of 2^28 entries at a time, on each leaf's
+    local block (the whole leaf on one rank)."""
+    from repro_torch.distributed.tensor_parallel import local
+
     n = 0
 
     def walk(m, v):
         nonlocal n
         if isinstance(m, dict) and "q" in m and isinstance(m["q"], torch.Tensor):
-            mq, vq = m["q"].flatten(), v["q"].flatten()
+            mq, vq = local(m["q"]).flatten(), local(v["q"]).flatten()
             for lo in range(0, mq.numel(), 1 << 28):
                 n += int(((mq[lo:lo + (1 << 28)] != 0) & (vq[lo:lo + (1 << 28)] == 0)).sum())
         elif isinstance(m, dict):
@@ -4376,12 +4426,50 @@ def _stale_moments(torch, state) -> int:
 
 
 def _largest_entries(torch, params, k: int = 3) -> dict:
-    """The ``k`` parameter leaves with the largest max |entry|, and those."""
+    """The ``k`` parameter leaves with the largest max |entry|, and those (of
+    each leaf's local block: the whole leaf on one rank)."""
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.distributed.tensor_parallel import local
+
+    top = sorted(((float(local(t).detach().abs().max()), n)
+                  for n, t in flatten(params, "param").items()), reverse=True)[:k]
+    return {n: v for v, n in top}
+
+
+#: an odd 64-bit multiplier (2^64 / the golden ratio, as a signed int64)
+_DIGEST_MIX = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def _bits_digest(torch, tensors: dict) -> dict:
+    """{name: a 64-bit checksum of the tensor's bits} on the card, for
+    bit-equality of states too large to keep two of: each element's bit
+    pattern (as a signed integer of its width) times an odd weight of its
+    index, summed modulo 2^64. A changed element changes the sum (an odd
+    weight is invertible modulo 2^64 and a pattern differs by less than
+    2^32); several can cancel only by chance. Each leaf's local block (the
+    whole leaf on one rank), 2^26 elements at a time."""
+    from repro_torch.distributed.tensor_parallel import local
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, t in tensors.items():
+        flat = local(t).detach().contiguous().view(-1)
+        bits = flat.view(ints[flat.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for lo in range(0, bits.numel(), 1 << 26):
+            b = bits[lo:lo + (1 << 26)].to(torch.int64)
+            w = torch.arange(lo, lo + b.numel(), dtype=torch.int64, device=flat.device)
+            total += (b * ((w * _DIGEST_MIX) | 1)).sum()
+        out[name] = int(total)
+    return out
+
+
+def _state_digest(torch, params, state) -> dict:
+    """``_bits_digest`` of every parameter and optimizer-state leaf (the
+    int8 moments' codes and block scales, and the step)."""
     from repro_torch.checkpoint.store import flatten
 
-    top = sorted(((float(t.detach().abs().max()), n) for n, t in flatten(params, "param").items()),
-                 reverse=True)[:k]
-    return {n: v for v, n in top}
+    return _bits_digest(torch, {**flatten(params, "param"), **flatten(state, "opt")})
 
 
 def _first_steps_bit_equal(torch, model, batch) -> dict:
@@ -4417,19 +4505,28 @@ def _moe_training(torch, arch: str, card: str) -> dict:
     (``data.synth.markov_tokens``) a batch from a RawArray token dataset
     through ``DeviceLoader``. The first step's gates against the same
     forward with the plain backward (``_first_step_gates``), two first steps
-    bit-equal, then ``MOE_TRAIN_STEPS`` steps of the train loop's
-    ``make_step`` with AdamW at the config's int8 moments (no checkpoint),
-    and a profiled step. The line it prints names the card and its power
-    limit (``card``)."""
+    bit-equal, one step of the train loop's ``make_step`` (the reference of
+    the split's first step) and a profiled step; then, from a fresh model
+    of the same seed, ``MOE_TRAIN_STEPS`` steps of ``distributed.steps.
+    make_train_step(strategy="tp")`` on the one-rank NCCL mesh (the Megatron
+    split: each leaf a ``DTensor`` block that requires grad, no weight
+    gathered) with AdamW at the config's int8 moments (no checkpoint), the
+    first bit-equal to ``make_step``'s (loss, gradient norm, and a checksum
+    of every parameter and moment's bits). The line it prints names the card
+    and its power limit (``card``)."""
     import dataclasses
 
     import numpy as np
+    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataLoader, DeviceLoader, RaDataset, make_token_dataset
     from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import steps as sharded
     from repro_torch.distributed.optimizer import AdamWConfig
+    from repro_torch.distributed.sharding import is_dtensor
     from repro_torch.kernels import flash_attention
+    from repro_torch.launch.shapes import ShapeSpec
     from repro_torch.models import build_model
     from repro_torch.train.loop import make_step
 
@@ -4447,19 +4544,26 @@ def _moe_training(torch, arch: str, card: str) -> dict:
                  "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
                  "attn_type": cfg.attn_type, "mtp": cfg.mtp, "vocab": cfg.vocab,
                  "dtype": cfg.param_dtype, "moments": cfg.opt_moment_dtype, "remat": cfg.remat,
-                 "batch": B, "seq": S, "steps": steps, "card": card,
+                 "batch": B, "seq": S, "steps": steps, "strategy": "tp", "card": card,
                  "peak_predicted_gb": MOE_TRAIN_PEAK_PREDICTED_GB[arch]}
     if cfg.attn_type == "mla":
         ml = cfg.mla
         out["widths"] = [ml.qk_nope_head_dim + ml.qk_rope_head_dim, ml.v_head_dim]
     else:
         out["widths"] = [cfg.head_dim, cfg.head_dim]
+    secs: dict = {}
+
+    def fresh():
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=SEED)
+        _temper_attention(torch, model)
+        torch.cuda.synchronize()
+        secs.setdefault("init_s", []).append(time.perf_counter() - t0)
+        return model
+
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=SEED)
-    torch.cuda.synchronize()
-    out["init_s"] = time.perf_counter() - t0
-    _temper_attention(torch, model)
+    model = fresh()
+    out["init_s"] = secs["init_s"][0]
     model.requires_grad_(True)
     out["params"] = sum(p.numel() for p in model.parameters())
     adamw = AdamWConfig(lr=MOE_TRAIN_LR, warmup_steps=2, moment_dtype=cfg.opt_moment_dtype)
@@ -4472,59 +4576,109 @@ def _moe_training(torch, arch: str, card: str) -> dict:
         host.stop()
         heads = _plain_heads(B, cfg.n_heads, cfg.n_heads if cfg.attn_type == "mla"
                              else cfg.n_kv_heads, S, S, GATE_PLAIN_BYTES)
+        t0 = time.perf_counter()
         out["first_step"] = _first_step_gates(torch, model, batch, arch, out,
                                               reference="plain backward", heads=heads)
         out["first_step"]["plain_heads_per_call"] = heads
         torch.cuda.empty_cache()
         out["repeat"] = _first_steps_bit_equal(torch, model, batch)
+        secs["gates_s"] = time.perf_counter() - t0
         log(f"[{arch} training] two first steps {json.dumps(out['repeat'])}")
         if not out["repeat"]["bit_equal"]:
             raise SystemExit(f"chip_smoke: {arch}'s two first steps differ: {out['repeat']}")
         torch.cuda.empty_cache()
 
+        # the split's reference: one make_step step from the initial weights on
+        # the feed's first batch (``batch``), then the profiled step (it moves
+        # the weights; the split starts from a fresh model)
+        t0 = time.perf_counter()
         params = model.param_tree()
         state = optim.init_state(params, adamw)
-        step_fn = make_step(model, adamw)
-        feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
-                            device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _reset_flash_counts()
-        loads, widths = [], {}
-        losses, step_s, metrics_seen, after = [], [], [], []
+        _, state, ref = make_step(model, adamw)(params, state, batch)
+        digest_ref = _state_digest(torch, params, state)
+        secs["make_step_s"] = time.perf_counter() - t0
+        del state, params
+        torch.cuda.empty_cache()
+        out["profiled_step"] = _profiled_step(torch, model, adamw, batch)
+        del model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        mesh = _one_rank_mesh(torch)
         try:
-            with _expert_loads(loads), _attention_launches_by_width(widths):
-                for _ in range(steps):
-                    feed_batch = next(feed)
-                    feed_batch.pop("_state", None)
-                    t0 = time.perf_counter()
-                    params, state, metrics = step_fn(params, state, feed_batch)
-                    losses.append(float(metrics["loss"]))
-                    step_s.append(time.perf_counter() - t0)
-                    metrics_seen.append({k: float(metrics[k]) for k in
-                                         ("ce", "aux", "acc", "mtp", "grad_norm", "lr")
-                                         if k in metrics})
-                    # outside the timed step: the int8 moments' stale entries and the
-                    # parameters' largest entries, which show what the next step moves
-                    after.append({"stale_moment_entries": _stale_moments(torch, state),
-                                  "largest_entries": _largest_entries(torch, params)})
+            model = fresh()
+            step_fn, (ppl, opl, _), _, (_, ometa) = sharded.make_train_step(
+                model, mesh, ShapeSpec(f"{arch}_train", "train", S, B), adamw=adamw,
+                strategy="tp")
+            sharded.shard_model(model, mesh, ppl)
+            state = sharded.init_opt_state(ometa, mesh, opl, dev)
+            out["sharded_leaves"] = sum(1 for p in model.parameters() if is_dtensor(p))
+            feed = DeviceLoader(DataLoader(RaDataset(root), B, seed=SEED, reuse_buffers=True),
+                                device=dev)
+            torch.cuda.synchronize()
+            secs["split_setup_s"] = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_flash_counts()
+            loads, widths = [], {}
+            losses, step_s, metrics_seen, after = [], [], [], []
+            try:
+                with _expert_loads(loads), _attention_launches_by_width(widths), \
+                        _no_gathers([]):
+                    for i in range(steps):
+                        feed_batch = next(feed)
+                        feed_batch.pop("_state", None)
+                        t0 = time.perf_counter()
+                        _, state, metrics = step_fn(model.param_tree(), state, feed_batch)
+                        losses.append(float(metrics["loss"]))  # syncs
+                        step_s.append(time.perf_counter() - t0)
+                        if i == 0:  # outside the timed step: the split's first step
+                            t1 = time.perf_counter()
+                            out["bit_equal_to_make_step"] = {
+                                "batch": bool(torch.equal(feed_batch["tokens"].cpu(),
+                                                          batch["tokens"].to(torch.int64).cpu()
+                                                          .to(feed_batch["tokens"].dtype))),
+                                "loss": bool(torch.equal(metrics["loss"], ref["loss"])),
+                                "grad_norm": bool(torch.equal(metrics["grad_norm"],
+                                                              ref["grad_norm"])),
+                                "state": _state_digest(torch, model.param_tree(), state)
+                                == digest_ref, "leaves": len(digest_ref)}
+                            secs["digest_s"] = time.perf_counter() - t1
+                        metrics_seen.append({k: float(metrics[k]) for k in
+                                             ("ce", "aux", "acc", "mtp", "grad_norm", "lr")
+                                             if k in metrics})
+                        # outside the timed step: the int8 moments' stale entries and the
+                        # parameters' largest entries, which show what the next step moves
+                        after.append({"stale_moment_entries": _stale_moments(torch, state),
+                                      "largest_entries": _largest_entries(
+                                          torch, model.param_tree())})
+            finally:
+                feed.stop()
+            torch.cuda.synchronize()
+            launches = {**_flash_counts(), "flash_attention_tc": flash_attention.tc_launches}
+            peak = torch.cuda.max_memory_allocated(dev)
+            del state, model
+            torch.cuda.empty_cache()
         finally:
-            feed.stop()
-        torch.cuda.synchronize()
-    launches = {**_flash_counts(), "flash_attention_tc": flash_attention.tc_launches}
+            if dist.is_initialized():
+                dist.destroy_process_group()
     step = statistics.median(step_s[1:])
-    peak = torch.cuda.max_memory_allocated(dev)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
     row = {"steps": steps, "losses": losses, "metrics": metrics_seen, "after_step": after,
            "step_s": step_s, "first_update_lowers_the_loss": losses[1] < losses[0],
            "loss_falls_over_the_steps": losses[-1] < losses[0],
            "median_step_s": step, "tokens_per_s": B * S / step,
            "peak_device_bytes": peak, "peak_device_gb": peak / 1e9,
+           "card_bytes": card_bytes, "make_step_reference": {k: float(v) for k, v in ref.items()},
            "routes_dropped": _dropped_share(loads, cfg), "launches": launches,
-           "launches_by_width": widths,
+           "launches_by_width": widths, "weights_gathered": 0,
            "want_launches": {"forward": (L * (2 if cfg.remat else 1) + int(cfg.mtp)) * steps,
                              "backward": n_attn * steps}}
     out["train"] = row
+    out["seconds_by_part"] = {k: v if isinstance(v, float) else sum(v) for k, v in secs.items()}
     log(f"[{arch} training] steps {json.dumps(row)}")
+    same = out["bit_equal_to_make_step"]
+    if not all(v for k, v in same.items() if k != "leaves"):
+        raise SystemExit(f"chip_smoke: {arch}'s one-rank tp step is not make_step's: {same}")
     # the first update is exact f32 AdamW in both packages (the moments are
     # quantized after it); from the second on, the reference's int8 moments move
     # an entry whose gradient vanished by ~lr·m/eps (fault 10), so over 4 steps
@@ -4535,11 +4689,8 @@ def _moe_training(torch, arch: str, card: str) -> dict:
             launches["flash_attention_tc"] != launches["forward"]:
         raise SystemExit(f"chip_smoke: {arch} training launched {launches}, wanted "
                          f"{row['want_launches']}, every forward on the tensor cores")
-    del state, params
-    torch.cuda.empty_cache()
-    out["profiled_step"] = _profiled_step(torch, model, adamw, batch)
-    del model
-    torch.cuda.empty_cache()
+    if peak >= card_bytes:
+        raise SystemExit(f"chip_smoke: {arch} training peaked at {peak / 1e9} GB")
     log(f"[{arch} training] {json.dumps(out)}")
     return out
 

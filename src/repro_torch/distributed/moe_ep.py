@@ -12,6 +12,11 @@ and the same capacity-drop semantics as ``models/moe.py``, applied in two
 stages (``Cs`` routes per destination shard, then ``C2`` per local
 expert), as the reference's ``_ep_block``.
 
+Inside the ``tp`` train step's Megatron split (:func:`_split_ep`) each
+``model`` rank of a data block sends its ``1/model`` of the rows, as the
+reference's ``P(all_axes)`` block, and the rows' outputs are all-gathered
+back into the residual stream.
+
 The reference's three ``lax.all_to_all``s are
 ``torch.distributed.nn.functional.all_to_all_single`` over the mesh's
 ``model`` group (the rows' one differentiable; the routing metadata's the
@@ -23,13 +28,14 @@ nothing is communicated.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..models.common import activation
 from ..models.config import ModelConfig
-from .sharding import gather, is_dtensor, mesh_shape
+from . import tensor_parallel as tp
+from .sharding import mesh_shape
 
 
 def _positions_by_key(keys: torch.Tensor, n_buckets: int) -> torch.Tensor:
@@ -71,10 +77,14 @@ def _pmean(x: torch.Tensor, group: Any) -> torch.Tensor:
 
 
 def _ep_block(x_loc, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig, n_shards: int,
-              group: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              group: Any = None, logits: Optional[torch.Tensor] = None,
+              aux_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-rank body. x_loc (Tl, d); expert weights are the LOCAL slices
     (E_loc, d, ffe); ``group`` the ``model`` axis' process group (None for
-    one shard). Returns (y_loc (Tl, d), aux 0-d f32)."""
+    one shard). Returns (y_loc (Tl, d), aux 0-d f32). ``logits`` (Tl, E):
+    the router's, where the caller computed them (``router_w`` unused);
+    ``aux_mean``: the aux loss's mean over ``group`` (its ``pmean``)."""
     m = cfg.moe
     Tl, d = x_loc.shape
     E, K = m.n_experts, m.top_k
@@ -83,14 +93,16 @@ def _ep_block(x_loc, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig, n_shar
     dev = x_loc.device
 
     # ---- routing (full router replicated: E scores per local token) --------
-    logits = (x_loc @ router_w.to(x_loc.dtype)).to(torch.float32)
+    if logits is None:
+        logits = x_loc @ router_w.to(x_loc.dtype)
+    logits = logits.to(torch.float32)
     scores = torch.sigmoid(logits) if m.router == "sigmoid" else torch.softmax(logits, -1)
     gates, idx = torch.topk(scores, K, dim=-1)
     gates = (gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)).to(x_loc.dtype)
     probs = scores / torch.clamp_min(scores.sum(-1, keepdim=True), 1e-9)
     assign = torch.zeros_like(probs).scatter_add_(1, idx, torch.ones_like(idx, dtype=probs.dtype))
     aux = torch.mean(probs.mean(0) * assign.mean(0)) * (E ** 2) * m.aux_loss_coef
-    aux = _pmean(aux, group)
+    aux = aux_mean(aux) if aux_mean else _pmean(aux, group)
 
     # ---- stage 1: send routes to expert-owner shards ------------------------
     flat_e = idx.reshape(-1)                      # (Tl*K,) global expert id
@@ -148,22 +160,24 @@ def _ep_block(x_loc, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig, n_shar
     return y_loc, aux
 
 
-def _local_experts(w: Any, n_shards: int, rank: int) -> torch.Tensor:
-    """This rank's experts (E/n, ...): a sharded leaf gathered over every
-    axis but ``model``, or rows ``rank·E/n ..`` of a plain tensor."""
-    if isinstance(w, torch.Tensor) and not is_dtensor(w):
-        e = w.shape[0] // n_shards
-        return w[rank * e:(rank + 1) * e]
-    return gather(w, experts_over="model")
+def _local_experts(w: torch.Tensor, n_shards: int, rank: int) -> torch.Tensor:
+    """This rank's experts (E/n, ...): rows ``rank·E/n ..`` of a plain
+    tensor (a sharded model's experts are the split's:
+    :func:`_split_ep`)."""
+    e = w.shape[0] // n_shards
+    return w[rank * e:(rank + 1) * e]
 
 
 def moe_ffn_ep(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
-               mesh: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+               mesh: Any, sp: Optional[tp.Split] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE. ``x`` (B, S, d) is this rank's block of the
     batch (the step splits the batch over every mesh axis, as the
-    reference's ``P(all_axes)`` does); expert weights are model-sharded
-    (``DTensor``s, or plain full tensors of which this rank takes its
-    slice); the router and the shared experts are plain (gathered)."""
+    reference's ``P(all_axes)`` does); the expert weights are plain whole
+    tensors, of which this rank takes its slice, as are the router and the
+    shared experts. With a step's Megatron split ``sp`` (the ``tp`` train
+    step's, whose weights are ``DTensor`` blocks), :func:`_split_ep`."""
+    if sp is not None:
+        return _split_ep(p, x, cfg, sp)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -193,3 +207,52 @@ def moe_ffn_ep(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
         su = x @ p["shared_up"].to(x.dtype)
         y = y + (act(sg) * su) @ p["shared_down"].to(x.dtype)
     return y, aux
+
+
+def _split_ep(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              sp: tp.Split) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel FFN inside the ``tp`` train step's Megatron split.
+    ``x`` (B, S, d) is whole on every ``model`` rank (its ``data`` block);
+    each rank takes its ``1/model`` of the rows (the reference's
+    ``P(all_axes)`` block), routes them by the logits of the router's
+    blocks (all-gathered over ``model``, each rank reading its rows), runs
+    :func:`_ep_block` on the experts ``w_*`` split over ``model`` on their
+    dim 0 (``tensor_parallel.weight(experts=True)``), and the rows' outputs
+    are all-gathered back over ``model``; the aux loss is the ranks' mean
+    (a ``reduce_from_model``: every rank's loss holds it), and the shared
+    experts are column- and row-parallel, summed by one ``reduce_from_model``."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, n = B * S, sp.model
+    if m.n_experts % n or T % n:
+        raise ValueError(f"moe_ffn_ep: {m.n_experts} experts and {T} rows do not split over "
+                         f"{n} model ranks")
+    w = [tp.weight(p[k], experts=True) for k in ("w_gate", "w_up", "w_down")]
+    ffs = m.d_ff_expert * m.n_shared
+    if n > 1 and (p["router"].shape[-1] == m.n_experts or w[0].shape[0] == m.n_experts or
+                  m.n_shared and p["shared_down"].shape[0] == ffs):
+        raise NotImplementedError("the split's expert-parallel FFN takes the router, the experts "
+                                  "and the shared experts split over model")
+    xf = tp.copy_to_model(x.reshape(T, d), sp)  # each rank's rows and columns: shares
+    logits = tp.all_gather_for_split(xf @ p["router"].to(x.dtype), sp, dim=1)
+    rows = T // n
+    x_loc, l_loc = xf.narrow(0, sp.rank * rows, rows), logits.narrow(0, sp.rank * rows, rows)
+    group = sp.model_groups[0] if sp.model_groups else None
+
+    def mean(aux):
+        return tp.reduce_from_model(aux, sp) / n if sp.model_groups else aux
+    kw = dict(cfg=cfg, n_shards=n, group=group, aux_mean=mean)
+    nc = m.dispatch_chunks if (m.dispatch_chunks > 1 and rows % m.dispatch_chunks == 0) else 1
+    if nc == 1:
+        y_loc, aux = _ep_block(x_loc, None, *w, logits=l_loc, **kw)
+    else:
+        ys, auxes = zip(*(_ep_block(xc, None, *w, logits=lc, **kw) for xc, lc in
+                          zip(x_loc.view(nc, rows // nc, d), l_loc.view(nc, rows // nc, -1))))
+        y_loc, aux = torch.cat(ys), torch.stack(auxes).mean()
+    y = tp.all_gather_for_replicated(y_loc, sp, dim=0)
+    if m.n_shared:
+        act = activation(cfg.mlp_act)
+        sg = xf @ p["shared_gate"].to(x.dtype)
+        su = xf @ p["shared_up"].to(x.dtype)
+        y = y + tp.reduce_from_model((act(sg) * su) @ p["shared_down"].to(x.dtype), sp)
+    return y.view(B, S, d), aux

@@ -24,7 +24,10 @@ the sink; with ``torch.utils.checkpoint`` the gather runs again in the
 backward. A plain tensor passes through untouched, and until
 ``steps.shard_model`` has placed a leaf (:func:`note_placed`) the gathers
 return what they are given without walking it, so an unsharded model takes
-exactly its usual path.
+exactly its usual path. The Megatron split's FSDP gather over ``data``
+(``tensor_parallel.weight``) is the same gather without a sink
+(:func:`regather`): its backward hands the reduced gradient back to the
+block it was given.
 """
 
 from __future__ import annotations
@@ -304,33 +307,50 @@ def _redistribute(local, mesh, src, dst, shape) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: the slice gathered to ``target`` (plain tensor). Backward:
-    its gradient, cast to the sink's dtype, reduced over the ranks back to
-    the slice's placements (sum: each rank's gradient is its share of the
-    global batch's) and added into the sink; no gradient flows on."""
+    """Forward: ``local``, a block under placements ``src``, redistributed to
+    ``target`` (plain tensor). Backward: its gradient, under placements
+    ``grad_pl`` (``Partial`` over the ranks whose shares it sums), reduced
+    back to ``src``: cast to the sink's dtype and added into ``sink`` as
+    ``key``'s (leaf, layer index), where no gradient flows on; without a
+    sink, handed back as ``local``'s gradient."""
 
     @staticmethod
-    def forward(ctx, anchor, leaf, index, local, src, target, shape, sink):
-        ctx.meta = (leaf, index, src, target, shape, sink)
-        return _redistribute(local, leaf.device_mesh, src, target, shape).detach()
+    def forward(ctx, anchor, local, mesh, src, target, grad_pl, shape, sink, key):
+        ctx.meta = (mesh, src, grad_pl, shape, sink, key)
+        return _redistribute(local, mesh, src, target, shape).detach()
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        leaf, index, src, target, shape, sink = ctx.meta
-        mesh = leaf.device_mesh
-        if sink.grad_dtype is not None:
+        mesh, src, grad_pl, shape, sink, key = ctx.meta
+        if sink is not None and sink.grad_dtype is not None:
             g = g.to(sink.grad_dtype)
-        partial = [Partial() if isinstance(t, Replicate) else t for t in target]
-        sink.add(leaf, index, _redistribute(g.contiguous(), mesh, partial, src, shape))
-        return (None,) * 8
+        g = _redistribute(g.contiguous(), mesh, grad_pl, src, shape)
+        if sink is None:
+            return (None, g) + (None,) * 7
+        sink.add(*key, g)
+        return (None,) * 9
 
 
-def gather(x: Any, *, experts_over: Optional[str] = None) -> Any:
+def regather(local: torch.Tensor, mesh, src: Sequence, target: Sequence,
+             shape: Tuple[int, ...]) -> torch.Tensor:
+    """``local``, this rank's block of a tensor of global ``shape`` under
+    placements ``src``, redistributed to ``target`` by :class:`_Gather`
+    without a sink: the gradient comes back to ``local``, summed over the
+    ranks of each mesh dim that ``target`` gathers (a reduce-scatter) and
+    moved back where it only moves. ``local`` itself where nothing moves."""
+    if not _moves(mesh, src, target):
+        return local
+    if not (torch.is_grad_enabled() and local.requires_grad):
+        return _redistribute(local, mesh, src, target, shape)
+    grad_pl = [Partial() if isinstance(t, Replicate) and not isinstance(s, Replicate) else t
+               for s, t in zip(src, target)]
+    return _Gather.apply(None, local, mesh, list(src), list(target), grad_pl, shape, None, None)
+
+
+def gather(x: Any) -> Any:
     """A plain tensor of ``x``: ``x`` itself when it is one; a sharded leaf
-    or :class:`Layer` gathered whole, or, with ``experts_over`` (a mesh
-    axis), kept split on its dim 0 over that axis and gathered over the
-    rest (the expert-parallel FFN's local experts)."""
+    or :class:`Layer` gathered whole."""
     if not isinstance(x, Layer) and not is_dtensor(x):
         return x
     sink = getattr(_state, "sink", None) if torch.is_grad_enabled() else None
@@ -340,12 +360,12 @@ def gather(x: Any, *, experts_over: Optional[str] = None) -> Any:
         return local[x.index] if isinstance(x, Layer) else local
     leaf, index, local, src, shape = _slice(x)
     mesh = leaf.device_mesh
-    target = [Shard(0) if name == experts_over else Replicate()
-              for name in mesh.mesh_dim_names]
+    target = [Replicate() for _ in mesh.mesh_dim_names]
     if sink is None:
         return _redistribute(local, mesh, src, target, shape)
-    return _Gather.apply(sink.anchor(local.device), leaf, index, local, src, target, shape,
-                         sink)
+    partial = [Partial() if isinstance(t, Replicate) else t for t in target]
+    return _Gather.apply(sink.anchor(local.device), local, mesh, src, target, partial, shape,
+                         sink, (leaf, index))
 
 
 def gather_tree(tree: Any, keep: Sequence[str] = ()) -> Any:

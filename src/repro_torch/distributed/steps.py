@@ -11,30 +11,38 @@ reference's result.
 
 How the work is split:
 
-* **The dense and vlm families: the Megatron split** (``tensor_parallel.py``),
-  in the serve steps and in the ``tp`` train step. The batch is split over
-  ``data`` only (the reference's ``batch_specs``; not at all in
-  ``long_500k``); each rank computes on the weight blocks it stores, heads,
-  ``d_ff`` and vocab over ``model``, and on the cache rows it stores (the
-  sequence over ``model``, or ``data`` × ``model`` in ``long_500k``), moving
-  activations and their gradients only. No weight is gathered and no cache
-  row moves; the logits come back split on the vocab over ``model``. The
-  train step lets each rank's blocks require grad, takes the gradient of
-  its data block's loss (a vocab-parallel cross-entropy) over ``data`` ranks
-  and all-reduces each gradient over ``data``, then runs AdamW on the
-  blocks.
-* **Training the other families, the ``dp`` step, and serving the moe, ssm,
-  hybrid and encdec families.** Each rank computes on its block of the
-  global batch, taken over every mesh axis (``dp``'s batch spec; ``tp``'s
-  leaves out ``model``, and the port splits over it too, so that no two
-  ranks compute the same rows). The global batch must divide, or the step
-  raises. Sharded weights are gathered a layer at a time at the layer's
-  entry (``sharding.gather_tree``), FSDP-style; the backward of each gather
-  reduce-scatters the layer's gradient to the leaf's blocks. Each rank's
-  loss is its block's mean over ``n`` ranks, so the reduced gradient is the
-  global batch's. Their Megatron split is ROADMAP.md item 18.
-* **Expert parallel.** With ``moe_ep`` the experts stay split over
-  ``model`` and tokens travel by all-to-all (``moe_ep.py``).
+* **The Megatron split** (``tensor_parallel.py``): the serve steps of a
+  model whose ``splits`` is set (the dense and vlm families), and the
+  ``tp`` train step of one whose ``train_splits`` is set (those and the
+  moe family). The batch is split over ``data`` only
+  (the reference's ``batch_specs``; not at all in ``long_500k``); each rank
+  computes on the weight blocks it stores, heads, ``d_ff``, experts and
+  vocab over ``model``, and on the cache rows it stores (the sequence over
+  ``model``, or ``data`` × ``model`` in ``long_500k``), moving activations
+  and their gradients only. No weight is gathered over ``model`` and no
+  cache row moves; the logits come back split on the vocab over ``model``.
+  The MoE giants' leaves are also split over ``data`` on ``d_model`` (the
+  reference's FSDP axis, ``partition.param_specs``): a layer's blocks are
+  gathered over ``data`` at its entry, each keeping its ``model`` block,
+  and the gather's backward reduce-scatters their gradient back
+  (``tensor_parallel.weight``). The train step lets each rank's blocks
+  require grad, takes the gradient of its data block's loss (a
+  vocab-parallel cross-entropy) over ``data`` ranks and all-reduces over
+  ``data`` each gradient that the gathers did not reduce, then runs AdamW
+  on the blocks.
+* **Training the ssm, hybrid and encdec families, the ``dp`` step, and
+  serving the moe, ssm, hybrid and encdec families.** Each rank computes on
+  its block of the global batch, taken over every mesh axis (``dp``'s batch
+  spec; ``tp``'s leaves out ``model``, and the port splits over it too, so
+  that no two ranks compute the same rows). The global batch must divide,
+  or the step raises. Sharded weights are gathered a layer at a time at the
+  layer's entry (``sharding.gather_tree``), FSDP-style; the backward of each
+  gather reduce-scatters the layer's gradient to the leaf's blocks. Each
+  rank's loss is its block's mean over ``n`` ranks, so the reduced gradient
+  is the global batch's. Their Megatron split is ROADMAP.md item 18.
+* **Expert parallel.** With ``moe_ep`` the experts are split over ``model``
+  on their dim 0 and tokens travel by all-to-all (``moe_ep.py``); in the
+  split, each ``model`` rank sends its ``1/model`` of the rows.
 * **The result is the reference's**; only the order of the sums differs.
 
 The parameters are the model's own (the port's model owns its weights, as
@@ -66,16 +74,11 @@ from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
 Tree = Any
 
 CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense and "
-                         "vlm families, which serve and train through the Megatron split; the "
-                         "moe family's (MLA's latent cache, the experts), the ssm and hybrid "
-                         "families' (long_500k's state split, their SSM heads over model) and the "
-                         "encdec family's are ROADMAP.md item 18; on one rank it is today's "
-                         "decode")
-
-#: families whose serve steps and ``tp`` train step run the Megatron split
-#: (``tensor_parallel.py``)
-SPLIT_FAMILIES = ("dense", "vlm")
-
+                         "vlm families, which serve through the Megatron split; the moe family's "
+                         "(MLA's latent cache, the experts; it trains through the split but "
+                         "serves through gathered weights), the ssm and hybrid families' "
+                         "(long_500k's state split, their SSM heads over model) and the encdec "
+                         "family's are ROADMAP.md item 18; on one rank it is today's decode")
 
 # ------------------------------------------------------------------ tables
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool) -> Dict[str, Spec]:
@@ -408,9 +411,9 @@ def make_train_step(
     ``zero1_moment_specs``; the gradients are reduce-scattered to the
     moments' blocks, AdamW runs on the blocks and the parameters are
     all-gathered. ``strategy="tp"``: parameters and moments split by
-    ``param_specs``/``opt_state_specs``, each rank holding its blocks; the
-    dense and vlm families compute on them (the Megatron split:
-    :func:`_block_grads`), the others gather a layer at a time."""
+    ``param_specs``/``opt_state_specs``, each rank holding its blocks; a
+    model whose ``train_splits`` is set computes on them (the Megatron
+    split: :func:`_block_grads`), the others gather a layer at a time."""
     cfg = model.cfg
     adamw = adamw or optim.AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
     rules = dict(train_rules(multi_pod, strategy))
@@ -439,7 +442,7 @@ def make_train_step(
     for path, _ in _leaves_with_paths(params_meta):
         mom = _get(opt_pl["m"], path)
         grad_pl[path] = mom["q"] if isinstance(mom, dict) else mom
-    if strategy == "tp" and _split(cfg):
+    if strategy == "tp" and model.train_splits:
         axes = _data_axes(mesh, shape, multi_pod)
         grads_for = _block_grads(model, mesh, axes)
         reduce = _reduce_over(mesh, axes)
@@ -557,15 +560,20 @@ def _gathered_grads(model, mesh, axes: Sequence[str], sink_dtype: Optional[torch
 
 def _reduce_over(mesh, axes: Sequence[str]):
     """Each gradient all-reduced in place over ``axes``: the ``data`` ranks'
-    shares of the global batch's gradient of a block."""
+    shares of the global batch's gradient of a block. A leaf split over
+    such an axis (the FSDP axis) is left: its gathers' backwards
+    reduce-scattered its gradient there."""
     import torch.distributed as dist
 
-    groups = tp.axis_groups(mesh, axes)
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes if a in names and mesh.size(names.index(a)) > 1]
 
     def reduce(leaves, grads):
-        for group in groups:
-            for g in grads.values():
-                dist.all_reduce(g, group=group)
+        for k in dims:
+            group = mesh.get_group(names[k])
+            for path, p in leaves:
+                if not (is_dtensor(p) and isinstance(p.placements[k], Shard)):
+                    dist.all_reduce(grads[path], group=group)
 
     return reduce
 
@@ -689,13 +697,9 @@ def _local_cache(cache: Tree, mesh, axes) -> Tree:
     return _map_cache(local, cache)
 
 
-def _check_context_parallel(mesh, shape: ShapeSpec, cfg: ModelConfig) -> None:
-    if shape.context_parallel and mesh.size() > 1 and not _split(cfg):
+def _check_context_parallel(mesh, shape: ShapeSpec, model) -> None:
+    if shape.context_parallel and mesh.size() > 1 and not model.splits:
         raise NotImplementedError(CONTEXT_PARALLEL_TODO)
-
-
-def _split(cfg: ModelConfig) -> bool:
-    return cfg.family in SPLIT_FAMILIES and cfg.attn_type == "gqa"
 
 
 def _data_axes(mesh, shape: ShapeSpec, multi_pod: bool) -> Tuple[str, ...]:
@@ -803,8 +807,8 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
 
     def prefill_step(params, batch):
         del params  # the model's own, placed by shard_model
-        _check_context_parallel(mesh, shape, cfg)
-        if _split(cfg):
+        _check_context_parallel(mesh, shape, model)
+        if model.splits:
             with use_rules(rules, mesh):
                 return _split_prefill(model, mesh, shape, multi_pod, capacity, batch)
         with use_rules(rules, mesh):
@@ -838,8 +842,8 @@ def make_decode_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False):
 
     def decode_step(params, cache, tokens):
         del params
-        _check_context_parallel(mesh, shape, cfg)
-        if _split(cfg):
+        _check_context_parallel(mesh, shape, model)
+        if model.splits:
             with use_rules(rules, mesh):
                 return _split_decode(model, mesh, shape, multi_pod, cache, tokens)
         with use_rules(rules, mesh):

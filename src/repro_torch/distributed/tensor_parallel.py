@@ -1,6 +1,7 @@
 """The Megatron split over the mesh's ``model`` axis, of the serve steps and
-of the ``tp`` train step, and the split-S combine of context-parallel
-decode: functions on tensors over the mesh's process groups.
+of the ``tp`` train step (with the MoE giants' FSDP gather over ``data``),
+and the split-S combine of context-parallel decode: functions on tensors
+over the mesh's process groups.
 
 The reference has no such module: GSPMD writes this for it from the spec
 tables (``partition.param_specs``, ``steps.cache_spec_tree``), which fix
@@ -9,8 +10,9 @@ what each rank holds. Inside a serve step (``steps.make_prefill_step``/
 blocks it stores and moves only activations:
 
 * **weights** are the local blocks of their ``DTensor``s, split over
-  ``model`` on heads, ``head_dim``, ``d_ff`` or vocab, or whole where the
-  dim does not divide (a block's shape says which: :func:`offset`);
+  ``model`` on heads, ``head_dim``, ``d_ff``, experts or vocab, or whole
+  where the dim does not divide (a block's shape says which:
+  :func:`offset`);
 * **column-parallel** products (``wq``/``wk``/``wv`` on heads, ``w_up``/
   ``w_gate``, ``lm_head``) need nothing; a product split on ``head_dim``
   (``wk``/``wv`` where the KV heads do not divide ``model``) and ``mm_proj``
@@ -53,10 +55,24 @@ serve steps' plain collective:
   feeds ranks that each use a part (``wk``/``wv`` split on ``head_dim``: each
   rank's gradient is its query heads' share, so the backward sums over
   ``model`` before taking the slice);
+* :func:`reduce_scatter` where a product is split on its contraction and
+  its consumer on another dim (the experts' ``w_gate``/``w_up``, stored on
+  ``d_model`` over ``model``, feed ``w_down``, stored on the experts): the
+  partial sums summed to this rank's block forward, the gradient
+  all-gathered backward;
 * :func:`cross_entropy`, the vocab-parallel loss over each rank's logit
   columns, equal to ``models/common.py:cross_entropy_loss`` on the whole
   logits, gradient included (the reference's extra one-hot at the argmax,
   ROADMAP.md §3 fault 3, lands once, on the rank that holds the argmax).
+
+**The FSDP axis.** The MoE giants' leaves are split over ``data`` too, on
+``d_model`` (``partition.py``'s ``F``). The train step hands each layer
+what :func:`stored` gives, and :func:`weight` gathers a leaf over every
+axis but ``model`` at its layer's entry, keeping its ``model`` block,
+through ``sharding.regather`` (``sharding._Gather`` without a sink): its
+backward reduce-scatters the gradient back to the block, so the step
+all-reduces over ``data`` only the leaves the mesh does not split there.
+On one rank it is the block itself.
 """
 
 from __future__ import annotations
@@ -65,8 +81,9 @@ from typing import Any, Callable, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
-from .sharding import is_dtensor
+from .sharding import is_dtensor, regather
 
 MODEL = "model"
 
@@ -79,7 +96,8 @@ class Split(NamedTuple):
     this rank's first cache row and how many it holds; ``model_groups``/
     ``seq_groups``: the process groups of ``model`` and of the mesh axes
     that split the cache's sequence (the combine's), those of more than one
-    rank only, so that a step looks none up."""
+    rank only, so that a step looks none up; ``mesh``: the step's mesh (None
+    in :data:`ONE`, a model's own call)."""
 
     model: int
     rank: int
@@ -87,6 +105,7 @@ class Split(NamedTuple):
     rows: int = 0
     model_groups: Tuple[Any, ...] = ()
     seq_groups: Tuple[Any, ...] = ()
+    mesh: Any = None
 
 
 def axis_groups(mesh, axes: Sequence[str]) -> Tuple[Any, ...]:
@@ -106,7 +125,7 @@ def make_split(mesh, *, seq_axes: Sequence[str] = (), kv_start: int = 0,
     else:
         model, rank = 1, 0
     return Split(model, rank, kv_start, rows, axis_groups(mesh, (MODEL,)),
-                 axis_groups(mesh, seq_axes))
+                 axis_groups(mesh, seq_axes), mesh)
 
 
 #: one rank: whole weights and cache, no collective
@@ -122,6 +141,74 @@ def local(x: Any) -> torch.Tensor:
     whose gradients would not reach the block. ``_local_tensor`` is torch's
     private attribute of a ``DTensor`` (torch 2.x)."""
     return x._local_tensor if is_dtensor(x) else x
+
+
+class Placed(NamedTuple):
+    """This rank's block of a weight (or of one layer of a stacked one) on a
+    mesh of several ranks, with what a gather of it needs: its placements
+    and its global shape (:func:`stored`, :func:`weight`)."""
+
+    block: torch.Tensor
+    mesh: Any
+    placements: Tuple[Any, ...]
+    shape: Tuple[int, ...]
+
+
+def stored(leaf: Any, layers: bool = False) -> Any:
+    """A parameter as the split computes on it: a plain tensor itself, a
+    ``DTensor`` its local block (:func:`local`), as a :class:`Placed` on a
+    mesh of several ranks. With ``layers``, the layers of a stacked leaf, a
+    list from one ``unbind`` (under autograd each leaf's gradient is then
+    stacked once from its layers'), each with its layer's placements."""
+    if not is_dtensor(leaf):
+        return list(leaf.unbind(0)) if layers else leaf
+    blk, mesh = local(leaf), leaf.device_mesh
+    if mesh.size() == 1:
+        return list(blk.unbind(0)) if layers else blk
+    pl, shape = tuple(leaf.placements), tuple(leaf.shape)
+    if not layers:
+        return Placed(blk, mesh, pl, shape)
+    if any(isinstance(p, Shard) and p.dim == 0 for p in pl):
+        raise ValueError("a layer stack's dim 0 is never sharded")
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p for p in pl)
+    return [Placed(b, mesh, pl, shape[1:]) for b in blk.unbind(0)]
+
+
+def weight(x: Any, experts: bool = False) -> Any:
+    """A weight as this rank computes on it, from what :func:`stored` gives
+    (a ``DTensor`` is taken through it first): a :class:`Placed` block
+    gathered over every mesh axis but ``model`` where it is split there (the
+    MoE giants' FSDP axis, ``data`` on ``d_model``: ``partition.py``'s
+    ``F``), its ``model`` block kept; with ``experts``, split on its dim 0
+    (the experts) over ``model`` instead, as the expert-parallel FFN takes
+    them (a block split otherwise over ``model`` moves there by an
+    all-to-all). The gather is ``sharding.regather``: its backward
+    reduce-scatters the gradient back to the block. A tensor is itself."""
+    if is_dtensor(x):
+        x = stored(x)
+    if not isinstance(x, Placed):
+        return x
+    target = [(Shard(0) if experts else p) if name == MODEL else Replicate()
+              for name, p in zip(x.mesh.mesh_dim_names, x.placements)]
+    return regather(x.block, x.mesh, list(x.placements), target, x.shape)
+
+
+def gathers(leaf: Any) -> bool:
+    """True where :func:`weight` gathers ``leaf`` over a mesh axis of
+    several ranks (the FSDP axis), False where it is the stored block."""
+    x = stored(leaf) if is_dtensor(leaf) else leaf
+    return isinstance(x, Placed) and any(
+        name != MODEL and isinstance(p, Shard) and x.mesh.size(k) > 1
+        for k, (name, p) in enumerate(zip(x.mesh.mesh_dim_names, x.placements)))
+
+
+def weights(tree: Any, keep: Sequence[str] = ()) -> Any:
+    """:func:`weight` over a layer's nested dict of what :func:`stored`
+    gives, at the layer's entry; keys in ``keep`` stay as they are (the
+    experts, which the expert-parallel FFN takes by ``weight(experts=True)``)."""
+    if isinstance(tree, dict):
+        return {k: (v if k in keep else weights(v, keep)) for k, v in tree.items()}
+    return weight(tree)
 
 
 def offset(n_local: int, n_global: int, sp: Split) -> int:
@@ -205,10 +292,19 @@ def all_gather(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _reduce_scatter(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
+    """The sum over ``model`` of the ranks' ``x``, this rank's block of it
+    along ``dim`` (one reduce-scatter)."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // sp.model,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=sp.model_groups[0])
+    return out.movedim(0, dim).contiguous()
+
+
 class _AllGather(torch.autograd.Function):
     """:func:`all_gather` forward; backward, this rank's slice of the
-    gradient, summed over ``model`` first where each rank holds only its
-    share of it (``summed``: a reduce-scatter)."""
+    gradient, or, where each rank holds only its share of it (``summed``),
+    the slice of the shares' sum (a reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, sp, dim, summed):
@@ -218,8 +314,35 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.summed:
-            g = all_reduce(g.contiguous().clone(), ctx.sp.model_groups)
+            return _reduce_scatter(g, ctx.sp, ctx.dim), None, None, None
         return g.narrow(ctx.dim, ctx.sp.rank * ctx.n, ctx.n).contiguous(), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`_reduce_scatter` forward; backward, the gradients of the
+    ranks' blocks all-gathered (each rank's partial ``x`` reaches every
+    block)."""
+
+    @staticmethod
+    def forward(ctx, x, sp, dim):
+        ctx.sp, ctx.dim = sp, dim
+        return _reduce_scatter(x, sp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.sp, ctx.dim), None, None
+
+
+def reduce_scatter(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial ``x``, this rank's
+    block of it along ``dim``: where a product is split on its contraction
+    (``w_gate``/``w_up`` of the experts on ``d_model``) and its consumer on
+    another dim (``w_down`` on the experts). ``x`` itself on one rank."""
+    if not sp.model_groups:
+        return x
+    if not _tracked(x):
+        return _reduce_scatter(x, sp, dim)
+    return _ReduceScatter.apply(x, sp, dim)
 
 
 def all_gather_for_replicated(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
@@ -233,9 +356,10 @@ def all_gather_for_replicated(x: torch.Tensor, sp: Split, dim: int) -> torch.Ten
 
 def all_gather_for_split(x: torch.Tensor, sp: Split, dim: int) -> torch.Tensor:
     """The ``model`` ranks' blocks along ``dim`` for a consumer split over
-    ``model`` (each rank attends its own query heads over every KV head),
-    whose gradient on a rank is that rank's share: the backward sums the
-    shares over ``model`` and keeps this rank's slice."""
+    ``model`` (each rank attends its own query heads over every KV head, or
+    reads its own rows), whose gradient on a rank is that rank's share: the
+    backward reduce-scatters the shares over ``model`` to this rank's
+    slice."""
     if not sp.model_groups or not _tracked(x):
         return all_gather(x, sp, dim)
     return _AllGather.apply(x, sp, dim, True)

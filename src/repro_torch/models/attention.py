@@ -32,7 +32,10 @@ q_rope (576 wide), attends the cache rows latent ++ k_rope with
 at scale 192^-1/2; then W^kv_b's v part and ``wo``. RoPE rotates only the
 64-wide parts, so its table is at ``qk_rope_head_dim``. The cache holds one
 (B, S, kv_lora + rope) tensor a layer whose columns are the reference's
-``latent`` and ``k_rope``.
+``latent`` and ``k_rope``. In training, ``mla_attention`` computes on a
+rank's blocks (``sp``): ``wq_a``'s and ``wkv_a``'s output columns
+all-gathered before their norms, this rank's heads of ``wq_b`` and
+``wkv_b`` through the flash kernel at (192, 128), ``wo`` row-parallel.
 """
 
 from __future__ import annotations
@@ -244,18 +247,65 @@ def init_mla(ini: Initializer, cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions, freqs):
-    """q_nope (B,H,S,nope), q_rope (B,H,S,rope), latent (B,S,r), k_rope
-    (B,1,S,rope); ``freqs`` at the RoPE width."""
+def _mla_split(p, cfg: ModelConfig) -> bool:
+    """True where the layer's MLA blocks are split over ``model`` (``wq_b``,
+    ``wkv_b`` and ``wo`` on the heads), False where they are whole."""
     m = cfg.mla
-    q = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"])
+    heads = {p["wq_b"].shape[1], p["wkv_b"].shape[1], p["wo"].shape[0]}
+    if len(heads) > 1 or p["wq_b"].shape[0] != m.q_lora_rank or \
+            p["wo"].shape[1] != m.v_head_dim:
+        raise NotImplementedError(
+            f"the MLA split takes wq_b, wkv_b and wo split on the same heads; these blocks are "
+            f"{[tuple(p[k].shape) for k in ('wq_b', 'wkv_b', 'wo')]}")
+    return heads.pop() != cfg.n_heads
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions, freqs, sp: tp.Split = tp.ONE):
+    """q_nope (B,H,S,nope), q_rope (B,H,S,rope), latent (B,S,r), k_rope
+    (B,1,S,rope); ``freqs`` at the RoPE width. On a rank's blocks (``sp``):
+    ``wq_a``'s and ``wkv_a``'s output columns all-gathered over ``model``
+    before their norms and the RoPE split (the input entering their
+    products through ``f``), the normed q through ``f`` into ``wq_b``'s
+    heads: H is this rank's heads."""
+    m = cfg.mla
+    xf = tp.copy_to_model(x, sp)  # the entry of the products split over model
+
+    def down(w, width):  # x @ w, whole: a block of w's columns gathered
+        if w.shape[1] == width:
+            return x @ w.to(x.dtype)
+        return tp.all_gather_for_replicated(xf @ w.to(x.dtype), sp, dim=2)
+
+    q = rmsnorm(down(p["wq_a"], m.q_lora_rank), p["q_norm"])
+    if p["wq_b"].shape[1] != cfg.n_heads:
+        q = tp.copy_to_model(q, sp)
     q_nope, q_rope = _heads(q, p["wq_b"]).split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, freqs)
-    latent, k_rope = (x @ p["wkv_a"].to(x.dtype)).split(
+    latent, k_rope = down(p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim).split(
         [m.kv_lora_rank, m.qk_rope_head_dim], -1)
     latent = rmsnorm(latent, p["kv_norm"])
     k_rope = apply_rope(k_rope[:, None], positions, freqs)
     return q_nope, q_rope, latent, k_rope
+
+
+def _mla_expanded(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                  freqs: torch.Tensor, sp: tp.Split = tp.ONE):
+    """The expanded form's output (B,S,d) and the cache columns latent
+    (B,S,r) and k_rope (B,S,rope). On a rank's heads (``sp``): latent and
+    k_rope, which every rank uses for its own heads, through ``f`` into
+    ``wkv_b``'s heads and k's RoPE part, ``wo`` row-parallel."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    split = _mla_split(p, cfg)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions, freqs, sp)
+    lat, kr = (tp.copy_to_model(latent, sp), tp.copy_to_model(k_rope, sp)) if split else \
+        (latent, k_rope)
+    H = p["wkv_b"].shape[1]
+    k_nope, v = _heads(lat, p["wkv_b"]).split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, kr.expand(B, H, S, m.qk_rope_head_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    o = ops.flash_attention(q, k, v.contiguous(), causal=True)  # scale (nope + rope)^-1/2
+    out = _out_proj(o, p["wo"])
+    return (tp.reduce_from_model(out, sp) if split else out), latent, k_rope[:, 0]
 
 
 def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
@@ -263,24 +313,17 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor
     """Causal MLA over the whole sequence of ``x`` (B,S,d), the expanded
     form. Returns the output (B,S,d) and the layer's cache columns: latent
     (B,S,r) and k_rope (B,S,rope)."""
-    m = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions, freqs)
-    k_nope, v = _heads(latent, p["wkv_b"]).split([m.qk_nope_head_dim, m.v_head_dim], -1)
-    k = torch.cat([k_nope, k_rope.expand(B, H, S, m.qk_rope_head_dim)], -1)
-    q = torch.cat([q_nope, q_rope], -1)
-    o = ops.flash_attention(q, k, v.contiguous(), causal=True)  # scale (nope + rope)^-1/2
-    return _out_proj(o, p["wo"]), latent, k_rope[:, 0]
+    return _mla_expanded(p, x, cfg, positions, freqs)
 
 
 def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                  freqs: torch.Tensor) -> torch.Tensor:
+                  freqs: torch.Tensor, sp: tp.Split = tp.ONE) -> torch.Tensor:
     """Training MLA over the whole sequence of ``x`` (B,S,d), the twin of
     the JAX package's ``mla_attention``: the expanded form of
     ``mla_prefill``, causal, without the cache. Differentiable; returns
-    (B,S,d)."""
-    return mla_prefill(p, x, cfg, positions=positions, freqs=freqs)[0]
+    (B,S,d). On a rank's blocks (``sp``): its heads through
+    ``ops.flash_attention`` at (192, 128), ``wo`` row-parallel."""
+    return _mla_expanded(p, x, cfg, positions, freqs, sp)[0]
 
 
 def mla_decode(p, x: torch.Tensor, kv_cache: torch.Tensor, pos: torch.Tensor,

@@ -35,15 +35,30 @@ outputs (ROADMAP.md lists skipping empty experts as open). Under rules
 that set ``_moe_ep`` (a train step's ``moe_ep=True``) the FFN is the
 expert-parallel dispatch of ``distributed/moe_ep.py`` instead, as the
 reference's ``moe_ffn`` branches.
+
+Under the ``tp`` train step's Megatron split (``sp``) the FFN runs on this
+rank's blocks, as ``partition.param_specs`` stores them: the router on the
+experts, ``w_gate``/``w_up`` (E, d, ffe) on ``d_model``, ``w_down`` on the
+experts, the shared experts on their width. The input enters through
+Megatron's ``f``; the router's logits are all-gathered, so every rank
+routes its data block's tokens alike (the same capacity ``C``, the same
+drops, the same aux loss, once in every rank's loss); the slots hold this
+rank's columns of ``d_model``, whose gate and up products are partial
+sums, reduce-scattered to ``w_down``'s experts; the routes of those
+experts come back (the others read the zero row) with the gates through
+``f``, and the routed and shared experts' partial outputs are summed by one
+``reduce_from_model``. On whole weights (``tp.ONE``) it is the dispatch
+above, op for op.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import tensor_parallel as tp
 from .common import Initializer, activation
 from .config import ModelConfig
 
@@ -85,11 +100,17 @@ class _Gather(torch.autograd.Function):
         return pad[back].sum(1), None, None
 
 
-def route(p, x2d: torch.Tensor, cfg: ModelConfig
+def route(p, x2d: torch.Tensor, cfg: ModelConfig, sp: tp.Split = tp.ONE
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(top-k expert ids (T, K), gates (T, K) in x's dtype, aux loss 0-d f32)."""
+    """(top-k expert ids (T, K), gates (T, K) in x's dtype, aux loss 0-d f32).
+    A router block of this rank's experts' columns (``sp``) gives their
+    logits, all-gathered before the routing, so that every ``model`` rank
+    routes alike."""
     m = cfg.moe
-    logits = (x2d @ p["router"].to(x2d.dtype)).to(torch.float32)
+    logits = x2d @ p["router"].to(x2d.dtype)
+    if logits.shape[-1] != m.n_experts:
+        logits = tp.all_gather_for_replicated(logits, sp, dim=1)
+    logits = logits.to(torch.float32)
     if m.router == "sigmoid":
         scores = torch.sigmoid(logits)
     else:
@@ -103,35 +124,78 @@ def route(p, x2d: torch.Tensor, cfg: ModelConfig
     return idx, gates.to(x2d.dtype), aux * m.aux_loss_coef
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S, d) -> ((B, S, d), aux loss)."""
+def _split_blocks(p, cfg: ModelConfig) -> bool:
+    """True where the layer's blocks are split over ``model`` (the router
+    on the experts, ``w_gate``/``w_up`` on ``d_model``, ``w_down`` on the
+    experts, the shared experts on their width), False where all are
+    whole."""
+    m = cfg.moe
+    cut = [p["router"].shape[-1] != m.n_experts, p["w_gate"].shape[1] != cfg.d_model,
+           p["w_up"].shape[1] != cfg.d_model, p["w_down"].shape[0] != m.n_experts]
+    if m.n_shared:
+        cut.append(p["shared_down"].shape[0] != m.d_ff_expert * m.n_shared)
+    if any(cut) and not all(cut):
+        raise NotImplementedError(
+            f"the MoE split takes the router, the experts and the shared experts all split over "
+            f"model or all whole; these blocks are {[tuple(p[k].shape) for k in sorted(p)]}")
+    return all(cut)
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, sp: Optional[tp.Split] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, d) -> ((B, S, d), aux loss). Under a step's split ``sp`` (the
+    ``tp`` train step's) on this rank's blocks: ``x`` enters through
+    Megatron's ``f``, every rank routes alike, and the routed and shared
+    experts' partial outputs leave through one ``reduce_from_model``."""
     from ..distributed import sharding
 
+    sp = sp or tp.ONE
     if sharding.moe_ep_active():
         from ..distributed.moe_ep import moe_ffn_ep
 
-        return moe_ffn_ep(p, x, cfg, sharding._mesh())
+        return moe_ffn_ep(p, x, cfg, sharding._mesh(), sp if sp.mesh is not None else None)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     x2d = x.reshape(T, d)
+    split = _split_blocks(p, cfg)
+    if split:
+        x2d = tp.copy_to_model(x2d, sp)
     nc = m.dispatch_chunks if (m.dispatch_chunks > 1 and T % m.dispatch_chunks == 0) else 1
     if nc > 1:
-        ys, auxes = zip(*(_moe_tokens(p, xc, cfg) for xc in x2d.view(nc, T // nc, d)))
-        return torch.cat(ys).view(B, S, d), torch.stack(auxes).mean()
-    y, aux = _moe_tokens(p, x2d, cfg)
+        ys, auxes = zip(*(_moe_tokens(p, xc, cfg, sp, split) for xc in x2d.view(nc, T // nc, d)))
+        y, aux = torch.cat(ys), torch.stack(auxes).mean()
+    else:
+        y, aux = _moe_tokens(p, x2d, cfg, sp, split)
+    if split:
+        y = tp.reduce_from_model(y, sp)
     return y.view(B, S, d), aux
 
 
-def _moe_tokens(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One chunk of T tokens (T, d) through the routed and shared experts."""
+def _experts(p, buf: torch.Tensor, cfg: ModelConfig, sp: tp.Split, split: bool) -> torch.Tensor:
+    """The routed experts over their slots ``buf`` (E, C, d'): the outputs
+    (E', C, d) of the experts of ``w_down``'s block. Split, ``buf`` holds
+    this rank's columns of ``d_model``, so the gate and up products are
+    partial sums over them, reduce-scattered to this rank's experts."""
+    act = activation(cfg.mlp_act)
+    g = torch.bmm(buf, p["w_gate"].to(buf.dtype))
+    u = torch.bmm(buf, p["w_up"].to(buf.dtype))
+    if split:
+        g, u = tp.reduce_scatter(g, sp, 0), tp.reduce_scatter(u, sp, 0)
+    return torch.bmm(act(g) * u, p["w_down"].to(buf.dtype))
+
+
+def _moe_tokens(p, x2d: torch.Tensor, cfg: ModelConfig, sp: tp.Split = tp.ONE,
+                split: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of T tokens (T, d) through the routed and shared experts;
+    ``split``: on this rank's blocks, the output its partial sum."""
     m = cfg.moe
     T, d = x2d.shape
     E, K = m.n_experts, m.top_k
     C = max(1, int(math.ceil(T * K / E * m.capacity_factor)))
     dev = x2d.device
 
-    idx, gates, aux = route(p, x2d, cfg)  # (T, K)
+    idx, gates, aux = route(p, x2d, cfg, sp)  # (T, K)
 
     # position of each (token, k) in its expert's queue, by a stable sort
     flat_e = idx.reshape(-1)  # (T*K,), token-major
@@ -151,20 +215,32 @@ def _moe_tokens(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, t
     tok_for_slot = tok_for_slot.index_put_((slot,), routes // K)[:-1]
     route_for_slot = torch.full((E * C + 1,), T * K, dtype=torch.int64, device=dev)
     route_for_slot = route_for_slot.index_put_((slot,), routes)[:-1]
-    buf = _Gather.apply(x2d, tok_for_slot, slot.view(T, K)).view(E, C, d)
+    xs = x2d
+    if split:  # this rank's columns of d_model, w_gate's and w_up's block
+        dg = p["w_gate"].shape[1]
+        xs = x2d.narrow(1, tp.offset(dg, d, sp), dg)
+    buf = _Gather.apply(xs, tok_for_slot, slot.view(T, K)).view(E, C, xs.shape[1])
 
     # every expert over its C slots, as dense batched products
-    act = activation(cfg.mlp_act)
-    g = torch.bmm(buf, p["w_gate"].to(x2d.dtype))
-    u = torch.bmm(buf, p["w_up"].to(x2d.dtype))
-    y_buf = torch.bmm(act(g) * u, p["w_down"].to(x2d.dtype)).view(E * C, d)
+    y_buf = _experts(p, buf, cfg, sp, split)
+    e_own = y_buf.shape[0]  # w_down's experts
+    y_buf = y_buf.view(e_own * C, d)
 
-    # back to the tokens (a dropped route reads the zero row), weighted by gate and keep
-    yk = _Gather.apply(y_buf, slot, route_for_slot[:, None])
+    # back to the tokens (a dropped route reads the zero row), weighted by gate and keep;
+    # split, the routes of this rank's experts (the others read the zero row), and the
+    # gates' gradient, each rank's experts' share, summed over model
+    back = route_for_slot
+    if split:
+        lo, n = tp.offset(e_own, E, sp) * C, e_own * C
+        slot = torch.where((slot >= lo) & (slot < lo + n), slot - lo, n)
+        back = route_for_slot[lo:lo + n]
+        gates = tp.copy_to_model(gates, sp)
+    yk = _Gather.apply(y_buf, slot, back[:, None])
     yk = yk * (gates.reshape(-1, 1) * keep[:, None].to(x2d.dtype))
     y = yk.view(T, K, d).sum(1)
 
     if m.n_shared:
+        act = activation(cfg.mlp_act)
         sg = x2d @ p["shared_gate"].to(x2d.dtype)
         su = x2d @ p["shared_up"].to(x2d.dtype)
         y = y + (act(sg) * su) @ p["shared_down"].to(x2d.dtype)

@@ -52,7 +52,8 @@ class Mamba2LM(TransformerLM):
     as there."""
 
     family = "ssm"
-    splits = False  # gathers its sharded weights; the Megatron split is TransformerLM's
+    # gathers its sharded weights; the Megatron split is TransformerLM's
+    splits = train_splits = False
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         nn.Module.__init__(self)

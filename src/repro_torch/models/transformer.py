@@ -44,16 +44,18 @@ layers over ``P + S`` positions; the loss scores the text positions only.
 ``decode_step`` and the engine are text-only, as the JAX package's are.
 
 Parameters placed on a mesh (``distributed/steps.py:shard_model``) are
-``DTensor`` blocks. A GQA model without MoE layers (the dense and vlm
-families) serves (``prefill``, ``decode_step``) and trains (``train_loss``)
-on each rank's blocks of the weights and rows of the cache, the Megatron
-split of ``distributed/tensor_parallel.py``, and gathers no weight: a serve
-or train step over a mesh hands it its ``Split``, and without one it
-computes under one rank's, on the whole weights and cache, so that the
-split is its only path. The moe family gathers each layer's slice of its
-sharded leaves at the layer's entry (``_block``, through
-``distributed.sharding.gather_tree``), and the rest of the model runs on
-the plain tensors it always takes.
+``DTensor`` blocks. Every family here trains (``train_loss``) on each
+rank's blocks of the weights, the Megatron split of
+``distributed/tensor_parallel.py``: the ``tp`` train step hands it its
+``Split``, and without one it computes under one rank's, on the whole
+weights, so that the split is its only training path. The MoE giants'
+blocks, split over ``data`` too, are gathered there at each layer's entry,
+keeping their ``model`` block (``_layer_weights``). A GQA model without MoE
+layers (the dense and vlm families) also serves (``prefill``,
+``decode_step``) so, on its rows of the cache, and gathers no weight; the
+moe family serves on each layer's slice of its sharded leaves gathered at
+the layer's entry (``_block``, through ``distributed.sharding.
+gather_tree``), the rest of the model on the plain tensors it always takes.
 """
 
 from __future__ import annotations
@@ -120,12 +122,14 @@ def _unstack(tree: Any, n: int, local: bool = False) -> List[Any]:
     under autograd each leaf's gradient is then stacked once from its
     layers' (where ``tree[i]`` would build a full-size gradient a layer). A
     sharded leaf gives its layers, each gathered at the layer's entry; with
-    ``local``, the layers of this rank's block of it (the Megatron split)."""
+    ``local``, the layers of this rank's block of it (the Megatron split:
+    ``tensor_parallel.stored``, gathered over ``data`` at the layer's entry
+    where the mesh splits it there)."""
     if isinstance(tree, dict):
         subs = {k: _unstack(v, n, local) for k, v in tree.items()}
         return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
     if local:
-        return list(tp.local(tree).unbind(0))
+        return tp.stored(tree, layers=True)
     if is_dtensor(tree):
         return [Layer(tree, i) for i in range(n)]
     return list(tree.unbind(0))
@@ -133,6 +137,15 @@ def _unstack(tree: Any, n: int, local: bool = False) -> List[Any]:
 
 #: the MoE FFN's expert weights, which the expert-parallel FFN gathers itself
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _layer_weights(p: Dict[str, Any], use_moe: bool = False) -> Dict[str, Any]:
+    """A training layer's weights under a split, at its entry (inside its
+    remat region, so the backward gathers again): this rank's blocks, those
+    the mesh also splits over ``data`` gathered there
+    (``tensor_parallel.weights``); the expert-parallel FFN takes its
+    experts itself."""
+    return tp.weights(p, EXPERT_LEAVES if use_moe and moe_ep_active() else ())
 
 
 def token_ids(tokens: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -153,6 +166,9 @@ class TransformerLM(nn.Module):
     (pass ``device="cpu"`` to run on the CPU, or ``"meta"`` for a shape-only
     model that a checkpoint restore fills). Weights are random, drawn from
     ``torch.Generator(seed)`` at the JAX package's init scales."""
+
+    #: trains on each rank's blocks (the Megatron split), every family it serves
+    train_splits = True
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         super().__init__()
@@ -193,8 +209,8 @@ class TransformerLM(nn.Module):
             })
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[tuple]] = None  # per-layer views, made lazily
-        #: serves and trains on each rank's blocks (the Megatron split); MLA and MoE
-        #: models on weights gathered a layer at a time
+        #: serves on each rank's blocks (the Megatron split); MLA and MoE models on
+        #: weights gathered a layer at a time
         self.splits = cfg.attn_type == "gqa" and not self.n_moe
 
     # ---- parameters ---------------------------------------------------------
@@ -277,7 +293,7 @@ class TransformerLM(nn.Module):
         vocab-parallel lookup, ``mm_proj`` column-parallel with its output
         all-gathered; else on the gathered weights."""
         cfg = self.cfg
-        leaf = gather if sp is None else tp.local
+        leaf = gather if sp is None else tp.weight
         x = tp.embed(leaf(self.embed), tokens.to(self.device), cfg.vocab, sp or tp.ONE,
                      lambda table, ids: embed_lookup(table, ids, cfg.embed_scale, cfg.cdtype))
         if patch_embeds is None or not cfg.n_patches:
@@ -289,12 +305,18 @@ class TransformerLM(nn.Module):
             y = tp.all_gather_for_replicated(y, sp, dim=2)
         return torch.cat([y, x], dim=1)
 
-    def _logits(self, h: torch.Tensor, sp: Optional[tp.Split] = None) -> torch.Tensor:
-        """Softcapped logits: under a split ``sp``, this rank's vocab columns
-        (``lm_head``'s block, or the tied ``embed``'s rows), column-parallel."""
+    def _head(self, sp: Optional[tp.Split] = None) -> torch.Tensor:
+        """The output projection (d, V): under a split ``sp`` this rank's
+        vocab columns (``lm_head``'s block, or the tied ``embed``'s rows)."""
+        leaf = gather if sp is None else tp.weight
+        return leaf(self.embed).t() if self.cfg.tie_embeddings else leaf(self.lm_head)
+
+    def _logits(self, h: torch.Tensor, sp: Optional[tp.Split] = None,
+                head: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Softcapped logits by ``head`` (``_head``'s): under a split ``sp``,
+        this rank's vocab columns, column-parallel."""
         cfg = self.cfg
-        leaf = gather if sp is None else tp.local
-        head = leaf(self.embed).t() if cfg.tie_embeddings else leaf(self.lm_head)
+        head = self._head(sp) if head is None else head
         if sp is not None and head.shape[1] != cfg.vocab:
             h = tp.copy_to_model(h, sp)
         return softcap(h @ head.to(h.dtype), cfg.logit_softcap)
@@ -311,9 +333,9 @@ class TransformerLM(nn.Module):
         """One layer around its attention ``attn(h, p_attn) -> a``: (x, the
         MoE aux loss, 0-d f32, 0 for a dense FFN). The layer's parameters
         are gathered here, at its entry, where they are sharded; under a
-        split ``sp`` they are this rank's blocks."""
+        split ``sp`` they are this rank's blocks (``_layer_weights``)."""
         if sp is None:
-            p = gather_tree(p, EXPERT_LEAVES if use_moe and moe_ep_active() else ())
+            p = gather_tree(p)
         _, norm = make_norm(self.cfg.norm)
         a = attn(norm(p["ln_attn"], x), p["attn"])
         if self.cfg.sandwich_norm:
@@ -321,7 +343,7 @@ class TransformerLM(nn.Module):
         x = x + a
         h = norm(p["ln_mlp"], x)
         if use_moe:
-            f, aux = moe_ffn(p["ffn"], h, self.cfg)
+            f, aux = moe_ffn(p["ffn"], h, self.cfg, sp)
         else:
             f = mlp(p["ffn"], h, self.cfg, sp or tp.ONE)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -335,7 +357,8 @@ class TransformerLM(nn.Module):
         """A layer's training attention: MLA's expanded form, or GQA with the
         layer's window (on this rank's blocks under a split ``sp``)."""
         if self.cfg.attn_type == "mla":
-            return mla_attention(p, h, self.cfg, positions=positions, freqs=freqs)
+            return mla_attention(p, h, self.cfg, positions=positions, freqs=freqs,
+                                 sp=sp or tp.ONE)
         return gqa_attention(p, h, self.cfg, positions=positions, window=window, freqs=freqs,
                              sp=sp or tp.ONE)
 
@@ -362,8 +385,9 @@ class TransformerLM(nn.Module):
 
                 def layer(x, p=p, window=0 if is_global else cfg.sliding_window,
                           f=freqs[theta], use_moe=use_moe):
-                    return self._block(p, x, lambda h, pa: self._train_attention(
-                        pa, h, positions, window, f, sp), use_moe, sp)
+                    return self._block(_layer_weights(p, use_moe), x,
+                                       lambda h, pa: self._train_attention(
+                                           pa, h, positions, window, f, sp), use_moe, sp)
 
                 x, a = checkpoint(layer, x, use_reentrant=False) if cfg.remat else layer(x)
                 stack_aux = stack_aux + a
@@ -376,16 +400,21 @@ class TransformerLM(nn.Module):
                     sp: Optional[tp.Split] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """CE and accuracy over ``chunk``-token pieces, each checkpointed, so
         the full (B,S,V) logits never exist at once; under a split ``sp``,
-        the vocab-parallel ``tp.cross_entropy`` of this rank's columns."""
+        the vocab-parallel ``tp.cross_entropy`` of this rank's columns. A
+        head the split gathers over ``data`` is gathered once for the pieces;
+        any other is taken in each piece (so its gradient goes straight to
+        the leaf)."""
         S = h.shape[1]
         chunk = min(chunk, S)
+        leaf = self.embed if self.cfg.tie_embeddings else self.lm_head
+        head = self._head(sp) if sp is not None and tp.gathers(leaf) else None
 
         def piece(hc, lc, mc):
             if sp is None:
-                loss, acc = cross_entropy_loss(self._logits(hc), lc, mc)
+                loss, acc = cross_entropy_loss(self._logits(hc, head=head), lc, mc)
             else:
-                loss, acc = tp.cross_entropy(self._logits(hc, sp), lc, mc, self.cfg.vocab, sp,
-                                             cross_entropy_loss)
+                loss, acc = tp.cross_entropy(self._logits(hc, sp, head), lc, mc, self.cfg.vocab,
+                                             sp, cross_entropy_loss)
             cnt = torch.clamp_min(torch.sum(mc.to(torch.float32)), 1e-9)
             return loss * cnt, acc * cnt, cnt
 
@@ -408,7 +437,7 @@ class TransformerLM(nn.Module):
         0-d f32, the same on every rank of a split. With ``split`` (the
         ``tp`` train step's over a mesh): on this rank's weight blocks, the
         gradients into them."""
-        sp = self._split_for(split)
+        sp = self._split_for(split, train=True)
         tokens = token_ids(batch["tokens"], self.device)
         x = self._embed_inputs(tokens, batch.get("patch_embeds"), sp)
         positions = torch.arange(x.shape[1], device=self.device)
@@ -421,45 +450,59 @@ class TransformerLM(nn.Module):
         metrics = {"ce": loss, "aux": aux, "acc": acc}
         total = loss + aux
         if self.cfg.mtp:
-            metrics["mtp"] = self._mtp_loss(h, tokens)
+            metrics["mtp"] = self._mtp_loss(h, tokens, sp)
             total = total + self.cfg.mtp_weight * metrics["mtp"]
         metrics["loss"] = total
         return total, metrics
 
-    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    def _mtp_loss(self, h: torch.Tensor, tokens: torch.Tensor, sp: tp.Split) -> torch.Tensor:
         """DeepSeek-V3's depth-1 MTP loss, the reference's ``_mtp_loss``:
         from ``h`` (B,S,d), the text positions after ``ln_f``, normed by
         ``mtp.ln`` and concatenated with the embedding of token t+1, projected
         by ``mtp.proj`` (2d, d), one dense layer (global, RoPE at
         ``cfg.rope_theta``, not under remat) predicts token t+2; the last two
-        positions are masked."""
+        positions are masked. On this rank's blocks (``sp``): the
+        vocab-parallel embedding, ``mtp.proj`` column-parallel with its
+        output all-gathered into the layer's residual stream, the layer and
+        the cross-entropy split as the backbone's."""
         cfg = self.cfg
         _, norm = make_norm(cfg.norm)
         p = self.mtp.tree()
-        head = gather_tree({"ln": p["ln"], "proj": p["proj"]})
+        proj = tp.weight(p["proj"])
         next_tok = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
-        emb_next = embed_lookup(gather(self.embed), next_tok, cfg.embed_scale, cfg.cdtype)
-        h_in = torch.cat([norm(head["ln"], h), emb_next], dim=-1) @ head["proj"].to(h.dtype)
+        emb_next = tp.embed(tp.weight(self.embed), next_tok, cfg.vocab, sp,
+                            lambda table, ids: embed_lookup(table, ids, cfg.embed_scale,
+                                                            cfg.cdtype))
+        h_in = torch.cat([norm(tp.weights(p["ln"]), h), emb_next], dim=-1)
+        if proj.shape[1] != cfg.d_model:
+            h_in = tp.all_gather_for_replicated(tp.copy_to_model(h_in, sp) @ proj.to(h.dtype), sp,
+                                                dim=2)
+        else:
+            h_in = h_in @ proj.to(h.dtype)
         positions = torch.arange(h_in.shape[1], device=self.device)
         freqs = rope_freqs(self._rope_dim(), cfg.rope_theta, device=self.device)
-        h_out, _ = self._block(p["layer"], h_in, lambda a, pa: self._train_attention(
-            pa, a, positions, 0, freqs))
+        h_out, _ = self._block(_layer_weights(p["layer"]), h_in,
+                               lambda a, pa: self._train_attention(pa, a, positions, 0, freqs,
+                                                                   sp), sp=sp)
         labels = torch.cat([tokens[:, 2:], tokens[:, -2:]], dim=1)
         mask = torch.ones(labels.shape, dtype=torch.float32, device=self.device)
         mask[:, -2:] = 0.0
-        return self._chunked_ce(h_out, labels, mask)[0]
+        return self._chunked_ce(h_out, labels, mask, sp=sp)[0]
 
     # ---- serve --------------------------------------------------------------
-    def _split_for(self, split: Optional[tp.Split]) -> Optional[tp.Split]:
+    def _split_for(self, split: Optional[tp.Split], train: bool = False
+                   ) -> Optional[tp.Split]:
         """The split a serve or train call computes under: ``split`` (a step's
-        over a mesh), else one rank's, where the model ``splits``; None (the
-        weights gathered a layer at a time) for MLA and MoE models."""
-        if self.splits:
+        over a mesh), else one rank's, where the model ``splits`` (serving)
+        or ``train_splits`` (training); None (the weights gathered a layer at
+        a time) for serving MLA and MoE models."""
+        if self.splits or (train and self.train_splits):
             return split or tp.ONE
         if split is not None:
             raise NotImplementedError(
-                "the Megatron split covers the dense and vlm families; the moe family serves "
-                "and trains through the gathered weights (ROADMAP.md item 18)")
+                "the Megatron split of the serve steps covers the dense and vlm families; the "
+                "moe family trains through it and serves through the gathered weights "
+                "(ROADMAP.md item 18)")
         return None
 
     @torch.inference_mode()

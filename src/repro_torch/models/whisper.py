@@ -144,6 +144,9 @@ class WhisperModel(nn.Module):
     model that a checkpoint restore fills). Weights are random, drawn from
     ``torch.Generator(seed)`` at the JAX package's init scales."""
 
+    #: serves and trains on weights gathered a layer at a time (no Megatron split)
+    splits = train_splits = False
+
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         super().__init__()
         if cfg.family != "encdec":

@@ -1452,6 +1452,63 @@ def test_split_tp_step_on_a_one_rank_nccl_mesh_is_make_step(card, one_rank_group
             name
 
 
+@pytest.mark.parametrize("arch", ["kimi_k2_1t", "deepseek_v3_671b"])
+def test_moe_split_tp_step_on_a_one_rank_nccl_mesh_is_make_step(card, one_rank_group, arch):
+    """The moe family's ``tp`` step on a one-rank NCCL mesh (the Megatron
+    split: the router, the experts' blocks, MLA on each rank's heads and
+    the MTP head): metrics, updated parameters and int8 moments bit-equal to
+    ``train.loop.make_step``'s on the same weights and batch (reduced at the
+    kernels' widths, ``_moe_on_card``; remat, two dispatch chunks), every flash
+    forward twice and backward once a layer, no weight gathered."""
+    import dataclasses
+
+    from repro_torch.checkpoint.store import flatten
+    from repro_torch.distributed import optimizer as optim
+    from repro_torch.distributed import sharding, steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train.loop import make_step
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = _moe_on_card(arch)
+    cfg = cfg.with_(remat=True, moe=dataclasses.replace(cfg.moe, dispatch_chunks=2))
+    adamw = optim.AdamWConfig(lr=1e-3, warmup_steps=0, moment_dtype="int8")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(1, cfg.vocab, (4, 256))
+                            .astype(np.int32))
+    a = build_model(cfg, device=card, seed=3)
+    b = build_model(cfg, device=card, seed=3)
+    a.requires_grad_(True)
+    pa = a.param_tree()
+    sa = optim.init_state(pa, adamw)
+    _, _, ma = make_step(a, adamw)(pa, sa, {"tokens": toks})
+    step, (ppl, opl, _), _, (_, ometa) = steps.make_train_step(
+        b, mesh, ShapeSpec("t", "train", 256, 4), adamw=adamw, strategy="tp")
+    steps.shard_model(b, mesh, ppl)
+    before, bwd = fa.launches, fa.bwd_launches
+    kept = {(m, n): getattr(m, n) for m in (sharding, transformer) for n in ("gather",
+                                                                              "gather_tree")}
+    for m, n in kept:
+        setattr(m, n, None)  # a call would raise
+    try:
+        _, sb, mb = step(b.param_tree(), steps.init_opt_state(ometa, mesh, opl, card),
+                         {"tokens": toks})
+    finally:
+        for (m, n), fn in kept.items():
+            setattr(m, n, fn)
+    torch.cuda.synchronize()
+    n_attn = cfg.n_layers + int(cfg.mtp)
+    assert (fa.launches - before, fa.bwd_launches - bwd) == (2 * cfg.n_layers + int(cfg.mtp),
+                                                             n_attn)
+    assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+    for want, got in ((flatten(pa, "p"), flatten(b.param_tree(), "p")),
+                      (flatten(sa, "o"), flatten(sb, "o"))):
+        assert set(want) == set(got)
+        for name, t in want.items():
+            g = got[name]
+            assert torch.equal(t.detach(), (g.to_local() if sharding.is_dtensor(g) else g)
+                               .detach()), name
+
+
 def test_moe_ffn_ep_at_one_rank_is_the_dense_dispatch(card, one_rank_group):
     """``moe_ffn_ep`` on a one-rank ``model`` group against ``moe_ffn`` at a
     capacity factor where no route drops (reduced deepseek-v3, bf16)."""

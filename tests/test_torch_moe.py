@@ -21,6 +21,10 @@ shared rows for the decode.
 import contextlib
 import dataclasses
 import math
+import os
+import shutil
+import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -38,6 +42,7 @@ from repro.distributed import optimizer as jopt
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro.models import build_model as jax_build
+from repro.models import common as jax_common
 from repro.models import moe as jmoe
 from repro.models.common import Initializer as JaxInitializer
 from repro.serving import ServeEngine as JaxEngine
@@ -296,8 +301,8 @@ def _recorded_routes(out: list):
     """Each routing call's expert ids in the port, in call order."""
     kept = tmoe.route
 
-    def route(p, x2d, cfg):
-        idx, gates, aux = kept(p, x2d, cfg)
+    def route(p, x2d, cfg, *split):
+        idx, gates, aux = kept(p, x2d, cfg, *split)
         out.append((idx.detach().clone(), x2d.shape[0], cfg))
         return idx, gates, aux
 
@@ -432,20 +437,48 @@ def _moe_loop(pkg_cfg, adamw_cls, ckpt_dir, steps):
                    adamw=adamw_cls(lr=1e-4, warmup_steps=2, total_steps=50, moment_dtype="int8"))
 
 
+def _path_hash(path):
+    """A string hash that is the same in every process (crc32)."""
+    return zlib.crc32(path.encode())
+
+
+def _same_in_every_process():
+    """The reference's init folds ``hash(path)`` into its key, which Python
+    salts per process (ROADMAP.md §3 fault 5); inside this it folds
+    ``_path_hash``, as ``tests/test_torch_train.py:_pair`` does, so the
+    resume tests draw the same weights in every process.
+
+    Why a fixed draw: on some draws the two packages part at the first
+    resumed update through the reference's int8 moments (ROADMAP.md §3
+    fault 10, mirrored by the port). An entry whose ``v`` code is 0 while
+    its ``m`` code is not moves by ~lr·m/(sqrt(v) + eps) with sqrt(v) near
+    eps, and there each package's rounding of a near-zero gradient changes
+    the move by up to ~3e-3 of its leaf's largest entry (PYTHONHASHSEED=23:
+    every parameter that parts past 1e-6 of its leaf's largest entry after
+    that update is such an entry). The next losses then part past
+    ``_losses_close``'s bound in both directions."""
+    return mock.patch.object(jax_common, "hash", _path_hash, create=True)
+
+
 def _jax_moe_run(dataset, ckpt_dir, steps, resume=False):
     """The reference's ``train()`` on the reduced Kimi-K2 from its own
-    init, tempered as ``_pair`` tempers it."""
+    init (``_same_in_every_process``), tempered as ``_pair`` tempers it."""
     jcfg, _ = _configs("kimi_k2_1t")
     jmodel = jax_build(jcfg)
     init = jmodel.init
-    jmodel.init = lambda key: _temper(init(key), jcfg)
+
+    def tempered(key):
+        with _same_in_every_process():
+            return _temper(init(key), jcfg)
+    jmodel.init = tempered
     return jax_train(jmodel, JaxLoader(JaxDataset(dataset), 4, seed=0),
                      _moe_loop(JaxLoopConfig, jopt.AdamWConfig, ckpt_dir, steps), resume=resume)
 
 
 def _port_moe_run(dataset, ckpt_dir, steps, resume=False):
     """The port's ``train()`` from the reference's init (carried over)."""
-    _, params, port = _pair("kimi_k2_1t")
+    with _same_in_every_process():
+        _, params, port = _pair("kimi_k2_1t")
     return port_train(port.requires_grad_(True), DataLoader(RaDataset(dataset), 4, seed=0),
                       _moe_loop(TrainLoopConfig, topt.AdamWConfig, ckpt_dir, steps),
                       resume=resume)
@@ -467,27 +500,44 @@ def _losses_close(got, want):
         assert abs(g - w) <= tol * abs(w), f"step {k}: {g} vs {w} (rtol {tol})"
 
 
-def test_port_moe_checkpoint_resumes_in_jax(moe_dataset, tmp_path, capsys):
+@pytest.fixture(scope="module")
+def moe_straight(moe_dataset, tmp_path_factory):
+    """One straight 6-step run of each package, shared by the two resume
+    tests: {"port"/"jax": (its losses, its checkpoint directory)}, where
+    ``ckpt_every=3`` left the step-3 checkpoint that the other package
+    resumes from."""
+    root = tmp_path_factory.mktemp("moe_straight")
+    runs = {}
+    for name, run in (("port", _port_moe_run), ("jax", _jax_moe_run)):
+        ck = str(root / name)
+        runs[name] = (run(moe_dataset, ck, 6)["losses"], ck)
+    return runs
+
+
+def _step3(ck, into):
+    """A directory holding only ``ck``'s step-3 checkpoint, to resume from."""
+    os.makedirs(into)
+    shutil.copytree(os.path.join(ck, "step_00000003"), os.path.join(into, "step_00000003"))
+    return into
+
+
+def test_port_moe_checkpoint_resumes_in_jax(moe_dataset, moe_straight, tmp_path, capsys):
     """The port's checkpoint of a reduced Kimi-K2 at step 3 (parameters,
     int8 moments with their scales, loader position) resumes in the
     reference's ``train()``, which continues the port's own losses."""
-    ck = str(tmp_path / "ck")
-    _port_moe_run(moe_dataset, ck, 3)
-    straight = _port_moe_run(moe_dataset, str(tmp_path / "straight"), 6)
-    out = _jax_moe_run(moe_dataset, ck, 6, resume=True)
+    straight, ck = moe_straight["port"]
+    out = _jax_moe_run(moe_dataset, _step3(ck, str(tmp_path / "ck")), 6, resume=True)
     assert "[train] resumed from step 3" in capsys.readouterr().out
-    _losses_close(out["losses"], straight["losses"][3:])
+    _losses_close(out["losses"], straight[3:])
 
 
-def test_jax_moe_checkpoint_resumes_in_the_port(moe_dataset, tmp_path, capsys):
+def test_jax_moe_checkpoint_resumes_in_the_port(moe_dataset, moe_straight, tmp_path, capsys):
     """And the reverse: the reference's moe checkpoint with int8 moments
     resumes in the port and continues the reference's losses."""
-    ck = str(tmp_path / "ck")
-    _jax_moe_run(moe_dataset, ck, 3)
-    straight = _jax_moe_run(moe_dataset, str(tmp_path / "straight"), 6)
-    out = _port_moe_run(moe_dataset, ck, 6, resume=True)
+    straight, ck = moe_straight["jax"]
+    out = _port_moe_run(moe_dataset, _step3(ck, str(tmp_path / "ck")), 6, resume=True)
     assert "[train] resumed from step 3" in capsys.readouterr().out
-    _losses_close(out["losses"], straight["losses"][3:])
+    _losses_close(out["losses"], straight[3:])
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,causal", [

@@ -1,8 +1,8 @@
 """The port's sharded steps (``distributed/steps.py``) on a one-rank gloo mesh
 against the JAX package's, jitted with their shardings on a one-device
-``("data", "model")`` mesh: one train step of reduced OLMo, InternLM2 and
-DeepSeek-V3 (with and without ``moe_ep``) over ``tp`` and ``dp``, 1 and 2
-microbatches, ``grad_dtype`` None and bfloat16; the prefill and decode
+``("data", "model")`` mesh: one train step of reduced OLMo, InternLM2,
+Kimi-K2 and DeepSeek-V3 (with and without ``moe_ep``) over ``tp`` and ``dp``,
+1 and 2 microbatches, ``grad_dtype`` None and bfloat16; the prefill and decode
 steps of a reduced dense model and of Mamba2. The weights are the port's
 init from a seed, handed to the JAX package as numpy arrays (the
 reference's own init folds in a salted hash and compiles for seconds), the
@@ -130,6 +130,7 @@ TRAIN = [
     ("deepseek_v3_671b", "tp", 1, None, False),
     ("deepseek_v3_671b", "dp", 2, "bfloat16", False),
     ("deepseek_v3_671b", "tp", 1, None, True),
+    ("kimi_k2_1t", "tp", 1, None, False),
     # the Megatron split's other paths: qkv bias and padded heads; tied embedding,
     # QK-norm, sandwich norms; mm_proj and patches
     ("qwen2_5_14b", "tp", 1, None, False),
@@ -152,10 +153,10 @@ def _batch(cfg, seed):
                          ids=["-".join(map(str, c)) for c in TRAIN])
 def test_train_step_matches_jax(mesh, arch, strategy, microbatches, grad_dtype, moe_ep):
     """Metrics, parameters and optimizer state after one step, each package's
-    step from the same weights and batch (deepseek's capacity high enough
-    that no route drops, so the expert-parallel and the dense dispatch
-    agree)."""
-    moe = {"capacity_factor": 8.0} if arch.startswith("deepseek") else {}
+    step from the same weights and batch (the moe family's capacity high
+    enough that no route drops, so the expert-parallel and the dense
+    dispatch agree)."""
+    moe = {"capacity_factor": 8.0} if arch.startswith(("deepseek", "kimi")) else {}
     jcfg, jmodel, params, port = _pair(arch, **moe)
     kw = dict(lr=LR, warmup_steps=0, total_steps=10, moment_dtype=jcfg.opt_moment_dtype)
     batch = _batch(jcfg, 7)
@@ -221,12 +222,14 @@ def test_dp_step_is_make_steps_arithmetic_on_one_rank(mesh):
         assert torch.equal(x.detach(), y.detach()), name
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b",
+                                  "kimi_k2_1t", "deepseek_v3_671b"])
 def test_split_train_step_is_make_steps_on_one_rank(mesh, arch):
     """On one rank the ``tp`` step's Megatron split is ``make_step``, op for
     op: metrics and updated parameters bit-equal (every collective the
     identity, the vocab-parallel cross-entropy ``cross_entropy_loss``'s
-    arithmetic), and no weight gathered."""
+    arithmetic; the moe family's router, experts, MLA and MTP head too),
+    and no weight gathered."""
     from repro_torch.distributed import sharding
     from repro_torch.models import transformer
 

@@ -13,8 +13,12 @@ tensors:
 * ``reduce_from_model`` (``g``) after a row-parallel one: the sum forward,
   the weight blocks' gradients;
 * ``all_gather_for_replicated`` (a consumer every rank computes alike) and
-  ``all_gather_for_split`` (a consumer split over ``model``): the weight
-  blocks' gradients of each;
+  ``all_gather_for_split`` (a consumer split over ``model``, its backward a
+  reduce-scatter): the weight blocks' gradients of each;
+* ``reduce_scatter`` (a product split on its contraction whose consumer is
+  split on another dim, as the experts' ``w_gate``/``w_up`` on ``d_model``
+  feed ``w_down`` on the experts): the sum forward, the weight blocks'
+  gradients;
 * ``cross_entropy``: the loss, the accuracy and every logit's gradient equal
   ``models/common.py:cross_entropy_loss``'s on the whole logits, the
   reference's extra one-hot at the argmax included (fault 3), where the
@@ -22,7 +26,8 @@ tensors:
   (the lowest global index wins, as ``argmax``).
 
 Each gate must refuse a planted fault: ``f``'s backward all-reduce dropped,
-the two all-gathers swapped, the argmax's one-hot counted on every rank.
+the two all-gathers swapped, ``reduce_scatter``'s backward keeping this
+rank's block only, the argmax's one-hot counted on every rank.
 Tolerances: f32 sums in another order, ``TOL`` of each result's largest
 entry; a planted fault moves a gradient by a share of it (half or more).
 """
@@ -53,7 +58,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 120
 TOL = 1e-5
 WORLDS = (2, 4)
-FAULTS = ("none", "f_backward_dropped", "gathers_swapped", "argmax_on_every_rank")
+FAULTS = ("none", "f_backward_dropped", "gathers_swapped", "reduce_scatter_backward_local",
+          "argmax_on_every_rank")
 
 _RANKS = r"""
 import inspect, json, os
@@ -119,6 +125,18 @@ try:
         ww = W.clone().requires_grad_()
         ((x @ ww) * sum(parts)).sum().backward()
         res["gather_split"] = err(put_together(wb.grad, 1), ww.grad)
+        # reduce_scatter: partial products over the contraction's blocks, summed
+        # to this rank's columns, which its consumer reads (its columns of R)
+        Wc, xc = whole(N, d, seed=11), whole(B, S, N, seed=12)
+        Rc = whole(B, S, d, seed=13)
+        wc = block(Wc, 0).requires_grad_()
+        yc = tp.reduce_scatter(block(xc, 2) @ wc, sp, 2)
+        (yc * block(Rc, 2)).sum().backward()
+        ww = Wc.clone().requires_grad_()
+        yw = xc @ ww
+        (yw * Rc).sum().backward()
+        res["reduce_scatter_forward"] = err(put_together(yc.detach(), 2), yw.detach())
+        res["reduce_scatter"] = err(put_together(wc.grad, 0), ww.grad)
         # the vocab-parallel cross-entropy against cross_entropy_loss on whole logits
         logits = whole(B, S, V, seed=7) * 3
         labels = torch.from_numpy(np.random.default_rng(8).integers(0, V, (B, S)))
@@ -151,6 +169,15 @@ try:
         elif fault == "gathers_swapped":
             saved["gathers"] = (tp.all_gather_for_replicated, tp.all_gather_for_split)
             tp.all_gather_for_replicated, tp.all_gather_for_split = saved["gathers"][::-1]
+        elif fault == "reduce_scatter_backward_local":
+            # the gradient of this rank's block only, zeros for the others'
+            saved["_ReduceScatter"] = tp._ReduceScatter.backward
+
+            def local_only(ctx, g):
+                parts = [torch.zeros_like(g) for _ in range(ctx.sp.model)]
+                parts[ctx.sp.rank] = g
+                return torch.cat(parts, ctx.dim), None, None
+            tp._ReduceScatter.backward = staticmethod(local_only)
         elif fault == "argmax_on_every_rank":
             # the max as added back taken from every rank's own max: the same
             # forward, a one-hot gradient at each rank's argmax
@@ -170,6 +197,8 @@ try:
                 tp._CopyToModel.backward = staticmethod(saved["_CopyToModel"])
             if "gathers" in saved:
                 tp.all_gather_for_replicated, tp.all_gather_for_split = saved["gathers"]
+            if "_ReduceScatter" in saved:
+                tp._ReduceScatter.backward = staticmethod(saved["_ReduceScatter"])
             if "cross_entropy" in saved:
                 tp.cross_entropy = saved["cross_entropy"]
     print(json.dumps({"rank": rank, "out": out}))
@@ -210,6 +239,7 @@ def ranks(tmp_path_factory):
 #: the gate each planted fault must break
 BROKEN_BY = {"f_backward_dropped": ("f",), "gathers_swapped": ("gather_replicated",
                                                                "gather_split"),
+             "reduce_scatter_backward_local": ("reduce_scatter",),
              "argmax_on_every_rank": ("ce_grad",)}
 
 
@@ -220,8 +250,8 @@ def test_collectives_and_cross_entropy_match_whole_tensors(ranks, world):
     accuracy by the lowest global index at a tie)."""
     for rank, out in ranks[world].items():
         got = out["none"]
-        for key in ("f", "g_forward", "g", "gather_replicated", "gather_split", "ce_loss",
-                    "ce_grad"):
+        for key in ("f", "g_forward", "g", "gather_replicated", "gather_split",
+                    "reduce_scatter_forward", "reduce_scatter", "ce_loss", "ce_grad"):
             assert got[key] <= TOL, (rank, key, got[key])
         assert got["ce_acc"] == 0.0 and got["ce_acc_value"] > 0, (rank, got)
         assert got["argmax_off_label_rank"] > 0
@@ -231,9 +261,10 @@ def test_collectives_and_cross_entropy_match_whole_tensors(ranks, world):
 @pytest.mark.parametrize("fault", FAULTS[1:])
 def test_each_planted_fault_breaks_its_gate(ranks, world, fault):
     """A dropped all-reduce in ``f``'s backward, the two all-gathers swapped
-    (a gradient ``model`` times too large, or one rank's share), the argmax's
-    one-hot on every rank: each moves its gradient far past ``TOL``, while
-    the forward (loss, accuracy) stays the same."""
+    (a gradient ``model`` times too large, or one rank's share), the
+    reduce-scatter's backward keeping one rank's block, the argmax's one-hot
+    on every rank: each moves its gradient far past ``TOL``, while the
+    forward (loss, accuracy) stays the same."""
     for rank, out in ranks[world].items():
         got = out[fault]
         for key in BROKEN_BY[fault]:

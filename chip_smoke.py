@@ -268,12 +268,18 @@ Phases (any failure exits non-zero and prints no result):
    parameters, 39.9 GB), random weights from seed 0 built on the card with
    the attention tempered as in phase 5; 8 prompts of 512 tokens with 64 new
    tokens through ``ServeEngine`` (2 flash launches on the tensor cores at
-   (112, 112) and 2 × 64 decode launches), warm again; the first prefill's
+   (112, 112) and 2 × 64 decode launches); the first prefill's
    and the first step's logits within ``LOGITS_TOL`` of plain attention's
    (held under the plain run's routes where a routing near-tie breaks the
    other way, and then said so), the share of (token, k) routes that differ
    between the two runs, greedy-token agreement, prefill_s, decode tokens/s
-   and peak device memory;
+   and peak device memory; then the same prompts and ``MOE_SPLIT_STEPS``
+   greedy decode steps through ``make_prefill_step``/``make_decode_step`` on
+   a one-rank NCCL mesh (the Megatron split), the prefill's and every
+   step's logits bit-equal to the model's own ``prefill``/``decode_step``,
+   2 flash launches at (112, 112) and 2 decode slice calls a step, no
+   weight gathered, the cache's storage kept, the decode ms a step and the
+   peak;
 19. serving: deepseek-v3-671b at its full widths (MLA with q_lora 1,536,
    kv_lora 512, rope 64, 128 heads; 256 routed experts and one shared) and 4
    of 61 layers (the 3 dense prefix layers and one MoE layer, plus the MTP
@@ -282,7 +288,8 @@ Phases (any failure exits non-zero and prints no result):
    (deleted after the restore) and cold-started onto a meta-device model by
    ``restore_pipelined`` (every leaf bit-equal; cold-start s and GB/s), then
    served as phase 18 (4 flash launches at (192, 128) and 4 × 64 absorbed
-   decode launches at (576, 512), V read from the latent rows).
+   decode launches at (576, 512), V read from the latent rows; the split
+   steps' decode slice calls at (576, 512) over the latent cache).
    Phase 3b holds both kernels at these widths (kimi's prefill q
    (8,64,576,112) and decode, group 8; the MLA prefill q/k (8,128,576,192), v
    (8,128,576,128), and the MLA decode, 128 heads over (8,1,576,576) rows,
@@ -4289,15 +4296,107 @@ def _moe_serving(torch, arch: str, cold_start: bool, card: str) -> dict:
             "ssd_scan": 0, "flash_attention_tc": L}
     if launches != want:
         raise SystemExit(f"chip_smoke: {arch} generate launched {launches}, wanted {want}")
-    engine.stats = {key: 0.0 for key in engine.stats}
-    engine.generate(prompts, max_new=max_new)
-    out["warm"] = engine.throughput()
     plain_tokens = _moe_logits_gates(torch, engine, model, prompts, S + max_new, out)
     out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
     out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
-    del engine, model
+    del engine
+    out["split_steps"] = _moe_split_steps(torch, model, prompts, MOE_SPLIT_STEPS)
+    del model
     torch.cuda.empty_cache()
     log(f"[moe serving] {json.dumps(out)}")
+    return out
+
+
+#: decode steps of phases 18-19's split sub-phase (paid for by the engine's second,
+#: warm ``generate`` of 64 steps, which those phases no longer run: PERF.md §4)
+MOE_SPLIT_STEPS = 8
+
+
+def _moe_split_steps(torch, model, prompts, steps_n: int) -> dict:
+    """The moe model through ``make_prefill_step``/``make_decode_step`` on the
+    one-rank NCCL mesh, the Megatron split (``distributed/tensor_parallel.py``;
+    the dispatch's rows one block): the prompts' prefill and ``steps_n``
+    greedy decode steps, each step's logits bit-equal to the model's own
+    ``prefill``/``decode_step``'s on the same tokens (compared on the card,
+    read once at the end), no weight gathered (``_no_gathers``), the cache's
+    storage kept; launches: flash once a layer at the config's width pair,
+    the decode kernel's slice call once a layer a step. The model's
+    parameters stay stored as the mesh's blocks after this."""
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch.shapes import ShapeSpec
+
+    dev, cfg = model.device, model.cfg
+    B, S = prompts.shape
+    L, cap = cfg.n_layers, S + steps_n
+    batch = {"tokens": torch.from_numpy(prompts)}
+    t_in = t0 = time.perf_counter()
+    with torch.inference_mode():  # the model's own, the yardstick
+        logits, cache = model.prefill(batch["tokens"].to(dev), capacity=cap)
+        own, feed = [logits], []
+        for _ in range(steps_n):
+            feed.append(own[-1].argmax(-1, keepdim=True))
+            logits, cache = model.decode_step(cache, feed[-1])
+            own.append(logits)
+        torch.cuda.synchronize()
+    del cache
+    out: dict = {"batch": B, "prompt": S, "decode_steps": steps_n,
+                 "own_s": time.perf_counter() - t0}
+    mesh = _one_rank_mesh(torch)
+    prefill, (ppl, _), _, _ = steps.make_prefill_step(
+        model, mesh, ShapeSpec("moe_prefill", "prefill", S, B), capacity=cap)
+    decode, _, _, _ = steps.make_decode_step(
+        model, mesh, ShapeSpec("moe_decode", "decode", cap, B))
+    steps.shard_model(model, mesh, ppl)
+    out["sharded_leaves"] = sum(1 for p in model.parameters() if is_dtensor(p))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = flash_attention.tc_launches = 0
+    decode_attention.launches = decode_attention.slice_launches = 0
+    widths: dict = {}
+    with torch.inference_mode(), _no_gathers([]):
+        t0 = time.perf_counter()
+        with _attention_launches_by_width(widths):
+            logits, cache = prefill(model.param_tree(), batch)
+        same = [(logits.to_local() == own[0]).all()]
+        storage = _cache_storage(torch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for tok, want in zip(feed, own[1:]):
+            logits, cache = decode(model.param_tree(), cache, tok)
+            same.append((logits.to_local() == want).all())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        kept = _cache_storage(torch, cache) == storage and bool(storage)
+    out["sub_phase_s"] = time.perf_counter() - t_in
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_tc": flash_attention.tc_launches,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_slice": decode_attention.slice_launches}
+    same = torch.stack(same).cpu().tolist()
+    out.update({"prefill_s": t1 - t0, "decode_ms_a_step": (t2 - t1) / steps_n * 1e3,
+                "decode_tokens_per_s": B * steps_n / (t2 - t1),
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                "weights_gathered_over_model": 0,  # _no_gathers would have ended the run
+                "cache_storage_kept": kept, "launches": launches,
+                "flash_launches_by_width": widths,
+                "logits_bit_equal_own": {"prefill": same[0], "decode_steps": sum(same[1:])},
+                "cache_placements": {k: str(t.placements) for k, t in
+                                     steps._leaves_with_paths(cache) if is_dtensor(t)}})
+    del cache, own
+    width = (f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}x{cfg.mla.v_head_dim}"
+             if cfg.attn_type == "mla" else f"{cfg.head_dim}x{cfg.head_dim}")
+    want = {"flash_attention": L, "flash_attention_tc": L, "decode_attention": L * steps_n,
+            "decode_attention_slice": L * steps_n}
+    if launches != want or widths != {f"forward {width}": L}:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s split steps launched {launches} "
+                         f"{widths}, wanted {want} at {width}")
+    if not all(same):
+        raise SystemExit(f"chip_smoke: {cfg.name}'s split steps' logits are not the model's "
+                         f"own bit for bit: {out['logits_bit_equal_own']} of 1 + {steps_n}")
+    if not kept:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s split decode steps moved the cache")
     return out
 
 
@@ -5749,6 +5848,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
          {**by_phase("flash_attention_launches"), **train_launches("forward"),
           f"{sharded['qwen']['arch']} prefill step": sharded["qwen"]["launches"]["flash_attention"],
+          **{f"{t['arch']} prefill step ({t['layers']} layers)":
+             t["split_steps"]["launches"]["flash_attention"] for t in (kimi, deepseek)},
           zamba_prefill: zamba["prefill_launches"]["flash_attention"],
           **{k: v["flash_attention"] for k, v in llava_prefills.items()},
           **{k: v for k, v in whisper_kinds.items() if not k.endswith("decode")}},
@@ -5758,6 +5859,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
          {**by_phase("decode_attention_launches"),
           zamba["arch"]: zamba["decode_attention_launches"],
           f"{sharded['qwen']['arch']} decode steps": sharded["qwen"]["launches"]["decode_attention"],
+          **{f"{t['arch']} decode steps ({t['layers']} layers)":
+             t["split_steps"]["launches"]["decode_attention"] for t in (kimi, deepseek)},
           f"{long_ctx['arch']} long_500k decode steps ({long_ctx['layers']} layers)":
               long_ctx["launches"]["decode_attention"],
           **{k: v for k, v in whisper_kinds.items() if k.endswith("decode")}},
@@ -5792,7 +5895,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 + zamba["prefill_launches"]["flash_attention_tc"] \
                 + sum(v["flash_attention_tc"] for v in llava_prefills.values()) \
                 + whisper["launches"]["flash_attention_tc"] \
-                + sharded["qwen"]["launches"]["flash_attention_tc"]
+                + sharded["qwen"]["launches"]["flash_attention_tc"] \
+                + sum(t["split_steps"]["launches"]["flash_attention_tc"] for t in (kimi, deepseek))
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
                 + zamba["prefill_launches"]["ssd_scan_tc"] \

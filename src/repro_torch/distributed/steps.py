@@ -12,9 +12,9 @@ reference's result.
 How the work is split:
 
 * **The Megatron split** (``tensor_parallel.py``): the serve steps of a
-  model whose ``splits`` is set (the dense and vlm families), and the
-  ``tp`` train step of one whose ``train_splits`` is set (those and the
-  moe family). The batch is split over ``data`` only
+  model whose ``splits`` is set and the ``tp`` train step of one whose
+  ``train_splits`` is set (the dense, vlm and moe families,
+  ``TransformerLM``). The batch is split over ``data`` only
   (the reference's ``batch_specs``; not at all in ``long_500k``); each rank
   computes on the weight blocks it stores, heads, ``d_ff``, experts and
   vocab over ``model``, and on the cache rows it stores (the sequence over
@@ -25,13 +25,15 @@ How the work is split:
   reference's FSDP axis, ``partition.param_specs``): a layer's blocks are
   gathered over ``data`` at its entry, each keeping its ``model`` block,
   and the gather's backward reduce-scatters their gradient back
-  (``tensor_parallel.weight``). The train step lets each rank's blocks
+  (``tensor_parallel.weight``). The MoE dispatch routes the global batch
+  over the ranks that split its rows (the step's ``Split`` names them), as
+  the reference's does under ``jit``. The train step lets each rank's blocks
   require grad, takes the gradient of its data block's loss (a
   vocab-parallel cross-entropy) over ``data`` ranks and all-reduces over
   ``data`` each gradient that the gathers did not reduce, then runs AdamW
   on the blocks.
 * **Training the ssm, hybrid and encdec families, the ``dp`` step, and
-  serving the moe, ssm, hybrid and encdec families.** Each rank computes on
+  serving the ssm, hybrid and encdec families.** Each rank computes on
   its block of the global batch, taken over every mesh axis (``dp``'s batch
   spec; ``tp``'s leaves out ``model``, and the port splits over it too, so
   that no two ranks compute the same rows). The global batch must divide,
@@ -39,7 +41,9 @@ How the work is split:
   layer's entry (``sharding.gather_tree``), FSDP-style; the backward of each
   gather reduce-scatters the layer's gradient to the leaf's blocks. Each
   rank's loss is its block's mean over ``n`` ranks, so the reduced gradient
-  is the global batch's. Their Megatron split is ROADMAP.md item 18.
+  is the global batch's (the ``dp`` step tells ``TransformerLM`` the rows'
+  split, ``tensor_parallel.row_split``, for its MoE dispatch). The ssm,
+  hybrid and encdec families' Megatron split is ROADMAP.md item 18.
 * **Expert parallel.** With ``moe_ep`` the experts are split over ``model``
   on their dim 0 and tokens travel by all-to-all (``moe_ep.py``); in the
   split, each ``model`` rank sends its ``1/model`` of the rows.
@@ -73,12 +77,11 @@ from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
 
 Tree = Any
 
-CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense and "
-                         "vlm families, which serve through the Megatron split; the moe family's "
-                         "(MLA's latent cache, the experts; it trains through the split but "
-                         "serves through gathered weights), the ssm and hybrid families' "
-                         "(long_500k's state split, their SSM heads over model) and the encdec "
-                         "family's are ROADMAP.md item 18; on one rank it is today's decode")
+CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense, vlm "
+                         "and moe families, which serve through the Megatron split; the ssm and "
+                         "hybrid families' (long_500k's state split, their SSM heads over model) "
+                         "and the encdec family's are ROADMAP.md item 18; on one rank it is "
+                         "today's decode")
 
 # ------------------------------------------------------------------ tables
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool) -> Dict[str, Spec]:
@@ -498,7 +501,7 @@ def _block_grads(model, mesh, axes: Sequence[str]):
     model's ``train_loss`` under the mesh's ``Split``, the loss divided by
     the ``axes`` (``data``) ranks only, since the ``model`` ranks compute one
     batch block together. On one rank this is ``make_step``'s arithmetic."""
-    sp = tp.make_split(mesh)
+    sp = tp.make_split(mesh, row_axes=axes)
     n = _n_ranks(mesh, axes)
 
     @contextlib.contextmanager
@@ -529,8 +532,12 @@ def _gathered_grads(model, mesh, axes: Sequence[str], sink_dtype: Optional[torch
     """The gathered weights' gradients: a ``DTensor`` leaf's reduce-scattered
     to its blocks by its gathers' backwards (``GradSink``, cast to
     ``sink_dtype`` there), a plain leaf's whole on each rank; each rank's
-    loss divided by the ``axes`` ranks."""
+    loss divided by the ``axes`` ranks. A model that takes a split (the
+    ``dp`` step of ``TransformerLM``) is told the rows' split over ``axes``
+    (``tensor_parallel.row_split``), so that its MoE dispatch is the global
+    batch's."""
     n = _n_ranks(mesh, axes)
+    kw = {"split": tp.row_split(mesh, axes)} if model.train_splits else {}
 
     @contextlib.contextmanager
     def grads_for(leaves):
@@ -541,7 +548,7 @@ def _gathered_grads(model, mesh, axes: Sequence[str], sink_dtype: Optional[torch
         def take(mb):
             sink = GradSink(sink_dtype) if sharded else None
             with collect_grads(sink) if sink else contextlib.nullcontext():
-                loss, metrics = model.train_loss(mb)
+                loss, metrics = model.train_loss(mb, **kw)
                 (loss / n if n > 1 else loss).backward()
             grads = {}
             for path, p in leaves:
@@ -711,11 +718,16 @@ def _data_axes(mesh, shape: ShapeSpec, multi_pod: bool) -> Tuple[str, ...]:
     return tuple(a for a in (("pod", "data") if multi_pod else ("data",)) if a in names)
 
 
-def _seq_split(mesh, pl: Sequence, shape: Sequence[int]) -> Tuple[Tuple[str, ...], int, int]:
-    """(mesh axes that split an attention cache leaf's sequence, its dim 3,
-    this rank's first row, its rows) from the leaf's placements and global
-    shape; a leaf split otherwise than on its sequence and batch raises."""
-    dim = 3
+#: the sequence dim of each attention cache leaf: GQA's (L, B, KV, S, hd), MLA's (L, B, S, r)
+SEQ_DIM = {"k": 3, "v": 3, "kv": 2, "latent": 2, "k_rope": 2}
+
+
+def _seq_split(mesh, pl: Sequence, shape: Sequence[int], dim: int
+               ) -> Tuple[Tuple[str, ...], int, int]:
+    """(mesh axes that split an attention cache leaf's sequence, its dim
+    ``dim``, this rank's first row, its rows) from the leaf's placements and
+    global shape; a leaf split otherwise than on its sequence and batch
+    raises."""
     names = list(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
     axes, block, n = [], 0, 1
@@ -733,9 +745,26 @@ def _seq_split(mesh, pl: Sequence, shape: Sequence[int]) -> Tuple[Tuple[str, ...
     return tuple(axes), block * rows, rows
 
 
-def _split_prefill(model, mesh, shape: ShapeSpec, multi_pod: bool, capacity: Optional[int],
-                   batch: Dict[str, Any]):
-    """A split family's prefill step (the module docstring's Megatron split)."""
+def _rows_of(mesh, leaves: Sequence[Tuple[str, Any, Tuple[int, ...]]]
+             ) -> Tuple[Tuple[str, ...], int, int]:
+    """(the axes that split a cache's sequence, this rank's first row, its
+    rows) from its attention leaves' ``(path, placements or None for a whole
+    leaf, global shape)`` (``SEQ_DIM``), which must agree."""
+    got = set()
+    for path, pl, shp in leaves:
+        dim = SEQ_DIM.get(path.rsplit("/", 1)[-1])
+        if dim is not None:
+            got.add(((), 0, shp[dim]) if pl is None else _seq_split(mesh, pl, shp, dim))
+    if len(got) != 1:
+        raise ValueError(f"the cache's attention leaves split their sequence unalike: {got}")
+    return got.pop()
+
+
+def _split_prefill(model, meta, mesh, shape: ShapeSpec, multi_pod: bool,
+                   capacity: Optional[int], batch: Dict[str, Any]):
+    """A split family's prefill step (the module docstring's Megatron
+    split): each cache leaf's global shape and placements are those of the
+    meta model's own cache (``meta.empty_cache``) by ``cache_spec_tree``."""
     cfg = model.cfg
     axes = _data_axes(mesh, shape, multi_pod)
     local = _split_batch(batch, mesh, axes)
@@ -744,17 +773,18 @@ def _split_prefill(model, mesh, shape: ShapeSpec, multi_pod: bool, capacity: Opt
     B = args[0].shape[0] * n
     S = args[0].shape[1] + (args[1].shape[1] if len(args) > 1 else 0)
     cap = capacity or S
-    kshape = (model.n_dense, B, cfg.n_kv_heads, cap, cfg.head_dim)
-    kpl = placements(_cache_leaf_spec("k", kshape, shape, mesh_shape(mesh), multi_pod), mesh, 5)
-    seq_axes, start, rows = _seq_split(mesh, kpl, kshape)
+    gmeta = meta.empty_cache(B, cap)
+    pl = placement_tree(cache_spec_tree(gmeta, shape, mesh, multi_pod), gmeta, mesh)
+    seq_axes, start, rows = _rows_of(mesh, [
+        (path, _get(pl, path), tuple(t.shape)) for path, t in _leaves_with_paths(gmeta)])
     logits, cache = model.prefill(*args, capacity=cap, split=tp.make_split(
-        mesh, seq_axes=seq_axes, kv_start=start, rows=rows))
+        mesh, seq_axes=seq_axes, kv_start=start, rows=rows, row_axes=axes))
 
-    def store(name, t):
+    def store(name, t, p, like):
         if name == "pos":
             return t
-        return _dtensor(t, mesh, kpl, kshape)
-    return _split_logits(logits, mesh, axes, cfg), _map_cache(store, cache)
+        return _dtensor(t, mesh, p, tuple(like.shape))
+    return _split_logits(logits, mesh, axes, cfg), _map_cache(store, cache, pl, gmeta)
 
 
 def _split_logits(logits: torch.Tensor, mesh, axes: Sequence[str], cfg: ModelConfig):
@@ -772,14 +802,12 @@ def _split_decode(model, mesh, shape: ShapeSpec, multi_pod: bool, cache, tokens)
     rank writing and attending its own rows in place."""
     axes = _data_axes(mesh, shape, multi_pod)
     tok = _split_batch({"tokens": tokens}, mesh, axes)["tokens"]
-    k = cache["dense"]["k"]
-    if is_dtensor(k):
-        seq_axes, start, rows = _seq_split(mesh, k.placements, tuple(k.shape))
-    else:
-        seq_axes, start, rows = (), 0, k.shape[3]
+    seq_axes, start, rows = _rows_of(mesh, [
+        (path, list(t.placements) if is_dtensor(t) else None, tuple(t.shape))
+        for path, t in _leaves_with_paths(cache)])
     local = _map_cache(lambda _, t: t.to_local() if is_dtensor(t) else t, cache)
     logits, local = model.decode_step(local, tok, split=tp.make_split(
-        mesh, seq_axes=seq_axes, kv_start=start, rows=rows))
+        mesh, seq_axes=seq_axes, kv_start=start, rows=rows, row_axes=axes))
 
     def back(_, t, was):
         if not is_dtensor(was):
@@ -793,13 +821,14 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
     """Returns ``(step, (param_pl, batch_pl), out_pl, params_meta)``;
     ``step(params, batch) -> (logits, cache)`` runs the model's ``prefill``
     under ``decode_rules``: the logits a ``DTensor`` split on the batch (and,
-    for the dense and vlm families, on the vocab over ``model``), the cache
+    for the dense, vlm and moe families, on the vocab over ``model``), the cache
     stored by ``cache_spec_tree``. With ``capacity`` (an attention cache's
     positions, ``TransformerLM``) the cache has room for the decode steps
     that follow."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)
-    params_meta = _meta_model(model).param_tree()
+    meta = _meta_model(model)
+    params_meta = meta.param_tree()
     param_pl = placement_tree(param_specs(params_meta, cfg, mesh), params_meta, mesh)
     batch_pl = {key: placements(sp, mesh, len(sp))
                 for key, sp in batch_specs(cfg, shape, multi_pod).items()}
@@ -810,7 +839,7 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
         _check_context_parallel(mesh, shape, model)
         if model.splits:
             with use_rules(rules, mesh):
-                return _split_prefill(model, mesh, shape, multi_pod, capacity, batch)
+                return _split_prefill(model, meta, mesh, shape, multi_pod, capacity, batch)
         with use_rules(rules, mesh):
             local = _split_batch(batch, mesh, axes)
             kw = {} if capacity is None else {"capacity": capacity}
@@ -826,7 +855,7 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
 def make_decode_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False):
     """Returns ``(step, (param_pl, cache_pl, tok_pl), out_pl, (params_meta,
     cache_meta))``; ``step(params, cache, tokens) -> (logits, cache)`` runs
-    ``decode_step`` (the dense and vlm families' split, the others' on this
+    ``decode_step`` (the dense, vlm and moe families' split, the others' on this
     rank's rows) and hands back the cache in the placements it took."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)

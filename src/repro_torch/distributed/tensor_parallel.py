@@ -6,7 +6,7 @@ over the mesh's process groups.
 The reference has no such module: GSPMD writes this for it from the spec
 tables (``partition.param_specs``, ``steps.cache_spec_tree``), which fix
 what each rank holds. Inside a serve step (``steps.make_prefill_step``/
-``make_decode_step``, dense and vlm families) a rank computes on the
+``make_decode_step``, dense, vlm and moe families) a rank computes on the
 blocks it stores and moves only activations:
 
 * **weights** are the local blocks of their ``DTensor``s, split over
@@ -24,7 +24,13 @@ blocks it stores and moves only activations:
   cache's sequence is split over ``model``, or ``data`` × ``model`` in
   ``long_500k``) through the decode kernel's slice call, and the ranks'
   partials are merged by :func:`combine`: an all-reduce of the max of the
-  log-sum-exps, then one of the weighted sums.
+  log-sum-exps, then one of the weighted sums;
+* **the batch's row blocks**: where a step splits the global batch's rows
+  over mesh axes (``data``/``pod`` in the split steps, every axis in the
+  ``dp`` step), :class:`Split` names their groups and this rank's block, so
+  that the MoE dispatch (``models/moe.py``) routes the global batch, as the
+  reference's ``moe_ffn`` does under ``jit``: its sums over the blocks go
+  through :func:`sum_over_rows`.
 
 A serve step hands its :class:`Split` to the model's ``prefill``/
 ``decode_step`` (``split=``), the ``tp`` train step to its ``train_loss``.
@@ -97,7 +103,10 @@ class Split(NamedTuple):
     ``seq_groups``: the process groups of ``model`` and of the mesh axes
     that split the cache's sequence (the combine's), those of more than one
     rank only, so that a step looks none up; ``mesh``: the step's mesh (None
-    in :data:`ONE`, a model's own call)."""
+    in :data:`ONE`, a model's own call); ``row_groups``/``row_block``/
+    ``row_blocks``: the groups of the mesh axes that split the global
+    batch's rows, this rank's block of them (major to minor over those
+    axes) and their number (1: this rank holds every row)."""
 
     model: int
     rank: int
@@ -106,6 +115,9 @@ class Split(NamedTuple):
     model_groups: Tuple[Any, ...] = ()
     seq_groups: Tuple[Any, ...] = ()
     mesh: Any = None
+    row_groups: Tuple[Any, ...] = ()
+    row_block: int = 0
+    row_blocks: int = 1
 
 
 def axis_groups(mesh, axes: Sequence[str]) -> Tuple[Any, ...]:
@@ -116,16 +128,39 @@ def axis_groups(mesh, axes: Sequence[str]) -> Tuple[Any, ...]:
                  if a in names and mesh.size(names.index(a)) > 1)
 
 
+def _row_blocks(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of the rows split over
+    ``axes``, major to minor in the order given."""
+    names, coord = list(mesh.mesh_dim_names), mesh.get_coordinate()
+    block, n = 0, 1
+    for a in axes:
+        if a in names:
+            k = names.index(a)
+            block, n = block * mesh.size(k) + coord[k], n * mesh.size(k)
+    return block, n
+
+
 def make_split(mesh, *, seq_axes: Sequence[str] = (), kv_start: int = 0,
-               rows: int = 0) -> Split:
+               rows: int = 0, row_axes: Sequence[str] = ()) -> Split:
+    """A step's split over ``mesh``: weights over ``model``, the cache's
+    sequence over ``seq_axes``, the global batch's rows over ``row_axes``."""
     names = list(mesh.mesh_dim_names)
     if MODEL in names:
         k = names.index(MODEL)
         model, rank = mesh.size(k), mesh.get_coordinate()[k]
     else:
         model, rank = 1, 0
+    block, n = _row_blocks(mesh, row_axes)
     return Split(model, rank, kv_start, rows, axis_groups(mesh, (MODEL,)),
-                 axis_groups(mesh, seq_axes), mesh)
+                 axis_groups(mesh, seq_axes), mesh, axis_groups(mesh, row_axes), block, n)
+
+
+def row_split(mesh, row_axes: Sequence[str]) -> Split:
+    """One rank's split of the weights (every one whole) with the global
+    batch's rows over ``row_axes``: the ``dp`` step's, whose batch is split
+    over every mesh axis while each rank holds the whole weights."""
+    block, n = _row_blocks(mesh, row_axes)
+    return ONE._replace(row_groups=axis_groups(mesh, row_axes), row_block=block, row_blocks=n)
 
 
 #: one rank: whole weights and cache, no collective
@@ -259,6 +294,34 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverRows(torch.autograd.Function):
+    """The sum over the row blocks forward (into a new tensor), and the
+    gradient summed over them backward: every block's loss uses the sum
+    whole, so each block's share of it takes every loss's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.groups), None
+
+
+def sum_over_rows(x: torch.Tensor, sp: Split) -> torch.Tensor:
+    """The sum of ``x`` over the blocks of the global batch's rows (a new
+    tensor), for a value that every block's loss takes whole (the MoE aux
+    loss's sums): its backward sums the gradient over the blocks too, as the
+    steps sum the blocks' gradients of their losses. ``x`` itself where one
+    rank holds every row."""
+    if not sp.row_groups:
+        return x
+    if not _tracked(x):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), sp.row_groups)
+    return _SumOverRows.apply(x, sp.row_groups)
 
 
 def copy_to_model(x: torch.Tensor, sp: Split) -> torch.Tensor:

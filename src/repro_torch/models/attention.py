@@ -309,11 +309,19 @@ def _mla_expanded(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
 
 
 def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
-                freqs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                freqs: torch.Tensor, sp: tp.Split = tp.ONE
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal MLA over the whole sequence of ``x`` (B,S,d), the expanded
-    form. Returns the output (B,S,d) and the layer's cache columns: latent
-    (B,S,r) and k_rope (B,S,rope)."""
-    return _mla_expanded(p, x, cfg, positions, freqs)
+    form. Returns the output (B,S,d) and the layer's cache columns of the
+    rows this rank stores, ``[sp.kv_start, sp.kv_start + sp.rows)`` (every
+    row under ``tp.ONE``): latent (B,rows,r) and k_rope (B,rows,rope). On a
+    rank's blocks (``sp``): its heads through ``ops.flash_attention`` at
+    (192, 128), ``wo`` row-parallel."""
+    out, latent, k_rope = _mla_expanded(p, x, cfg, positions, freqs, sp)
+    if sp.rows:
+        latent = latent[:, sp.kv_start:sp.kv_start + sp.rows]
+        k_rope = k_rope[:, sp.kv_start:sp.kv_start + sp.rows]
+    return out, latent, k_rope
 
 
 def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor,
@@ -327,21 +335,34 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tens
 
 
 def mla_decode(p, x: torch.Tensor, kv_cache: torch.Tensor, pos: torch.Tensor,
-               cfg: ModelConfig, *, freqs: torch.Tensor) -> torch.Tensor:
+               cfg: ModelConfig, *, freqs: torch.Tensor, sp: tp.Split = tp.ONE) -> torch.Tensor:
     """One absorbed-MLA decode step for ``x`` (B,1,d) at ``pos`` (a 0-d int32
     device tensor). Writes this step's latent ++ k_rope into row ``pos`` of
-    ``kv_cache`` (B,S,r+rope) in place and returns the output (B,1,d)."""
+    ``kv_cache`` (B,rows,r+rope), which holds positions ``sp.kv_start`` on,
+    in place, and returns the output (B,1,d). On a rank's blocks (``sp``),
+    as ``gqa_decode``: q_lat of the rank's heads of ``wkv_b`` gathered over
+    ``model`` to every head, the new row written by the rank that holds
+    ``pos``, the rank's rows through the decode kernel's slice call at
+    (576, 512) and the partials combined over the axes that split the cache,
+    then the rank's heads of ``wkv_b``'s v part and of ``wo``, summed over
+    ``model``."""
     m = cfg.mla
     B = x.shape[0]
     H, r, nope = cfg.n_heads, m.kv_lora_rank, m.qk_nope_head_dim
     at = pos.reshape(1).long()
-    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, at, freqs)
-    kv_cache.index_copy_(1, at, torch.cat([latent, k_rope[:, 0]], -1).to(kv_cache.dtype))
-    wkv_b = p["wkv_b"].to(x.dtype)  # (r, H, nope + v)
+    split = _mla_split(p, cfg)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, at, freqs, sp)
+    rows = kv_cache[:, None]  # one cache head (B, 1, rows, r + rope); V is its latent
+    tp.write_row(rows, torch.cat([latent, k_rope[:, 0]], -1)[:, None], at, sp)
+    wkv_b = p["wkv_b"].to(x.dtype)  # (r, h, nope + v): this rank's heads
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, :, 0], wkv_b[:, :, :nope])
-    q = torch.cat([q_lat, q_rope[:, :, 0]], -1).contiguous()  # (B, H, r + rope)
-    rows = kv_cache[:, None]  # one cache head (B, 1, S, r + rope); V is its latent
+    q = tp.gather_heads(torch.cat([q_lat, q_rope[:, :, 0]], -1), H, sp).contiguous()
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    ctx = ops.decode_attention(q, rows, rows[..., :r], pos, scale=scale)  # (B, H, r)
+    ctx, lse = ops.decode_attention(q, rows, rows[..., :r], pos, scale=scale,
+                                    kv_start=sp.kv_start, return_lse=True)  # (B, H, r)
+    ctx = tp.combine(ctx, lse, sp).to(x.dtype)
+    h = wkv_b.shape[1]
+    ctx = ctx.narrow(1, tp.offset(h, H, sp), h)
     out = torch.einsum("bhr,rhv->bhv", ctx, wkv_b[:, :, nope:])
-    return out.reshape(B, 1, -1) @ p["wo"].reshape(H * m.v_head_dim, -1).to(x.dtype)
+    out = out.reshape(B, 1, -1) @ p["wo"].reshape(h * m.v_head_dim, -1).to(x.dtype)
+    return tp.reduce_from_model(out, sp) if split else out

@@ -44,18 +44,17 @@ layers over ``P + S`` positions; the loss scores the text positions only.
 ``decode_step`` and the engine are text-only, as the JAX package's are.
 
 Parameters placed on a mesh (``distributed/steps.py:shard_model``) are
-``DTensor`` blocks. Every family here trains (``train_loss``) on each
-rank's blocks of the weights, the Megatron split of
-``distributed/tensor_parallel.py``: the ``tp`` train step hands it its
+``DTensor`` blocks. Every family here trains (``train_loss``) and serves
+(``prefill``, ``decode_step``) on each rank's blocks of the weights, the
+Megatron split of ``distributed/tensor_parallel.py``: a step hands it its
 ``Split``, and without one it computes under one rank's, on the whole
-weights, so that the split is its only training path. The MoE giants'
-blocks, split over ``data`` too, are gathered there at each layer's entry,
-keeping their ``model`` block (``_layer_weights``). A GQA model without MoE
-layers (the dense and vlm families) also serves (``prefill``,
-``decode_step``) so, on its rows of the cache, and gathers no weight; the
-moe family serves on each layer's slice of its sharded leaves gathered at
-the layer's entry (``_block``, through ``distributed.sharding.
-gather_tree``), the rest of the model on the plain tensors it always takes.
+weights, so that the split is its only path. The MoE giants' blocks, split
+over ``data`` too, are gathered at each layer's entry, keeping their
+``model`` block (``_layer_weights``); no weight is gathered over
+``model``, and serving attends the rank's rows of the cache. The helpers'
+paths without a split (``sp`` None: the weights gathered a layer at a time
+by ``distributed.sharding.gather_tree``) are those of the subclasses in
+``ssm_lm.py``, which do not split.
 """
 
 from __future__ import annotations
@@ -107,14 +106,14 @@ def _init_layer(ini: Initializer, cfg: ModelConfig, *, use_moe: bool = False) ->
     return p
 
 
-def _index(tree: Any, i: int, local: bool = False) -> Any:
-    """Layer ``i`` of a stacked params dict, for serving: views, no copies
-    (``sharding.layer_view``: a leaf sharded over several ranks stays so
-    until the layer's entry gathers it; with ``local``, this rank's block
-    of it, for the Megatron split)."""
+def _index(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked params dict, for serving without a split
+    (the subclasses'): views, no copies (``sharding.layer_view``: a leaf
+    sharded over several ranks stays so until the layer's entry gathers
+    it)."""
     if isinstance(tree, dict):
-        return {k: _index(v, i, local) for k, v in tree.items()}
-    return tp.local(tree)[i] if local else layer_view(tree, i)
+        return {k: _index(v, i) for k, v in tree.items()}
+    return layer_view(tree, i)
 
 
 def _unstack(tree: Any, n: int, local: bool = False) -> List[Any]:
@@ -140,7 +139,7 @@ EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _layer_weights(p: Dict[str, Any], use_moe: bool = False) -> Dict[str, Any]:
-    """A training layer's weights under a split, at its entry (inside its
+    """A layer's weights under a split, at its entry (in training inside its
     remat region, so the backward gathers again): this rank's blocks, those
     the mesh also splits over ``data`` gathered there
     (``tensor_parallel.weights``); the expert-parallel FFN takes its
@@ -167,8 +166,8 @@ class TransformerLM(nn.Module):
     model that a checkpoint restore fills). Weights are random, drawn from
     ``torch.Generator(seed)`` at the JAX package's init scales."""
 
-    #: trains on each rank's blocks (the Megatron split), every family it serves
-    train_splits = True
+    #: serves and trains on each rank's blocks (the Megatron split), every family
+    splits = train_splits = True
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         super().__init__()
@@ -209,9 +208,6 @@ class TransformerLM(nn.Module):
             })
         self._freqs: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
         self._layers: Optional[List[tuple]] = None  # per-layer views, made lazily
-        #: serves on each rank's blocks (the Megatron split); MLA and MoE models on
-        #: weights gathered a layer at a time
-        self.splits = cfg.attn_type == "gqa" and not self.n_moe
 
     # ---- parameters ---------------------------------------------------------
     @property
@@ -262,17 +258,17 @@ class TransformerLM(nn.Module):
     def _layer_args(self) -> List[Tuple[Dict[str, Any], int, torch.Tensor, str, int, bool]]:
         """(params, window, rope freqs, cache group, index in the group, MoE
         FFN) per layer, in order, for serving; the window only on local
-        layers. The params are this rank's blocks where the model
-        ``splits``."""
+        layers. The params are this rank's blocks (``_unstack``'s views,
+        made once), which ``_layer_weights`` takes at the layer's entry."""
         if self._layers is None:
             self._layers = []
             offset = 0
             for group, n, use_moe in self._stacks():
-                stacked = getattr(self, f"{group}_layers").tree()
-                for i, (is_global, theta) in enumerate(self._layer_flags(n, offset)):
+                layers = _unstack(getattr(self, f"{group}_layers").tree(), n, local=True)
+                for i, (p, (is_global, theta)) in enumerate(
+                        zip(layers, self._layer_flags(n, offset))):
                     window = 0 if is_global else self.cfg.sliding_window
-                    self._layers.append((_index(stacked, i, self.splits), window, theta, group, i,
-                                         use_moe))
+                    self._layers.append((p, window, theta, group, i, use_moe))
                 offset += n
         return [(p, window, self._rope(self._rope_dim(), theta), group, i, use_moe)
                 for p, window, theta, group, i, use_moe in self._layers]
@@ -437,7 +433,7 @@ class TransformerLM(nn.Module):
         0-d f32, the same on every rank of a split. With ``split`` (the
         ``tp`` train step's over a mesh): on this rank's weight blocks, the
         gradients into them."""
-        sp = self._split_for(split, train=True)
+        sp = (split or tp.ONE) if self.train_splits else None  # None: a subclass's gathers
         tokens = token_ids(batch["tokens"], self.device)
         x = self._embed_inputs(tokens, batch.get("patch_embeds"), sp)
         positions = torch.arange(x.shape[1], device=self.device)
@@ -490,21 +486,6 @@ class TransformerLM(nn.Module):
         return self._chunked_ce(h_out, labels, mask, sp=sp)[0]
 
     # ---- serve --------------------------------------------------------------
-    def _split_for(self, split: Optional[tp.Split], train: bool = False
-                   ) -> Optional[tp.Split]:
-        """The split a serve or train call computes under: ``split`` (a step's
-        over a mesh), else one rank's, where the model ``splits`` (serving)
-        or ``train_splits`` (training); None (the weights gathered a layer at
-        a time) for serving MLA and MoE models."""
-        if self.splits or (train and self.train_splits):
-            return split or tp.ONE
-        if split is not None:
-            raise NotImplementedError(
-                "the Megatron split of the serve steps covers the dense and vlm families; the "
-                "moe family trains through it and serves through the gathered weights "
-                "(ROADMAP.md item 18)")
-        return None
-
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, patch_embeds: Optional[torch.Tensor] = None,
                 *, capacity: Optional[int] = None,
@@ -516,7 +497,7 @@ class TransformerLM(nn.Module):
         batch rows, its cache rows ``[kv_start, kv_start + rows)`` of the
         capacity, its vocab columns of the logits."""
         cfg = self.cfg
-        sp = self._split_for(split)
+        sp = split or tp.ONE
         x = self._embed_inputs(tokens, patch_embeds, sp)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)
@@ -529,18 +510,18 @@ class TransformerLM(nn.Module):
             def attn(h, pa, c=cache[group], i=i, window=window, freqs=freqs):
                 if cfg.attn_type == "mla":
                     a, latent, k_rope = mla_prefill(pa, h, cfg, positions=positions,
-                                                    freqs=freqs)
-                    c["latent"][i][:, :S].copy_(latent)
-                    c["k_rope"][i][:, :S].copy_(k_rope)
+                                                    freqs=freqs, sp=sp)
+                    c["latent"][i][:, :latent.shape[1]].copy_(latent)
+                    c["k_rope"][i][:, :k_rope.shape[1]].copy_(k_rope)
                     return a
                 a, k, v = gqa_prefill(pa, h, cfg, positions=positions, window=window,
-                                      freqs=freqs, sp=sp or tp.ONE)
+                                      freqs=freqs, sp=sp)
                 if hi > lo:
                     c["k"][i][:, :, :hi - lo].copy_(k[:, :, lo:hi])
                     c["v"][i][:, :, :hi - lo].copy_(v[:, :, lo:hi])
                 return a
 
-            x = self._block(p, x, attn, use_moe, sp)[0]
+            x = self._block(_layer_weights(p, use_moe), x, attn, use_moe, sp)[0]
         logits = self._logits(self._final_norm(x[:, -1:, :], sp), sp)
         cache["pos"].fill_(S)
         return logits[:, 0], cache
@@ -576,19 +557,18 @@ class TransformerLM(nn.Module):
         returns (logits (B, V), the cache with ``pos + 1``); with ``split``,
         on this rank's cache rows, and its vocab columns of the logits."""
         cfg = self.cfg
-        sp = self._split_for(split)
+        sp = split or tp.ONE
         pos = cache["pos"]
         x = self._embed_inputs(tokens, None, sp)
         for p, window, freqs, group, i, use_moe in self._layer_args():
             c = cache[group]
             if cfg.attn_type == "mla":
                 def attn(h, pa, rows=c["kv"][i], f=freqs):
-                    return mla_decode(pa, h, rows, pos, cfg, freqs=f)
+                    return mla_decode(pa, h, rows, pos, cfg, freqs=f, sp=sp)
             else:
                 def attn(h, pa, kc=c["k"][i], vc=c["v"][i], w=window, f=freqs):
-                    return gqa_decode(pa, h, kc, vc, pos, cfg, window=w, freqs=f,
-                                      sp=sp or tp.ONE)
-            x = self._block(p, x, attn, use_moe, sp)[0]
+                    return gqa_decode(pa, h, kc, vc, pos, cfg, window=w, freqs=f, sp=sp)
+            x = self._block(_layer_weights(p, use_moe), x, attn, use_moe, sp)[0]
         logits = self._logits(self._final_norm(x, sp), sp)
         cache["pos"] = pos + 1
         return logits[:, 0], cache

@@ -1621,3 +1621,52 @@ def test_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_r
         torch.cuda.synchronize()
     assert da.slice_launches - sliced == da.launches - launched == 2 * cfg.n_layers * len(feed)
     assert cache["dense"]["k"].to_local().data_ptr() == ptr
+
+
+@pytest.mark.parametrize("arch", ["kimi_k2_1t", "deepseek_v3_671b"])
+def test_moe_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_rank_group,
+                                                                         arch):
+    """A reduced moe model at its attention widths (``_moe_on_card``: Kimi-K2's
+    GQA at 112, DeepSeek-V3's MLA at (576, 512) in the decode) through the
+    split prefill and decode steps on a one-rank NCCL mesh: logits bit-equal
+    to the model's own ``prefill``/``decode_step``, every decode launch a
+    slice call, the cache's storage kept, and a split decode step does not
+    sync with the host."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = _moe_on_card(arch)
+    own, model = (build_model(cfg, device=card, seed=6) for _ in range(2))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg.vocab, (4, 32))
+                            .astype(np.int32))
+    feed = torch.from_numpy(np.random.default_rng(7).integers(1, cfg.vocab, (3, 4, 1))
+                            .astype(np.int32)).to(card)
+    pre, (ppl, _), _, _ = steps.make_prefill_step(model, mesh, ShapeSpec("p", "prefill", 32, 4),
+                                                  capacity=40)
+    dec, _, _, _ = steps.make_decode_step(model, mesh, ShapeSpec("d", "decode", 40, 4))
+    steps.shard_model(model, mesh, ppl)
+    group = "kv" if cfg.attn_type == "mla" else "k"
+    with torch.inference_mode():
+        want, wc = own.prefill(toks.to(card), capacity=40)
+        got, cache = pre(model.param_tree(), {"tokens": toks})
+        assert torch.equal(got.to_local(), want)
+        ptr = cache["moe"][group].to_local().data_ptr()
+        launched, sliced = da.launches, da.slice_launches
+        for tok in feed:
+            want, wc = own.decode_step(wc, tok)
+            got, cache = dec(model.param_tree(), cache, tok)
+            assert torch.equal(got.to_local(), want)
+        torch.cuda.synchronize()
+        assert da.slice_launches - sliced == da.launches - launched == \
+            2 * cfg.n_layers * len(feed)  # the model's and the steps': slice calls
+        step = got.to_local().argmax(-1, keepdim=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, cache = dec(model.param_tree(), cache, step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert cache["moe"][group].to_local().data_ptr() == ptr
+    assert torch.isfinite(got.to_local().float()).all()

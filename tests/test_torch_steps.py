@@ -3,7 +3,7 @@ against the JAX package's, jitted with their shardings on a one-device
 ``("data", "model")`` mesh: one train step of reduced OLMo, InternLM2,
 Kimi-K2 and DeepSeek-V3 (with and without ``moe_ep``) over ``tp`` and ``dp``,
 1 and 2 microbatches, ``grad_dtype`` None and bfloat16; the prefill and decode
-steps of a reduced dense model and of Mamba2. The weights are the port's
+steps of a reduced dense model, of Mamba2, Kimi-K2 and DeepSeek-V3. The weights are the port's
 init from a seed, handed to the JAX package as numpy arrays (the
 reference's own init folds in a salted hash and compiles for seconds), the
 attention tempered as ``tests/test_torch_moe.py`` tempers it."""
@@ -279,7 +279,7 @@ def test_train_step_refuses_a_batch_that_does_not_split(mesh):
     assert not any(tensor_parallel.local(p).requires_grad for p in port.parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m"])
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m", "kimi_k2_1t", "deepseek_v3_671b"])
 def test_prefill_and_decode_steps_match_jax(mesh, arch):
     """The reference's prefill and decode steps (jitted with their
     shardings) and the port's: the prompt's first S - 1 tokens right-padded
@@ -323,14 +323,15 @@ def test_prefill_and_decode_steps_match_jax(mesh, arch):
     assert int(tcache["pos"]) == int(jcache["pos"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b"])
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b",
+                                  "kimi_k2_1t", "deepseek_v3_671b"])
 def test_split_serve_steps_are_the_models_own_on_one_rank(mesh, arch):
     """On one rank the Megatron split is the model's own serving, op for op:
     the prefill step's and every decode step's logits equal the unsharded
     model's ``prefill``/``decode_step`` bit for bit (qwen's bias and padded
     heads, gemma3's windows, QK-norm, sandwich norms and tied embedding,
-    llava's patches), and every decode launch, the model's own too, is the
-    kernel's slice call."""
+    llava's patches, kimi's experts and deepseek's MLA latent cache), and
+    every decode launch, the model's own too, is the kernel's slice call."""
     from repro_torch.kernels import ref
 
     jcfg, _, params, port = _pair(arch)

@@ -7,14 +7,17 @@ JAX package's spec tables on an ``AbstractMesh`` of the same shape); the
 int8 moments are quantized on whole blocks where a mesh cuts a block of
 128. The ``tp`` train step of the dense, vlm and moe families runs the
 Megatron split (the moe family's also over ``data``, the reference's FSDP
-axis, where its leaves are bfloat16); no leaf is gathered over ``model``.
-The serve steps of the dense and vlm families run the Megatron split:
-prefill and decode equal one rank's, gather no weight and keep every cache
-leaf's storage; ``long_500k``'s context-parallel decode (batch 1, the
-cache's sequence split over data × model) equals one rank's and the
-reference's jitted step at one device; the other families' context-parallel
-decode over several ranks (the ssm family's, the moe family's) raises,
-naming ROADMAP item 18."""
+axis, where its leaves are bfloat16); no leaf is gathered over ``model``;
+the moe family's step is one rank's step on the whole global batch, since
+its dispatch routes the global batch over the ``data`` ranks. The serve
+steps of the dense, vlm and moe families run the Megatron split: prefill
+and decode equal one rank's, gather no weight and keep every cache leaf's
+storage (the moe family's in the reference's placements); ``long_500k``'s
+context-parallel decode (batch 1, the cache's sequence split over data ×
+model) equals one rank's and, for gemma3, the reference's jitted step at
+one device, and so does the moe family's (kimi's GQA, deepseek's MLA
+latent cache); the ssm family's context-parallel decode over several ranks
+raises, naming ROADMAP item 18."""
 
 import functools
 import inspect
@@ -76,6 +79,10 @@ MESHES = {4: [(2, 2), (4, 1), (1, 4)], 2: [(1, 2)]}
 #: and the local layer's window of 64 crosses a slice boundary
 CP_CASE = ("gemma3_12b", 3, 1, 200, 256)
 CP_STEPS = 3
+#: (arch, seed) of the moe family's serving: 8 prompts of 12 tokens in a cache of
+#: 16 (their config's capacity factor 1.25, 1 dispatch chunk: a chunk over every
+#: data rank), and batch 1 of 19 in 32 rows split over every rank (long_500k)
+MOE_SERVE = [("kimi_k2_1t", 6), ("deepseek_v3_671b", 7)]
 #: (arch, moment dtype, sequence) of each strategy's train step. ``tp``: the
 #: Megatron split for the dense and vlm families (InternLM2; reduced qwen: qkv
 #: bias, 4 + 8 padded heads over 2 KV heads, which a model axis of 4 does not
@@ -94,10 +101,13 @@ CP_STEPS = 3
 #: changed by ``TRAIN_CHANGES``; ``ep`` in the variant runs ``moe_ep``): reduced
 #: kimi (GQA) and deepseek (MLA, the MTP head), f32 and bfloat16 (the FSDP axis
 #: live at data >= 2; remat and 2 dispatch chunks), with and without ``moe_ep``, at a
-#: capacity factor of 8 so that no route drops. A data rank routes its own
-#: tokens (its chunks' capacity and aux loss are its block's), so these cases are
-#: held to one rank's step on each data block, averaged (:func:`one_rank`'s
-#: ``blocks``); with ``moe_ep`` each model rank routes its own rows too.
+#: capacity factor of 8 so that no route drops. The dispatch routes the global
+#: batch over the data ranks (its chunks, their capacity and the aux loss are the
+#: global batch's, ``models/moe.py:_rows_dispatch``), so these cases are held to
+#: one rank's step on the whole global batch; with ``moe_ep`` each rank routes its
+#: own rows, as the reference's expert-parallel FFN does, so those are held to one
+#: rank's step on each of the data × model row blocks, averaged (:func:`one_rank`'s
+#: ``blocks``).
 TRAIN_CASES = {
     "tp": [("internlm2_1_8b", "float32", 32), ("qwen2_5_14b", "float32", 32),
            ("gemma3_12b", "float32", 80), ("llava_next_mistral_7b", "float32", 32),
@@ -105,7 +115,8 @@ TRAIN_CASES = {
            ("kimi_k2_1t", "float32", 32), ("kimi_k2_1t@bf16", "int8", 32),
            ("kimi_k2_1t@bf16_ep", "int8", 32), ("deepseek_v3_671b", "float32", 32),
            ("deepseek_v3_671b@ep", "float32", 32), ("deepseek_v3_671b@bf16", "int8", 32)],
-    "dp": [("internlm2_1_8b", "float32", 32), ("olmo_1b", "int8", 32)],
+    "dp": [("internlm2_1_8b", "float32", 32), ("olmo_1b", "int8", 32),
+           ("kimi_k2_1t", "float32", 32)],
 }
 _NO_DROPS = {"capacity_factor": 8.0}
 _BF16 = {"param_dtype": "bfloat16", "remat": True,
@@ -145,6 +156,7 @@ try:
     B = 8
     TRAIN_CASES = json.loads(os.environ["RA_TRAIN_CASES"])
     CP_CASE = json.loads(os.environ["RA_CP_CASE"])
+    MOE_SERVE = json.loads(os.environ["RA_MOE_SERVE"])
     out = {}
 
     def train_config(case):
@@ -340,8 +352,8 @@ try:
             for arch, moments, S in cases:
                 cfg = train_config(arch)
                 blocks = 0
-                if cfg.family == "moe":  # a data rank's tokens, or (moe_ep) a model rank's rows
-                    blocks = shape[0] * (shape[1] if moe_ep(arch) else 1)
+                if moe_ep(arch):  # each rank routes its own rows
+                    blocks = shape[0] * shape[1]
                 key = (strategy, arch, moments, blocks)
                 if key not in want:
                     want[key] = one_rank(arch, moments, S, split_case(strategy, arch), blocks)
@@ -449,10 +461,15 @@ try:
         out[f"{shape}/serve"] = serve_case("qwen2_5_14b", 2, 8, 12, 16)
         out[f"{shape}/serve_vlm"] = serve_case("llava_next_mistral_7b", 4, 4, 12, 32,
                                                patches=True)
+        # the moe family: kimi's GQA, deepseek's MLA latent cache, the experts' blocks,
+        # the dispatch routing the global batch over the data ranks
+        for arch, seed in MOE_SERVE:
+            out[f"{shape}/serve_{arch}"] = serve_case(arch, seed, 8, 12, 16)
+            out[f"{shape}/serve_cp_{arch}"] = serve_case(arch, seed, 1, 20, 32, cp=True)
         # long_500k's split: batch 1, the cache's sequence over data x model
         out[f"{shape}/serve_cp"] = serve_case(*CP_CASE, cp=True)
         refused = {}
-        for arch in ("mamba2_780m", "deepseek_v3_671b"):  # ssm; moe on MLA
+        for arch in ("mamba2_780m",):  # ssm
             try:
                 other = build_model(get_config(arch).reduced(), device="cpu", seed=2)
                 cp = steps.make_decode_step(other, mesh, ShapeSpec("l", "decode", 16, 1,
@@ -480,6 +497,7 @@ def _spawn(world, tmp):
         filter(None, [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")])),
         RA_STORE=str(tmp / f"store{world}"), RA_WORLD=str(world), OMP_NUM_THREADS="1",
         RA_MESHES=json.dumps(MESHES[world]), RA_CP_CASE=json.dumps(CP_CASE),
+        RA_MOE_SERVE=json.dumps(MOE_SERVE),
         RA_TRAIN_CASES=json.dumps(TRAIN_CASES))
     script = (f"TRAIN_CHANGES = {TRAIN_CHANGES!r}\nBF16_ULP = {BF16_ULP!r}\n" +
               inspect.getsource(changed) + _RANKS)
@@ -559,7 +577,8 @@ def test_several_ranks_give_the_one_rank_step(ranks, world, shape, strategy):
     """Each case of ``TRAIN_CASES`` (InternLM2: GQA, norm scales replicated, f32
     moments; OLMo: int8 moments; under ``tp`` these and qwen, gemma3, llava,
     kimi and deepseek through the Megatron split, Mamba2 through the
-    gathered weights): the gathered parameters within 1e-5 of one rank's
+    gathered weights; under ``dp`` kimi too, its dispatch over every rank's
+    rows): the gathered parameters within 1e-5 of one rank's
     step, the loss and gradient norm within f32 rounding (a leaf replicated
     over ``model`` counted once in the norm), the int8 codes at most one
     apart (the gradients' sums differ by rounding). The split step gathers
@@ -618,28 +637,83 @@ def test_int8_moments_on_cut_blocks_equal_one_rank(ranks, world, shape):
 def test_serving_over_the_mesh(ranks, world, shape):
     """Prefill and decode over the mesh, split Megatron-style, equal one
     process's logits (qwen's 2 KV heads, which a model axis of 4 does not
-    divide, and llava's ``mm_proj`` and patches among them), gather no
-    weight, keep each cache leaf's storage and placements, and give logits
-    split on the vocab over ``model``; the ssm and moe families'
-    context-parallel steps over several ranks raise naming ROADMAP item 18
-    (the dense family's no longer does:
-    ``test_context_parallel_decode_over_the_mesh``); and
-    ``constrain`` drops an axis that does not divide (5 rows over 2 or 4 data
-    ranks) and keeps one that does."""
+    divide, llava's ``mm_proj`` and patches, kimi's GQA and deepseek's MLA
+    with their experts' blocks and the dispatch over the data ranks among
+    them), gather no weight, keep each cache leaf's storage and placements
+    (the moe family's the reference's ``cache_spec_tree``'s), and give logits
+    split on the vocab over ``model``; the ssm family's context-parallel
+    steps over several ranks raise naming ROADMAP item 18 (the dense and moe
+    families' no longer do: ``test_context_parallel_decode_over_the_mesh``,
+    ``test_moe_context_parallel_decode_over_the_mesh``); and ``constrain``
+    drops an axis that does not divide (5 rows over 2 or 4 data ranks) and
+    keeps one that does."""
+    moe = [f"serve_{arch}" for arch, _ in MOE_SERVE]
     for out in ranks[world].values():
-        for case in ("serve", "serve_vlm"):
+        for case in ["serve", "serve_vlm"] + moe:
             got = out[f"{shape}/{case}"]
             assert got["prefill"] <= 1e-5 * got["scale"], (case, got["prefill"], got["scale"])
             assert got["decode"] <= 1e-4 * got["scale"], (case, got["decode"], got["scale"])
             assert got["same_placements"] and got["storage_kept"], case
             assert got["gathers"] == 0, case
             assert ("Shard(dim=1)" in got["logits_placements"]) == (shape[1] > 1), case
+        for arch, _ in MOE_SERVE:
+            got = out[f"{shape}/serve_{arch}"]["cache_placements"]
+            assert {k: v for k, v in got.items() if not k.endswith("/kv")} == \
+                _reference_cache_placements(arch, shape, 8, 16, False), arch
         got = out[f"{shape}/serve"]
+        assert list(got["refused"]) == ["mamba2_780m"]
         for arch, refused in got["refused"].items():
             assert "ROADMAP.md item 18" in refused, arch
         c5, c8 = got["constrain"]
         assert ("Shard" in c5) == (shape[0] == 1)  # 5 rows divide over 1 data rank only
         assert c8.startswith("(Shard(dim=0)")
+
+
+def _reference_cache_placements(arch, shape, B, cap, cp):
+    """{cache leaf: the placements, as the port prints them} that the
+    reference's ``cache_spec_tree`` gives the reduced ``arch``'s cache of
+    ``B`` × ``cap`` on a ``shape`` mesh (the port's MLA ``kv`` stack, whose
+    column views are the reference's ``latent`` and ``k_rope``, aside)."""
+    from repro.distributed import steps as jsteps
+    from repro.launch.shapes import ShapeSpec as JShape
+
+    jmodel = jax_build(jax_config(arch).reduced())
+    cache = jax.eval_shape(lambda: jmodel.empty_cache(B, cap))
+    specs = jsteps.cache_spec_tree(cache, JShape("s", "decode", cap, B, context_parallel=cp),
+                                   _abstract(shape), False)
+    names = ("data", "model")
+    out = {}
+    for path, spec in jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, P))[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        if key == "pos":
+            continue
+        pl = []
+        for name in names:
+            dims = [i for i, e in enumerate(spec) if e is not None and
+                    name in ((e,) if isinstance(e, str) else tuple(e))]
+            pl.append(f"Shard(dim={dims[0]})" if dims else "Replicate()")
+        out[key] = "(" + ", ".join(pl) + ")"
+    return out
+
+
+@pytest.mark.parametrize("world,shape", CASES, ids=IDS)
+def test_moe_context_parallel_decode_over_the_mesh(ranks, world, shape):
+    """``long_500k``'s split for the moe family at a tiny size (reduced kimi
+    and deepseek, batch 1, a cache of 32 rows split over every rank, pos
+    19–21 in one rank's rows): prefill and decode logits equal one
+    process's, no weight gathered, each cache leaf's storage kept, in the
+    reference's placements (deepseek's ``latent``/``k_rope`` on their dim 2
+    over data × model)."""
+    for out in ranks[world].values():
+        for arch, _ in MOE_SERVE:
+            got = out[f"{shape}/serve_cp_{arch}"]
+            assert got["prefill"] <= 1e-5 * got["scale"], (arch, got["prefill"], got["scale"])
+            assert got["decode"] <= 1e-4 * got["scale"], (arch, got["decode"], got["scale"])
+            assert got["same_placements"] and got["storage_kept"] and got["gathers"] == 0, arch
+            want = _reference_cache_placements(arch, shape, 1, 32, True)
+            assert {k: v for k, v in got["cache_placements"].items() if not k.endswith("/kv")} \
+                == want, arch
 
 
 @functools.lru_cache(maxsize=None)

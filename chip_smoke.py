@@ -273,7 +273,7 @@ Phases (any failure exits non-zero and prints no result):
    (held under the plain run's routes where a routing near-tie breaks the
    other way, and then said so), the share of (token, k) routes that differ
    between the two runs, greedy-token agreement, prefill_s, decode tokens/s
-   and peak device memory; then the same prompts and ``MOE_SPLIT_STEPS``
+   and peak device memory; then the same prompts and ``SPLIT_STEPS``
    greedy decode steps through ``make_prefill_step``/``make_decode_step`` on
    a one-rank NCCL mesh (the Megatron split), the prefill's and every
    step's logits bit-equal to the model's own ``prefill``/``decode_step``,
@@ -941,6 +941,9 @@ def phase_attention(torch) -> tuple:
         ("gemma3_long_500k", 1, 8, 2, 524288, 256, 524287, "bfloat16", 0, False, True),
         ("gemma3_long_500k_local", 1, 8, 2, 524288, 256, 524287, "bfloat16", 1024, False,
          False),
+        # phase 25: Zamba2-1.2B at long_500k, one shared-block invocation's whole
+        # 524,288-row cache on one card, 32 heads of 128 (group 1)
+        ("zamba2_long_500k", 1, 32, 1, 524288, 128, 524287, "bfloat16", 0, False, True),
     ]
     decode_rows = []
     for label, B, KV, g, S, hd, pos, dt, window, garbage, timed, *dv in decode_cases:
@@ -1017,8 +1020,8 @@ def phase_attention(torch) -> tuple:
 #: (label, B, KV, g, S, dk, dv, pos, window, slices): the cuts of a cache that the
 #: split serve steps give the decode kernel; qwen2.5-14b's decode at phase 24's last
 #: step as a model axis of 16 stores it, gemma3-12b's long_500k (phase 25) as 4 ranks
-#: and as the production mesh's 256 (data × model) store it, global and local, and
-#: deepseek-v3's absorbed MLA decode at 16
+#: and as the production mesh's 256 (data × model) store it, global and local,
+#: deepseek-v3's absorbed MLA decode at 16, and Zamba2-1.2B's long_500k at 256
 SLICE_CASES = [
     ("slices_qwen_decode_16", 8, 8, 6, 576, 128, 128, 575, 0, 16),
     ("slices_gemma3_long_500k_4", 1, 8, 2, 524288, 256, 256, 524287, 0, 4),
@@ -1026,6 +1029,7 @@ SLICE_CASES = [
     ("slices_gemma3_long_500k_local_4", 1, 8, 2, 524288, 256, 256, 524287, 1024, 4),
     ("slices_gemma3_long_500k_local_256", 1, 8, 2, 524288, 256, 256, 524287, 1024, 256),
     ("slices_mla_decode_16", 8, 1, 128, 576, 576, 512, 575, 0, 16),
+    ("slices_zamba2_long_500k_256", 1, 32, 1, 524288, 128, 128, 524287, 0, 256),
 ]
 
 
@@ -1913,7 +1917,8 @@ def _plain_scan():
 
 
 def phase_ssm_serving(torch) -> dict:
-    """Mamba2-780M: raw checkpoint, cold start, and a batch of requests."""
+    """Mamba2-780M: raw checkpoint, cold start, a batch of requests, then the
+    same prompts through the split serve steps on the one-rank mesh."""
     import numpy as np
 
     from repro_torch.checkpoint import save_checkpoint
@@ -1974,12 +1979,9 @@ def phase_ssm_serving(torch) -> dict:
         raise SystemExit(f"chip_smoke: {out['ssd_scan_tc_launches']} of {cfg.n_layers} "
                          f"ssd_scan launches ran the tensor-core kernels")
 
-    # the same requests again: warm (launches from here on are not counted)
-    engine.stats = {key: 0.0 for key in engine.stats}
-    engine.generate(prompts, max_new=max_new)
-    out["warm"] = engine.throughput()
-
-    # the same requests with the plain scan
+    # no second, warm generate (PERF.md §4): the split sub-phase below times warm
+    # decode steps. The same requests with the plain scan (launches from here on
+    # are not counted)
     first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
     with _plain_scan():
         plain_first = engine._prefill_with_capacity(prompts, S + max_new)[0].float()
@@ -2000,6 +2002,8 @@ def phase_ssm_serving(torch) -> dict:
     # same first-step comparison with the model in f32 (no bf16 rounding)
     tokens_dev = torch.from_numpy(prompts.astype(np.int64)).to(dev)
     out["hidden_rel_diff_by_layer"] = _hidden_divergence(torch, model, tokens_dev)
+    # the same prompts through the split steps on the one-rank mesh
+    out["split_steps"] = _ssm_split_steps(torch, model, prompts, SPLIT_STEPS)
     del engine, model
     f32_model = build_model(cfg.with_(param_dtype="float32", compute_dtype="float32"),
                             device=dev, seed=SEED)
@@ -2025,7 +2029,7 @@ def _hidden_divergence(torch, model, tokens) -> dict:
     out = {}
     with torch.inference_mode():
         xk = xp = model._embed_inputs(tokens)
-        for i, p in enumerate(model._layer_params()):
+        for i, p in enumerate(model._serve_params()["layers"]):
             xk = xk + mamba_forward(p["ssm"], norm(p["ln"], xk), cfg)
             with _plain_scan():
                 xp = xp + mamba_forward(p["ssm"], norm(p["ln"], xp), cfg)
@@ -2888,7 +2892,8 @@ def _profiled_steps(torch, model, prompts, capacity: int, n: int = 8) -> dict:
 def phase_zamba2_serving(torch) -> dict:
     """Zamba2-1.2B at its full size: raw checkpoint, cold start, a batch of
     requests served through the engine's prompt replay, then the model's
-    chunked prefill and an f32 copy's prefill against its replay."""
+    chunked prefill and an f32 copy's prefill against its replay, then the
+    same prompts through the split serve steps on the one-rank mesh."""
     import numpy as np
 
     from repro_torch.checkpoint import save_checkpoint
@@ -3002,7 +3007,7 @@ def phase_zamba2_serving(torch) -> dict:
     # an f32 copy of the weights: its chunked prefill against its replay
     f32 = build_model(cfg.with_(param_dtype="float32", compute_dtype="float32"), device="meta")
     load_params(f32, _float32(torch, model.param_tree()))
-    del engine, model
+    del engine
     torch.cuda.empty_cache()
     pf32 = f32.prefill(tokens_dev)[0]
     replay32 = ServeEngine(f32)._prefill_with_capacity(prompts, S)[0]
@@ -3019,6 +3024,10 @@ def phase_zamba2_serving(torch) -> dict:
     if not ok:
         raise SystemExit(f"chip_smoke: Zamba2's f32 prefill and replay differ: "
                          f"{out['f32_prefill_vs_replay']}")
+    # the same prompts through the split steps on the one-rank mesh
+    out["split_steps"] = _ssm_split_steps(torch, model, prompts, SPLIT_STEPS)
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4300,7 +4309,7 @@ def _moe_serving(torch, arch: str, cold_start: bool, card: str) -> dict:
     out["first_token_agreement"] = float((tokens[:, 0] == plain_tokens[:, 0]).mean())
     out["greedy_token_agreement"] = float((tokens == plain_tokens).mean())
     del engine
-    out["split_steps"] = _moe_split_steps(torch, model, prompts, MOE_SPLIT_STEPS)
+    out["split_steps"] = _moe_split_steps(torch, model, prompts, SPLIT_STEPS)
     del model
     torch.cuda.empty_cache()
     log(f"[moe serving] {json.dumps(out)}")
@@ -4308,52 +4317,96 @@ def _moe_serving(torch, arch: str, cold_start: bool, card: str) -> dict:
 
 
 #: decode steps of phases 18-19's split sub-phase (paid for by the engine's second,
-#: warm ``generate`` of 64 steps, which those phases no longer run: PERF.md §4)
-MOE_SPLIT_STEPS = 8
+#: warm ``generate`` of 64 steps, which those phases no longer run: PERF.md §4), and
+#: of phases 6 and 11's (PERF.md §4 names what pays for them)
+SPLIT_STEPS = 8
 
 
 def _moe_split_steps(torch, model, prompts, steps_n: int) -> dict:
-    """The moe model through ``make_prefill_step``/``make_decode_step`` on the
+    """``_split_serve_steps`` for the moe family: flash once a layer at the
+    config's width pair, the decode kernel's slice call once a layer a step,
+    no scan."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    width = (f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}x{cfg.mla.v_head_dim}"
+             if cfg.attn_type == "mla" else f"{cfg.head_dim}x{cfg.head_dim}")
+    want = {"flash_attention": L, "flash_attention_tc": L, "decode_attention": L * steps_n,
+            "decode_attention_slice": L * steps_n, "ssd_scan": 0, "ssd_scan_tc": 0}
+    return _split_serve_steps(torch, model, prompts, steps_n, want, {f"forward {width}": L})
+
+
+def _ssm_split_steps(torch, model, prompts, steps_n: int) -> dict:
+    """``_split_serve_steps`` for the ssm and hybrid families: ``ssd_scan``
+    once a Mamba2 layer a prefill, all on the tensor cores; Zamba2's shared
+    block flash once an invocation at (128, 128) and the decode kernel's
+    slice call once an invocation a step; the NCCL group gone after it."""
+    import torch.distributed as dist
+
+    cfg = model.cfg
+    n_inv = len(getattr(model, "invocations", ()))
+    widths = {f"forward {model.attn_cfg.head_dim}x{model.attn_cfg.head_dim}": n_inv} \
+        if n_inv else {}
+    want = {"flash_attention": n_inv, "flash_attention_tc": n_inv,
+            "decode_attention": n_inv * steps_n, "decode_attention_slice": n_inv * steps_n,
+            "ssd_scan": cfg.n_layers, "ssd_scan_tc": cfg.n_layers}
+    created = not dist.is_initialized()
+    try:
+        return _split_serve_steps(torch, model, prompts, steps_n, want, widths)
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _split_serve_steps(torch, model, prompts, steps_n: int, want: dict, widths_want: dict
+                       ) -> dict:
+    """The model through ``make_prefill_step``/``make_decode_step`` on the
     one-rank NCCL mesh, the Megatron split (``distributed/tensor_parallel.py``;
     the dispatch's rows one block): the prompts' prefill and ``steps_n``
     greedy decode steps, each step's logits bit-equal to the model's own
     ``prefill``/``decode_step``'s on the same tokens (compared on the card,
     read once at the end), no weight gathered (``_no_gathers``), the cache's
-    storage kept; launches: flash once a layer at the config's width pair,
-    the decode kernel's slice call once a layer a step. The model's
-    parameters stay stored as the mesh's blocks after this."""
+    storage kept; the launches counted against ``want`` (flash, decode and
+    slice calls, ``ssd_scan``, each kernel's tensor-core ones) and the flash
+    launches by width pair against ``widths_want``. The decode ms a step of
+    the model's own steps and of the split ones, and the peak device memory
+    of the split run. The model's parameters stay stored as the mesh's blocks
+    after this."""
     from repro_torch.distributed import steps
     from repro_torch.distributed.sharding import is_dtensor
-    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
     from repro_torch.launch.shapes import ShapeSpec
 
     dev, cfg = model.device, model.cfg
     B, S = prompts.shape
-    L, cap = cfg.n_layers, S + steps_n
+    cap = S + steps_n
     batch = {"tokens": torch.from_numpy(prompts)}
     t_in = t0 = time.perf_counter()
     with torch.inference_mode():  # the model's own, the yardstick
         logits, cache = model.prefill(batch["tokens"].to(dev), capacity=cap)
         own, feed = [logits], []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         for _ in range(steps_n):
             feed.append(own[-1].argmax(-1, keepdim=True))
             logits, cache = model.decode_step(cache, feed[-1])
             own.append(logits)
         torch.cuda.synchronize()
     del cache
-    out: dict = {"batch": B, "prompt": S, "decode_steps": steps_n,
-                 "own_s": time.perf_counter() - t0}
+    t2 = time.perf_counter()
+    out: dict = {"batch": B, "prompt": S, "decode_steps": steps_n, "own_s": t2 - t0,
+                 "own_decode_ms_a_step": (t2 - t1) / steps_n * 1e3}
     mesh = _one_rank_mesh(torch)
     prefill, (ppl, _), _, _ = steps.make_prefill_step(
-        model, mesh, ShapeSpec("moe_prefill", "prefill", S, B), capacity=cap)
+        model, mesh, ShapeSpec("split_prefill", "prefill", S, B), capacity=cap)
     decode, _, _, _ = steps.make_decode_step(
-        model, mesh, ShapeSpec("moe_decode", "decode", cap, B))
+        model, mesh, ShapeSpec("split_decode", "decode", cap, B))
     steps.shard_model(model, mesh, ppl)
     out["sharded_leaves"] = sum(1 for p in model.parameters() if is_dtensor(p))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     flash_attention.launches = flash_attention.tc_launches = 0
     decode_attention.launches = decode_attention.slice_launches = 0
+    ssd_scan.launches = ssd_scan.tc_launches = 0
     widths: dict = {}
     with torch.inference_mode(), _no_gathers([]):
         t0 = time.perf_counter()
@@ -4363,9 +4416,9 @@ def _moe_split_steps(torch, model, prompts, steps_n: int) -> dict:
         storage = _cache_storage(torch, cache)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        for tok, want in zip(feed, own[1:]):
+        for tok, want_logits in zip(feed, own[1:]):
             logits, cache = decode(model.param_tree(), cache, tok)
-            same.append((logits.to_local() == want).all())
+            same.append((logits.to_local() == want_logits).all())
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         kept = _cache_storage(torch, cache) == storage and bool(storage)
@@ -4373,7 +4426,8 @@ def _moe_split_steps(torch, model, prompts, steps_n: int) -> dict:
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_tc": flash_attention.tc_launches,
                 "decode_attention": decode_attention.launches,
-                "decode_attention_slice": decode_attention.slice_launches}
+                "decode_attention_slice": decode_attention.slice_launches,
+                "ssd_scan": ssd_scan.launches, "ssd_scan_tc": ssd_scan.tc_launches}
     same = torch.stack(same).cpu().tolist()
     out.update({"prefill_s": t1 - t0, "decode_ms_a_step": (t2 - t1) / steps_n * 1e3,
                 "decode_tokens_per_s": B * steps_n / (t2 - t1),
@@ -4385,13 +4439,10 @@ def _moe_split_steps(torch, model, prompts, steps_n: int) -> dict:
                 "cache_placements": {k: str(t.placements) for k, t in
                                      steps._leaves_with_paths(cache) if is_dtensor(t)}})
     del cache, own
-    width = (f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim}x{cfg.mla.v_head_dim}"
-             if cfg.attn_type == "mla" else f"{cfg.head_dim}x{cfg.head_dim}")
-    want = {"flash_attention": L, "flash_attention_tc": L, "decode_attention": L * steps_n,
-            "decode_attention_slice": L * steps_n}
-    if launches != want or widths != {f"forward {width}": L}:
+    log(f"[split steps] {cfg.name}: {json.dumps(out)}")
+    if launches != want or widths != widths_want:
         raise SystemExit(f"chip_smoke: {cfg.name}'s split steps launched {launches} "
-                         f"{widths}, wanted {want} at {width}")
+                         f"{widths}, wanted {want} {widths_want}")
     if not all(same):
         raise SystemExit(f"chip_smoke: {cfg.name}'s split steps' logits are not the model's "
                          f"own bit for bit: {out['logits_bit_equal_own']} of 1 + {steps_n}")
@@ -5126,11 +5177,13 @@ def _no_gathers(found: list):
     """Every weight gather (``sharding.gather``/``gather_tree``, as the
     models call them) noted in ``found`` and refused while inside."""
     from repro_torch.distributed import sharding
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm_lm, transformer
 
     kept = {}
-    for mod in (sharding, transformer):
+    for mod in (sharding, transformer, ssm_lm):
         for name in ("gather", "gather_tree"):
+            if not hasattr(mod, name):
+                continue
             kept[(mod, name)] = getattr(mod, name)
 
             def refuse(*args, _name=name, **kw):
@@ -5530,26 +5583,25 @@ def phase_sharded_steps(torch, card: str) -> dict:
 
 # --------------------------------------------------------------- phase 25
 LONG_DECODE_STEPS = 8
-LONG_SLICES = (4, 256)  # four ranks; the production mesh's data × model
 
 
 def phase_long_context_decode(torch, card: str) -> dict:
-    """gemma3-12b at ``long_500k`` (batch 1, a 524,288-position cache) through
+    """``long_500k`` (batch 1, a 524,288-position cache) through
     ``make_decode_step`` with context parallelism on the one-rank mesh, the
-    Megatron split's decode: full widths, ``GEMMA3_LAYERS`` of 48 layers (2
-    global, 10 local), the cache filled with tempered random K/V (no
-    524,288-token prefill: the reference's cell is decode only), then
-    ``LONG_DECODE_STEPS`` steps from pos 524,279. The steps' logits equal
-    the model's own ``decode_step``'s on the same cache, bit for bit; on a
-    global and a local layer the whole-cache call is held to the call at 4
-    and at 256 slices combined (``_close``, ``_gate_power``), and the live
-    slice to its plain version."""
+    Megatron split's decode, ``LONG_DECODE_STEPS`` steps from pos 524,279:
+    gemma3-12b at full widths and ``GEMMA3_LAYERS`` of 48 layers (2 global,
+    10 local), its cache filled with tempered random K/V (no 524,288-token
+    prefill: the reference's cell is decode only), then Zamba2-1.2B and
+    Mamba2-780M at full size (``_ssm_long_context``). Each model's step
+    logits equal its own ``decode_step``'s from the same state, bit for bit.
+    Phase 3b holds the decode kernel's whole-cache call against 4 and 256
+    slices combined at gemma3's and Zamba2's shapes."""
     import numpy as np
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import steps
-    from repro_torch.kernels import decode_attention, flash_attention, ops, ref
+    from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.launch.shapes import SHAPES
     from repro_torch.models import build_model
 
@@ -5577,14 +5629,9 @@ def phase_long_context_decode(torch, card: str) -> dict:
         # the cache a layer at a time: N(0, 1) rows, tempered as the QK-normed queries
         # are (scores of std ~1)
         gen = torch.Generator(device=dev).manual_seed(SEED + 25)
-        rows = 1 << 16
         with torch.inference_mode():
             local = model.empty_cache(shape.batch, S)
-            for name in ("k", "v"):
-                for layer in local["dense"][name]:
-                    for c in range(0, S, rows):
-                        layer[:, :, c:c + rows].copy_(torch.randn(
-                            (shape.batch, KV, min(rows, S - c), hd), generator=gen, device=dev))
+            _random_rows(torch, local["dense"], gen)
         torch.cuda.synchronize()
         out["cache_fill_s"] = time.perf_counter() - t0
         out["cache_bytes"] = sum(t.numel() * t.element_size()
@@ -5592,11 +5639,7 @@ def phase_long_context_decode(torch, card: str) -> dict:
         out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
 
         def placed():
-            c = {"dense": {name: steps._dtensor(local["dense"][name], mesh,
-                                                cpl["dense"][name], local["dense"][name].shape)
-                           for name in ("k", "v")}}
-            c["pos"] = torch.tensor(start, dtype=torch.int32, device=dev)
-            return c
+            return _placed_cache(torch, local, cpl, mesh, start)
 
         feed = torch.from_numpy(np.random.default_rng(SEED + 25).integers(
             1, cfg.vocab, (LONG_DECODE_STEPS, 1, 1)).astype(np.int32)).to(dev)
@@ -5633,67 +5676,155 @@ def phase_long_context_decode(torch, card: str) -> dict:
                                                   for g, w in zip(got, own_logits))
         out["logits_finite"] = all(bool(torch.isfinite(g).all()) for g in got)
         out["logits_shape"] = list(got[0].shape)
-
-        # one global and one local layer: the whole-cache call against the slices
-        # combined, and the live slice against its plain version
-        p = torch.tensor(S - 1, dtype=torch.int32, device=dev)
-        q = torch.randn((shape.batch, cfg.n_heads, hd), generator=gen, device=dev).to(cfg.cdtype)
-        tol = ATTN_TOL["bfloat16"]
-        checks = {}
-        flags = model._layer_flags(L)
-        for li in (next(i for i, f in enumerate(flags) if f[0]),
-                   next(i for i, f in enumerate(flags) if not f[0])):
-            window = 0 if flags[li][0] else cfg.sliding_window
-            K, V = local["dense"]["k"][li], local["dense"]["v"][li]
-            whole = ops.decode_attention(q, K, V, p, window=window)
-            for R in LONG_SLICES:
-                n = S // R
-                outs, lses = [], []
-                for r in range(R):
-                    o, l = ops.decode_attention(q, K[:, :, r * n:(r + 1) * n].contiguous(),
-                                                V[:, :, r * n:(r + 1) * n].contiguous(), p,
-                                                window=window, kv_start=r * n, return_lse=True)
-                    outs.append(o)
-                    lses.append(l)
-                outs, lses = torch.stack(outs), torch.stack(lses)
-                merged = ref.combine_partials(outs, lses).to(q.dtype)
-                power = _gate_power(torch, outs, lses, whole, tol)
-                ks = K[:, :, S - n:].contiguous()
-                vs = V[:, :, S - n:].contiguous()
-                live, live_lse = ops.decode_attention(q, ks, vs, p, window=window,
-                                                      kv_start=S - n, return_lse=True)
-                po, pl_ = ref.decode_attention_ref(q.reshape(1, KV, -1, hd), ks, vs, p,
-                                                   window=window, kv_start=S - n,
-                                                   return_lse=True)
-                po, pl_ = po.reshape(live.shape), pl_.reshape(live_lse.shape)
-                key = f"layer {li} ({'global' if not window else 'local'}), {R} slices"
-                checks[key] = {
-                    "combined_vs_whole_max_abs": float((merged.float() - whole.float()).abs().max()),
-                    "live_slice_vs_plain_max_abs": float((live - po).abs().max()),
-                    "live_slice_lse_vs_plain_max_abs": float((live_lse - pl_).abs().max()),
-                    "live_slice_atol": _atol(tol, po), **power,
-                    "ok": _close(torch, merged, whole, tol) and _close(torch, live, po, tol)
-                    and _lse_close(torch, live_lse, pl_) and power["gate_sees_broken"]}
-                del outs, lses, merged, ks, vs
-        out["layer_checks"] = checks
-        out["tolerance"] = tol
-        out["lse_tolerance"] = LSE_TOL
+        out["gemma3_s"] = time.perf_counter() - t_phase
+        log(f"[long_500k decode] {json.dumps(out)}")
+        want = {"decode_attention": L * LONG_DECODE_STEPS,
+                "decode_attention_slice": L * LONG_DECODE_STEPS, "flash_attention": 0}
+        if launches != want:
+            raise SystemExit(f"chip_smoke: long_500k's decode steps launched {launches}, "
+                             f"wanted {want}")
+        if not (out["logits_equal_own_decode_step"] and out["logits_finite"]
+                and out["logits_shape"] == [shape.batch, cfg.vocab]):
+            raise SystemExit(f"chip_smoke: long_500k's decode logits are wrong: {out}")
+        if not out["cache_storage_kept"] or out["final_pos"] != S - 1:
+            raise SystemExit(f"chip_smoke: long_500k's decode moved the cache or pos: {out}")
+        del model, decode, local, cache, own, got, own_logits, logits  # decode holds the model
+        torch.cuda.empty_cache()
+        out["zamba2"] = _ssm_long_context(torch, mesh, shape, "zamba2_1_2b")
+        out["mamba2"] = _ssm_long_context(torch, mesh, shape, "mamba2_780m")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"[long_500k decode] {json.dumps(out)}")
-    want = {"decode_attention": L * LONG_DECODE_STEPS,
-            "decode_attention_slice": L * LONG_DECODE_STEPS, "flash_attention": 0}
+    return out
+
+
+def _random_rows(torch, group: dict, gen, rows: int = 1 << 16) -> None:
+    """Fill an attention cache group's ``k``/``v`` stacks (L, B, KV, S, hd)
+    with N(0, 1) rows, ``rows`` positions of a layer at a time."""
+    for name in ("k", "v"):
+        for layer in group[name]:
+            B, KV, S, hd = layer.shape
+            for c in range(0, S, rows):
+                layer[:, :, c:c + rows].copy_(torch.randn(
+                    (B, KV, min(rows, S - c), hd), generator=gen, device=layer.device))
+
+
+def _placed_cache(torch, local: dict, pl: dict, mesh, pos: int) -> dict:
+    """A cache of ``local``'s storage as the decode step's ``DTensor``s in
+    placements ``pl`` (the one-rank mesh's: each block the whole leaf), at
+    ``pos``."""
+    from repro_torch.distributed import steps
+
+    def put(tree, pls):
+        return {k: put(v, pls[k]) if isinstance(v, dict) else
+                steps._dtensor(v, mesh, pls[k], v.shape) for k, v in tree.items() if k != "pos"}
+    cache = put(local, pl)
+    cache["pos"] = torch.tensor(pos, dtype=torch.int32, device=mesh.device_type)
+    return cache
+
+
+def _ssm_long_context(torch, mesh, shape, arch: str) -> dict:
+    """``arch`` (Zamba2-1.2B or Mamba2-780M at full size, nothing cut) at
+    ``long_500k`` through ``make_decode_step`` on the one-rank mesh: its SSM
+    state and conv windows drawn at random (N(0, 1)), Zamba2's 6 K/V caches
+    filled with random rows as gemma3's (6 × 2 × 1 × 32 × 524,288 × 128 bf16:
+    51.54 GB), ``LONG_DECODE_STEPS`` steps from pos 524,279. The steps'
+    logits equal the model's own ``decode_step``'s from the same state bit
+    for bit: the steps update the SSM leaves in place, so those are copied
+    before the steps and put back before the model's own run (and after the
+    warm-up step); the K/V rows the steps write, the own run writes alike.
+    Launches: the decode kernel's slice call once a shared-block invocation
+    a step, nothing else (Mamba2's decode runs no kernel)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps
+    from repro_torch.kernels import decode_attention, flash_attention, ssd_scan
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    S = shape.seq
+    start = S - LONG_DECODE_STEPS - 1
+    t_in = t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=SEED)
+    n_inv = len(getattr(model, "invocations", ()))
+    if n_inv:
+        _temper_attention(torch, model)
+    decode, (ppl, cpl, _), _, _ = steps.make_decode_step(model, mesh, shape)
+    steps.shard_model(model, mesh, ppl)
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "ssm_heads": cfg.n_ssm_heads,
+                 "d_state": cfg.ssm.d_state, "invocations": n_inv, "kv_positions": S,
+                 "batch": shape.batch, "steps": LONG_DECODE_STEPS, "first_pos": start}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    with torch.inference_mode():
+        local = model.empty_cache(shape.batch, S)
+        ssm = local["ssm"] if n_inv else local
+        for key in ("ssm", "conv_x", "conv_B", "conv_C"):
+            ssm[key].copy_(torch.randn(ssm[key].shape, generator=gen, device=dev))
+        if n_inv:
+            _random_rows(torch, local["attn"], gen)
+        kept = {key: ssm[key].clone() for key in ("ssm", "conv_x", "conv_B", "conv_C")}
+    torch.cuda.synchronize()
+    out["init_and_fill_s"] = time.perf_counter() - t0
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for _, t in steps._leaves_with_paths(local) if t.dim())
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def restore():
+        for key, t in kept.items():
+            ssm[key].copy_(t)
+
+    feed = torch.from_numpy(np.random.default_rng(SEED + 26).integers(
+        1, cfg.vocab, (LONG_DECODE_STEPS, 1, 1)).astype(np.int32)).to(dev)
+    kernels = (decode_attention, flash_attention, ssd_scan)
+    with torch.inference_mode():
+        decode(model.param_tree(), _placed_cache(torch, local, cpl, mesh, start), feed[0])  # warm
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts(kernels)
+        decode_attention.slice_launches = 0
+        cache, got, step_s = _placed_cache(torch, local, cpl, mesh, start), [], []
+        storage = _cache_storage(torch, cache)
+        with _no_gathers([]):
+            for tok in feed:
+                t0 = time.perf_counter()
+                logits, cache = decode(model.param_tree(), cache, tok)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                got.append(logits.full_tensor())
+        launches = {**_counts(kernels), "decode_attention_slice": decode_attention.slice_launches}
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["cache_storage_kept"] = _cache_storage(torch, cache) == storage
+        out["final_pos"] = int(cache["pos"])
+        restore()  # the model's own decode_step from the same state, on the same storage
+        own = dict(local, pos=torch.tensor(start, dtype=torch.int32, device=dev))
+        own_logits = [model.decode_step(own, tok)[0] for tok in feed]
+    out["launches"] = launches
+    out["step_ms"] = [t * 1e3 for t in step_s]
+    out["step_ms_median"] = statistics.median(out["step_ms"])
+    out["decode_tokens_per_s"] = shape.batch * len(step_s) / sum(step_s)
+    out["logits_equal_own_decode_step"] = all(torch.equal(g, w) for g, w in zip(got, own_logits))
+    out["logits_finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+    out["logits_shape"] = list(got[0].shape)
+    out["seconds"] = time.perf_counter() - t_in
+    del model, local, cache, own, got, own_logits, kept, ssm
+    torch.cuda.empty_cache()
+    log(f"[long_500k decode] {cfg.name}: {json.dumps(out)}")
+    want = {"decode_attention": n_inv * LONG_DECODE_STEPS, "flash_attention": 0,
+            "flash_attention_tc": 0, "ssd_scan": 0,
+            "decode_attention_slice": n_inv * LONG_DECODE_STEPS}
     if launches != want:
-        raise SystemExit(f"chip_smoke: long_500k's decode steps launched {launches}, wanted {want}")
+        raise SystemExit(f"chip_smoke: {cfg.name} at long_500k launched {launches}, wanted "
+                         f"{want}")
     if not (out["logits_equal_own_decode_step"] and out["logits_finite"]
             and out["logits_shape"] == [shape.batch, cfg.vocab]):
-        raise SystemExit(f"chip_smoke: long_500k's decode logits are wrong: {out}")
+        raise SystemExit(f"chip_smoke: {cfg.name}'s long_500k decode logits are wrong: {out}")
     if not out["cache_storage_kept"] or out["final_pos"] != S - 1:
-        raise SystemExit(f"chip_smoke: long_500k's decode moved the cache or pos: {out}")
-    if not all(c["ok"] for c in checks.values()):
-        raise SystemExit(f"chip_smoke: long_500k's slices disagree: {checks}")
+        raise SystemExit(f"chip_smoke: {cfg.name}'s long_500k decode moved the cache or pos: "
+                         f"{out}")
     return out
 
 
@@ -5844,6 +5975,8 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 for how, row in (("", t["train"]), (" (resumed)", t["resume"]))}
 
     zamba_prefill = f"{zamba['arch']} prefill"
+    ssm_split = {t["arch"]: t["split_steps"]["launches"] for t in (ssm, zamba)}  # phases 6, 11
+    long_ssm = long_ctx["zamba2"]
     for name, replaces, rows_, launches, call in (
         ("flash_attention", "src/repro/kernels/flash_attention.py:66", flash_rows,
          {**by_phase("flash_attention_launches"), **train_launches("forward"),
@@ -5851,6 +5984,7 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
           **{f"{t['arch']} prefill step ({t['layers']} layers)":
              t["split_steps"]["launches"]["flash_attention"] for t in (kimi, deepseek)},
           zamba_prefill: zamba["prefill_launches"]["flash_attention"],
+          f"{zamba['arch']} prefill step": ssm_split[zamba["arch"]]["flash_attention"],
           **{k: v["flash_attention"] for k, v in llava_prefills.items()},
           **{k: v for k, v in whisper_kinds.items() if not k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, "
@@ -5863,12 +5997,15 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
              t["split_steps"]["launches"]["decode_attention"] for t in (kimi, deepseek)},
           f"{long_ctx['arch']} long_500k decode steps ({long_ctx['layers']} layers)":
               long_ctx["launches"]["decode_attention"],
+          f"{zamba['arch']} decode steps": ssm_split[zamba["arch"]]["decode_attention"],
+          f"{long_ssm['arch']} long_500k decode steps": long_ssm["launches"]["decode_attention"],
           **{k: v for k, v in whisper_kinds.items() if k.endswith("decode")}},
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=kpos <= pos, "
          "enable_gqa=True)"),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:68", ssd_rows,
          {ssm["arch"]: ssm["ssd_scan_launches"],
           zamba_prefill: zamba["prefill_launches"]["ssd_scan"],
+          **{f"{arch} prefill step": n["ssd_scan"] for arch, n in ssm_split.items()},
           **ssm_train_launches("ssd_scan")}, None),
     ):
         main = rows_[0]  # the shape the serving path gives the kernel
@@ -5896,10 +6033,12 @@ def _phases(torch, card: str, keep: str, t_start: float) -> int:
                 + sum(v["flash_attention_tc"] for v in llava_prefills.values()) \
                 + whisper["launches"]["flash_attention_tc"] \
                 + sharded["qwen"]["launches"]["flash_attention_tc"] \
-                + sum(t["split_steps"]["launches"]["flash_attention_tc"] for t in (kimi, deepseek))
+                + sum(t["split_steps"]["launches"]["flash_attention_tc"] for t in (kimi, deepseek)) \
+                + ssm_split[zamba["arch"]]["flash_attention_tc"]
         if name == "ssd_scan":
             kernels[-1]["tc_launches"] = ssm["ssd_scan_tc_launches"] \
                 + zamba["prefill_launches"]["ssd_scan_tc"] \
+                + sum(n["ssd_scan_tc"] for n in ssm_split.values()) \
                 + sum(ssm_train_launches("ssd_scan_tc").values())
     main = bwd_rows[0]  # paper_lm's training shape: the north star's train step
     kernels.append({

@@ -12,14 +12,17 @@ reference's result.
 How the work is split:
 
 * **The Megatron split** (``tensor_parallel.py``): the serve steps of a
-  model whose ``splits`` is set and the ``tp`` train step of one whose
-  ``train_splits`` is set (the dense, vlm and moe families,
-  ``TransformerLM``). The batch is split over ``data`` only
+  model whose ``splits`` is set (the dense, vlm, moe, ssm and hybrid
+  families: ``TransformerLM``, ``Mamba2LM``, ``Zamba2LM``) and the ``tp``
+  train step of one whose ``train_splits`` is set (the dense, vlm and moe
+  families). The batch is split over ``data`` only
   (the reference's ``batch_specs``; not at all in ``long_500k``); each rank
-  computes on the weight blocks it stores, heads, ``d_ff``, experts and
-  vocab over ``model``, and on the cache rows it stores (the sequence over
-  ``model``, or ``data`` × ``model`` in ``long_500k``), moving activations
-  and their gradients only. No weight is gathered over ``model`` and no
+  computes on the weight blocks it stores, heads, ``d_ff``, experts, SSM
+  heads and channels and vocab over ``model``, and on the cache blocks it
+  stores (an attention cache's sequence over ``model``, or ``data`` ×
+  ``model`` in ``long_500k``; the SSM state and conv windows on their heads
+  and channels over ``model``), moving activations and their gradients
+  only. No weight is gathered over ``model`` and no
   cache row moves; the logits come back split on the vocab over ``model``.
   The MoE giants' leaves are also split over ``data`` on ``d_model`` (the
   reference's FSDP axis, ``partition.param_specs``): a layer's blocks are
@@ -33,7 +36,7 @@ How the work is split:
   ``data`` each gradient that the gathers did not reduce, then runs AdamW
   on the blocks.
 * **Training the ssm, hybrid and encdec families, the ``dp`` step, and
-  serving the ssm, hybrid and encdec families.** Each rank computes on
+  serving the encdec family.** Each rank computes on
   its block of the global batch, taken over every mesh axis (``dp``'s batch
   spec; ``tp``'s leaves out ``model``, and the port splits over it too, so
   that no two ranks compute the same rows). The global batch must divide,
@@ -42,8 +45,9 @@ How the work is split:
   gather reduce-scatters the layer's gradient to the leaf's blocks. Each
   rank's loss is its block's mean over ``n`` ranks, so the reduced gradient
   is the global batch's (the ``dp`` step tells ``TransformerLM`` the rows'
-  split, ``tensor_parallel.row_split``, for its MoE dispatch). The ssm,
-  hybrid and encdec families' Megatron split is ROADMAP.md item 18.
+  split, ``tensor_parallel.row_split``, for its MoE dispatch). The ssm and
+  hybrid families' training split and the encdec family's Megatron split are
+  ROADMAP.md item 18.
 * **Expert parallel.** With ``moe_ep`` the experts are split over ``model``
   on their dim 0 and tokens travel by all-to-all (``moe_ep.py``); in the
   split, each ``model`` rank sends its ``1/model`` of the rows.
@@ -77,11 +81,10 @@ from .sharding import (GradSink, Spec, _redistribute, axis_size, collect_grads,
 
 Tree = Any
 
-CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the dense, vlm "
-                         "and moe families, which serve through the Megatron split; the ssm and "
-                         "hybrid families' (long_500k's state split, their SSM heads over model) "
-                         "and the encdec family's are ROADMAP.md item 18; on one rank it is "
-                         "today's decode")
+CONTEXT_PARALLEL_TODO = ("context-parallel decode over more than one rank runs for the families "
+                         "that serve through the Megatron split (dense, vlm, moe, ssm, hybrid); "
+                         "the encdec family's is ROADMAP.md item 18; on one rank it is today's "
+                         "decode")
 
 # ------------------------------------------------------------------ tables
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool) -> Dict[str, Spec]:
@@ -749,12 +752,16 @@ def _rows_of(mesh, leaves: Sequence[Tuple[str, Any, Tuple[int, ...]]]
              ) -> Tuple[Tuple[str, ...], int, int]:
     """(the axes that split a cache's sequence, this rank's first row, its
     rows) from its attention leaves' ``(path, placements or None for a whole
-    leaf, global shape)`` (``SEQ_DIM``), which must agree."""
+    leaf, global shape)`` (``SEQ_DIM``), which must agree; ``((), 0, 0)`` for
+    a cache without one (Mamba2's: its state does not grow with the
+    sequence)."""
     got = set()
     for path, pl, shp in leaves:
         dim = SEQ_DIM.get(path.rsplit("/", 1)[-1])
         if dim is not None:
             got.add(((), 0, shp[dim]) if pl is None else _seq_split(mesh, pl, shp, dim))
+    if not got:
+        return (), 0, 0
     if len(got) != 1:
         raise ValueError(f"the cache's attention leaves split their sequence unalike: {got}")
     return got.pop()
@@ -821,10 +828,10 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
     """Returns ``(step, (param_pl, batch_pl), out_pl, params_meta)``;
     ``step(params, batch) -> (logits, cache)`` runs the model's ``prefill``
     under ``decode_rules``: the logits a ``DTensor`` split on the batch (and,
-    for the dense, vlm and moe families, on the vocab over ``model``), the cache
+    for the families that split, on the vocab over ``model``), the cache
     stored by ``cache_spec_tree``. With ``capacity`` (an attention cache's
-    positions, ``TransformerLM``) the cache has room for the decode steps
-    that follow."""
+    positions: ``TransformerLM``, ``Zamba2LM``) the cache has room for the
+    decode steps that follow."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)
     meta = _meta_model(model)
@@ -855,8 +862,9 @@ def make_prefill_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False,
 def make_decode_step(model, mesh, shape: ShapeSpec, *, multi_pod: bool = False):
     """Returns ``(step, (param_pl, cache_pl, tok_pl), out_pl, (params_meta,
     cache_meta))``; ``step(params, cache, tokens) -> (logits, cache)`` runs
-    ``decode_step`` (the dense, vlm and moe families' split, the others' on this
-    rank's rows) and hands back the cache in the placements it took."""
+    ``decode_step`` (the split of the dense, vlm, moe, ssm and hybrid families;
+    the encdec family's on this rank's rows of the batch, its weights
+    gathered) and hands back the cache in the placements it took."""
     cfg = model.cfg
     rules = decode_rules(multi_pod, shard_kv_seq=shape.context_parallel)
     meta = _meta_model(model)

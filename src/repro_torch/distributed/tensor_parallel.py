@@ -7,7 +7,8 @@ The reference has no such module: GSPMD writes this for it from the spec
 tables (``partition.param_specs``, ``steps.cache_spec_tree``), which fix
 what each rank holds. Inside a serve step (``steps.make_prefill_step``/
 ``make_decode_step``, dense, vlm and moe families) a rank computes on the
-blocks it stores and moves only activations:
+blocks it stores and moves only activations (the ssm and hybrid families'
+Mamba2 layers too, below):
 
 * **weights** are the local blocks of their ``DTensor``s, split over
   ``model`` on heads, ``head_dim``, ``d_ff``, experts or vocab, or whole
@@ -25,6 +26,17 @@ blocks it stores and moves only activations:
   ``long_500k``) through the decode kernel's slice call, and the ranks'
   partials are merged by :func:`combine`: an all-reduce of the max of the
   log-sum-exps, then one of the weighted sums;
+* **Mamba2 layers** (``models/mamba.py``, the ssm and hybrid families):
+  ``w_z``/``w_x``/``w_dt`` and the convolutions are column-parallel on the
+  rank's ``d_inner`` channels and its SSM heads (whole ``(H,)`` leaves
+  sliced to them), the scan runs on those heads; ``w_B``/``w_C`` split on
+  ``G·N`` give the rank's columns of the convolved B and C, all-gathered
+  (:func:`all_gather_for_split`: every head reads all of N); the gated
+  RMSNorm over the split ``d_inner`` sums the blocks' shares of its mean
+  square over ``model``
+  (:func:`sum_over_model`); ``out_proj`` is row-parallel. Zamba2's
+  ``shared/out_proj`` is stored split on its input: each rank takes its
+  block of the shared attention's all-reduced output;
 * **the batch's row blocks**: where a step splits the global batch's rows
   over mesh axes (``data``/``pod`` in the split steps, every axis in the
   ``dp`` step), :class:`Split` names their groups and this rank's block, so
@@ -296,10 +308,10 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _SumOverRows(torch.autograd.Function):
-    """The sum over the row blocks forward (into a new tensor), and the
-    gradient summed over them backward: every block's loss uses the sum
-    whole, so each block's share of it takes every loss's gradient."""
+class _SumOver(torch.autograd.Function):
+    """The sum over ``groups`` forward (into a new tensor), and the gradient
+    summed over them backward: every rank uses the sum whole, so each rank's
+    share of it takes every rank's gradient."""
 
     @staticmethod
     def forward(ctx, x, groups):
@@ -321,7 +333,20 @@ def sum_over_rows(x: torch.Tensor, sp: Split) -> torch.Tensor:
         return x
     if not _tracked(x):
         return all_reduce(x.clone(memory_format=torch.contiguous_format), sp.row_groups)
-    return _SumOverRows.apply(x, sp.row_groups)
+    return _SumOver.apply(x, sp.row_groups)
+
+
+def sum_over_model(x: torch.Tensor, sp: Split) -> torch.Tensor:
+    """The sum over ``model`` of each rank's partial ``x`` (a new tensor)
+    for a value that every rank then uses whole on its own block (the
+    gated RMSNorm's mean square over a split ``d_inner``): its backward
+    sums the ranks' shares of the gradient. ``x`` itself on one rank; the
+    plain all-reduce outside autograd."""
+    if not sp.model_groups:
+        return x
+    if not _tracked(x):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), sp.model_groups)
+    return _SumOver.apply(x, sp.model_groups)
 
 
 def copy_to_model(x: torch.Tensor, sp: Split) -> torch.Tensor:

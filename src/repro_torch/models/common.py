@@ -111,9 +111,18 @@ def stack_init(n: int, init_fn: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------- norms
-def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float = 1e-6,
+            sum_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+            width: int = 0) -> torch.Tensor:
+    """With ``sum_over`` and ``width``, the norm over a last dim of ``width``
+    of which ``x`` may hold a block (a rank's): the block's f32 mean square,
+    weighted by its share of ``width``, is summed by ``sum_over`` (over the
+    ranks). A whole ``x`` takes its own mean, with no more launches."""
     x32 = x.float()
-    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if sum_over is not None and x.shape[-1] != width:
+        ms = sum_over(ms * (x.shape[-1] / width))
+    y = x32 * torch.rsqrt(ms + eps)
     if weight is not None:
         y = y * (1.0 + weight.float())
     return y.to(x.dtype)

@@ -24,6 +24,18 @@ differentiable ``ops.flash_attention``. Per-layer views and RoPE tables are
 made anew each training call: the serving ones may be inference tensors.
 The parameters are built with ``requires_grad=False`` for serving; a
 trainer turns them on (``model.requires_grad_(True)``).
+
+Serving (``prefill``, ``decode_step``) computes on each rank's blocks of the
+weights, the Megatron split of ``distributed/tensor_parallel.py``, as
+``TransformerLM`` does: a serve step hands it its ``Split``, and without one
+it computes under one rank's, on the whole weights, so that the split is its
+only serving path. The Mamba2 layers compute on the rank's SSM heads and
+channels (``models/mamba.py``), whose state and conv windows the cache holds;
+Zamba2's shared block on its heads, ``d_ff`` columns and cache rows, through
+``attention.py:gqa_{prefill,decode}`` and ``ffn.py:mlp``. No weight is
+gathered over ``model``. Training gathers a layer's weights whole at its
+entry (``sharding.gather_tree``): its split is ROADMAP.md item 18's next
+entry.
 """
 
 from __future__ import annotations
@@ -35,13 +47,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_loader import resolve_device
+from ..distributed import tensor_parallel as tp
 from ..distributed.sharding import gather_tree
 from .attention import gqa_attention, gqa_decode, gqa_prefill, init_gqa
 from .common import Initializer, ParamTree, make_norm, rope_freqs, stack_init
 from .config import ModelConfig
 from .ffn import init_mlp, mlp
 from .mamba import empty_mamba_cache, init_mamba, mamba_decode, mamba_forward
-from .transformer import TransformerLM, _index, _unstack
+from .transformer import TransformerLM, _unstack
 
 _CACHE_KEYS = ("ssm", "conv_x", "conv_B", "conv_C")
 
@@ -52,8 +65,9 @@ class Mamba2LM(TransformerLM):
     as there."""
 
     family = "ssm"
-    # gathers its sharded weights; the Megatron split is TransformerLM's
-    splits = train_splits = False
+    #: serves on each rank's blocks (the Megatron split); trains on weights gathered
+    #: a layer at a time (ROADMAP.md item 18)
+    splits, train_splits = True, False
 
     def __init__(self, cfg: ModelConfig, *, device: Any = None, seed: int = 0):
         nn.Module.__init__(self)
@@ -77,7 +91,7 @@ class Mamba2LM(TransformerLM):
                 ini.normal((cfg.d_model, cfg.vocab), scale=1.0 / cfg.d_model ** 0.5),
                 requires_grad=False,
             )
-        self._layers: Optional[List[Dict[str, Any]]] = None
+        self._layers: Optional[Dict[str, Any]] = None  # serving blocks, made lazily
 
     def _init_blocks(self, ini: Initializer) -> None:
         """The parameters of blocks beside the Mamba2 layers: none here."""
@@ -90,63 +104,87 @@ class Mamba2LM(TransformerLM):
             tree["lm_head"] = self.lm_head
         return tree
 
-    def _layer_params(self) -> List[Dict[str, Any]]:
+    def _serve_params(self) -> Dict[str, Any]:
+        """What serving computes on, made once: ``layers``, each layer's
+        weights, and the blocks beside them (``_side_blocks``), this rank's
+        blocks of each (the whole weights on one rank or without a mesh).
+        The ssm and hybrid families' leaves have no FSDP axis
+        (``partition.py`` gives it to the MoE giants only), so what
+        ``tp.weights`` hands a layer is the block the rank stores."""
         if self._layers is None:
-            stacked = self.layers.tree()
-            self._layers = [_index(stacked, i) for i in range(self.cfg.n_layers)]
+            layers = _unstack(self.layers.tree(), self.cfg.n_layers, local=True)
+            self._layers = {"layers": [tp.weights(p) for p in layers], **self._side_blocks()}
         return self._layers
 
-    def _ssm_prefill(self, i: int, x: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
-        """Mamba2 layer ``i`` over the prompt; writes its final SSM state and
-        conv tails into row ``i`` of the stacked ``cache``."""
+    def _side_blocks(self) -> Dict[str, Any]:
+        """The serving blocks of the parameters beside the Mamba2 layers: none here."""
+        return {}
+
+    def _ssm_prefill(self, p, x: torch.Tensor, cache: Dict[str, Any], i: int,
+                     sp: tp.Split) -> torch.Tensor:
+        """Mamba2 layer ``i`` (its weights ``p``) over the prompt; writes its
+        final SSM state and conv tails into row ``i`` of the stacked ``cache``."""
         _, norm = make_norm(self.cfg.norm)
-        p = gather_tree(self._layer_params()[i])
-        h, (ssm, conv) = mamba_forward(p["ssm"], norm(p["ln"], x), self.cfg, return_state=True)
+        h, (ssm, conv) = mamba_forward(p["ssm"], norm(p["ln"], x), self.cfg, return_state=True,
+                                       sp=sp)
         cache["ssm"][i].copy_(ssm)
         for key, tail in (("conv_x", conv["x"]), ("conv_B", conv["B"]), ("conv_C", conv["C"])):
             # a prompt shorter than the conv's reach leaves the zeros of its padding
             cache[key][i][:, cache[key].shape[2] - tail.shape[1]:].copy_(tail)
         return x + h
 
-    def _ssm_decode(self, i: int, x: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
-        """Mamba2 layer ``i`` for one token; updates row ``i`` of ``cache`` in place."""
+    def _ssm_decode(self, p, x: torch.Tensor, cache: Dict[str, Any], i: int,
+                    sp: tp.Split) -> torch.Tensor:
+        """Mamba2 layer ``i`` (its weights ``p``) for one token; updates row
+        ``i`` of ``cache`` in place."""
         _, norm = make_norm(self.cfg.norm)
-        p = gather_tree(self._layer_params()[i])
         layer_cache = {key: cache[key][i] for key in _CACHE_KEYS}
-        return x + mamba_decode(p["ssm"], norm(p["ln"], x), layer_cache, self.cfg)
+        return x + mamba_decode(p["ssm"], norm(p["ln"], x), layer_cache, self.cfg, sp)
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
+                split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process prompts ``tokens`` (B, S); returns (last-position logits
-        (B, V), cache with ``pos`` = S)."""
-        x = self._embed_inputs(tokens)
-        B, S, _ = x.shape
-        cache = self.empty_cache(B, S)
-        for i in range(self.cfg.n_layers):
-            x = self._ssm_prefill(i, x, cache)
-        logits = self._logits(self._final_norm(x[:, -1:, :]))
-        cache["pos"].fill_(S)
+        (B, V), cache with ``pos`` = S). ``capacity`` is taken as the split
+        steps pass it: the cache's size does not depend on it. With ``split``
+        (a serve step's over a mesh): this rank's batch rows, its SSM heads
+        and channels of the cache, its vocab columns of the logits."""
+        del capacity
+        sp = split or tp.ONE
+        x = self._embed_inputs(tokens, None, sp)
+        layers = self._serve_params()["layers"]
+        cache = self.empty_cache(x.shape[0], block=layers[0]["ssm"])
+        for i, p in enumerate(layers):
+            x = self._ssm_prefill(p, x, cache, i, sp)
+        logits = self._logits(self._final_norm(x[:, -1:, :], sp), sp)
+        cache["pos"].fill_(x.shape[1])
         return logits[:, 0], cache
 
     @torch.inference_mode()
-    def empty_cache(self, batch: int, seq: int = 0, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    def empty_cache(self, batch: int, seq: int = 0, dtype: Optional[torch.dtype] = None, *,
+                    block: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """A zeroed cache on the module's device; its size does not depend on
-        ``seq``."""
+        ``seq``. With ``block`` (a layer's ``ssm`` weights on a rank), of its
+        heads and channels."""
         del seq
         cache: Dict[str, Any] = empty_mamba_cache(self.cfg, batch, dtype or self.cfg.cdtype,
-                                                  self.device, self.cfg.n_layers)
+                                                  self.device, self.cfg.n_layers, block)
         cache["pos"] = torch.zeros((), dtype=torch.int32, device=self.device)
         return cache
 
     @torch.inference_mode()
-    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor, *,
+                    split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token (B, 1) for every sequence. Writes the cache in place and
-        returns (logits (B, V), the cache with ``pos + 1``)."""
-        x = self._embed_inputs(tokens)
-        for i in range(self.cfg.n_layers):
-            x = self._ssm_decode(i, x, cache)
-        logits = self._logits(self._final_norm(x))
+        returns (logits (B, V), the cache with ``pos + 1``); with ``split``,
+        on this rank's blocks of the cache, and its vocab columns of the
+        logits."""
+        sp = split or tp.ONE
+        x = self._embed_inputs(tokens, None, sp)
+        for i, p in enumerate(self._serve_params()["layers"]):
+            x = self._ssm_decode(p, x, cache, i, sp)
+        logits = self._logits(self._final_norm(x, sp), sp)
         cache["pos"] = cache["pos"] + 1
         return logits[:, 0], cache
 
@@ -238,51 +276,83 @@ class Zamba2LM(Mamba2LM):
             segs.append((lo, self.cfg.n_layers))
         return segs, len(self.invocations)
 
-    def _shared_block(self, p, x: torch.Tensor, x0: torch.Tensor,
-                      attn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """The shared block around its attention ``attn(u) -> a`` over the
-        normed ``concat([x, x0])`` (width 2d): project to d, residual add,
-        then the MLP (``attn`` gathers its own weights)."""
-        p = gather_tree(p, keep=("attn",))
-        _, norm = make_norm(self.cfg.norm)
-        a = attn(norm(p["ln_in"], torch.cat([x, x0], dim=-1)))
-        x = x + a @ p["out_proj"].to(x.dtype)
-        return x + mlp(p["mlp"], norm(p["ln_mlp"], x), self.cfg)
+    def _side_blocks(self) -> Dict[str, Any]:
+        """The shared block's serving blocks (``_serve_params``)."""
+        return {"shared": tp.weights(self.shared.tree())}
 
-    def _run(self, x: torch.Tensor, layer: Callable, attn: Callable) -> torch.Tensor:
+    def _shared_block(self, p, x: torch.Tensor, x0: torch.Tensor, attn: Callable,
+                      sp: Optional[tp.Split] = None) -> torch.Tensor:
+        """The shared block around its attention ``attn(u) -> a`` over the
+        normed ``concat([x, x0])`` (width 2d): ``out_proj`` back to d, the
+        residual add, then the MLP. Under a split ``sp``, on this rank's
+        blocks ``p``: ``attn``'s row-parallel ``wo`` hands back its whole
+        output, all-reduced as in the dense family; ``shared/out_proj`` is
+        stored split on its input (the 2d rows), so this rank takes its block
+        of those columns and ``out_proj`` is row-parallel too. (A
+        reduce-scatter to the block would move half the bytes of the
+        all-reduce, but would need an attention output of another width than
+        the layer's.) Without one (training), the weights are gathered here
+        (``attn`` gathers its own)."""
+        if sp is None:
+            p = gather_tree(p, keep=("attn",))
+        _, norm = make_norm(self.cfg.norm)
+        w = p["out_proj"]
+        a = attn(norm(p["ln_in"], torch.cat([x, x0], dim=-1)))
+        lo = tp.offset(w.shape[0], a.shape[-1], sp or tp.ONE)
+        y = a[..., lo:lo + w.shape[0]] @ w.to(x.dtype)
+        if w.shape[0] != a.shape[-1]:
+            y = tp.reduce_from_model(y, sp)
+        x = x + y
+        return x + mlp(p["mlp"], norm(p["ln_mlp"], x), self.cfg, sp or tp.ONE)
+
+    def _run(self, x: torch.Tensor, layer: Callable, attn: Callable, shared,
+             sp: Optional[tp.Split] = None) -> torch.Tensor:
         """The layers in order, then the final norm: ``layer(i, x)`` for each
         Mamba2 layer and, after each segment but the last, the shared block
-        around ``attn(j, u)`` for invocation j."""
+        (its weights ``shared``) around ``attn(j, u)`` for invocation j."""
         x0 = x
         segs, n_inv = self._segments()
         for j, (lo, hi) in enumerate(segs):
             for i in range(lo, hi):
                 x = layer(i, x)
             if j < n_inv:
-                x = self._shared_block(self.shared, x, x0, lambda u, j=j: attn(j, u))
-        return self._final_norm(x)
+                x = self._shared_block(shared, x, x0, lambda u, j=j: attn(j, u), sp)
+        return self._final_norm(x, sp)
 
     # ---- serve --------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def prefill(self, tokens: torch.Tensor, *, capacity: Optional[int] = None,
+                split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process prompts ``tokens`` (B, S); returns (last-position logits
-        (B, V), cache with attention K/V of length S and ``pos`` = S)."""
-        x = self._embed_inputs(tokens)
+        (B, V), cache with attention K/V of capacity S, or ``capacity``
+        positions where given, and ``pos`` = S). With ``split`` (a serve
+        step's over a mesh): this rank's batch rows, its SSM heads and
+        channels and its K/V rows ``[kv_start, kv_start + rows)`` of the
+        cache, its vocab columns of the logits."""
+        sp = split or tp.ONE
+        x = self._embed_inputs(tokens, None, sp)
         B, S, _ = x.shape
+        if (capacity or S) < S:
+            raise ValueError(f"a cache of capacity {capacity} cannot hold {S} positions")
+        lo, rows = (split.kv_start, split.rows) if split else (0, capacity or S)
+        hi = min(lo + rows, S)  # the prompt's rows held here
+        params = self._serve_params()
+        cache = self.empty_cache(B, rows, block=params["layers"][0]["ssm"])
         positions = torch.arange(S, device=self.device)
-        cache = self.empty_cache(B, S)
         acfg = self.attn_cfg
         freqs = self._rope(acfg.head_dim, acfg.rope_theta)
 
         def attn(j, u):
-            a, k, v = gqa_prefill(gather_tree(self.shared.attn), u, acfg,
-                                  positions=positions, window=0, freqs=freqs)
-            cache["attn"]["k"][j].copy_(k)
-            cache["attn"]["v"][j].copy_(v)
+            a, k, v = gqa_prefill(params["shared"]["attn"], u, acfg, positions=positions,
+                                  window=0, freqs=freqs, sp=sp)
+            if hi > lo:
+                cache["attn"]["k"][j][:, :, :hi - lo].copy_(k[:, :, lo:hi])
+                cache["attn"]["v"][j][:, :, :hi - lo].copy_(v[:, :, lo:hi])
             return a
 
-        h = self._run(x, lambda i, x: self._ssm_prefill(i, x, cache["ssm"]), attn)
-        logits = self._logits(h[:, -1:, :])
+        h = self._run(x, lambda i, x: self._ssm_prefill(params["layers"][i], x, cache["ssm"], i,
+                                                        sp), attn, params["shared"], sp)
+        logits = self._logits(h[:, -1:, :], sp)
         cache["pos"].fill_(S)
         return logits[:, 0], cache
 
@@ -301,38 +371,46 @@ class Zamba2LM(Mamba2LM):
             return gqa_attention(gather_tree(self.shared.attn), u, acfg,
                                  positions=positions, window=0, freqs=freqs)
 
-        h = self._run(x, self._train_layers(), attn)
+        h = self._run(x, self._train_layers(), attn, self.shared)
         return h, torch.zeros((), dtype=torch.float32, device=self.device)
 
     @torch.inference_mode()
-    def empty_cache(self, batch: int, seq: int, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    def empty_cache(self, batch: int, seq: int, dtype: Optional[torch.dtype] = None, *,
+                    block: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """A zeroed cache on the module's device: the stacked SSM caches and
-        K/V of capacity ``seq`` for each invocation of the shared block."""
+        K/V of capacity ``seq`` for each invocation of the shared block (a
+        rank's rows under a split). With ``block`` (a layer's ``ssm`` weights
+        on a rank), the SSM caches of its heads and channels."""
         cfg, acfg = self.cfg, self.attn_cfg
         dtype = dtype or cfg.cdtype
-        n_inv = len(self.invocations)
-        shape = (n_inv, batch, acfg.n_kv_heads, seq, acfg.head_dim)
-        return {
-            "ssm": empty_mamba_cache(cfg, batch, dtype, self.device, cfg.n_layers),
-            "attn": {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                     "v": torch.zeros(shape, dtype=dtype, device=self.device)},
-            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
-        }
+        shape = (len(self.invocations), batch, acfg.n_kv_heads, seq, acfg.head_dim)
+        cache = super().empty_cache(batch, seq, dtype, block=block)
+        pos = cache.pop("pos")
+        return {"ssm": cache,
+                "attn": {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                         "v": torch.zeros(shape, dtype=dtype, device=self.device)},
+                "pos": pos}
 
     @torch.inference_mode()
-    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def decode_step(self, cache: Dict[str, Any], tokens: torch.Tensor, *,
+                    split: Optional[tp.Split] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token (B, 1) for every sequence. Writes the cache in place and
-        returns (logits (B, V), the cache with ``pos + 1``)."""
+        returns (logits (B, V), the cache with ``pos + 1``); with ``split``,
+        on this rank's blocks of the cache (its SSM heads and channels, its
+        K/V rows), and its vocab columns of the logits."""
+        sp = split or tp.ONE
         pos = cache["pos"]
+        params = self._serve_params()
         acfg = self.attn_cfg
         freqs = self._rope(acfg.head_dim, acfg.rope_theta)
 
         def attn(j, u):
-            return gqa_decode(gather_tree(self.shared.attn), u, cache["attn"]["k"][j],
-                              cache["attn"]["v"][j], pos, acfg, window=0, freqs=freqs)
+            return gqa_decode(params["shared"]["attn"], u, cache["attn"]["k"][j],
+                              cache["attn"]["v"][j], pos, acfg, window=0, freqs=freqs, sp=sp)
 
-        h = self._run(self._embed_inputs(tokens),
-                      lambda i, x: self._ssm_decode(i, x, cache["ssm"]), attn)
-        logits = self._logits(h)
+        h = self._run(self._embed_inputs(tokens, None, sp),
+                      lambda i, x: self._ssm_decode(params["layers"][i], x, cache["ssm"], i, sp),
+                      attn, params["shared"], sp)
+        logits = self._logits(h, sp)
         cache["pos"] = pos + 1
         return logits[:, 0], cache

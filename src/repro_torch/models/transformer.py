@@ -53,8 +53,9 @@ over ``data`` too, are gathered at each layer's entry, keeping their
 ``model`` block (``_layer_weights``); no weight is gathered over
 ``model``, and serving attends the rank's rows of the cache. The helpers'
 paths without a split (``sp`` None: the weights gathered a layer at a time
-by ``distributed.sharding.gather_tree``) are those of the subclasses in
-``ssm_lm.py``, which do not split.
+by ``distributed.sharding.gather_tree``) are the training paths of the
+subclasses in ``ssm_lm.py``, which serve through the split and do not train
+through it.
 """
 
 from __future__ import annotations

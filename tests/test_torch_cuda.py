@@ -1623,6 +1623,69 @@ def test_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_r
     assert cache["dense"]["k"].to_local().data_ptr() == ptr
 
 
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1_2b"])
+def test_ssm_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_rank_group,
+                                                                         arch):
+    """Reduced Mamba2 and Zamba2 (f32; Zamba2's shared attention tempered, as
+    ``test_zamba2_on_card_matches_cpu`` tempers it) through the split prefill
+    and decode steps on a one-rank NCCL mesh: logits bit-equal to the
+    model's own ``prefill``/``decode_step``, one ``ssd_scan`` launch a layer
+    and one flash launch a shared-block invocation a prefill, one decode
+    slice call an invocation a step (the model's own too), the cache's
+    storage kept, and a split decode step does not sync with the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import build_model
+
+    mesh = _one_rank_nccl_mesh()
+    cfg = get_config(arch).reduced()
+    own, model = (build_model(cfg, device=card, seed=6) for _ in range(2))
+    if cfg.family == "hybrid":
+        width = 2 * cfg.d_model
+        with torch.no_grad():
+            for m in (own, model):
+                for name, factor in (("wq", cfg.n_heads / width), ("wk", cfg.n_kv_heads / width),
+                                     ("wv", cfg.n_kv_heads / width), ("wo", 1 / cfg.n_heads)):
+                    getattr(m.shared.attn, name).mul_(factor ** 0.5)
+    n_inv = len(getattr(model, "invocations", ()))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg.vocab, (4, 64))
+                            .astype(np.int32))
+    feed = torch.from_numpy(np.random.default_rng(7).integers(1, cfg.vocab, (3, 4, 1))
+                            .astype(np.int32)).to(card)
+    pre, (ppl, _), _, _ = steps.make_prefill_step(model, mesh, ShapeSpec("p", "prefill", 64, 4),
+                                                  capacity=72)
+    dec, _, _, _ = steps.make_decode_step(model, mesh, ShapeSpec("d", "decode", 72, 4))
+    steps.shard_model(model, mesh, ppl)
+    with torch.inference_mode():
+        before = (ssd.launches, fa.launches)
+        want, wc = own.prefill(toks.to(card), capacity=72)
+        got, cache = pre(model.param_tree(), {"tokens": toks})
+        torch.cuda.synchronize()
+        assert (ssd.launches - before[0], fa.launches - before[1]) == \
+            (2 * cfg.n_layers, 2 * n_inv)  # the model's and the step's
+        assert torch.equal(got.to_local(), want)
+        ptrs = {k: t.to_local().data_ptr() for k, t in steps._leaves_with_paths(cache)
+                if t.dim()}
+        launched, sliced = da.launches, da.slice_launches
+        for tok in feed:
+            want, wc = own.decode_step(wc, tok)
+            got, cache = dec(model.param_tree(), cache, tok)
+            assert torch.equal(got.to_local(), want)
+        torch.cuda.synchronize()
+        assert da.slice_launches - sliced == da.launches - launched == 2 * n_inv * len(feed)
+        step = got.to_local().argmax(-1, keepdim=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, cache = dec(model.param_tree(), cache, step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ptrs == {k: t.to_local().data_ptr() for k, t in steps._leaves_with_paths(cache)
+                    if t.dim()}
+    assert torch.isfinite(got.to_local().float()).all()
+
+
 @pytest.mark.parametrize("arch", ["kimi_k2_1t", "deepseek_v3_671b"])
 def test_moe_split_decode_step_on_a_one_rank_nccl_mesh_is_the_models_own(card, one_rank_group,
                                                                          arch):

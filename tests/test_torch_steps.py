@@ -3,7 +3,7 @@ against the JAX package's, jitted with their shardings on a one-device
 ``("data", "model")`` mesh: one train step of reduced OLMo, InternLM2,
 Kimi-K2 and DeepSeek-V3 (with and without ``moe_ep``) over ``tp`` and ``dp``,
 1 and 2 microbatches, ``grad_dtype`` None and bfloat16; the prefill and decode
-steps of a reduced dense model, of Mamba2, Kimi-K2 and DeepSeek-V3. The weights are the port's
+steps of a reduced dense model, of Mamba2, Zamba2, Kimi-K2 and DeepSeek-V3. The weights are the port's
 init from a seed, handed to the JAX package as numpy arrays (the
 reference's own init folds in a salted hash and compiles for seconds), the
 attention tempered as ``tests/test_torch_moe.py`` tempers it."""
@@ -63,17 +63,19 @@ def _jax_mesh():
 
 
 def _temper(params, cfg):
-    """``tests/test_torch_moe.py:_temper`` over the stacks a config has
-    (numpy leaves)."""
+    """``tests/test_torch_moe.py:_temper`` over the stacks a config has, and
+    Zamba2's shared attention as ``tests/test_torch_zamba.py:_temper`` does
+    (its width is 2·d_model) (numpy leaves)."""
     H = cfg.n_heads
     if cfg.attn_type == "mla":
         m = cfg.mla
         factors = {"wq_b": H / m.q_lora_rank, "wkv_b": H / m.kv_lora_rank, "wo": 1 / H}
     else:
-        KV, d = cfg.n_kv_heads, cfg.d_model
+        KV = cfg.n_kv_heads
+        d = 2 * cfg.d_model if "shared" in params else cfg.d_model
         factors = {"wq": H / d, "wk": KV / d, "wv": KV / d, "wo": 1 / H}
     out = dict(params)
-    for stack in ("dense_layers", "moe_layers"):
+    for stack in ("dense_layers", "moe_layers", "shared"):
         if stack in params:
             attn = {k: v * factors[k] ** 0.5 if k in factors else v
                     for k, v in params[stack]["attn"].items()}
@@ -279,17 +281,22 @@ def test_train_step_refuses_a_batch_that_does_not_split(mesh):
     assert not any(tensor_parallel.local(p).requires_grad for p in port.parameters())
 
 
-@pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m", "kimi_k2_1t", "deepseek_v3_671b"])
+@pytest.mark.parametrize("arch", ["qwen2_5_14b", "mamba2_780m", "zamba2_1_2b", "kimi_k2_1t",
+                                  "deepseek_v3_671b"])
 def test_prefill_and_decode_steps_match_jax(mesh, arch):
     """The reference's prefill and decode steps (jitted with their
     shardings) and the port's: the prompt's first S - 1 tokens right-padded
     to the capacity (the engine's way to make room), ``pos`` rewound, then
     three decode steps; logits at each, and the caches the port hands back
-    keep the placements they took."""
+    keep the placements they took. The ssm and hybrid families' state would
+    take the padding in, so they take the whole prompt: the port's Zamba2
+    prefill makes room for the steps (``capacity``), and the reference's,
+    which leaves none (``src/repro/models/ssm_lm.py:230-250``), has its K/V
+    padded with zeros to the capacity."""
     jcfg, jmodel, params, port = _pair(arch)
     cap = S + 4
     prompts = np.random.default_rng(9).integers(1, jcfg.vocab, (B, S)).astype(np.int32)
-    ssm = jcfg.family == "ssm"
+    ssm = jcfg.family in ("ssm", "hybrid")
     toks = prompts if ssm else np.concatenate(
         [prompts[:, :S - 1], np.zeros((B, cap - S + 1), np.int32)], 1)
     jmesh = _jax_mesh()
@@ -297,8 +304,11 @@ def test_prefill_and_decode_steps_match_jax(mesh, arch):
                                                                     B))
     dec, dsh, dout, _ = jsteps.make_decode_step(jmodel, jmesh, JShape("d", "decode", cap, B))
     jlog, jcache = jax.jit(pre, in_shardings=psh)(params, {"tokens": jnp.asarray(toks)})
+    if jcfg.family == "hybrid":
+        pad = [(0, 0)] * 3 + [(0, cap - S), (0, 0)]
+        jcache = dict(jcache, attn={k: jnp.pad(v, pad) for k, v in jcache["attn"].items()})
     shape = ShapeSpec("p", "prefill", toks.shape[1], B)
-    tpre, (ppl, _), _, _ = tsteps.make_prefill_step(port, mesh, shape)
+    tpre, (ppl, _), _, _ = tsteps.make_prefill_step(port, mesh, shape, capacity=cap)
     tdec, (_, cpl, _), _, _ = tsteps.make_decode_step(port, mesh,
                                                       ShapeSpec("d", "decode", cap, B))
     tsteps.shard_model(port, mesh, ppl)
@@ -324,14 +334,17 @@ def test_prefill_and_decode_steps_match_jax(mesh, arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_5_14b", "gemma3_12b", "llava_next_mistral_7b",
-                                  "kimi_k2_1t", "deepseek_v3_671b"])
+                                  "kimi_k2_1t", "deepseek_v3_671b", "mamba2_780m",
+                                  "zamba2_1_2b"])
 def test_split_serve_steps_are_the_models_own_on_one_rank(mesh, arch):
     """On one rank the Megatron split is the model's own serving, op for op:
     the prefill step's and every decode step's logits equal the unsharded
     model's ``prefill``/``decode_step`` bit for bit (qwen's bias and padded
     heads, gemma3's windows, QK-norm, sandwich norms and tied embedding,
-    llava's patches, kimi's experts and deepseek's MLA latent cache), and
-    every decode launch, the model's own too, is the kernel's slice call."""
+    llava's patches, kimi's experts, deepseek's MLA latent cache, Mamba2's
+    SSM state and conv windows, Zamba2's shared block), and every decode
+    launch, the model's own too, is the kernel's slice call (one a layer;
+    Zamba2's one an invocation of its shared block, Mamba2's none)."""
     from repro_torch.kernels import ref
 
     jcfg, _, params, port = _pair(arch)
@@ -367,7 +380,9 @@ def test_split_serve_steps_are_the_models_own_on_one_rank(mesh, arch):
                 assert torch.equal(got.full_tensor(), want)
     finally:
         ref.decode_attention_ref = plain
-    n = port.cfg.n_layers * len(feed)
+    attending = {"ssm": 0, "hybrid": len(getattr(port, "invocations", ()))}.get(
+        port.cfg.family, port.cfg.n_layers)
+    n = attending * len(feed)
     assert calls == [True] * (2 * n)  # the model's and the steps': slice calls, one a layer
 
 

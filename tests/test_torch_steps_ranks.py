@@ -16,8 +16,11 @@ storage (the moe family's in the reference's placements); ``long_500k``'s
 context-parallel decode (batch 1, the cache's sequence split over data ×
 model) equals one rank's and, for gemma3, the reference's jitted step at
 one device, and so does the moe family's (kimi's GQA, deepseek's MLA
-latent cache); the ssm family's context-parallel decode over several ranks
-raises, naming ROADMAP item 18."""
+latent cache) and the ssm and hybrid families' (Mamba2's SSM state and
+conv windows split on their heads and channels over ``model``, Zamba2's
+shared K/V over data × model), theirs against the reference's jitted step
+too; the encdec family's context-parallel decode over several ranks raises,
+naming ROADMAP item 18."""
 
 import functools
 import inspect
@@ -83,6 +86,10 @@ CP_STEPS = 3
 #: 16 (their config's capacity factor 1.25, 1 dispatch chunk: a chunk over every
 #: data rank), and batch 1 of 19 in 32 rows split over every rank (long_500k)
 MOE_SERVE = [("kimi_k2_1t", 6), ("deepseek_v3_671b", 7)]
+#: (arch, seed) of the ssm and hybrid families' serving (reduced: 8 SSM heads, G·N 16,
+#: Zamba2's 4 shared heads of 64 tempered), as ``MOE_SERVE``'s: 8 prompts of 12 in a
+#: cache of 16, and batch 1 of 19 in 32 rows over every rank (long_500k)
+SSM_SERVE = [("mamba2_780m", 8), ("zamba2_1_2b", 9)]
 #: (arch, moment dtype, sequence) of each strategy's train step. ``tp``: the
 #: Megatron split for the dense and vlm families (InternLM2; reduced qwen: qkv
 #: bias, 4 + 8 padded heads over 2 KV heads, which a model axis of 4 does not
@@ -150,13 +157,14 @@ try:
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.shapes import ShapeSpec
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model, ssm_lm, transformer
     from repro_torch.train.loop import make_step
 
     B = 8
     TRAIN_CASES = json.loads(os.environ["RA_TRAIN_CASES"])
     CP_CASE = json.loads(os.environ["RA_CP_CASE"])
     MOE_SERVE = json.loads(os.environ["RA_MOE_SERVE"])
+    SSM_SERVE = json.loads(os.environ["RA_SSM_SERVE"])
     out = {}
 
     def train_config(case):
@@ -261,16 +269,17 @@ try:
 
     def temper(model):
         # the attention weights scaled as tests/test_torch_steps.py:_temper does,
-        # in each stack a config has
+        # in each stack a config has (Zamba2's shared block 2·d_model wide)
         cfg = model.cfg
-        H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        d = 2 * cfg.d_model if hasattr(model, "shared") else cfg.d_model
         if cfg.attn_type == "mla":
             m = cfg.mla
             factors = {"wq_b": H / m.q_lora_rank, "wkv_b": H / m.kv_lora_rank, "wo": 1 / H}
         else:
             factors = {"wq": H / d, "wk": KV / d, "wv": KV / d, "wo": 1 / H}
         with torch.no_grad():
-            for stack in ("dense_layers", "moe_layers"):
+            for stack in ("dense_layers", "moe_layers", "shared"):
                 if hasattr(model, stack):
                     for name, f in factors.items():
                         getattr(getattr(model, stack).attn, name).mul_(f ** 0.5)
@@ -312,7 +321,8 @@ try:
         steps.shard_model(model, mesh, ppl)
         gathers = []
         saved = {}
-        for mod, names in ((sh, ("gather", "gather_tree")), (transformer, ("gather", "gather_tree"))):
+        for mod, names in ((sh, ("gather", "gather_tree")), (transformer, ("gather", "gather_tree")),
+                           (ssm_lm, ("gather_tree",))):
             for name in names:
                 saved[(mod, name)] = getattr(mod, name)
                 setattr(mod, name, lambda *a, _n=name, **k: gathers.append(_n))
@@ -466,10 +476,15 @@ try:
         for arch, seed in MOE_SERVE:
             out[f"{shape}/serve_{arch}"] = serve_case(arch, seed, 8, 12, 16)
             out[f"{shape}/serve_cp_{arch}"] = serve_case(arch, seed, 1, 20, 32, cp=True)
+        # the ssm and hybrid families: the SSM heads and channels over model, Zamba2's
+        # shared block on its heads and cache rows
+        for arch, seed in SSM_SERVE:
+            out[f"{shape}/serve_{arch}"] = serve_case(arch, seed, 8, 12, 16)
+            out[f"{shape}/serve_cp_{arch}"] = serve_case(arch, seed, 1, 20, 32, cp=True)
         # long_500k's split: batch 1, the cache's sequence over data x model
         out[f"{shape}/serve_cp"] = serve_case(*CP_CASE, cp=True)
         refused = {}
-        for arch in ("mamba2_780m",):  # ssm
+        for arch in ("whisper_medium",):  # encdec
             try:
                 other = build_model(get_config(arch).reduced(), device="cpu", seed=2)
                 cp = steps.make_decode_step(other, mesh, ShapeSpec("l", "decode", 16, 1,
@@ -497,7 +512,7 @@ def _spawn(world, tmp):
         filter(None, [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")])),
         RA_STORE=str(tmp / f"store{world}"), RA_WORLD=str(world), OMP_NUM_THREADS="1",
         RA_MESHES=json.dumps(MESHES[world]), RA_CP_CASE=json.dumps(CP_CASE),
-        RA_MOE_SERVE=json.dumps(MOE_SERVE),
+        RA_MOE_SERVE=json.dumps(MOE_SERVE), RA_SSM_SERVE=json.dumps(SSM_SERVE),
         RA_TRAIN_CASES=json.dumps(TRAIN_CASES))
     script = (f"TRAIN_CHANGES = {TRAIN_CHANGES!r}\nBF16_ULP = {BF16_ULP!r}\n" +
               inspect.getsource(changed) + _RANKS)
@@ -639,15 +654,17 @@ def test_serving_over_the_mesh(ranks, world, shape):
     process's logits (qwen's 2 KV heads, which a model axis of 4 does not
     divide, llava's ``mm_proj`` and patches, kimi's GQA and deepseek's MLA
     with their experts' blocks and the dispatch over the data ranks among
-    them), gather no weight, keep each cache leaf's storage and placements
-    (the moe family's the reference's ``cache_spec_tree``'s), and give logits
-    split on the vocab over ``model``; the ssm family's context-parallel
-    steps over several ranks raise naming ROADMAP item 18 (the dense and moe
-    families' no longer do: ``test_context_parallel_decode_over_the_mesh``,
-    ``test_moe_context_parallel_decode_over_the_mesh``); and ``constrain``
+    them, Mamba2's SSM heads and channels and Zamba2's shared block), gather
+    no weight, keep each cache leaf's storage and placements (the moe, ssm
+    and hybrid families' the reference's ``cache_spec_tree``'s), and give
+    logits split on the vocab over ``model``; the encdec family's
+    context-parallel steps over several ranks raise naming ROADMAP item 18
+    (the others' no longer do: ``test_context_parallel_decode_over_the_mesh``,
+    ``test_moe_context_parallel_decode_over_the_mesh``,
+    ``test_ssm_context_parallel_decode_over_the_mesh``); and ``constrain``
     drops an axis that does not divide (5 rows over 2 or 4 data ranks) and
     keeps one that does."""
-    moe = [f"serve_{arch}" for arch, _ in MOE_SERVE]
+    moe = [f"serve_{arch}" for arch, _ in MOE_SERVE + SSM_SERVE]
     for out in ranks[world].values():
         for case in ["serve", "serve_vlm"] + moe:
             got = out[f"{shape}/{case}"]
@@ -656,12 +673,12 @@ def test_serving_over_the_mesh(ranks, world, shape):
             assert got["same_placements"] and got["storage_kept"], case
             assert got["gathers"] == 0, case
             assert ("Shard(dim=1)" in got["logits_placements"]) == (shape[1] > 1), case
-        for arch, _ in MOE_SERVE:
+        for arch, _ in MOE_SERVE + SSM_SERVE:
             got = out[f"{shape}/serve_{arch}"]["cache_placements"]
             assert {k: v for k, v in got.items() if not k.endswith("/kv")} == \
                 _reference_cache_placements(arch, shape, 8, 16, False), arch
         got = out[f"{shape}/serve"]
-        assert list(got["refused"]) == ["mamba2_780m"]
+        assert list(got["refused"]) == ["whisper_medium"]
         for arch, refused in got["refused"].items():
             assert "ROADMAP.md item 18" in refused, arch
         c5, c8 = got["constrain"]
@@ -717,10 +734,11 @@ def test_moe_context_parallel_decode_over_the_mesh(ranks, world, shape):
 
 
 @functools.lru_cache(maxsize=None)
-def _cp_reference():
-    """The reference's jitted prefill and decode steps at one device on
-    ``CP_CASE`` (``long_500k``'s specs: batch 1, the KV length over data ×
-    model), with the ranks' tempered weights and tokens: the decode logits."""
+def _cp_reference(arch, seed, B, S, cap):
+    """The reference's jitted prefill and decode steps at one device on a
+    context-parallel case (``long_500k``'s specs: batch 1, the KV length over
+    data × model), with the ranks' tempered weights and tokens: the decode
+    logits."""
     import jax.numpy as jnp
     import torch
 
@@ -729,14 +747,16 @@ def _cp_reference():
     from repro_torch.configs import get_config
     from repro_torch.models import build_model as port_build
 
-    arch, seed, B, S, cap = CP_CASE
-    port = port_build(get_config(arch).reduced().with_(global_every=2), device="cpu", seed=seed)
+    changes = {"global_every": 2} if arch == "gemma3_12b" else {}
+    port = port_build(get_config(arch).reduced().with_(**changes), device="cpu", seed=seed)
     cfg = port.cfg
-    attn = port.dense_layers.attn
-    H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    d = 2 * cfg.d_model if hasattr(port, "shared") else cfg.d_model
     with torch.no_grad():  # the ranks' temper()
-        for name, f in (("wq", H / d), ("wk", KV / d), ("wv", KV / d), ("wo", 1 / H)):
-            getattr(attn, name).mul_(f ** 0.5)
+        for stack in ("dense_layers", "shared"):
+            if hasattr(port, stack):
+                for name, f in (("wq", H / d), ("wk", KV / d), ("wv", KV / d), ("wo", 1 / H)):
+                    getattr(getattr(port, stack).attn, name).mul_(f ** 0.5)
 
     def numpy(tree):
         if isinstance(tree, dict):
@@ -749,7 +769,7 @@ def _cp_reference():
     feed = rng.integers(1, cfg.vocab, (CP_STEPS, B, 1)).astype(np.int32)
     feed = np.concatenate([prompts[None, :, S - 1:], feed[1:]])
     toks = np.concatenate([prompts[:, :S - 1], np.zeros((B, cap - S + 1), np.int32)], 1)
-    jmodel = jax_build(jax_config(arch).reduced().with_(global_every=2))
+    jmodel = jax_build(jax_config(arch).reduced().with_(**changes))
     jmesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     pre, psh, _, _ = jsteps.make_prefill_step(jmodel, jmesh, JShape("p", "prefill", cap, B,
                                                                     context_parallel=True))
@@ -772,7 +792,7 @@ def test_context_parallel_decode_over_the_mesh(ranks, world, shape):
     rank): the steps' decode logits equal one process's and the reference's
     jitted decode at one device, with the cache's sequence split over data ×
     model and no weight gathered."""
-    want = _cp_reference()
+    want = _cp_reference(*CP_CASE)
     n = shape[0] * shape[1]
     for out in ranks[world].values():
         got = out[f"{shape}/serve_cp"]
@@ -784,3 +804,30 @@ def test_context_parallel_decode_over_the_mesh(ranks, world, shape):
         for g, w in zip(got["decode_logits"], want):
             g = np.asarray(g, np.float32)
             assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), (n, np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("world,shape", CASES, ids=IDS)
+def test_ssm_context_parallel_decode_over_the_mesh(ranks, world, shape):
+    """``long_500k``'s split for the ssm and hybrid families at a tiny size
+    (reduced Mamba2 and Zamba2, batch 1, a cache of 32 rows, pos 19–21):
+    the steps' prefill and decode logits equal one process's, and the decode
+    logits the reference's jitted decode at one device; no weight gathered,
+    each cache leaf's storage kept, in the reference's placements (the SSM
+    state on its heads and the conv windows on their channels over
+    ``model``, replicated over ``data``; Zamba2's shared K/V on its
+    sequence over data × model)."""
+    n = shape[0] * shape[1]
+    for arch, seed in SSM_SERVE:
+        want = _cp_reference(arch, seed, 1, 20, 32)
+        for out in ranks[world].values():
+            got = out[f"{shape}/serve_cp_{arch}"]
+            assert got["prefill"] <= 1e-5 * got["scale"], (arch, got["prefill"], got["scale"])
+            assert got["decode"] <= 1e-4 * got["scale"], (arch, got["decode"], got["scale"])
+            assert got["same_placements"] and got["storage_kept"] and got["gathers"] == 0, arch
+            assert got["cache_placements"] == _reference_cache_placements(arch, shape, 1, 32,
+                                                                          True), arch
+            assert len(got["decode_logits"]) == CP_STEPS
+            for g, w in zip(got["decode_logits"], want):
+                g = np.asarray(g, np.float32)
+                assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), (arch, n,
+                                                                       np.abs(g - w).max())
